@@ -1,0 +1,162 @@
+"""Pipeline-A configuration, without yaml.
+
+A copy of the pipeline-A dataclasses of ``datmo_using_optical_flow_tpu.config``
+(same field names, defaults, ``grid_shape`` and ``validate``).  The port cannot
+import that module: it imports yaml, which the GPU deployment does not carry.
+``tests/test_torch_boundary.py`` holds the copy equal to the original.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass, field
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"config validation failed: {msg}")
+
+
+@dataclass(frozen=True)
+class RansacConfig:
+    """Ground-plane RANSAC (a field of PipelineAConfig; not run by the port yet)."""
+
+    distance_threshold: float = 0.5
+    ransac_n: int = 5
+    num_iterations: int = 5000
+
+    def validate(self) -> None:
+        _check(self.distance_threshold > 0, "ransac.distance_threshold must be > 0")
+        _check(self.ransac_n >= 3, "ransac.ransac_n must be >= 3")
+        _check(self.num_iterations >= 1, "ransac.num_iterations must be >= 1")
+
+
+@dataclass(frozen=True)
+class FarnebackConfig:
+    """Dense-flow parameters (the reference's executed values)."""
+
+    pyr_scale: float = 0.3
+    levels: int = 5
+    winsize: int = 15
+    iterations: int = 5
+    poly_n: int = 5
+    poly_sigma: float = 5.0
+    flags: int = 0  # 0 = box-blur aggregation; OPTFLOW_FARNEBACK_GAUSSIAN also supported
+
+    def validate(self) -> None:
+        _check(0 < self.pyr_scale < 1, "farneback.pyr_scale must be in (0, 1)")
+        _check(self.levels >= 1, "farneback.levels must be >= 1")
+        _check(self.winsize >= 3 and self.winsize % 2 == 1, "farneback.winsize must be odd >= 3")
+        _check(self.iterations >= 1, "farneback.iterations must be >= 1")
+        _check(self.poly_n in (5, 7), "farneback.poly_n must be 5 or 7 (OpenCV-compatible)")
+        _check(self.poly_sigma > 0, "farneback.poly_sigma must be > 0")
+
+
+@dataclass(frozen=True)
+class MaskConfig:
+    """Motion-mask thresholds."""
+
+    alpha_p: float = 0.8
+    alpha_cont: float = 0.2
+
+    def validate(self) -> None:
+        _check(self.alpha_p > 0, "masks.alpha_p must be > 0")
+        _check(self.alpha_cont > 0, "masks.alpha_cont must be > 0")
+
+
+@dataclass(frozen=True)
+class DbscanConfig:
+    """Pipeline-A clustering params."""
+
+    eps: float = 5.0
+    min_samples: int = 3
+
+    def validate(self) -> None:
+        _check(self.eps > 0, "dbscan.eps must be > 0")
+        _check(self.min_samples >= 1, "dbscan.min_samples must be >= 1")
+
+
+@dataclass(frozen=True)
+class CapacityConfig:
+    """Static buffer capacities: every device buffer has a fixed size and a mask."""
+
+    max_raw_points: int = 65536      # decoded PCD points per frame
+    max_roi_points: int = 8192       # after ground removal + ROI filter
+    expansion_factor: int = 10       # densifier replication
+    max_cells: int = 4096            # valid BEV cells fed to DBSCAN
+    max_clusters: int = 32           # live clusters per frame
+    max_tracks: int = 64             # track-table slots
+
+    @property
+    def max_expanded_points(self) -> int:
+        return self.max_roi_points * self.expansion_factor
+
+    def validate(self) -> None:
+        for f in dataclasses.fields(self):
+            _check(getattr(self, f.name) >= 1, f"capacities.{f.name} must be >= 1")
+
+
+@dataclass(frozen=True)
+class TrackerAConfig:
+    """Pipeline-A tracking constants."""
+
+    gamma: float = 0.5               # GNN gate
+    process_noise: float = 0.1       # Q = process_noise * I4
+    measurement_noise: float = 0.05  # R = measurement_noise * I4
+    m1: int = 1
+    n1: int = 4
+    m2: int = 10
+    n2: int = 15
+
+    def validate(self) -> None:
+        _check(self.gamma > 0, "tracker.gamma must be > 0")
+
+
+@dataclass(frozen=True)
+class PipelineAConfig:
+    """Config for the optical-flow DATMO pipeline."""
+
+    grid_resolution: tuple[float, float] = (0.2, 0.2)
+    x_range: tuple[float, float] = (-20.0, 20.0)
+    y_range: tuple[float, float] = (-20.0, 20.0)
+    z_max: float = 2.0
+    roi_bounds: tuple[float, float, float, float, float, float] = (-10.0, 10.0, -10.0, 10.0, -3.0, 1.0)
+    dt: float = 1.0
+    noise_std: float = 0.01          # densifier jitter
+    bev_a: float = 0.5               # BEV cell value = (a*mean_z + b*std_z)/h_max
+    bev_b: float = 0.5
+    velocity_threshold: float = 0.1  # cells with |v| > 0.1 go to DBSCAN
+
+    ransac: RansacConfig = field(default_factory=RansacConfig)
+    farneback: FarnebackConfig = field(default_factory=FarnebackConfig)
+    masks: MaskConfig = field(default_factory=MaskConfig)
+    dbscan: DbscanConfig = field(default_factory=DbscanConfig)
+    tracker: TrackerAConfig = field(default_factory=TrackerAConfig)
+    capacities: CapacityConfig = field(default_factory=CapacityConfig)
+
+    input_folder: str = ""
+    output_folder: str = "datmo_output"
+    pcd_files: tuple[str, ...] = ()
+
+    @property
+    def grid_shape(self) -> tuple[int, int]:
+        """Number of BEV bins, matching ``np.arange(lo, hi, step)`` semantics."""
+        nx = int(math.ceil((self.x_range[1] - self.x_range[0]) / self.grid_resolution[0] - 1e-9))
+        ny = int(math.ceil((self.y_range[1] - self.y_range[0]) / self.grid_resolution[1] - 1e-9))
+        return nx, ny
+
+    def validate(self) -> "PipelineAConfig":
+        _check(self.x_range[1] > self.x_range[0], "x_range must be increasing")
+        _check(self.y_range[1] > self.y_range[0], "y_range must be increasing")
+        _check(len(self.roi_bounds) == 6, "roi_bounds must have 6 entries")
+        _check(self.grid_resolution[0] > 0 and self.grid_resolution[1] > 0, "grid_resolution > 0")
+        _check(self.dt > 0, "dt must be > 0")
+        _check(self.z_max > 0, "z_max must be > 0")
+        self.ransac.validate()
+        self.farneback.validate()
+        self.masks.validate()
+        self.dbscan.validate()
+        self.tracker.validate()
+        self.capacities.validate()
+        return self
