@@ -1,7 +1,8 @@
-"""Pipeline-A configuration, without yaml.
+"""Pipeline configurations, without yaml.
 
-A copy of the pipeline-A dataclasses of ``datmo_using_optical_flow_tpu.config``
-(same field names, defaults, ``grid_shape`` and ``validate``).  The port cannot
+A copy of the pipeline-A and GMFA (pipeline B) dataclasses of
+``datmo_using_optical_flow_tpu.config`` (same field names, defaults,
+``grid_shape`` and ``validate``).  The port cannot
 import that module: it imports yaml, which the GPU deployment does not carry.
 ``tests/test_torch_boundary.py`` holds the copy equal to the original.
 """
@@ -20,7 +21,7 @@ def _check(cond: bool, msg: str) -> None:
 
 @dataclass(frozen=True)
 class RansacConfig:
-    """Ground-plane RANSAC (a field of PipelineAConfig; not run by the port yet)."""
+    """Ground-plane RANSAC (a field of both pipelines' configs; not run by the port yet)."""
 
     distance_threshold: float = 0.5
     ransac_n: int = 5
@@ -158,5 +159,73 @@ class PipelineAConfig:
         self.masks.validate()
         self.dbscan.validate()
         self.tracker.validate()
+        self.capacities.validate()
+        return self
+
+
+@dataclass(frozen=True)
+class IcpConfig:
+    """Point-to-point ICP (reference ``GMFA/GMFA.py:297-309``; Open3D defaults)."""
+
+    threshold: float = 0.02
+    max_iterations: int = 30
+    relative_fitness: float = 1e-6
+    relative_rmse: float = 1e-6
+
+    def validate(self) -> None:
+        _check(self.threshold > 0, "icp.threshold must be > 0")
+        _check(self.max_iterations >= 1, "icp.max_iterations must be >= 1")
+
+
+@dataclass(frozen=True)
+class SomConfig:
+    """Static-occupancy-map grid (``GMFA/GMFA.py:434-437``)."""
+
+    grid_size: int = 200
+    cell_resolution: tuple[float, float] = (0.2, 0.2)
+    init_value: float = 0.05
+    static_increment: float = 0.1
+    moving_decrement: float = 0.1
+    max_value: float = 0.95
+    min_value: float = 0.05
+
+    def validate(self) -> None:
+        _check(self.grid_size >= 1, "som.grid_size must be >= 1")
+
+
+@dataclass(frozen=True)
+class GMFAConfig:
+    """Config for the General Model-Free Approach pipeline (reference ``GMFA/``)."""
+
+    roi_bounds: tuple[float, float, float, float, float, float] = (-20.0, 20.0, -20.0, 20.0, -3.0, 3.0)
+    moving_roi_bounds: tuple[float, float, float, float] = (-20.0, 20.0, -20.0, 5.0)  # GMFA.py:472
+    static_threshold: float = 0.2    # GMFA.py:431
+    moving_threshold: float = 0.6    # GMFA.py:432
+    dt: float = 0.1                  # GMFA.py:488,496
+    noise_std: float = 0.01
+    cost_threshold: float = 1.0      # GMFA.py:182
+    # reference hard-codes min_samples=1000 at GMFA.py:480, ignoring its YAML (=3)
+    dbscan: DbscanConfig = field(default_factory=lambda: DbscanConfig(eps=5.0, min_samples=1000))
+    ransac: RansacConfig = field(default_factory=RansacConfig)
+    icp: IcpConfig = field(default_factory=IcpConfig)
+    som: SomConfig = field(default_factory=SomConfig)
+    capacities: CapacityConfig = field(default_factory=CapacityConfig)
+    kf_process_noise: tuple[float, float, float, float] = (0.1, 0.1, 0.01, 0.01)  # GMFA.py:152
+    kf_measurement_noise: float = 0.05  # GMFA.py:497
+    initial_covariance: float = 0.1     # GMFA.py:255
+
+    input_folder: str = ""
+    output_folder: str = "gmfa_output"
+    pcd_files: tuple[str, ...] = ()
+
+    def validate(self) -> "GMFAConfig":
+        _check(len(self.roi_bounds) == 6, "roi_bounds must have 6 entries")
+        _check(len(self.moving_roi_bounds) == 4, "moving_roi_bounds must have 4 entries")
+        _check(self.moving_threshold > self.static_threshold, "moving_threshold must exceed static_threshold")
+        _check(self.dt > 0, "dt must be > 0")
+        self.dbscan.validate()
+        self.ransac.validate()
+        self.icp.validate()
+        self.som.validate()
         self.capacities.validate()
         return self

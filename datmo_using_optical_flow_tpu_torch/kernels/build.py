@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (nvcc by hand, bound with ctypes).
 
 The sources are ``csrc/*.cu`` of this package.  They are compiled for Hopper
-(``sm_90a``) into one shared library with a plain C interface, named by a hash
-of the sources and flags, under ``build/kernels/`` of the checkout.  The build
+(``sm_90a``), one ``nvcc`` process per source, all started together, and
+linked into one shared library with a plain C interface, named by a hash of
+the sources and flags, under ``build/kernels/`` of the checkout.  The build
 runs at the first CUDA use, takes seconds, and is reused while the sources are
 unchanged.  There is no fallback: a missing ``nvcc`` or a failed build raises.
 
@@ -30,16 +31,18 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C entry points of csrc/flow_kernels.cu: (argtypes, restype)
+# C entry points of csrc/*.cu: (argtypes, restype)
 _SIGNATURES = {
     "datmo_poly_exp": ([_P, _P, _I, _I, _I, _P, _P, _P, _P, _P], _I),
     "datmo_blur_solve": ([_P, _P, _P, _I, _I, _P, _I, _F, _P], _I),
     "datmo_fused_iteration": ([_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _F, _P], _I),
+    "datmo_nn_sweep": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _F,
+                        _F, _P], _I),
     "datmo_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -85,19 +88,28 @@ def build() -> tuple[Path, float, str]:
     if out.exists():
         return out, 0.0, log.read_text() if log.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    text = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}")
-    log.write_text(text)
-    os.replace(tmp, out)  # atomic: a reader never sees a half-written library
-    return out, seconds, text
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, src.stem + ".o") for src in _sources()]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                for src, obj in zip(_sources(), objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in cmds]
+        outputs = [proc.communicate()[0] for proc in procs]  # waits for every process
+        text = "".join(outputs)
+        for cmd, proc, output in zip(cmds, procs, outputs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{output}")
+        lib_tmp = os.path.join(tmpdir, out.name)
+        link = [nvcc, "-shared", "-o", lib_tmp, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        text += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n{text}")
+        log.write_text(text)
+        os.replace(lib_tmp, out)  # atomic: a reader never sees a half-written library
+    return out, time.perf_counter() - t0, text
 
 
 @functools.lru_cache(maxsize=1)

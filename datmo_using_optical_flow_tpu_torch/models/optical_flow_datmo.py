@@ -33,6 +33,7 @@ from datmo_using_optical_flow_tpu_torch.ops.farneback import (
 )
 from datmo_using_optical_flow_tpu_torch.oracle.np_farneback import level_sizes
 from datmo_using_optical_flow_tpu_torch.utils.device import resolve_device
+from datmo_using_optical_flow_tpu_torch.utils.tree import select, stack
 
 
 class StepOutputs(NamedTuple):
@@ -67,13 +68,6 @@ class StreamCarry(NamedTuple):
     pyr: tuple                  # per-level (5, lh, lw) planes of the previous frame
     frame_valid: torch.Tensor   # bool: previous frame had a nonzero BEV
     has_frame: torch.Tensor     # bool: any previous frame seen
-
-
-def _select(pred: torch.Tensor, old, new):
-    """``old`` where ``pred`` else ``new``, leaf by leaf over nested NamedTuples."""
-    if isinstance(old, tuple):
-        return type(old)(*(_select(pred, o, n) for o, n in zip(old, new)))
-    return torch.where(pred, old, new)
 
 
 def _gaussian(cfg: PipelineAConfig) -> bool:
@@ -138,7 +132,7 @@ def _datmo_tail(flow: torch.Tensor, pair_valid: torch.Tensor, carry: StepCarry,
     advanced = StepCarry(prev_vx=velocity_x, prev_vy=velocity_y,
                          has_prev=torch.ones((), dtype=torch.bool, device=flow.device),
                          table=table)
-    new_carry = _select(skip, carry, advanced)
+    new_carry = select(skip, carry, advanced)
     total_valid = torch.sum(valid.to(torch.int32))
     outputs = StepOutputs(skip=skip, velocity_x=vx_f, velocity_y=vy_f,
                           magnitude=magnitude, angular=angular,
@@ -147,14 +141,6 @@ def _datmo_tail(flow: torch.Tensor, pair_valid: torch.Tensor, carry: StepCarry,
                           cell_overflow=total_valid > c.capacities.max_cells,
                           snapshot=snapshot)
     return new_carry, outputs
-
-
-def _stack(outs: list):
-    """Stack a list of equal nested NamedTuples leaf by leaf."""
-    first = outs[0]
-    if isinstance(first, tuple):
-        return type(first)(*(_stack(list(leaves)) for leaves in zip(*outs)))
-    return torch.stack(outs)
 
 
 class PipelineA:
@@ -210,4 +196,4 @@ class PipelineA:
         for i in range(1, bevs.shape[0]):
             sc, out = self.step_stream(bevs[i], sc)
             outs.append(out)
-        return sc.step, _stack(outs)
+        return sc.step, stack(outs)

@@ -1,15 +1,21 @@
 """DBSCAN by neighbour counting and min-label propagation, the counterpart of
-``datmo_using_optical_flow_tpu.ops.dbscan`` (full pairwise-matrix branch).
+``datmo_using_optical_flow_tpu.ops.dbscan``.
 
 * pairwise squared distances by the expansion ``|x|^2 + |t|^2 - 2 x.t`` (the
   JAX package's exact formula; the cross term is ``torch.matmul`` in full
   float32, TF32 off);
 * core mask = neighbour count (inclusive of self) >= min_samples;
 * connected components over the core-core graph by min-hooking plus pointer
-  doubling, for a fixed ``max_rounds`` rounds: the body is idempotent at its
-  fixpoint, so the labels equal the JAX package's early-exit loop, and the
-  device never waits for the host;
+  doubling;
 * border points attach to the minimum-rooted neighbouring cluster.
+
+Up to ``_FULL_MATRIX_MAX`` padded rows the whole pairwise matrix is held and
+the propagation runs a fixed ``max_rounds`` rounds: the body is idempotent at
+its fixpoint, so the labels equal the JAX package's early-exit loop, and the
+device never waits for the host.  Above it (GMFA's 16,384 moving points) the
+distances are recomputed per 512-column tile in every pass, so memory stays
+at (N, 512), and the propagation stops at its fixpoint: one host read of a
+"changed" flag per round, as the JAX package's while-loop stops.
 
 Cluster ids follow ascending minimum core index (sklearn's order).  Noise and
 padding rows are -1.
@@ -25,7 +31,7 @@ from datmo_using_optical_flow_tpu_torch.utils import device as _device  # noqa: 
 from datmo_using_optical_flow_tpu_torch.utils.padding import compact_masked
 
 _TILE = 512
-# the port has only the full-matrix branch: the JAX package tiles above this
+# above this many padded rows the pairwise matrix is tiled
 _FULL_MATRIX_MAX = 8192
 _INF_I32 = torch.iinfo(torch.int32).max
 
@@ -48,22 +54,37 @@ def dbscan(features: torch.Tensor, valid: torch.Tensor, eps: float, min_samples:
     n = features.shape[0]
     pad = (-n) % _TILE
     npad = n + pad
-    if npad > _FULL_MATRIX_MAX:
-        raise ValueError(f"{npad} padded rows exceed the full-matrix branch "
-                         f"({_FULL_MATRIX_MAX}); the tiled branch is not ported")
     feats = F.pad(features.to(torch.float32), (0, 0, 0, pad), value=3e18)  # far from all
     validp = F.pad(valid.to(torch.bool), (0, pad))
     eps2 = float(np.float32(eps) * np.float32(eps))  # float32, as the JAX package
+    tiled = npad > _FULL_MATRIX_MAX
 
-    d2 = _sqdist_tile(feats, feats)
-    nbr = (d2 <= eps2) & validp[None, :]
-    counts = torch.sum(nbr.to(torch.float32), dim=1)
-    core = validp & (counts >= min_samples)
-    adjc = nbr & core[None, :]
-    del d2, nbr
+    if not tiled:
+        d2 = _sqdist_tile(feats, feats)
+        nbr = (d2 <= eps2) & validp[None, :]
+        counts = torch.sum(nbr.to(torch.float32), dim=1)
+        core = validp & (counts >= min_samples)
+        adjc = nbr & core[None, :]
+        del d2, nbr
 
-    def min_rep(rep):
-        return torch.amin(torch.where(adjc, rep[None, :], _INF_I32), dim=1)
+        def min_rep(rep):
+            return torch.amin(torch.where(adjc, rep[None, :], _INF_I32), dim=1)
+    else:
+        validf = validp.to(torch.float32)
+        counts = torch.zeros(npad, device=feats.device)
+        for j in range(0, npad, _TILE):
+            d2 = _sqdist_tile(feats, feats[j:j + _TILE])
+            counts = counts + torch.sum((d2 <= eps2) * validf[None, j:j + _TILE], dim=1)
+        core = validp & (counts >= min_samples)
+
+        def min_rep(rep):
+            out = torch.full((npad,), _INF_I32, dtype=torch.int32, device=feats.device)
+            for j in range(0, npad, _TILE):
+                d2 = _sqdist_tile(feats, feats[j:j + _TILE])
+                adj = (d2 <= eps2) & core[None, j:j + _TILE]
+                cand = torch.amin(torch.where(adj, rep[None, j:j + _TILE], _INF_I32), dim=1)
+                out = torch.minimum(out, cand)
+            return out
 
     idx = torch.arange(npad, dtype=torch.int32, device=feats.device)
     rep = torch.where(core, idx, _INF_I32)
@@ -73,7 +94,11 @@ def dbscan(features: torch.Tensor, valid: torch.Tensor, eps: float, min_samples:
         is_inf = new == _INF_I32
         new2 = torch.where(is_inf, new, new[torch.where(is_inf, 0, new).long()])
         is_inf2 = new2 == _INF_I32
-        rep = torch.where(is_inf2, new2, new2[torch.where(is_inf2, 0, new2).long()])
+        new3 = torch.where(is_inf2, new2, new2[torch.where(is_inf2, 0, new2).long()])
+        changed = bool(torch.any(new3 != rep)) if tiled else True
+        rep = new3
+        if not changed:
+            break
 
     # attach border points: min root among core neighbours
     point_rep = torch.where(core, rep, min_rep(rep))

@@ -1,10 +1,13 @@
 """Carry state across from the JAX package and back.
 
-Pipeline A has no weights: its state is the carry (the track table, the
-previous velocity grids, the previous frame's pyramid and the validity flags).
-:func:`carry_from_numpy` turns a JAX ``StreamCarry``/``StepCarry`` that has been
-through ``jax.device_get`` (nested NamedTuples of numpy arrays) into the port's
-carry on a chosen device; :func:`carry_to_numpy` goes back.  Matching is by
+The pipelines have no weights: their state is the carry.  Pipeline A's is the
+track table, the previous velocity grids, the previous frame's pyramid and the
+validity flags; GMFA's (pipeline B) is the previous expanded cloud with its
+Morton order, the track table, the static occupancy map and the previous
+centroids.  :func:`carry_from_numpy` turns a JAX ``StreamCarry``/``StepCarry``/
+``GmfaCarry`` that has been through ``jax.device_get`` (nested NamedTuples of
+numpy arrays) into the port's carry on a chosen device;
+:func:`carry_to_numpy` goes back.  Matching is by
 NamedTuple class name and field order, which the two packages share.
 """
 
@@ -13,10 +16,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from datmo_using_optical_flow_tpu_torch.models.gmfa import GmfaCarry, TrackTableB
 from datmo_using_optical_flow_tpu_torch.models.optical_flow_datmo import StepCarry, StreamCarry
 from datmo_using_optical_flow_tpu_torch.models.tracker_a import TrackTable
 
-_CARRIES = {cls.__name__: cls for cls in (StreamCarry, StepCarry, TrackTable)}
+_CARRIES = {cls.__name__: cls
+            for cls in (StreamCarry, StepCarry, TrackTable, GmfaCarry, TrackTableB)}
 
 
 def carry_from_numpy(tree, device: str | torch.device):

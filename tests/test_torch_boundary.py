@@ -1,7 +1,7 @@
 """The PyTorch port's import boundary and its copies of JAX-package helpers.
 
 The port must import neither jax nor yaml (the GPU deployment carries
-neither), so it keeps its own copies of the pipeline-A config dataclasses and
+neither), so it keeps its own copies of both pipelines' config dataclasses and
 of the numpy Farnebäck helpers; these tests hold the copies equal to the
 originals.
 """
@@ -21,16 +21,22 @@ from datmo_using_optical_flow_tpu_torch.oracle import np_farneback as tnp_fb
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# the GMFA step's modules, named so that a missing one fails the import check
+_GMFA_MODULES = ("ops.points", "ops.nn_kernels", "ops.nn", "ops.icp", "ops.hungarian",
+                 "ops.som", "ops.dbscan", "models.gmfa", "utils.ordered", "utils.state",
+                 "utils.tree")
+
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 import datmo_using_optical_flow_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+names += [pkg.__name__ + "." + m for m in %r]
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "yaml", "datmo_using_optical_flow_tpu"))
-print(len(names), bad)
-"""
+print(len(set(names)), bad)
+""" % (_GMFA_MODULES,)
 
 
 def test_port_imports_no_jax_and_no_yaml():
@@ -38,12 +44,13 @@ def test_port_imports_no_jax_and_no_yaml():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.strip().split(" ", 1)
-    assert int(count) >= 15, proc.stdout  # every module of the port was imported
+    assert int(count) >= 21, proc.stdout  # every module of the port was imported
     assert bad == "[]", bad
 
 
 _CONFIG_CLASSES = ("RansacConfig", "FarnebackConfig", "MaskConfig", "DbscanConfig",
-                   "CapacityConfig", "TrackerAConfig", "PipelineAConfig")
+                   "CapacityConfig", "TrackerAConfig", "PipelineAConfig", "IcpConfig",
+                   "SomConfig", "GMFAConfig")
 
 
 def _defaults(cls):
@@ -77,6 +84,12 @@ def test_config_copy_grid_shape_and_validation():
                     dict(capacities=mod.CapacityConfig(max_cells=0))):
             with pytest.raises(ValueError, match="config validation failed"):
                 mod.PipelineAConfig(**bad).validate()
+        mod.GMFAConfig().validate()
+        for bad in (dict(dt=0.0), dict(moving_threshold=0.1), dict(roi_bounds=(0.0,) * 5),
+                    dict(icp=mod.IcpConfig(max_iterations=0)),
+                    dict(som=mod.SomConfig(grid_size=0))):
+            with pytest.raises(ValueError, match="config validation failed"):
+                mod.GMFAConfig(**bad).validate()
 
 
 def test_np_farneback_copies_are_identical():

@@ -21,6 +21,7 @@ from datmo_using_optical_flow_tpu_torch.ops import dbscan as tdb
 from datmo_using_optical_flow_tpu_torch.ops import masks as tmasks
 from datmo_using_optical_flow_tpu_torch.utils import padding as tpad
 from datmo_using_optical_flow_tpu_torch.utils.state import carry_from_numpy, carry_to_numpy
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 
 def _np(x):

@@ -18,6 +18,7 @@ from datmo_using_optical_flow_tpu.ops import farneback as jfb
 from datmo_using_optical_flow_tpu.ops import warp_pallas
 from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
 from datmo_using_optical_flow_tpu_torch.ops import warp
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 H, W = 256, 320
 PYR = dict(pyr_scale=0.3, levels=5, poly_n=5, poly_sigma=5.0)

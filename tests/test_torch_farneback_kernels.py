@@ -17,6 +17,7 @@ from datmo_using_optical_flow_tpu.ops import warp_pallas
 from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
 from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
 from datmo_using_optical_flow_tpu_torch.ops import warp
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 
 def _planes(shape, seed):

@@ -18,6 +18,7 @@ from datmo_using_optical_flow_tpu.ops import warp_pallas
 from datmo_using_optical_flow_tpu_torch.config import CapacityConfig, PipelineAConfig
 from datmo_using_optical_flow_tpu_torch.models.optical_flow_datmo import PipelineA
 from datmo_using_optical_flow_tpu_torch.utils.state import carry_from_numpy, carry_to_numpy
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 H, W = 256, 320
 _KW = dict(x_range=(0.0, H * 0.1), y_range=(0.0, W * 0.1), grid_resolution=(0.1, 0.1))
