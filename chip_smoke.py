@@ -10,7 +10,12 @@ result.  Phases (each raises on failure, so the script exits non-zero):
 3. each kernel against its plain PyTorch version on the card, at the main
    path's shapes, with the CPU tests' tolerances, and both timed (CUDA
    events, median of 20 calls each, in turns plain, kernel, kernel, plain);
-4. the same at the CPU tests' other shapes and options (untimed);
+   K4 with the converged flow of two 1080x1920 frames, and K4 into K2
+   against K3 there; K1 and K6 also beside one PyTorch call of the same
+   function (``F.conv2d``, ``torch.add``), timed and not used by the port;
+4. the same at the CPU tests' other shapes and options (untimed), with K4
+   at 160x384, 130x384 and 160x1920 and K4 into K2 against K3 at the shapes
+   of ``tests/test_flow_pallas.py``;
 5. the 256x320 slice on the card (kernels) against the CPU (plain versions);
 6. pipeline A's main path: the stream step on 25 ``bench.make_frames``
    1080x1920 frames with ``bench.py``'s configuration, counting each kernel's
@@ -23,14 +28,21 @@ result.  Phases (each raises on failure, so the script exits non-zero):
 8. the GMFA step at a small configuration on the card against the CPU;
 9. GMFA's main path: ``benchmarks/bench_gmfa.py``'s scene and configuration
    (7 frames, 102,400 expanded points per cloud), ``seed_carry`` and 6
-   ``step`` calls, with K5's launches and the host synchronisations per step.
+   ``step`` calls, with K5's launches and the host synchronisations per step;
+10. the diagnostics that run K4 and K6, at full size, each with every launch
+    count set to 0 just before it and read just after: ``micro_flow`` and
+    ``profile_1080p`` on two ``bench.make_frames`` 1080x1920 frames (K1-K4),
+    and ``icp_body`` at 102,400 points (K6), whose K5 tile probe runs ICP on
+    the reference scene's frame pair 0 -> 1 (K5).
 
 The GMFA clouds are made with numpy and the port's point ops: flip x, drop
 ``|z| <= 0.5`` (a stand-in for RANSAC ground removal on the z = 0 plane, which
 the port does not have yet), the ROI, compaction and densification x10.
 
-The second-to-last line is a JSON summary of the kernels; the last line is
-``{"ok": true, "device": {...}}``.
+The second-to-last line is a JSON summary of the kernels, each with its
+bound on the H100 for the timed call's work (``diagnostics/roofline.py``);
+the line before it is ``nvidia-smi``'s name and power limit of the card; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -52,16 +64,38 @@ REPLACES = {
     "poly_exp": "datmo_using_optical_flow_tpu/ops/flow_pallas.py:194",
     "blur_solve": "datmo_using_optical_flow_tpu/ops/flow_pallas.py:78",
     "fused_iteration": "datmo_using_optical_flow_tpu/ops/flow_pallas.py:435",
+    "warp_matrices": "datmo_using_optical_flow_tpu/ops/warp_pallas.py:308",
     "nearest_neighbors": "datmo_using_optical_flow_tpu/ops/nn_pallas.py:402",
+    "tiny": "benchmarks/diag_icp_body.py:174",
 }
 SOURCES = {"poly_exp": "flow_kernels.cu", "blur_solve": "flow_kernels.cu",
-           "fused_iteration": "flow_kernels.cu", "nearest_neighbors": "nn_kernels.cu"}
+           "fused_iteration": "flow_kernels.cu", "warp_matrices": "flow_kernels.cu",
+           "nearest_neighbors": "nn_kernels.cu", "tiny": "probe_kernels.cu"}
 PER_STEP = {"poly_exp": 3, "fused_iteration": 10, "blur_solve": 5}  # 1080p, 3 levels
-TOL = {"poly_exp": 1e-5, "blur_solve": 1e-4, "fused_iteration": 2e-4}
+TOL = {"poly_exp": 1e-5, "blur_solve": 1e-4, "fused_iteration": 2e-4, "warp_matrices": 2e-4,
+       "tiny": 0.0}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _counted_modules():
+    from datmo_using_optical_flow_tpu_torch.ops import flow_kernels, nn_kernels, probe_kernels
+
+    return flow_kernels, nn_kernels, probe_kernels
+
+
+def reset_launches() -> None:
+    for mod in _counted_modules():
+        mod.reset_launches()
+
+
+def read_launches() -> dict:
+    out = {}
+    for mod in _counted_modules():
+        out.update(mod.LAUNCHES)
+    return out
 
 
 def time_pair(plain, kernel, rounds: int = 10, warmup: int = 3) -> tuple[float, float]:
@@ -110,6 +144,7 @@ def kernel_phases(dev, name: str, smi: str, h: int, w: int) -> dict:
     pyr = [fb.build_pyramid(torch.as_tensor(f, device=dev).float(), 0.3, 5, 5, 5.0)
            for f in frames]
     results = {k: {"max_abs_err": 0.0} for k in REPLACES}
+    top = len(pyr[0]) - 1
 
     def record(kernel: str, label: str, err: float, scale: float, ms: float, plain_ms: float,
                timed: bool):
@@ -123,19 +158,20 @@ def kernel_phases(dev, name: str, smi: str, h: int, w: int) -> dict:
         if timed:
             res["ms"], res["plain_ms"] = ms, plain_ms
 
-    top = len(pyr[0]) - 1
+    full = torch.as_tensor(frames[0], device=dev).float()
     for level in (top, top - 1):  # the full-size level and the next
-        k = top - level
         lh, lw = pyr[0][level].shape[1:]
-        sigma = (1.0 / 0.3 ** k - 1.0) * 0.5
-        full = torch.as_tensor(frames[0], device=dev).float()
-        img = fb.resize_bilinear(fb.gaussian_blur(full, max(int(round(sigma * 5)) | 1, 3), sigma),
-                                 lh, lw).contiguous()
+        img = fb.level_image(full, 0.3 ** (top - level), lh, lw).contiguous()
         got, want = fk.poly_exp(img, 5, 5.0), fk.poly_exp_reference(img, 5, 5.0)
         ms, plain_ms = time_pair(lambda: fk.poly_exp_reference(img, 5, 5.0),
                                  lambda: fk.poly_exp(img, 5, 5.0))
-        record("poly_exp", f"{lh}x{lw}", max_abs(got, want), float(want.abs().max()), ms,
-               plain_ms, timed=level == top)
+        scale = float(want.abs().max())
+        record("poly_exp", f"{lh}x{lw}", max_abs(got, want), scale, ms, plain_ms,
+               timed=level == top)
+        if level == top:
+            results["poly_exp"]["library_ms"] = library_phase(
+                "poly_exp", f"{lh}x{lw}", poly_exp_conv(img, 5, 5.0), want, 1e-3 * scale, dev,
+                name, smi)
 
     R0, R1 = pyr[0][0], pyr[1][0]  # the coarsest level
     zero = torch.zeros(R0.shape[1:], dtype=torch.float32, device=dev)
@@ -159,7 +195,84 @@ def kernel_phases(dev, name: str, smi: str, h: int, w: int) -> dict:
                                  lambda: fk.fused_iteration(R0, R1, dx, dy, 15))
         record("fused_iteration", f"{R0.shape[1]}x{R0.shape[2]}", max_abs(got, want), 1.0, ms,
                plain_ms, timed=i == 0)
+
+    # K4 with the two frames' converged flow, as the diagnostics run it
+    flow = fb.flow_from_pyramids(pyr[0], pyr[1], 0.3, 15, 5, True, False)
+    fdx, fdy = flow[..., 0].contiguous(), flow[..., 1].contiguous()
+    R0, R1 = pyr[0][top], pyr[1][top]
+    got = fk.warp_matrices(R0, R1, fdx, fdy)
+    want = fk.warp_matrices_reference(R0, R1, fdx, fdy)
+    ms, plain_ms = time_pair(lambda: fk.warp_matrices_reference(R0, R1, fdx, fdy),
+                             lambda: fk.warp_matrices(R0, R1, fdx, fdy))
+    record("warp_matrices", f"{h}x{w} converged flow dx [{float(fdx.min()):.2f}, "
+           f"{float(fdx.max()):.2f}] dy [{float(fdy.min()):.2f}, {float(fdy.max()):.2f}]",
+           max_abs(got, want), 1.0, ms, plain_ms, timed=True)
+    check_k4_into_k2(R0, R1, fdx, fdy, 15, False, f"{h}x{w} converged flow")
     return results
+
+
+def check_k4_into_k2(R0, R1, dx, dy, win: int, gaussian: bool, label: str) -> None:
+    """K4 then K2 equals K3 (tests/test_flow_pallas.py:119-141 on the card)."""
+    from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
+
+    err = max_abs(fk.blur_solve(fk.warp_matrices(R0, R1, dx, dy), win, gaussian),
+                  fk.fused_iteration(R0, R1, dx, dy, win, gaussian))
+    log(f"warp_matrices into blur_solve vs fused_iteration {label} win={win} gauss={gaussian}: "
+        f"max_abs_err {err:.3e} (tol 2e-4)")
+    if err > 2e-4:
+        raise AssertionError(f"K4 into K2 {label}: error {err} against K3 over 2e-4")
+
+
+def poly_exp_conv(img, n: int, sigma: float):
+    """One ``F.conv2d`` that computes K1's function: a (5, 1, 2n+1, 2n+1)
+    weight of the outer products of g, xg and xxg scaled by the inverse-Gram
+    entries, on the replicate-padded image, with TF32 off.  Timed beside K1;
+    the port does not use it."""
+    import torch.nn.functional as F
+
+    from datmo_using_optical_flow_tpu_torch.oracle.np_farneback import prepare_gaussian
+    from datmo_using_optical_flow_tpu_torch.utils import device as _device  # noqa: F401
+
+    if torch.backends.cudnn.allow_tf32:
+        raise AssertionError("cuDNN TF32 is on")
+    g, xg, xxg, ig = (np.asarray(a, np.float64) for a in prepare_gaussian(n, sigma))
+    w = np.stack([np.outer(xg, g) * ig[1, 1], np.outer(g, xg) * ig[1, 1],
+                  np.outer(g, g) * ig[0, 3] + np.outer(xxg, g) * ig[3, 3],
+                  np.outer(g, g) * ig[0, 3] + np.outer(g, xxg) * ig[3, 3],
+                  np.outer(xg, xg) * ig[5, 5]])
+    weight = torch.as_tensor(w[:, None].astype(np.float32), device=img.device)
+    padded = F.pad(img[None, None], (n, n, n, n), mode="replicate")
+    return lambda: F.conv2d(padded, weight)[0]
+
+
+def library_phase(kernel: str, label: str, lib, want, tol: float, dev, name: str,
+                  smi: str) -> float:
+    """ms of one PyTorch call computing the kernel's function, checked to
+    compute it (within ``tol`` of the plain version)."""
+    from datmo_using_optical_flow_tpu_torch.diagnostics.measure import ms_per_call
+
+    err = max_abs(lib(), want)
+    lib_ms = ms_per_call(lib, dev, reps=20, warmup=3)
+    log(f"{kernel} {label} library call: {lib_ms:.4f} ms, max_abs_err vs plain {err:.3e} "
+        f"(tol {tol:.3e}) [{name}, {smi}]")
+    if err > tol:
+        raise AssertionError(f"{kernel} library call: error {err} over {tol}")
+    return lib_ms
+
+
+def probe_phase(dev, name: str, smi: str) -> dict:
+    """K6 against its plain version (bit-equal) at the ICP probe's (8, 128)."""
+    from datmo_using_optical_flow_tpu_torch.ops import probe_kernels as pk
+
+    x = torch.randn((8, 128), device=dev, generator=torch.Generator(device=dev).manual_seed(2))
+    got, want = pk.tiny(x), pk.tiny_reference(x)
+    if not torch.equal(got, want):
+        raise AssertionError("tiny: the kernel differs from x + 1.0")
+    ms, plain_ms = time_pair(lambda: pk.tiny_reference(x), lambda: pk.tiny(x))
+    log(f"tiny 8x128: bit-equal to its plain version, kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms [{name}, {smi}]")
+    lib_ms = library_phase("tiny", "8x128", lambda: torch.add(x, 1.0), want, 0.0, dev, name, smi)
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms}
 
 
 def other_shapes_phase(dev) -> None:
@@ -190,11 +303,21 @@ def other_shapes_phase(dev) -> None:
         checks.append(("fused_iteration", f"{h}x{w} win={win} gauss={gauss}",
                        max_abs(fk.fused_iteration(R0, R1, dx, dy, win, gauss),
                                fk.fused_iteration_reference(R0, R1, dx, dy, win, gauss)), 1.0))
+    for h, w in ((160, 384), (130, 384), (160, 1920)):  # tests/test_torch_warp_matrices.py
+        R0, R1 = rand(5, h, w), rand(5, h, w)
+        dx, dy = smooth_flow(h, w, dev)
+        checks.append(("warp_matrices", f"{h}x{w}",
+                       max_abs(fk.warp_matrices(R0, R1, dx, dy),
+                               fk.warp_matrices_reference(R0, R1, dx, dy)), 1.0))
     for kernel, label, err, scale in checks:
         log(f"{kernel} {label}: max_abs_err {err:.3e} (tol {TOL[kernel]:g}"
             f"{f' x plane scale {scale:.3e}' if scale != 1.0 else ''})")
         if err > TOL[kernel] * scale:
             raise AssertionError(f"{kernel} {label}: error {err} over tolerance")
+    for h, w, win, gauss in ((160, 384, 15, False), (140, 300, 15, False), (132, 384, 7, True),
+                             (130, 384, 15, False)):
+        dx, dy = smooth_flow(h, w, dev)
+        check_k4_into_k2(rand(5, h, w), rand(5, h, w), dx, dy, win, gauss, f"{h}x{w}")
 
 
 def bench_config(h: int, w: int, max_cells: int):
@@ -235,7 +358,6 @@ def main_path(dev, name: str, smi: str, h: int, w: int, n_frames: int) -> dict:
     """bench.py's workload through the port: prime, then n_frames - 1 steps."""
     from bench import make_frames
     from datmo_using_optical_flow_tpu_torch.models.optical_flow_datmo import PipelineA
-    from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
 
     cfg = bench_config(h, w, 4096)
     bevs = [torch.as_tensor(f, device=dev) for f in make_frames(n_frames, h, w)]
@@ -248,7 +370,7 @@ def main_path(dev, name: str, smi: str, h: int, w: int, n_frames: int) -> dict:
     log("warm-up steps: no host synchronisation (torch.cuda.set_sync_debug_mode)")
     torch.cuda.synchronize()
 
-    fk.reset_launches()
+    reset_launches()
     carry = pipe.init_stream_carry()
     carry, out = pipe.step_stream(bevs[0], carry)  # prime the pyramid
     torch.cuda.synchronize()
@@ -257,7 +379,7 @@ def main_path(dev, name: str, smi: str, h: int, w: int, n_frames: int) -> dict:
         carry, out = pipe.step_stream(f, carry)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = dict(fk.LAUNCHES)
+    launches = read_launches()
     n_levels = len(carry.pyr)
     log(f"{h}x{w} launches over {n_frames} steps ({n_levels} levels): {launches}")
     finite = all(bool(torch.isfinite(t).all()) for t in
@@ -388,7 +510,9 @@ def _device_us(fn, needle: str) -> str:
 
 
 def nn_phase(dev, name: str, smi: str, clouds) -> dict:
-    """K5 against its plain version at reference load, timed."""
+    """K5 against its plain version at reference load, timed, with the tiles
+    each block visits (read from the plain sweep) and the bound they set."""
+    from datmo_using_optical_flow_tpu_torch.diagnostics import roofline
     from datmo_using_optical_flow_tpu_torch.ops import nn_kernels as k5
 
     (prev, prev_m), (cur, cur_m) = clouds[0], clouds[1]
@@ -413,8 +537,15 @@ def nn_phase(dev, name: str, smi: str, clouds) -> dict:
     res = {"max_abs_err": 0.0}
     for i, (label, s, kw, rows) in enumerate(cases):
         got = k5.nearest_neighbors(s, index, **kw)
-        want = k5.nearest_neighbors_reference(s, index, **kw)
+        want, visits = k5.nearest_neighbors_reference_visits(s, index, **kw)
         torch.cuda.synchronize()
+        live = visits[visits > 0].to(torch.float64)
+        work = roofline.nearest_neighbors(s.shape[0], index.packed.shape[0] * k5.TGT_TILE,
+                                          int(live.sum()), live.numel())
+        log(f"K5 {label}: tiles visited per live block mean {float(live.mean()):.2f}, median "
+            f"{float(live.median()):.1f}, max {int(live.max())} of {index.packed.shape[0]} "
+            f"({live.numel()} live blocks); {work.ops / 1e9:.3f} Gop, bound "
+            f"{work.bound_us():.3f} us ({work.bound_by()})")
         res["max_abs_err"] = max(res["max_abs_err"], _nn_compare(label, got, want, rows))
         _nn_sound(label, s, cur, cur_m, got[2], got[3], rows, seed=i)
         ms, plain_ms = time_pair(lambda: k5.nearest_neighbors_reference(s, index, **kw),
@@ -424,7 +555,7 @@ def nn_phase(dev, name: str, smi: str, clouds) -> dict:
         log(f"K5 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per call (incl. the "
             f"block table), kernel device {us} us [{name}, {smi}]")
         if i == 0:
-            res["ms"], res["plain_ms"] = ms, plain_ms
+            res["ms"], res["plain_ms"], res["work"] = ms, plain_ms, work
     return res
 
 
@@ -533,6 +664,40 @@ def gmfa_main_path(dev, name: str, smi: str, n_frames: int) -> dict:
     return {"nearest_neighbors": launches}
 
 
+def diagnostics_phase(dev, gmfa_cfg, pair) -> dict:
+    """This slice's path: the diagnostics at full size, each with every launch
+    count set to 0 just before it and read just after.  Returns each kernel's
+    launches over the runs that must launch it."""
+    from bench import make_frames
+    from datmo_using_optical_flow_tpu_torch.diagnostics import icp_body, micro_flow, profile_1080p
+
+    frames = make_frames(2, 1080, 1920, seed=0)
+    flow = ("poly_exp", "blur_solve", "fused_iteration", "warp_matrices")
+    runs = (("micro_flow", lambda: micro_flow.run(frames, dev), flow),
+            ("profile_1080p", lambda: profile_1080p.run(frames, dev), flow),
+            ("icp_body", lambda: icp_body.run(
+                *icp_body.clouds(102400), dev, probe=pair, threshold=gmfa_cfg.icp.threshold,
+                max_iterations=gmfa_cfg.icp.max_iterations), ("nearest_neighbors", "tiny")))
+    launches = {}
+    for label, fn, kernels in runs:
+        t0 = time.perf_counter()
+        reset_launches()
+        res = fn()
+        counts = read_launches()
+        log(f"diagnostics.{label}: launches {counts}, {time.perf_counter() - t0:.1f} s")
+        missing = [k for k in kernels if counts[k] <= 0]
+        timings = [v for r in res["rows"] for k, v in r.items() if k.startswith(("ms", "device"))]
+        if missing or not all(v is not None and np.isfinite(v) and v > 0 for v in timings):
+            raise AssertionError(f"diagnostics.{label}: kernels {missing} not launched, or a "
+                                 f"time is missing")
+        for k in kernels:
+            launches[k] = launches.get(k, 0) + counts[k]
+    tiles = res["tile_probe"]["rounds"]
+    if "active" not in tiles or tiles["first"]["visits_total"] <= 0:
+        raise AssertionError(f"icp_body tile probe: {tiles}")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -540,6 +705,7 @@ def main() -> None:
     sys.path.insert(0, ROOT)
     from datmo_using_optical_flow_tpu_torch.kernels import build
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -559,24 +725,44 @@ def main() -> None:
             log(f"  ptxas: {line.strip()}")
 
     results = kernel_phases(dev, name, smi, 1080, 1920)
+    results["tiny"] = probe_phase(dev, name, smi)
     other_shapes_phase(dev)
     slice_phase(dev, 256, 320)
     n_frames = 25
     launches = main_path(dev, name, smi, 1080, 1920, n_frames)
-    want = {k: v * n_frames for k, v in PER_STEP.items()}
+    want = {k: PER_STEP.get(k, 0) * n_frames for k in launches}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
 
     cfg, scene = bench_gmfa_setup()
-    results["nearest_neighbors"] = nn_phase(dev, name, smi, gmfa_clouds(scene, cfg, 2, dev, 0))
+    pair = gmfa_clouds(scene, cfg, 2, dev, 0)
+    results["nearest_neighbors"] = nn_phase(dev, name, smi, pair)
     gmfa_slice_phase(dev)
     launches.update(gmfa_main_path(dev, name, smi, 7))
+    diag = diagnostics_phase(dev, cfg, (*pair[0], *pair[1]))
+    launches.update({k: diag[k] for k in ("warp_matrices", "tiny")})
 
-    kernels = [{"name": k, "route": "cuda",
-                "source": f"datmo_using_optical_flow_tpu_torch/csrc/{SOURCES[k]}",
-                "replaces": REPLACES[k], "launches": launches[k],
-                "max_abs_err": results[k]["max_abs_err"], "ms": results[k]["ms"],
-                "plain_ms": results[k]["plain_ms"]} for k in REPLACES]
+    from datmo_using_optical_flow_tpu_torch.diagnostics import roofline
+
+    work = {"poly_exp": roofline.poly_exp(1080, 1920), "blur_solve": roofline.blur_solve(97, 173),
+            "fused_iteration": roofline.fused_iteration(1080, 1920),
+            "warp_matrices": roofline.warp_matrices(1080, 1920),
+            "nearest_neighbors": results["nearest_neighbors"]["work"],
+            "tiny": roofline.tiny(8 * 128)}
+    kernels = []
+    for k in REPLACES:
+        res, bound_us = results[k], work[k].bound_us()
+        if launches[k] <= 0:
+            raise AssertionError(f"{k}: not launched on its path")
+        kernels.append({"name": k, "route": "cuda",
+                        "source": f"datmo_using_optical_flow_tpu_torch/csrc/{SOURCES[k]}",
+                        "replaces": REPLACES[k], "launches": launches[k],
+                        "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+                        "plain_ms": res["plain_ms"], "bound_ms": bound_us / 1e3,
+                        "bound_us": bound_us, "bound_by": work[k].bound_by(),
+                        "library_ms": res.get("library_ms"), "lib_ms": res.get("library_ms")})
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

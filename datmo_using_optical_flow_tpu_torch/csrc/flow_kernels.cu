@@ -1,6 +1,6 @@
 // Farnebäck flow kernels for Hopper (sm_90a), with a plain C interface.
 //
-// Three kernels, each the counterpart of one Pallas TPU kernel of the JAX
+// Four kernels, each the counterpart of one Pallas TPU kernel of the JAX
 // package and each held to a plain PyTorch version of the same function
 // (ops/flow_kernels.py, *_reference):
 //
@@ -8,14 +8,18 @@
 //   blur_solve_kernel        <- ops/flow_pallas.py::blur_solve       (_blur_solve_kernel)
 //   fused_iteration_kernel   <- ops/flow_pallas.py::fused_iteration  (_fused_kernel,
 //                               blur_solve_strip; warp_pallas._warp_into/_warp_epilogue)
+//   warp_matrices_kernel     <- ops/warp_pallas.py::warp_matrices    (_kernel,
+//                               _warp_into/_warp_epilogue)
 //
 // Layouts are the JAX package's: images (H, W) and coefficient / normal-equation
-// planes (5, H, W), float32, row-major and contiguous.  Every kernel gives each
-// block one 32x32 output tile (blockDim 32x8, four rows per thread) and stages the
-// tile plus its halo in shared memory, recomputing the halo rather than exchanging
-// it: blocks run in any order, nothing carries between them.  Halo positions
-// outside the image take the value at the clamped pixel (BORDER_REPLICATE), so a
-// partial last tile needs no special case.
+// planes (5, H, W), float32, row-major and contiguous.  K1-K3 give each block one
+// 32x32 output tile (blockDim 32x8, four rows per thread) and stage the tile plus
+// its halo in shared memory, recomputing the halo rather than exchanging it:
+// blocks run in any order, nothing carries between them.  Halo positions outside
+// the image take the value at the clamped pixel (BORDER_REPLICATE), so a partial
+// last tile needs no special case.  K4 has no window and so no halo: one thread
+// per output pixel.  K3 and K4 share the per-pixel warp and M assembly
+// (warp_assemble).
 //
 // Arithmetic order is the plain version's: taps accumulate in ascending order,
 // the vertical pass before the horizontal one, and the 1/win^2 box scale comes
@@ -35,6 +39,7 @@ constexpr int kTile = 32;           // output tile edge
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 constexpr int kRowsPerThread = kTile / kBlockY;
+constexpr int kPixelThreads = 256;  // K4: one thread per output pixel
 constexpr int kMaxTaps = 64;        // window taps: winsize <= 63
 constexpr int kMaxPolyN = 7;        // poly_n in {5, 7}
 constexpr int kMaxPolyTaps = 2 * kMaxPolyN + 1;
@@ -112,6 +117,65 @@ __device__ void window_solve(const float* ms, float* vbuf, const float* taps, in
 __device__ void load_taps(float* dst, const Window& win, int ntaps) {
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   for (int k = tid; k < ntaps; k += blockDim.x * blockDim.y) dst[k] = win.w[k];
+}
+
+// The warp and M assembly of one pixel (gi, gj), shared by K3 and K4: bilinear
+// warp of R1's five planes to the absolute position (gj + dx, gi + dy), the
+// inside mask, the BORDER=5 attenuation and the five normal-equation values,
+// stored at m[0], m[stride], ..., m[4 * stride].  Warp weights: floor and
+// fraction of the absolute position j + dx, not of dx.  The operations and
+// their order are the plain version's (ops/farneback.py::update_matrices).
+__device__ __forceinline__ void warp_assemble(const float* __restrict__ R0,
+                                              const float* __restrict__ R1,
+                                              const float* __restrict__ dx,
+                                              const float* __restrict__ dy, int gi, int gj,
+                                              int h, int w, float* m, size_t stride) {
+  const size_t plane = static_cast<size_t>(h) * w;
+  const size_t p = static_cast<size_t>(gi) * w + gj;
+  const float fdx = dx[p];
+  const float fdy = dy[p];
+  const float gx = static_cast<float>(gj) + fdx;
+  const float gy = static_cast<float>(gi) + fdy;
+  const float x1 = floorf(gx);
+  const float y1 = floorf(gy);
+  const float fx = gx - x1;
+  const float fy = gy - y1;
+  const bool inside = x1 >= 0.0f && x1 < static_cast<float>(w - 1) && y1 >= 0.0f &&
+                      y1 < static_cast<float>(h - 1);
+  float wr[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (inside) {
+    const float a00 = (1.0f - fx) * (1.0f - fy);
+    const float a01 = fx * (1.0f - fy);
+    const float a10 = (1.0f - fx) * fy;
+    const float a11 = fx * fy;
+    const size_t b = static_cast<size_t>(y1) * w + static_cast<size_t>(x1);
+#pragma unroll
+    for (int c = 0; c < 5; ++c) {
+      const float* q = R1 + c * plane + b;
+      wr[c] = a00 * q[0] + a01 * q[1] + a10 * q[w] + a11 * q[w + 1];
+    }
+  }
+  const float* r0 = R0 + p;
+  float r2 = inside ? wr[0] : 0.0f;
+  float r3 = inside ? wr[1] : 0.0f;
+  float r4 = inside ? (r0[2 * plane] + wr[2]) * 0.5f : r0[2 * plane];
+  float r5 = inside ? (r0[3 * plane] + wr[3]) * 0.5f : r0[3 * plane];
+  float r6 = inside ? (r0[4 * plane] + wr[4]) * 0.25f : r0[4 * plane] * 0.5f;
+  r2 = (r0[0] - r2) * 0.5f;
+  r3 = (r0[plane] - r3) * 0.5f;
+  r2 = r2 + r4 * fdy + r6 * fdx;
+  r3 = r3 + r6 * fdy + r5 * fdx;
+  const float s = border_atten(gi, h) * border_atten(gj, w);
+  r2 = r2 * s;
+  r3 = r3 * s;
+  r4 = r4 * s;
+  r5 = r5 * s;
+  r6 = r6 * s;
+  m[0] = r4 * r4 + r6 * r6;
+  m[stride] = (r4 + r5) * r6;
+  m[2 * stride] = r5 * r5 + r6 * r6;
+  m[3 * stride] = r4 * r2 + r6 * r3;
+  m[4 * stride] = r6 * r2 + r5 * r3;
 }
 
 // ---------------------------------------------------------------- K1
@@ -267,7 +331,6 @@ blur_solve_kernel(const float* __restrict__ M, float* __restrict__ odx,
 // shared memory (42 KB at winsize 15; dynamic shared memory above 48 KB),
 // M at a halo position outside the image is M at the clamped pixel, then the
 // window sum and solve run from shared memory as in K2.
-// Warp weights: floor and fraction of the absolute position j + dx, not of dx.
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 fused_iteration_kernel(const float* __restrict__ R0, const float* __restrict__ R1,
                        const float* __restrict__ dx, const float* __restrict__ dy,
@@ -282,61 +345,39 @@ fused_iteration_kernel(const float* __restrict__ R0, const float* __restrict__ R
   const int nthreads = blockDim.x * blockDim.y;
   const int y0 = blockIdx.y * kTile;
   const int x0 = blockIdx.x * kTile;
-  const size_t plane = static_cast<size_t>(h) * w;
   load_taps(taps, win, 2 * r + 1);
   for (int idx = tid; idx < e * e; idx += nthreads) {
     const int li = idx / e;
     const int lj = idx - li * e;
     const int gi = clampi(y0 - r + li, 0, h - 1);
     const int gj = clampi(x0 - r + lj, 0, w - 1);
-    const size_t p = static_cast<size_t>(gi) * w + gj;
-    const float fdx = dx[p];
-    const float fdy = dy[p];
-    const float gx = static_cast<float>(gj) + fdx;
-    const float gy = static_cast<float>(gi) + fdy;
-    const float x1 = floorf(gx);
-    const float y1 = floorf(gy);
-    const float fx = gx - x1;
-    const float fy = gy - y1;
-    const bool inside = x1 >= 0.0f && x1 < static_cast<float>(w - 1) && y1 >= 0.0f &&
-                        y1 < static_cast<float>(h - 1);
-    float wr[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    if (inside) {
-      const float a00 = (1.0f - fx) * (1.0f - fy);
-      const float a01 = fx * (1.0f - fy);
-      const float a10 = (1.0f - fx) * fy;
-      const float a11 = fx * fy;
-      const size_t b = static_cast<size_t>(y1) * w + static_cast<size_t>(x1);
-#pragma unroll
-      for (int c = 0; c < 5; ++c) {
-        const float* q = R1 + c * plane + b;
-        wr[c] = a00 * q[0] + a01 * q[1] + a10 * q[w] + a11 * q[w + 1];
-      }
-    }
-    const float* r0 = R0 + p;
-    float r2 = inside ? wr[0] : 0.0f;
-    float r3 = inside ? wr[1] : 0.0f;
-    float r4 = inside ? (r0[2 * plane] + wr[2]) * 0.5f : r0[2 * plane];
-    float r5 = inside ? (r0[3 * plane] + wr[3]) * 0.5f : r0[3 * plane];
-    float r6 = inside ? (r0[4 * plane] + wr[4]) * 0.25f : r0[4 * plane] * 0.5f;
-    r2 = (r0[0] - r2) * 0.5f;
-    r3 = (r0[plane] - r3) * 0.5f;
-    r2 = r2 + r4 * fdy + r6 * fdx;
-    r3 = r3 + r6 * fdy + r5 * fdx;
-    const float s = border_atten(gi, h) * border_atten(gj, w);
-    r2 = r2 * s;
-    r3 = r3 * s;
-    r4 = r4 * s;
-    r5 = r5 * s;
-    r6 = r6 * s;
-    const int ee = e * e;
-    ms[idx] = r4 * r4 + r6 * r6;
-    ms[ee + idx] = (r4 + r5) * r6;
-    ms[2 * ee + idx] = r5 * r5 + r6 * r6;
-    ms[3 * ee + idx] = r4 * r2 + r6 * r3;
-    ms[4 * ee + idx] = r6 * r2 + r5 * r3;
+    warp_assemble(R0, R1, dx, dy, gi, gj, h, w, ms + idx, static_cast<size_t>(e) * e);
   }
   window_solve(ms, vbuf, taps, r, scale, y0, x0, h, w, odx, ody);
+}
+
+// ---------------------------------------------------------------- K4
+// The warp and M assembly of K3, with M (5, H, W) stored to global memory.
+//
+// Replaces ops/warp_pallas.py::warp_matrices.  As in K3 the TPU kernel's
+// integer-shift decomposition, its ring-DMA window of padded R1 and that
+// window's displacement limits are not carried over: each pixel gathers its
+// four corners of the unpadded R1 directly, at any displacement.
+// Bound on the H100: 68 bytes of unique traffic per pixel (R0 and R1's five
+// planes and the flow in, M's five planes out) against ~89 separately rounded
+// flops, so it is bound by memory.  One thread per output pixel, consecutive
+// threads on consecutive pixels: the R0, flow and M accesses coalesce, and the
+// corner gathers of a smooth flow hit L1/L2.
+__global__ void __launch_bounds__(kPixelThreads)
+warp_matrices_kernel(const float* __restrict__ R0, const float* __restrict__ R1,
+                     const float* __restrict__ dx, const float* __restrict__ dy,
+                     float* __restrict__ M, int h, int w) {
+  const size_t plane = static_cast<size_t>(h) * w;
+  const size_t p = static_cast<size_t>(blockIdx.x) * kPixelThreads + threadIdx.x;
+  if (p >= plane) return;
+  const int gi = static_cast<int>(p / w);
+  const int gj = static_cast<int>(p - static_cast<size_t>(gi) * w);
+  warp_assemble(R0, R1, dx, dy, gi, gj, h, w, M + p, plane);
 }
 
 size_t window_smem_bytes(int r) {
@@ -406,6 +447,17 @@ int datmo_fused_iteration(float* odx, float* ody, const float* R0, const float* 
   fused_iteration_kernel<<<tile_grid(h, w), dim3(kBlockX, kBlockY), smem,
                            static_cast<cudaStream_t>(stream)>>>(R0, R1, dx, dy, odx, ody, h,
                                                                 w, r, win, scale);
+  return cudaGetLastError();
+}
+
+// All pointers are DEVICE pointers.
+int datmo_warp_matrices(float* M, const float* R0, const float* R1, const float* dx,
+                        const float* dy, int h, int w, void* stream) {
+  if (h < 2 || w < 2) return cudaErrorInvalidValue;
+  const size_t n = static_cast<size_t>(h) * w;
+  const unsigned int blocks = static_cast<unsigned int>((n + kPixelThreads - 1) / kPixelThreads);
+  warp_matrices_kernel<<<blocks, kPixelThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      R0, R1, dx, dy, M, h, w);
   return cudaGetLastError();
 }
 

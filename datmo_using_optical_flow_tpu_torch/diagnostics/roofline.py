@@ -1,0 +1,102 @@
+"""The work of each kernel and the least time an H100 could take for it.
+
+The bound of a call is the larger of two times: the bytes the function must
+move (each input read once, each output written once) over the card's memory
+rate, and its float32 operations over the card's float32 rate outside the
+tensor cores, which none of the port's kernels uses.  The rates are the H100
+SXM's published 3.35 TB/s (HBM3) and 67 TFLOP/s (float32), at its 700 W limit.
+
+Operations are counted from the kernels' code (``csrc/*.cu``, built with
+``-fmad=false``): each add, multiply, divide, compare or floor is one.  They
+are counted per output pixel for the flow kernels, without the halo that the
+windowed kernels recompute (the bound is for the work, not for one design of
+it), and per (source row, target) pair in the visited tiles for the 1-NN
+sweep, whose work depends on the data.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+
+from datmo_using_optical_flow_tpu_torch.oracle.np_farneback import prepare_gaussian
+
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+# K3/K4's per-pixel warp and M assembly (csrc/flow_kernels.cu::warp_assemble):
+# positions, floors and fractions 6; the inside test 4; bilinear weights 6;
+# five planes x (4 mul + 3 add) 35; r2..r6 from R0 and the warp 10; the flow
+# terms 8; the border attenuation 6; the five M values 14.
+WARP_M_OPS = 89
+# K2's per-pixel solve: five scales, the regularised determinant and its
+# reciprocal (5), dx and dy (4 each).
+SOLVE_OPS = 18
+# K5 per (source row, target) pair: the cross product 5, d2 = tn - 2 cross 2,
+# and the running minimum, tie and second-minimum tests 3.
+NN_PAIR_OPS = 10
+NN_BLOCK = 256  # source rows per block == targets per tile (ops/nn_kernels.py)
+
+
+class Work(NamedTuple):
+    bytes: int
+    ops: int
+
+    def bound_us(self) -> float:
+        return max(self.bytes / HBM_BYTES_PER_S, self.ops / FP32_OPS_PER_S) * 1e6
+
+    def bound_by(self) -> str:
+        return "bytes" if self.bytes / HBM_BYTES_PER_S >= self.ops / FP32_OPS_PER_S \
+            else "operations"
+
+
+def poly_exp(h: int, w: int, n: int = 5, sigma: float = 5.0) -> Work:
+    """K1: the image in, five planes out.  Vertical correlations of g and xxg
+    keep every tap, xg skips its zero ones; the six horizontal correlations
+    skip taps that are zero in float32; then 9 for the inverse-Gram scaling."""
+    g, xg, xxg, _ = prepare_gaussian(n, sigma)
+    taps = 2 * n + 1
+    nz = [int(np.count_nonzero(np.asarray(k, np.float32))) for k in (g, xg, xxg)]
+    vertical = (2 * taps - 1) + (2 * nz[1] - 1) + (2 * taps - 1)
+    horizontal = 3 * (2 * nz[0] - 1) + 2 * (2 * nz[1] - 1) + (2 * nz[2] - 1)
+    return Work(24 * h * w, (vertical + horizontal + 9) * h * w)
+
+
+def blur_solve(h: int, w: int, winsize: int = 15) -> Work:
+    """K2: five M planes in, the flow out; two window passes over five planes."""
+    return Work(28 * h * w, (10 * (2 * winsize - 1) + SOLVE_OPS) * h * w)
+
+
+def fused_iteration(h: int, w: int, winsize: int = 15) -> Work:
+    """K3: R0 and R1 (ten planes) and the flow in, the new flow out; M stays
+    on chip."""
+    return Work(56 * h * w, (WARP_M_OPS + 10 * (2 * winsize - 1) + SOLVE_OPS) * h * w)
+
+
+def warp_matrices(h: int, w: int) -> Work:
+    """K4: R0, R1 and the flow in, five M planes out."""
+    return Work(68 * h * w, WARP_M_OPS * h * w)
+
+
+def update_matrices_packed(h: int, w: int) -> Work:
+    """The packed-gather ``update_matrices``: R0, the 7-word corner table and
+    the flow in, M out.  The unpacking's integer operations are not counted."""
+    return Work(76 * h * w, WARP_M_OPS * h * w)
+
+
+def nearest_neighbors(n_src: int, n_tgt: int, tile_visits: int, live_blocks: int) -> Work:
+    """K5 for this call's data: the sources, the index's coordinates, norms and
+    ids, the pruning-table entries the live blocks read (each visited tile's
+    and the one that stops the block) and 7 outputs per row; ``NN_PAIR_OPS``
+    per (row, target) pair of the ``tile_visits`` visited (block, tile) pairs."""
+    n_blocks = -(-n_src // NN_BLOCK)
+    m_tiles = -(-n_tgt // NN_BLOCK)
+    nbytes = (12 * n_src + 4 * n_blocks + 8 * (tile_visits + live_blocks)
+              + 20 * m_tiles * NN_BLOCK + 28 * n_blocks * NN_BLOCK)
+    return Work(nbytes, NN_PAIR_OPS * tile_visits * NN_BLOCK * NN_BLOCK)
+
+
+def tiny(numel: int) -> Work:
+    """K6: ``x + 1``, one float32 in and out per element."""
+    return Work(8 * numel, numel)

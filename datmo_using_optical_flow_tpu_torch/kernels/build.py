@@ -43,6 +43,8 @@ _SIGNATURES = {
     "datmo_fused_iteration": ([_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _F, _P], _I),
     "datmo_nn_sweep": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _F,
                         _F, _P], _I),
+    "datmo_warp_matrices": ([_P, _P, _P, _P, _P, _I, _I, _P], _I),
+    "datmo_tiny": ([_P, _P, ctypes.c_int64, _P], _I),
     "datmo_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -283,14 +283,15 @@ def _gmfa_step_impl(points: torch.Tensor, mask: torch.Tensor, carry: GmfaCarry,
 
 
 class GMFAPipeline:
-    """Streaming runner for the GMFA step on one device.
+    """Streaming runner for the GMFA step on one device (the card unless the
+    caller passes ``device="cpu"``; without CUDA the default raises).
 
     ``seed`` seeds the ``torch.Generator`` (on ``device``) that draws new
     track ids when :meth:`step` is not given them.
     """
 
     def __init__(self, cfg: GMFAConfig | None = None, max_moving_points: int = 8192,
-                 device: str | torch.device = "cpu", seed: int = 0):
+                 device: str | torch.device = "cuda", seed: int = 0):
         self.cfg = (cfg or GMFAConfig()).validate()
         self.max_moving = max_moving_points
         self.device = resolve_device(device)

@@ -144,14 +144,15 @@ def _datmo_tail(flow: torch.Tensor, pair_valid: torch.Tensor, carry: StepCarry,
 
 
 class PipelineA:
-    """Runner for the optical-flow DATMO step on one device.
+    """Runner for the optical-flow DATMO step on one device (the card unless
+    the caller passes ``device="cpu"``; without CUDA the default raises).
 
     ``fast_warp`` selects the packed int16/int8 warp for the pyramid levels
     below the fused kernel's size (the JAX kernel path always packs there);
     with it off those levels warp exactly.
     """
 
-    def __init__(self, cfg: PipelineAConfig | None, device: str | torch.device,
+    def __init__(self, cfg: PipelineAConfig | None, device: str | torch.device = "cuda",
                  fast_warp: bool = True):
         self.cfg = (cfg or PipelineAConfig()).validate()
         self.device = resolve_device(device)

@@ -329,14 +329,16 @@ def build_pyramid(im: torch.Tensor, pyr_scale: float, levels: int, poly_n: int,
     """Per-level (5, lh, lw) polynomial-expansion planes of one frame,
     coarsest first (the order :func:`flow_from_pyramids` consumes)."""
     h, w = im.shape
-    out = []
-    for k, scale, lh, lw in level_sizes(h, w, pyr_scale, levels):
-        sigma = (1.0 / scale - 1.0) * 0.5
-        smooth_sz = max(int(round(sigma * 5)) | 1, 3)
-        f = gaussian_blur(im.to(torch.float32), smooth_sz, sigma)
-        f = resize_bilinear(f, lh, lw)
-        out.append(poly_exp(f, poly_n, poly_sigma))
-    return tuple(out)
+    return tuple(poly_exp(level_image(im, scale, lh, lw), poly_n, poly_sigma)
+                 for _, scale, lh, lw in level_sizes(h, w, pyr_scale, levels))
+
+
+def level_image(im: torch.Tensor, scale: float, lh: int, lw: int) -> torch.Tensor:
+    """The (lh, lw) image of the pyramid level at ``scale``: cv2's pre-blur
+    (sigma = (1/scale - 1) / 2) then the bilinear resize."""
+    sigma = (1.0 / scale - 1.0) * 0.5
+    smooth_sz = max(int(round(sigma * 5)) | 1, 3)
+    return resize_bilinear(gaussian_blur(im.to(torch.float32), smooth_sz, sigma), lh, lw)
 
 
 def flow_from_pyramids(pyr1, pyr2, pyr_scale: float, winsize: int, iterations: int,

@@ -1,11 +1,12 @@
 """The flow's CUDA kernels, their plain PyTorch versions and launch counters.
 
-The counterpart of ``datmo_using_optical_flow_tpu.ops.flow_pallas``.  Each of
-:func:`poly_exp` (K1), :func:`blur_solve` (K2) and :func:`fused_iteration` (K3)
-dispatches on its input's device alone: a CPU tensor takes the plain version
-(``*_reference``), a CUDA tensor launches the hand-written kernel of
-``csrc/flow_kernels.cu`` on the current stream, and any other device raises.
-There is no fallback from a kernel to its plain version.
+The counterpart of ``datmo_using_optical_flow_tpu.ops.flow_pallas`` and
+``ops.warp_pallas``.  Each of :func:`poly_exp` (K1), :func:`blur_solve` (K2),
+:func:`fused_iteration` (K3) and :func:`warp_matrices` (K4) dispatches on its
+input's device alone: a CPU tensor takes the plain version (``*_reference``),
+a CUDA tensor launches the hand-written kernel of ``csrc/flow_kernels.cu`` on
+the current stream, and any other device raises.  There is no fallback from a
+kernel to its plain version.
 
 ``LAUNCHES`` counts kernel launches (not calls of the plain versions), so a run
 can show that its path went through the kernels.
@@ -22,7 +23,7 @@ from datmo_using_optical_flow_tpu_torch.kernels import build
 from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
 from datmo_using_optical_flow_tpu_torch.oracle.np_farneback import prepare_gaussian
 
-LAUNCHES = {"poly_exp": 0, "blur_solve": 0, "fused_iteration": 0}
+LAUNCHES = {"poly_exp": 0, "blur_solve": 0, "fused_iteration": 0, "warp_matrices": 0}
 
 
 def reset_launches() -> None:
@@ -166,8 +167,18 @@ def blur_solve(M: torch.Tensor, winsize: int, gaussian: bool = False
 def fused_iteration_reference(R0: torch.Tensor, R1: torch.Tensor, dx: torch.Tensor,
                               dy: torch.Tensor, winsize: int, gaussian: bool = False
                               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K3: exact ``update_matrices`` then K2's plain version."""
-    return blur_solve_reference(fb.update_matrices(R0, R1, dx, dy), winsize, gaussian)
+    """Plain version of K3: K4's plain version then K2's."""
+    return blur_solve_reference(warp_matrices_reference(R0, R1, dx, dy), winsize, gaussian)
+
+
+def _check_planes_and_flow(R0, R1, dx, dy) -> tuple[int, int]:
+    if R0.ndim != 3 or R0.shape[0] != 5:
+        raise ValueError(f"R0: expected (5, H, W), got {tuple(R0.shape)}")
+    _, h, w = R0.shape
+    for t, name, shape in ((R0, "R0", (5, h, w)), (R1, "R1", (5, h, w)),
+                           (dx, "dx", (h, w)), (dy, "dy", (h, w))):
+        _check(t, name, shape)
+    return h, w
 
 
 def fused_iteration(R0: torch.Tensor, R1: torch.Tensor, dx: torch.Tensor,
@@ -176,12 +187,7 @@ def fused_iteration(R0: torch.Tensor, R1: torch.Tensor, dx: torch.Tensor,
     """K3: one refinement iteration (warp R1 by the flow, assemble M, window
     sum, solve) -> new (dx, dy).  R0, R1 are (5, H, W), dx, dy (H, W); unlike
     the JAX kernel, R1 is not padded: the warp gathers any displacement."""
-    if R0.ndim != 3 or R0.shape[0] != 5:
-        raise ValueError(f"R0: expected (5, H, W), got {tuple(R0.shape)}")
-    _, h, w = R0.shape
-    for t, name, shape in ((R0, "R0", (5, h, w)), (R1, "R1", (5, h, w)),
-                           (dx, "dx", (h, w)), (dy, "dy", (h, w))):
-        _check(t, name, shape)
+    h, w = _check_planes_and_flow(R0, R1, dx, dy)
     _check_window(winsize)
     if not _on_cuda(R0, R1, dx, dy):
         return fused_iteration_reference(R0, R1, dx, dy, winsize, gaussian)
@@ -196,3 +202,30 @@ def fused_iteration(R0: torch.Tensor, R1: torch.Tensor, dx: torch.Tensor,
     build.check(err, "fused_iteration")
     LAUNCHES["fused_iteration"] += 1
     return odx, ody
+
+
+# ------------------------------------------------------------------ K4
+
+def warp_matrices_reference(R0: torch.Tensor, R1: torch.Tensor, dx: torch.Tensor,
+                            dy: torch.Tensor) -> torch.Tensor:
+    """Plain version of K4: the exact (unpacked) ``update_matrices``."""
+    return fb.update_matrices(R0, R1, dx, dy)
+
+
+def warp_matrices(R0: torch.Tensor, R1: torch.Tensor, dx: torch.Tensor,
+                  dy: torch.Tensor) -> torch.Tensor:
+    """K4: warp R1 by the flow and assemble the normal-equation planes
+    M (5, H, W).  As for K3, R1 is not padded: the warp gathers any
+    displacement (the JAX kernel takes ``_pad_r1``'s window layout and only
+    the displacements that window reaches)."""
+    h, w = _check_planes_and_flow(R0, R1, dx, dy)
+    if not _on_cuda(R0, R1, dx, dy):
+        return warp_matrices_reference(R0, R1, dx, dy)
+    M = torch.empty((5, h, w), dtype=torch.float32, device=R0.device)
+    with torch.cuda.device(R0.device):
+        err = build.library().datmo_warp_matrices(
+            M.data_ptr(), R0.data_ptr(), R1.data_ptr(), dx.data_ptr(), dy.data_ptr(), h, w,
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "warp_matrices")
+    LAUNCHES["warp_matrices"] += 1
+    return M

@@ -56,8 +56,10 @@ def _sumsq(v: torch.Tensor) -> torch.Tensor:
     return (v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1]) + v[:, 2] * v[:, 2]
 
 
-def _kabsch(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Weighted rigid alignment src -> dst (rotation and translation, no scale)."""
+def _kabsch_sums(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kabsch's sums over the points, on their device: the flattened 3x3
+    cross-covariance (9,) and the weighted centroids of src and dst."""
     wc = w[:, None]
     s1 = tree_sum(torch.cat([wc, src * wc, dst * wc], dim=1))
     wsum = torch.clamp(s1[0], min=1e-12)
@@ -65,7 +67,12 @@ def _kabsch(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor) -> torch.Tens
     cd = s1[4:7] / wsum
     s = (src - cs) * wc
     d = dst - cd
-    h = tree_sum((s[:, :, None] * d[:, None, :]).reshape(-1, 9))
+    return tree_sum((s[:, :, None] * d[:, None, :]).reshape(-1, 9)), cs, cd
+
+
+def _kabsch(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Weighted rigid alignment src -> dst (rotation and translation, no scale)."""
+    h, cs, cd = _kabsch_sums(src, dst, w)
     # the 3x3 solve on the host, in float32
     host = torch.cat([h, cs, cd]).cpu()
     h, cs, cd = host[:9].reshape(3, 3), host[9:12], host[12:15]
@@ -97,6 +104,42 @@ def transform_points(points: torch.Tensor, transformation: torch.Tensor) -> torc
     return acc + t
 
 
+def _eval_cached(srcf, smask, tgtf, tmask, thr2, transform, cache, live, tgt_index, cap2,
+                 sweep):
+    """One round of the incremental correspondence search at ``transform``:
+    only rows that are neither outside the gate by their moved bound nor
+    certified by their carried winner go to ``sweep`` (the signature of
+    :func:`nearest_neighbors_active`).  Returns (pts, dst, d2, corr, new
+    cache, [swept, certified, excluded] counts)."""
+    lo_old, qw, qpos, b2_old = cache
+    pts = transform_points(srcf, transform)
+    delta = torch.sqrt(_sumsq(pts - qpos)) + _DELTA_PAD
+    # the sound bound at the last query position, moved by the reverse
+    # triangle inequality: rows provably outside the gate skip the sweep
+    lo_new = torch.sqrt(lo_old) - delta
+    excluded = (lo_new > 0.0) & (lo_new * lo_new > thr2)
+    # winner certificate: the carried winner is still the unique nearest
+    dw2 = _sumsq(pts - qw)
+    b2_dec = torch.sqrt(b2_old) - delta
+    certified = smask & ~excluded & (torch.sqrt(dw2) + _DELTA_PAD < b2_dec)
+    # a frozen round's results are discarded: it sweeps no block
+    need = smask & ~excluded & ~certified & live
+    _, d2_new, lo_q, b2_q, crd_new = sweep(pts, tgtf, tmask, need, index=tgt_index, cap2=cap2)
+    dst = torch.where(need[:, None], crd_new, qw)
+    d2 = torch.where(need, d2_new, torch.where(certified, dw2, torch.inf))
+    corr = d2 <= thr2
+    b2_dec2 = torch.clamp(b2_dec, min=0.0) ** 2
+    b2_fresh = torch.where(torch.isfinite(d2_new), b2_q, 0.0)
+    cache = (torch.where(need, lo_q, torch.where(certified, dw2, lo_old)),
+             dst,
+             torch.where((need | certified)[:, None], pts, qpos),
+             torch.where(need, b2_fresh, torch.where(certified, b2_dec2, b2_old)))
+    counts = torch.stack([torch.sum(need.to(torch.float32)),
+                          torch.sum(certified.to(torch.float32)),
+                          torch.sum((smask & excluded).to(torch.float32))])
+    return pts, dst, d2, corr, cache, counts
+
+
 def _icp_loop(srcf, smask, tgtf, tmask, thr2, relative_fitness, relative_rmse,
               max_iterations, cached, tgt_index, cap2):
     """The iteration loop from the identity; returns (transform, iterations,
@@ -118,34 +161,8 @@ def _icp_loop(srcf, smask, tgtf, tmask, thr2, relative_fitness, relative_rmse,
         return pts, dst, d2, corr, cache, counts
 
     def eval_cached(transform, cache, live):
-        lo_old, qw, qpos, b2_old = cache
-        pts = transform_points(srcf, transform)
-        delta = torch.sqrt(_sumsq(pts - qpos)) + _DELTA_PAD
-        # the sound bound at the last query position, moved by the reverse
-        # triangle inequality: rows provably outside the gate skip the sweep
-        lo_new = torch.sqrt(lo_old) - delta
-        excluded = (lo_new > 0.0) & (lo_new * lo_new > thr2)
-        # winner certificate: the carried winner is still the unique nearest
-        dw2 = _sumsq(pts - qw)
-        b2_dec = torch.sqrt(b2_old) - delta
-        certified = smask & ~excluded & (torch.sqrt(dw2) + _DELTA_PAD < b2_dec)
-        # a frozen round's results are discarded: it sweeps no block
-        need = smask & ~excluded & ~certified & live
-        _, d2_new, lo_q, b2_q, crd_new = nearest_neighbors_active(
-            pts, tgtf, tmask, need, index=tgt_index, cap2=cap2)
-        dst = torch.where(need[:, None], crd_new, qw)
-        d2 = torch.where(need, d2_new, torch.where(certified, dw2, torch.inf))
-        corr = d2 <= thr2
-        b2_dec2 = torch.clamp(b2_dec, min=0.0) ** 2
-        b2_fresh = torch.where(torch.isfinite(d2_new), b2_q, 0.0)
-        cache = (torch.where(need, lo_q, torch.where(certified, dw2, lo_old)),
-                 dst,
-                 torch.where((need | certified)[:, None], pts, qpos),
-                 torch.where(need, b2_fresh, torch.where(certified, b2_dec2, b2_old)))
-        counts = torch.stack([torch.sum(need.to(torch.float32)),
-                              torch.sum(certified.to(torch.float32)),
-                              torch.sum((smask & excluded).to(torch.float32))])
-        return pts, dst, d2, corr, cache, counts
+        return _eval_cached(srcf, smask, tgtf, tmask, thr2, transform, cache, live, tgt_index,
+                            cap2, nearest_neighbors_active)
 
     eval_state = eval_cached if cached else eval_full
 

@@ -82,23 +82,38 @@ def nearest_neighbors_active(src: torch.Tensor, tgt: torch.Tensor, tgt_mask: tor
     sweep is told the active count, so blocks past the prefix skip it.
     """
     _require_eligible(tgt.shape[0])
-    n = src.shape[0]
-    dev = src.device
     srcf = src.to(torch.float32)
     if index is None:
         index = nn_kernels.build_target_index(tgt, tgt_mask)
+    src_c, pos, n_active = partition_active(srcf, active)
+    res = nn_kernels.nearest_neighbors(src_c, index, n_active, cap2)
+    idx, d2, lo, b2, crd = unpartition(res, pos, active)
+    d2 = _exact_d2(srcf, crd, d2)
+    return idx, d2, torch.minimum(lo, d2), b2, crd
+
+
+def partition_active(srcf: torch.Tensor, active: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stable partition of the (N, 3) rows, active rows first: returns the
+    partitioned rows, each row's destination ``pos`` (int64) and the active
+    count (0-d int32)."""
+    n = srcf.shape[0]
     act32 = active.to(torch.int32)
     n_active = torch.sum(act32)
     csum = torch.cumsum(act32, dim=0, dtype=torch.int32)
-    ar = torch.arange(n, dtype=torch.int32, device=dev)
+    ar = torch.arange(n, dtype=torch.int32, device=srcf.device)
     pos = torch.where(active, csum - 1, n_active + (ar - csum)).long()
-    src_c = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    src_c = torch.empty((n, 3), dtype=torch.float32, device=srcf.device)
     src_c[pos] = srcf
-    idx_s, d2_s, lo_s, b2_s, crd_s = nn_kernels.nearest_neighbors(src_c, index, n_active, cap2)
-    idx = torch.where(active, idx_s[pos], 0)
-    d2 = torch.where(active, d2_s[pos], torch.inf)
-    lo = torch.where(active, lo_s[pos], torch.inf)
-    b2 = torch.where(active, b2_s[pos], 0.0)
-    crd = torch.where(active[:, None], crd_s[pos], 0.0)
-    d2 = _exact_d2(srcf, crd, d2)
-    return idx, d2, torch.minimum(lo, d2), b2, crd
+    return src_c, pos, n_active
+
+
+def unpartition(res, pos: torch.Tensor, active: torch.Tensor):
+    """The sweep's five outputs on the partitioned rows back in row order;
+    inactive rows get idx 0 / +inf / +inf / 0 / zeros."""
+    idx_s, d2_s, lo_s, b2_s, crd_s = res
+    return (torch.where(active, idx_s[pos], 0),
+            torch.where(active, d2_s[pos], torch.inf),
+            torch.where(active, lo_s[pos], torch.inf),
+            torch.where(active, b2_s[pos], 0.0),
+            torch.where(active[:, None], crd_s[pos], 0.0))

@@ -238,7 +238,9 @@ def _prepare(src, index, n_active, cap2, block_counts, block_table, drift) -> _P
 def _sweep_reference(p: _Prepared):
     """Plain version of the sweep, vectorised over blocks: at step j every
     block still running handles its j-th tile; a block stops for good at its
-    first tile with ``lb2 > bmax``.  Returns padded (np_,) / (np_, 3) outputs."""
+    first tile with ``lb2 > bmax``.  Returns the padded (np_,) / (np_, 3)
+    outputs and, per block, the number of tiles it visited (0 for a block
+    with no active row)."""
     idx_all = p.index
     m_tiles = idx_all.packed.shape[0]
     nb = p.block_counts.shape[0]
@@ -319,7 +321,7 @@ def _sweep_reference(p: _Prepared):
     d2o, lo, d2nd = (torch.where(skipped, torch.inf, t) for t in (d2o, lo, d2nd))
     w = torch.where(skipped[:, :, None], 0.0, w)
     return (idx.reshape(-1), d2o.reshape(-1), lo.reshape(-1), d2nd.reshape(-1),
-            w.reshape(-1, 3))
+            w.reshape(-1, 3)), j_fin
 
 
 def _check_index(index: TargetIndex) -> None:
@@ -366,8 +368,20 @@ def _outputs(res, n):
 def nearest_neighbors_reference(src: torch.Tensor, index: TargetIndex, n_active=None,
                                 cap2=None, block_counts=None, block_table=None, drift=None):
     """Plain version of :func:`nearest_neighbors` (same arguments and outputs)."""
+    return nearest_neighbors_reference_visits(src, index, n_active, cap2, block_counts,
+                                              block_table, drift)[0]
+
+
+def nearest_neighbors_reference_visits(src: torch.Tensor, index: TargetIndex, n_active=None,
+                                       cap2=None, block_counts=None, block_table=None,
+                                       drift=None):
+    """:func:`nearest_neighbors_reference`'s outputs and the (n_blocks,) int64
+    count of tiles each 256-row block visited before its stopping rule fired.
+    The kernel applies the same rule to the same bounds and values, so these
+    are its visits too."""
     p = _prepare(src, index, n_active, cap2, block_counts, block_table, drift)
-    return _outputs(_sweep_reference(p), src.shape[0])
+    res, visits = _sweep_reference(p)
+    return _outputs(res, src.shape[0]), visits
 
 
 def nearest_neighbors(src: torch.Tensor, index: TargetIndex, n_active=None, cap2=None,
@@ -389,5 +403,5 @@ def nearest_neighbors(src: torch.Tensor, index: TargetIndex, n_active=None, cap2
     """
     p = _prepare(src, index, n_active, cap2, block_counts, block_table, drift)
     if not _on_cuda(p.src, p.index.packed, p.lb2):
-        return _outputs(_sweep_reference(p), src.shape[0])
+        return _outputs(_sweep_reference(p)[0], src.shape[0])
     return _outputs(_sweep_kernel(p), src.shape[0])

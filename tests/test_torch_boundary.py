@@ -25,6 +25,10 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _GMFA_MODULES = ("ops.points", "ops.nn_kernels", "ops.nn", "ops.icp", "ops.hungarian",
                  "ops.som", "ops.dbscan", "models.gmfa", "utils.ordered", "utils.state",
                  "utils.tree")
+# this slice's kernels and the diagnostics that run them
+_DIAGNOSTIC_MODULES = ("ops.probe_kernels", "diagnostics.roofline", "diagnostics.measure",
+                       "diagnostics.micro_flow", "diagnostics.profile_1080p",
+                       "diagnostics.icp_body")
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -36,7 +40,7 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "yaml", "datmo_using_optical_flow_tpu"))
 print(len(set(names)), bad)
-""" % (_GMFA_MODULES,)
+""" % (_GMFA_MODULES + _DIAGNOSTIC_MODULES,)
 
 
 def test_port_imports_no_jax_and_no_yaml():
@@ -44,7 +48,7 @@ def test_port_imports_no_jax_and_no_yaml():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.strip().split(" ", 1)
-    assert int(count) >= 21, proc.stdout  # every module of the port was imported
+    assert int(count) >= 34, proc.stdout  # every module of the port was imported
     assert bad == "[]", bad
 
 

@@ -1,0 +1,141 @@
+"""The port's diagnostics (``diagnostics/``), run here on the CPU at tiny
+sizes, their byte and operation counts, and the runners' default device.
+
+On the CPU a diagnostic's times come from the host clock and its device times
+are ``None`` (not measured); the rows and counts are what these tests check.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from datmo_using_optical_flow_tpu_torch.diagnostics import (icp_body, measure, micro_flow,
+                                                            profile_1080p, roofline)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+
+
+@pytest.mark.parametrize("kernel,args,nbytes,bound_us", [
+    ("poly_exp", (1080, 1920), 49_766_400, 14.8556),
+    ("poly_exp", (324, 576), 4_478_976, 1.3370),
+    ("fused_iteration", (1080, 1920), 116_121_600, 34.6632),
+    ("warp_matrices", (1080, 1920), 141_004_800, 42.0910),
+    ("blur_solve", (97, 173), 469_868, 0.14026),
+    ("tiny", (1024,), 8_192, 0.0024454),
+])
+def test_roofline_counts_at_the_main_path_shapes(kernel, args, nbytes, bound_us):
+    work = getattr(roofline, kernel)(*args)
+    assert work.bytes == nbytes
+    assert work.bound_us() == pytest.approx(bound_us, rel=1e-4)
+    assert work.bound_by() == "bytes"
+
+
+def test_roofline_operation_counts():
+    px = 1080 * 1920
+    assert roofline.poly_exp(1080, 1920).ops == 190 * px  # 61 vertical, 120 horizontal, 9
+    assert roofline.blur_solve(1080, 1920, 15).ops == 308 * px
+    assert roofline.fused_iteration(1080, 1920, 15).ops == (89 + 308) * px
+    assert roofline.warp_matrices(1080, 1920).ops == 89 * px
+    # K5: 400 blocks of 102,400 rows visiting 30 tiles each is bound by operations
+    work = roofline.nearest_neighbors(102_400, 102_400, 400 * 30, 400)
+    assert work.ops == 10 * 400 * 30 * 256 * 256
+    assert work.bound_by() == "operations"
+    assert work.bound_us() == pytest.approx(work.ops / 67e12 * 1e6)
+
+
+@pytest.fixture(scope="module")
+def frames():
+    return measure.moving_frames(2, 112, 160, seed=3)  # two pyramid levels
+
+
+def _check_rows(res, names, keys):
+    assert res["device"] == "cpu" and res["card"] == "cpu"
+    assert [r["name"] for r in res["rows"]] == names
+    for r in res["rows"]:
+        for k in keys:
+            assert k in r, (r["name"], k)
+
+
+def test_micro_flow_runs_every_row(frames):
+    res = micro_flow.run(frames, device="cpu", reps=1)
+    _check_rows(res, ["K3 fused_iteration 112x160", "K4 warp_matrices 112x160",
+                      "K2 blur_solve on K4's M 112x160",
+                      "update_matrices packed (plain) 112x160",
+                      "K1 poly_exp 112x160", "K1 poly_exp 34x48"],
+                ("ms", "device_us", "bytes", "ops", "bound_us", "bound_by", "share_of_bound"))
+    for r in res["rows"]:
+        assert r["ms"] > 0 and r["bytes"] > 0 and r["bound_us"] > 0
+        assert r["device_us"] is None and r["share_of_bound"] is None  # not measured here
+    assert res["rows"][1]["bytes"] == roofline.warp_matrices(112, 160).bytes
+
+
+def test_profile_1080p_runs_every_stage(frames):
+    res = profile_1080p.run(frames, device="cpu", reps=1, max_cells=256)
+    _check_rows(res, ["full stream step", "flow_from_pyramids (all levels)",
+                      "K4 warp_matrices, finest level, real flow",
+                      "K4 warp_matrices, finest level, zero flow",
+                      "K3 fused_iteration, finest level, real flow",
+                      "K3 fused_iteration, finest level, zero flow",
+                      "DATMO tail (masks, DBSCAN, tracker)",
+                      "flow of the levels below the finest", "build_pyramid (all levels)"],
+                ("ms", "device_ms", "busy_share"))
+    assert all(r["ms"] > 0 and r["device_ms"] is None for r in res["rows"])
+
+
+def test_icp_body_runs_every_part_and_the_tile_probe():
+    res = icp_body.run(*icp_body.clouds(2048), device="cpu", steps=3, reps=1,
+                       threshold=0.2, max_iterations=5)
+    _check_rows(res, ["carry arithmetic only", "kabsch + host SVD (fixed correspondences)",
+                      "kabsch tree sums only (no host copy)", "eval_cached algebra (no K5)",
+                      "stable partition + scatter + gathers", "one K6 launch (tiny) per step"],
+                ("ms_total", "ms_per_step", "device_ms_total"))
+    probe = res["tile_probe"]
+    first = probe["rounds"]["first"]
+    assert first["round"] == 0 and first["active_rows"] == 2048 and first["live_blocks"] == 8
+    assert 1 <= first["visits_median"] <= first["visits_max"] <= first["tiles"] == 8
+    assert first["ops"] == 10 * first["visits_total"] * 256 * 256
+    assert probe["active_rows_per_round"][0] == 2048 and probe["iterations"] >= 2
+    active = probe["rounds"]["active"]
+    assert active["round"] >= 1 and active["active_rows"] > 0
+
+
+def test_tile_visits_leave_the_outputs_alone():
+    """The probe reads the plain sweep's visits; its outputs are the plain
+    version's, so reading the visits changes nothing."""
+    from datmo_using_optical_flow_tpu_torch.ops import nn_kernels
+
+    rng = np.random.default_rng(5)
+    src = torch.as_tensor(rng.uniform(-5, 5, (700, 3)).astype(np.float32))
+    tgt = torch.as_tensor(rng.uniform(-5, 5, (900, 3)).astype(np.float32))
+    index = nn_kernels.build_target_index(tgt, torch.ones(900, dtype=torch.bool))
+    want = nn_kernels.nearest_neighbors_reference(src, index, 600, 0.25)
+    got, visits = nn_kernels.nearest_neighbors_reference_visits(src, index, 600, 0.25)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert visits.shape == (3,) and int(visits[2]) >= 1  # 600 active rows: 3 live blocks
+    assert bool((visits <= index.packed.shape[0]).all())
+    assert int(nn_kernels.nearest_neighbors_reference_visits(src, index, 256)[1][1]) == 0
+
+
+def test_runners_default_to_the_card():
+    """With no device the runners ask for CUDA, which raises where it is absent."""
+    from datmo_using_optical_flow_tpu_torch.config import PipelineAConfig
+    from datmo_using_optical_flow_tpu_torch.models.gmfa import GMFAPipeline
+    from datmo_using_optical_flow_tpu_torch.models.optical_flow_datmo import PipelineA
+
+    if torch.cuda.is_available():
+        assert GMFAPipeline().device.type == "cuda"
+        assert PipelineA(PipelineAConfig()).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="cuda"):
+        GMFAPipeline()
+    with pytest.raises(RuntimeError, match="cuda"):
+        PipelineA(PipelineAConfig())
+    assert GMFAPipeline(device="cpu").device.type == "cpu"
+    assert PipelineA(PipelineAConfig(), "cpu").device.type == "cpu"
+
+
+def test_diagnostics_ask_for_the_card_by_default(frames):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    with pytest.raises(RuntimeError, match="cuda"):
+        micro_flow.run(frames)

@@ -151,7 +151,10 @@ def test_cpu_tensors_take_the_plain_versions():
     fk.blur_solve(torch.rand(5, 40, 48), 15)
     fk.fused_iteration(torch.rand(5, 40, 48), torch.rand(5, 40, 48), torch.zeros(40, 48),
                        torch.zeros(40, 48), 15)
-    assert fk.LAUNCHES == {"poly_exp": 0, "blur_solve": 0, "fused_iteration": 0}
+    fk.warp_matrices(torch.rand(5, 40, 48), torch.rand(5, 40, 48), torch.zeros(40, 48),
+                     torch.zeros(40, 48))
+    assert fk.LAUNCHES == {"poly_exp": 0, "blur_solve": 0, "fused_iteration": 0,
+                           "warp_matrices": 0}
     with pytest.raises(ValueError, match="no kernel or plain version"):
         fk.poly_exp(torch.empty(40, 48, device="meta"), 5, 5.0)
     with pytest.raises(ValueError, match="contiguous"):
