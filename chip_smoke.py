@@ -3,7 +3,9 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs a CUDA
 device, ``nvcc`` and the checkout; without them it fails before printing any
-result.  Phases (each raises on failure, so the script exits non-zero):
+result.  It imports nothing of the JAX package or its scripts: frames and
+scenes come from the port's own copies (``datmo_using_optical_flow_tpu_torch/
+sim/``).  Phases (each raises on failure, so the script exits non-zero):
 
 1. device and toolchain: the card, its power limit, torch/CUDA/nvcc versions;
 2. build of the CUDA kernels from ``datmo_using_optical_flow_tpu_torch/csrc``;
@@ -13,27 +15,36 @@ result.  Phases (each raises on failure, so the script exits non-zero):
    K4 with the converged flow of two 1080x1920 frames, and K4 into K2
    against K3 there; K1 and K6 also beside one PyTorch call of the same
    function (``F.conv2d``, ``torch.add``), timed and not used by the port;
+   K6's launch path split into its parts, each timed over 1,000 calls;
 4. the same at the CPU tests' other shapes and options (untimed), with K4
    at 160x384, 130x384 and 160x1920 and K4 into K2 against K3 at the shapes
    of ``tests/test_flow_pallas.py``;
 5. the 256x320 slice on the card (kernels) against the CPU (plain versions);
-6. pipeline A's main path: the stream step on 25 ``bench.make_frames``
-   1080x1920 frames with ``bench.py``'s configuration, counting each kernel's
-   launches, and frames/s over the 24 steps after the priming frame; the
-   warm-up steps run with synchronising CUDA operations turned into errors;
-7. K5 (the NN sweep) against its plain version at GMFA's reference load
-   (102,400 x 102,400 points): uncapped, with the classification cap, and an
-   ICP-style active subset; its bounds checked sound against a float64
-   ``cKDTree`` on 4096 sampled rows; both timed as in phase 3;
+6. pipeline A's main path: the stream step on 25 ``make_frames`` 1080x1920
+   frames (``bench.py``'s workload) with ``bench.py``'s configuration,
+   counting each kernel's launches, and frames/s over the 24 steps after the
+   priming frame; the warm-up steps run with synchronising CUDA operations
+   turned into errors;
+7. K5 (the NN sweep) bit-equal to its serial plain version at GMFA's
+   reference load (102,400 x 102,400 points): uncapped, with the
+   classification cap, an ICP-style active subset, every target twice (tied
+   minima), and the inputs of ICP's busiest active round on the reference
+   scene's frame pair 0 -> 1; at each cluster size (1, 2, 4, 8, 16 CTAs per
+   block) with its device µs and the busiest block's serial bound, and at
+   the kept sizes; its bounds checked sound against a float64 ``cKDTree``
+   on 4096 sampled rows; wrapper and plain version timed as in phase 3;
 8. the GMFA step at a small configuration on the card against the CPU;
 9. GMFA's main path: ``benchmarks/bench_gmfa.py``'s scene and configuration
    (7 frames, 102,400 expanded points per cloud), ``seed_carry`` and 6
-   ``step`` calls, with K5's launches and the host synchronisations per step;
+   ``step`` calls, with K5's launches and the host synchronisations per
+   step; then K5's device ms per step, full and active sweeps apart, at the
+   kept sizes and at each cluster size (one step's sweeps recorded, then
+   replayed under the profiler);
 10. the diagnostics that run K4 and K6, at full size, each with every launch
     count set to 0 just before it and read just after: ``micro_flow`` and
-    ``profile_1080p`` on two ``bench.make_frames`` 1080x1920 frames (K1-K4),
-    and ``icp_body`` at 102,400 points (K6), whose K5 tile probe runs ICP on
-    the reference scene's frame pair 0 -> 1 (K5).
+    ``profile_1080p`` on two ``make_frames`` 1080x1920 frames (K1-K4), and
+    ``icp_body`` at 102,400 points (K6), whose K5 tile probe runs ICP on the
+    reference scene's frame pair 0 -> 1 (K5).
 
 The GMFA clouds are made with numpy and the port's point ops: flip x, drop
 ``|z| <= 0.5`` (a stand-in for RANSAC ground removal on the z = 0 plane, which
@@ -47,7 +58,6 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
-import importlib.util
 import json
 import os
 import statistics
@@ -135,7 +145,7 @@ def smooth_flow(h: int, w: int, dev, amp: float = 4.0):
 
 def kernel_phases(dev, name: str, smi: str, h: int, w: int) -> dict:
     """Each kernel against its plain version at the main path's shapes, timed."""
-    from bench import make_frames
+    from datmo_using_optical_flow_tpu_torch.sim.frames import make_frames
     from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
     from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
 
@@ -272,7 +282,48 @@ def probe_phase(dev, name: str, smi: str) -> dict:
     log(f"tiny 8x128: bit-equal to its plain version, kernel {ms:.4f} ms, plain {plain_ms:.4f} "
         f"ms [{name}, {smi}]")
     lib_ms = library_phase("tiny", "8x128", lambda: torch.add(x, 1.0), want, 0.0, dev, name, smi)
+    launch_path_breakdown(x, name, smi)
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms}
+
+
+def launch_path_breakdown(x, name: str, smi: str, n: int = 1000) -> dict:
+    """Host µs per call of each part of K6's launch path (``kernels/build.Entry``),
+    each over ``n`` calls in a Python loop on the host clock, beside the whole
+    wrapper call and ``torch.add``: the wrapper's checks of its input, the
+    output's allocation, the raw stream lookup, the ctypes call that launches
+    the kernel (with its device guard in C), and the check of its return."""
+    from datmo_using_optical_flow_tpu_torch.kernels import build
+    from datmo_using_optical_flow_tpu_torch.ops import probe_kernels as pk
+    from datmo_using_optical_flow_tpu_torch.ops.flow_kernels import _on_cuda
+
+    fn, stream = pk._TINY.resolve()
+    index = x.device.index
+    out = torch.empty_like(x)
+    args = (out.data_ptr(), x.data_ptr(), x.numel(), index, stream(index))
+
+    def checks():
+        return (x.dtype != torch.float32, x.is_contiguous(), x.numel(), _on_cuda(x),
+                x.device.index, x.data_ptr(), out.data_ptr())
+
+    parts = {"input checks and pointers": checks,
+             "allocation (torch.empty_like)": lambda: torch.empty_like(x),
+             "raw stream lookup": lambda: stream(index),
+             "ctypes call (device guard, launch)": lambda: fn(*args),
+             "check of the return": lambda: build.check(0, "tiny"),
+             "whole tiny() call": lambda: pk.tiny(x),
+             "torch.add(x, 1.0)": lambda: torch.add(x, 1.0)}
+    us = {}
+    for label, body in parts.items():
+        body()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            body()
+        us[label] = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+    log("tiny launch path, host us per call over " + str(n) + " calls: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in us.items()) + f" [{name}, {smi}]")
+    return us
 
 
 def other_shapes_phase(dev) -> None:
@@ -333,7 +384,7 @@ def bench_config(h: int, w: int, max_cells: int):
 
 def slice_phase(dev, h: int, w: int) -> None:
     """The slice on the card (kernels) against the CPU (plain versions)."""
-    from bench import make_frames
+    from datmo_using_optical_flow_tpu_torch.sim.frames import make_frames
     from datmo_using_optical_flow_tpu_torch.models.optical_flow_datmo import PipelineA
 
     cfg = bench_config(h, w, 1024)
@@ -356,7 +407,7 @@ def slice_phase(dev, h: int, w: int) -> None:
 
 def main_path(dev, name: str, smi: str, h: int, w: int, n_frames: int) -> dict:
     """bench.py's workload through the port: prime, then n_frames - 1 steps."""
-    from bench import make_frames
+    from datmo_using_optical_flow_tpu_torch.sim.frames import make_frames
     from datmo_using_optical_flow_tpu_torch.models.optical_flow_datmo import PipelineA
 
     cfg = bench_config(h, w, 4096)
@@ -395,24 +446,13 @@ def main_path(dev, name: str, smi: str, h: int, w: int, n_frames: int) -> dict:
 
 # ------------------------------------------------------------------ GMFA (pipeline B)
 
-def _synthetic_module():
-    """``datmo_using_optical_flow_tpu/sim/synthetic.py`` loaded by file path:
-    it needs only numpy, while the JAX package's ``__init__`` imports yaml."""
-    path = os.path.join(ROOT, "datmo_using_optical_flow_tpu", "sim", "synthetic.py")
-    spec = importlib.util.spec_from_file_location("_datmo_synthetic", path)
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[spec.name] = mod  # dataclasses resolve their module by name
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def gmfa_clouds(scene, cfg, n_frames: int, dev, seed: int, dt: float | None = None):
     """Expanded clouds ((P, 3), (P,)) on ``dev`` for frames 0..n_frames-1,
     ``dt`` seconds apart (default: the configuration's)."""
     from datmo_using_optical_flow_tpu_torch.ops import points as point_ops
+    from datmo_using_optical_flow_tpu_torch.sim import synthetic as synth
     from datmo_using_optical_flow_tpu_torch.utils.padding import compact_masked
 
-    synth = _synthetic_module()
     rng = np.random.default_rng(seed)
     caps = cfg.capacities
     out = []
@@ -433,8 +473,8 @@ def gmfa_clouds(scene, cfg, n_frames: int, dev, seed: int, dt: float | None = No
 def bench_gmfa_setup():
     """``benchmarks/bench_gmfa.py``'s configuration and scene (seed 42)."""
     from datmo_using_optical_flow_tpu_torch.config import CapacityConfig, GMFAConfig
+    from datmo_using_optical_flow_tpu_torch.sim import synthetic as synth
 
-    synth = _synthetic_module()
     box = synth.BoxTarget
     cfg = GMFAConfig(capacities=CapacityConfig(max_raw_points=65536, max_roi_points=10240,
                                                max_cells=4096, max_clusters=32, max_tracks=64))
@@ -449,28 +489,13 @@ def bench_gmfa_setup():
     return cfg, scene
 
 
-def _nn_compare(label: str, got, want, rows) -> float:
-    """Max abs error over the float outputs at ``rows``; raises unless every
-    idx matches (or is a near-tie) and the floats agree within 1e-5 relative."""
-    gi, gd, gl, gb, gc = (t[rows] for t in got)
-    wi, wd, wl, wb, wc = (t[rows] for t in want)
-    mism = gi != wi
-    n_mism = int(mism.sum())
-    err = 0.0
-    for g, w in ((gd, wd), (gl, wl), (gb, wb), (gc, wc)):
-        fin = torch.isfinite(w)
-        if not torch.equal(fin, torch.isfinite(g)):
-            raise AssertionError(f"K5 {label}: finite entries differ")
-        if bool(fin.any()):
-            diff = (g[fin] - w[fin]).abs()
-            if not bool((diff <= 1e-5 * (1.0 + w[fin].abs())).all()):
-                raise AssertionError(f"K5 {label}: max error {float(diff.max())} over tolerance")
-            err = max(err, float(diff.max()))
-    if n_mism and not bool(((gd[mism] - wd[mism]).abs() <= 1e-5 * (1.0 + wd[mism])).all()):
-        raise AssertionError(f"K5 {label}: {n_mism} idx mismatches beyond near-ties")
-    log(f"K5 {label}: idx mismatches {n_mism} of {int(rows.sum())}, max_abs_err {err:.3e} "
-        f"(tol 1e-5 relative)")
-    return err
+def _k5_equal(label: str, got, want) -> None:
+    """Raise unless the kernel's five outputs equal the plain version's, bit
+    for bit."""
+    names = ("idx", "d2", "lo", "d2nd", "coords")
+    bad = {n: int((g != w).sum()) for n, g, w in zip(names, got, want) if not torch.equal(g, w)}
+    if bad:
+        raise AssertionError(f"K5 {label}: differs from the serial plain version {bad}")
 
 
 def _nn_sound(label: str, src, tgt, tgt_mask, lo, d2nd, rows, seed: int) -> None:
@@ -492,70 +517,142 @@ def _nn_sound(label: str, src, tgt, tgt_mask, lo, d2nd, rows, seed: int) -> None
         raise AssertionError(f"K5 {label}: unsound bounds ({bad_lo}, {bad_b2})")
 
 
-def _device_us(fn, needle: str) -> str:
-    """Mean device time per launch of the kernels whose name holds ``needle``
-    over 5 profiled calls, or "not measured" when the trace has none."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            fn()
-        torch.cuda.synchronize()
-    for ev in prof.key_averages():
-        if needle in ev.key and ev.count:
-            total = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-            if total:
-                return f"{total / ev.count:.1f}"
-    return "not measured"
-
-
-def nn_phase(dev, name: str, smi: str, clouds) -> dict:
-    """K5 against its plain version at reference load, timed, with the tiles
-    each block visits (read from the plain sweep) and the bound they set."""
-    from datmo_using_optical_flow_tpu_torch.diagnostics import roofline
+def nn_cases(dev, pair, icp_cfg):
+    """K5's inputs at GMFA's reference load: (label, src, index, keyword
+    arguments of ``nearest_neighbors``, rows owed a result, target, target
+    mask).  Uncapped and with the classification cap (Morton-sorted sources,
+    as the classification sweep and ICP's final evaluation give them), an
+    ICP-style ~13% active subset partitioned to the front, every target twice
+    (so every row's minimum is tied), and the inputs ICP's busiest active
+    round gave K5 on this frame pair (recorded around its active query)."""
+    from datmo_using_optical_flow_tpu_torch.diagnostics import icp_body
     from datmo_using_optical_flow_tpu_torch.ops import nn_kernels as k5
 
-    (prev, prev_m), (cur, cur_m) = clouds[0], clouds[1]
+    (prev, prev_m), (cur, cur_m) = pair
     index = k5.build_target_index(cur, cur_m)
-    # the classification sweep's and eval_full's layout: sources Morton-sorted
     order = k5.sort_order(prev, prev_m).long()
     src, src_valid = prev[order].contiguous(), prev_m[order]
     cls_cap2 = float(np.float32(1.2) * np.float32(1.2))
     icp_cap2 = float(np.float32(0.1) * np.float32(0.1))
-    # an ICP-style active subset (~13%), stably partitioned to the front
     gen = torch.Generator(device=dev).manual_seed(3)
     active = src_valid & (torch.rand(src.shape[0], generator=gen, device=dev) < 0.13)
     part = torch.cat([torch.nonzero(active)[:, 0], torch.nonzero(~active)[:, 0]])
     src_c = src[part].contiguous()
     n_act = int(active.sum())
-    table = k5.build_block_table(src_c, index)
-    cases = [("uncapped", src, {}, src_valid),
-             ("capped (2*0.6)^2", src, {"cap2": cls_cap2}, src_valid),
-             (f"active {n_act}/{src.shape[0]} cap (5*0.02)^2", src_c,
-              {"n_active": n_act, "cap2": icp_cap2, "block_table": table},
-              torch.arange(src.shape[0], device=dev) < n_act)]
-    res = {"max_abs_err": 0.0}
-    for i, (label, s, kw, rows) in enumerate(cases):
-        got = k5.nearest_neighbors(s, index, **kw)
-        want, visits = k5.nearest_neighbors_reference_visits(s, index, **kw)
+    half = cur.shape[0] // 2
+    dup, dup_m = torch.cat([cur[:half], cur[:half]]), torch.cat([cur_m[:half], cur_m[:half]])
+    _, rounds, busiest = icp_body.record_icp_rounds(prev, prev_m, cur, cur_m, icp_cfg.threshold,
+                                                    icp_cfg.max_iterations)
+    rp = icp_body.round_inputs(rounds[busiest])
+    r_act = int(rp.block_counts.sum())
+    every = torch.ones(src.shape[0], dtype=torch.bool, device=dev)
+    return [("uncapped", src, index, {}, src_valid, cur, cur_m),
+            ("capped (2*0.6)^2", src, index, {"cap2": cls_cap2}, src_valid, cur, cur_m),
+            (f"active {n_act}/{src.shape[0]} cap (5*0.02)^2", src_c, index,
+             {"n_active": n_act, "cap2": icp_cap2, "block_table": k5.build_block_table(src_c, index)},
+             torch.arange(src.shape[0], device=dev) < n_act, cur, cur_m),
+            ("every target twice (tied minima)", src, k5.build_target_index(dup, dup_m), {},
+             src_valid, dup, dup_m),
+            (f"ICP round {busiest} ({r_act} active rows)", rp.src, rp.index,
+             {"n_active": r_act, "cap2": float(rp.cap2[0])},
+             torch.arange(rp.src.shape[0], device=dev) < r_act, cur, cur_m)]
+
+
+def nn_phase(dev, name: str, smi: str, cases) -> dict:
+    """K5 against its serial plain version (bit-equal) on ``cases``, at each
+    cluster size and at the source's, with its bounds checked sound; device
+    µs per cluster size; per-call ms of the wrapper and the plain version,
+    timed as in phase 3; the tiles each block visits (read from the plain
+    sweep) and the bounds they set."""
+    from datmo_using_optical_flow_tpu_torch.diagnostics import roofline
+    from datmo_using_optical_flow_tpu_torch.diagnostics.measure import device_us_per_call
+    from datmo_using_optical_flow_tpu_torch.ops import nn_kernels as k5
+
+    res = {"max_abs_err": 0.0, "cases": []}
+    for i, (label, s, index, kw, rows, tgt, tgt_m) in enumerate(cases):
+        p = k5.prepare(s, index, **kw)
+        active = "n_active" in kw  # as the wrapper chooses the kept size
+        want, visits = k5._sweep_reference(p)
+        got = k5._sweep_kernel(p, active=active)
         torch.cuda.synchronize()
+        _k5_equal(label, got, want)
+        n = s.shape[0]
+        _nn_sound(label, s, tgt, tgt_m, got[2][:n], got[3][:n], rows, seed=i)
         live = visits[visits > 0].to(torch.float64)
-        work = roofline.nearest_neighbors(s.shape[0], index.packed.shape[0] * k5.TGT_TILE,
+        vmax = int(live.max())
+        work = roofline.nearest_neighbors(n, index.packed.shape[0] * k5.TGT_TILE,
                                           int(live.sum()), live.numel())
-        log(f"K5 {label}: tiles visited per live block mean {float(live.mean()):.2f}, median "
-            f"{float(live.median()):.1f}, max {int(live.max())} of {index.packed.shape[0]} "
+        log(f"K5 {label}: bit-equal to the serial plain version (max_abs_err 0.0, 0 idx "
+            f"mismatches); tiles visited per live block mean {float(live.mean()):.2f}, median "
+            f"{float(live.median()):.1f}, max {vmax} of {index.packed.shape[0]} "
             f"({live.numel()} live blocks); {work.ops / 1e9:.3f} Gop, bound "
-            f"{work.bound_us():.3f} us ({work.bound_by()})")
-        res["max_abs_err"] = max(res["max_abs_err"], _nn_compare(label, got, want, rows))
-        _nn_sound(label, s, cur, cur_m, got[2], got[3], rows, seed=i)
-        ms, plain_ms = time_pair(lambda: k5.nearest_neighbors_reference(s, index, **kw),
-                                 lambda: k5.nearest_neighbors(s, index, **kw),
-                                 rounds=3, warmup=1)
-        us = _device_us(lambda: k5.nearest_neighbors(s, index, **kw), "nn_sweep")
-        log(f"K5 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per call (incl. the "
-            f"block table), kernel device {us} us [{name}, {smi}]")
+            f"{work.bound_us():.3f} us ({work.bound_by()}), busiest block's serial bound "
+            f"{roofline.nearest_neighbors_serial_us(vmax):.3f} us on one SM")
+        per_c = {}
+        for c in k5.CLUSTER_SIZES:
+            _k5_equal(f"{label} C={c}", k5._sweep_kernel(p, c), want)
+            per_c[c] = device_us_per_call(lambda: k5._sweep_kernel(p, c), dev, reps=3)
+            log(f"K5 {label} C={c}: bit-equal, device {per_c[c]:.1f} us, busiest block's serial "
+                f"bound {roofline.nearest_neighbors_serial_us(vmax, c):.3f} us "
+                f"[{name}, {smi}]")
+        kept_us = device_us_per_call(lambda: k5._sweep_kernel(p, active=active), dev, reps=3)
+        row = {"label": label, "device_us": per_c, "kept_us": kept_us,
+               "bound_us": work.bound_us(), "visits_max": vmax}
+        if i != 3:  # the tie case is a check, not a shape of the path
+            ms, plain_ms = time_pair(lambda: k5.nearest_neighbors_reference(s, index, **kw),
+                                     lambda: k5.nearest_neighbors(s, index, **kw),
+                                     rounds=3, warmup=1)
+            row.update(ms=ms, plain_ms=plain_ms)
+            log(f"K5 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per call (incl. the "
+                f"block table), kernel device {kept_us:.1f} us [{name}, {smi}]")
+        res["cases"].append(row)
         if i == 0:
-            res["ms"], res["plain_ms"], res["work"] = ms, plain_ms, work
+            res["ms"], res["plain_ms"], res["work"] = row["ms"], row["plain_ms"], work
+    return res
+
+
+def k5_step_phase(dev, name: str, smi: str, pipe, clouds) -> dict:
+    """K5's device ms per GMFA step, full and active sweeps apart, at the
+    source's cluster size and at each size: the step on frame 1 after
+    ``seed_carry`` on frame 0, with every K5 call's inputs recorded, then the
+    recorded sweeps replayed under the profiler."""
+    from unittest import mock
+
+    from datmo_using_optical_flow_tpu_torch.diagnostics.measure import device_us_per_call
+    from datmo_using_optical_flow_tpu_torch.ops import nn_kernels as k5
+
+    calls = []
+    original = k5.nearest_neighbors
+
+    def recorder(src, index, n_active=None, cap2=None, block_counts=None, block_table=None,
+                 drift=None):
+        p = k5.prepare(src, index, n_active, cap2, block_counts, block_table, drift)
+        calls.append((p, n_active is not None or block_counts is not None))
+        return original(src, index, n_active, cap2, block_counts, block_table, drift)
+
+    carry = pipe.seed_carry(*clouds[0])
+    with mock.patch.object(k5, "nearest_neighbors", recorder):
+        pipe.step(*clouds[1], carry)
+    torch.cuda.synchronize()
+    groups = {"full": [p for p, a in calls if not a], "active": [p for p, a in calls if a]}
+
+    def step_ms(cluster) -> dict:
+        out = {}
+        for g, ps in groups.items():
+            out[g] = device_us_per_call(
+                lambda: [k5._sweep_kernel(p, cluster, g == "active") for p in ps], dev,
+                reps=1) / 1e3
+        out["total"] = out["full"] + out["active"]
+        return out
+
+    res = {"kept": step_ms(None)}
+    for c in k5.CLUSTER_SIZES:
+        res[c] = step_ms(c)
+    for key, ms in res.items():
+        log(f"K5 per GMFA step ({len(groups['full'])} full + {len(groups['active'])} active "
+            f"sweeps), {'kept cluster size' if key == 'kept' else f'C={key}'}: device "
+            f"{ms['total']:.3f} ms (full {ms['full']:.3f}, active {ms['active']:.3f}) "
+            f"[{name}, {smi}]")
     return res
 
 
@@ -565,8 +662,8 @@ def gmfa_slice_phase(dev) -> None:
     from datmo_using_optical_flow_tpu_torch.config import (CapacityConfig, DbscanConfig,
                                                            GMFAConfig, IcpConfig)
     from datmo_using_optical_flow_tpu_torch.models.gmfa import GMFAPipeline
+    from datmo_using_optical_flow_tpu_torch.sim import synthetic as synth
 
-    synth = _synthetic_module()
     cfg = GMFAConfig(dbscan=DbscanConfig(eps=1.0, min_samples=30), icp=IcpConfig(threshold=0.2),
                      capacities=CapacityConfig(max_raw_points=8192, max_roi_points=512,
                                                max_cells=1024, max_clusters=8, max_tracks=16))
@@ -598,9 +695,10 @@ def gmfa_slice_phase(dev) -> None:
             raise AssertionError(f"GMFA slice frame {i} disagrees with the CPU run")
 
 
-def gmfa_main_path(dev, name: str, smi: str, n_frames: int) -> dict:
+def gmfa_main_path(dev, name: str, smi: str, n_frames: int) -> tuple[dict, dict]:
     """bench_gmfa.py's workload through the port: seed_carry, then n_frames - 1
-    steps, at 102,400 expanded points per cloud."""
+    steps, at 102,400 expanded points per cloud; then K5's device ms per step
+    (:func:`k5_step_phase`).  Returns the launches and those ms."""
     from datmo_using_optical_flow_tpu_torch.models.gmfa import GMFAPipeline
     from datmo_using_optical_flow_tpu_torch.ops import icp as icp_ops
     from datmo_using_optical_flow_tpu_torch.ops import nn_kernels as k5
@@ -661,15 +759,15 @@ def gmfa_main_path(dev, name: str, smi: str, n_frames: int) -> dict:
     finite = finite and bool(torch.isfinite(carry.table.state).all())
     if not finite or launches <= 0 or sum(int(o.moving_count) for o in outs) <= 0:
         raise AssertionError(f"GMFA outputs: finite={finite} launches={launches}")
-    return {"nearest_neighbors": launches}
+    return {"nearest_neighbors": launches}, k5_step_phase(dev, name, smi, pipe, clouds)
 
 
 def diagnostics_phase(dev, gmfa_cfg, pair) -> dict:
     """This slice's path: the diagnostics at full size, each with every launch
     count set to 0 just before it and read just after.  Returns each kernel's
     launches over the runs that must launch it."""
-    from bench import make_frames
     from datmo_using_optical_flow_tpu_torch.diagnostics import icp_body, micro_flow, profile_1080p
+    from datmo_using_optical_flow_tpu_torch.sim.frames import make_frames
 
     frames = make_frames(2, 1080, 1920, seed=0)
     flow = ("poly_exp", "blur_solve", "fused_iteration", "warp_matrices")
@@ -736,9 +834,10 @@ def main() -> None:
 
     cfg, scene = bench_gmfa_setup()
     pair = gmfa_clouds(scene, cfg, 2, dev, 0)
-    results["nearest_neighbors"] = nn_phase(dev, name, smi, pair)
+    results["nearest_neighbors"] = nn_phase(dev, name, smi, nn_cases(dev, pair, cfg.icp))
     gmfa_slice_phase(dev)
-    launches.update(gmfa_main_path(dev, name, smi, 7))
+    k5_launches, k5_step_ms = gmfa_main_path(dev, name, smi, 7)
+    launches.update(k5_launches)
     diag = diagnostics_phase(dev, cfg, (*pair[0], *pair[1]))
     launches.update({k: diag[k] for k in ("warp_matrices", "tiny")})
 
@@ -761,6 +860,8 @@ def main() -> None:
                         "plain_ms": res["plain_ms"], "bound_ms": bound_us / 1e3,
                         "bound_us": bound_us, "bound_by": work[k].bound_by(),
                         "library_ms": res.get("library_ms"), "lib_ms": res.get("library_ms")})
+        if k == "nearest_neighbors":  # its time per GMFA step, by cluster size
+            kernels[-1]["device_ms_per_step"] = {str(c): v for c, v in k5_step_ms.items()}
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -26,12 +26,15 @@
 // after the horizontal pass.  The library is built with -fmad=false (see
 // kernels/build.py) so no multiply-add is contracted.
 //
-// Each C entry point launches on the stream it is given and returns
-// cudaGetLastError(); the Python wrapper raises when that is not cudaSuccess.
+// Each C entry point makes the given device current (device_guard.cuh),
+// launches on the stream it is given and returns cudaGetLastError(); the Python
+// wrapper raises when that is not cudaSuccess.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "device_guard.cuh"
 
 namespace {
 
@@ -406,8 +409,11 @@ extern "C" {
 
 // g, xg, xxg (2n+1 each) and ig (ig11, ig03, ig33, ig55) are HOST pointers.
 int datmo_poly_exp(float* out, const float* img, int h, int w, int n, const float* g,
-                   const float* xg, const float* xxg, const float* ig, void* stream) {
+                   const float* xg, const float* xxg, const float* ig, int device,
+                   void* stream) {
   if (h < 1 || w < 1 || n < 1 || n > kMaxPolyN) return cudaErrorInvalidValue;
+  datmo::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return guard.err;
   PolyTaps pt{};
   for (int k = 0; k < 2 * n + 1; ++k) {
     pt.g[k] = g[k];
@@ -422,9 +428,11 @@ int datmo_poly_exp(float* out, const float* img, int h, int w, int n, const floa
 
 // taps (winsize) is a HOST pointer.
 int datmo_blur_solve(float* odx, float* ody, const float* M, int h, int w,
-                     const float* taps, int winsize, float scale, void* stream) {
+                     const float* taps, int winsize, float scale, int device, void* stream) {
   Window win;
   if (h < 1 || w < 1 || !window_from_host(&win, taps, winsize)) return cudaErrorInvalidValue;
+  datmo::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return guard.err;
   const int r = winsize / 2;
   const size_t smem = window_smem_bytes(r);
   cudaError_t err = set_smem(blur_solve_kernel, smem);
@@ -437,9 +445,12 @@ int datmo_blur_solve(float* odx, float* ody, const float* M, int h, int w,
 // taps (winsize) is a HOST pointer.
 int datmo_fused_iteration(float* odx, float* ody, const float* R0, const float* R1,
                           const float* dx, const float* dy, int h, int w,
-                          const float* taps, int winsize, float scale, void* stream) {
+                          const float* taps, int winsize, float scale, int device,
+                          void* stream) {
   Window win;
   if (h < 2 || w < 2 || !window_from_host(&win, taps, winsize)) return cudaErrorInvalidValue;
+  datmo::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return guard.err;
   const int r = winsize / 2;
   const size_t smem = window_smem_bytes(r);
   cudaError_t err = set_smem(fused_iteration_kernel, smem);
@@ -452,8 +463,10 @@ int datmo_fused_iteration(float* odx, float* ody, const float* R0, const float* 
 
 // All pointers are DEVICE pointers.
 int datmo_warp_matrices(float* M, const float* R0, const float* R1, const float* dx,
-                        const float* dy, int h, int w, void* stream) {
+                        const float* dy, int h, int w, int device, void* stream) {
   if (h < 2 || w < 2) return cudaErrorInvalidValue;
+  datmo::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return guard.err;
   const size_t n = static_cast<size_t>(h) * w;
   const unsigned int blocks = static_cast<unsigned int>((n + kPixelThreads - 1) / kPixelThreads);
   warp_matrices_kernel<<<blocks, kPixelThreads, 0, static_cast<cudaStream_t>(stream)>>>(

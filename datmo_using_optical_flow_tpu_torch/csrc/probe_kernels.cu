@@ -9,12 +9,15 @@
 // Bound on the H100: at the probe's (8, 128) float32 block it moves 8 KB and
 // does 1,024 adds, ~2.4 ns of memory time, so its time is the launch's.
 //
-// The C entry point launches on the stream it is given and returns
-// cudaGetLastError(); the Python wrapper raises when that is not cudaSuccess.
+// The C entry point makes the given device current (device_guard.cuh),
+// launches on the stream it is given and returns cudaGetLastError(); the Python
+// wrapper raises when that is not cudaSuccess.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "device_guard.cuh"
 
 namespace {
 
@@ -31,8 +34,10 @@ tiny_kernel(const float* __restrict__ x, float* __restrict__ out, int64_t n) {
 extern "C" {
 
 // x and out are DEVICE pointers to n float32 values.
-int datmo_tiny(float* out, const float* x, int64_t n, void* stream) {
+int datmo_tiny(float* out, const float* x, int64_t n, int device, void* stream) {
   if (n < 1) return cudaErrorInvalidValue;
+  datmo::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return guard.err;
   const unsigned int blocks = static_cast<unsigned int>((n + kThreads - 1) / kThreads);
   tiny_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(x, out, n);
   return cudaGetLastError();

@@ -20,8 +20,11 @@ A probe the JAX records never had: the tiles K5 visits per 256-row block in
 ICP's first round (every valid row active) and in its active round with the
 most rows, read from the plain sweep's stopping rule
 (``ops/nn_kernels.nearest_neighbors_reference_visits``) on the inputs the
-round gave K5.  It changes no output of the kernel: ICP runs as it does in the
-pipeline, with a recorder around its active query.
+round gave K5, with the busiest block's index beside the last live block's
+(the one that mixes the last active rows with the first inactive ones).  It
+changes no output of the kernel: ICP runs as it does in the pipeline, with a
+recorder around its active query (:func:`record_icp_rounds`, which also gives
+the rounds' K5 inputs to ``chip_smoke.py``).
 
     python -m datmo_using_optical_flow_tpu_torch.diagnostics.icp_body [--points N]
 """
@@ -89,13 +92,17 @@ def tile_visits(pts: torch.Tensor, active: torch.Tensor, index: nn_kernels.Targe
     total = int(live.sum())
     work = roofline.nearest_neighbors(pts.shape[0], index.packed.shape[0] * nn_kernels.TGT_TILE,
                                       total, live.numel())
+    vmax = int(live.max()) if live.numel() else 0
     return {"active_rows": n_act, "live_blocks": live.numel(),
             "tiles": index.packed.shape[0], "visits_total": total,
             "visits_mean": float(live.mean()) if live.numel() else 0.0,
             "visits_median": float(live.median()) if live.numel() else 0.0,
-            "visits_max": int(live.max()) if live.numel() else 0,
+            "visits_max": vmax,
+            "busiest_block": int(torch.argmax(live)) if live.numel() else -1,
+            "last_live_block": live.numel() - 1,
             "bytes": work.bytes, "ops": work.ops, "bound_us": work.bound_us(),
-            "bound_by": work.bound_by()}
+            "bound_by": work.bound_by(),
+            "serial_bound_us": roofline.nearest_neighbors_serial_us(vmax)}
 
 
 def _probe_pair(src: torch.Tensor):
@@ -109,10 +116,14 @@ def _probe_pair(src: torch.Tensor):
     return src, mask, (src @ rot.T + shift).contiguous(), mask
 
 
-def icp_tile_probe(source, source_mask, target, target_mask, threshold: float,
-                   max_iterations: int, card: str) -> dict:
-    """Run cached ICP as GMFA does and read the tiles K5 visits in the first
-    round and in the active round with the most rows."""
+def record_icp_rounds(source, source_mask, target, target_mask, threshold: float,
+                      max_iterations: int):
+    """Run cached ICP as GMFA does, with a recorder around its active query.
+
+    Returns ``(result, rounds, busiest)``: ``rounds`` holds each round's
+    ``(points, active, index, cap2)``, the query's inputs; ``busiest`` is the
+    round after the first with the most active rows (None if no later round
+    swept a row)."""
     rounds = []
     original = icp.nearest_neighbors_active
 
@@ -123,9 +134,27 @@ def icp_tile_probe(source, source_mask, target, target_mask, threshold: float,
     with mock.patch.object(icp, "nearest_neighbors_active", recorder):
         res = icp.registration_icp(source, source_mask, target, target_mask, threshold,
                                    max_iterations, cached=True)
+    counts = [int(r[1].sum()) for r in rounds]
+    later = [i for i in range(1, len(rounds)) if counts[i] > 0]
+    busiest = max(later, key=lambda i: counts[i]) if later else None
+    return res, rounds, busiest
+
+
+def round_inputs(rnd) -> nn_kernels.Prepared:
+    """K5's inputs for a recorded round, as ``ops/nn.nearest_neighbors_active``
+    prepares them."""
+    pts, active, index, cap2 = rnd
+    src_c, _, n_active = nn.partition_active(pts.to(torch.float32), active)
+    return nn_kernels.prepare(src_c, index, n_active, cap2)
+
+
+def icp_tile_probe(source, source_mask, target, target_mask, threshold: float,
+                   max_iterations: int, card: str) -> dict:
+    """Run cached ICP as GMFA does and read the tiles K5 visits in the first
+    round and in the active round with the most rows."""
+    res, rounds, busiest = record_icp_rounds(source, source_mask, target, target_mask,
+                                             threshold, max_iterations)
     active_counts = [int(r[1].sum()) for r in rounds]
-    later = [i for i in range(1, len(rounds)) if active_counts[i] > 0]
-    busiest = max(later, key=lambda i: active_counts[i]) if later else None
     out = {"iterations": int(res.iterations), "fitness": float(res.fitness),
            "active_rows_per_round": active_counts, "rounds": {}}
     for label, i in (("first", 0), ("active", busiest)):
@@ -138,8 +167,11 @@ def icp_tile_probe(source, source_mask, target, target_mask, threshold: float,
         print(f"K5 tiles per block, ICP {label} round ({i}): {v['active_rows']} active rows, "
               f"{v['live_blocks']} live blocks of {-(-pts.shape[0] // nn_kernels.SRC_BLOCK)}, "
               f"visits mean {v['visits_mean']:.2f} median {v['visits_median']:.1f} max "
-              f"{v['visits_max']} of {v['tiles']} tiles, {v['ops'] / 1e9:.3f} Gop, bound "
-              f"{v['bound_us']:.3f} us ({v['bound_by']}) [{card}]", flush=True)
+              f"{v['visits_max']} of {v['tiles']} tiles (block {v['busiest_block']}; the last "
+              f"live block, which mixes active and inactive rows, is {v['last_live_block']}), "
+              f"{v['ops'] / 1e9:.3f} Gop, bound {v['bound_us']:.3f} us ({v['bound_by']}), "
+              f"busiest block's serial bound {v['serial_bound_us']:.3f} us on one SM "
+              f"[{card}]", flush=True)
     print(f"ICP probe: {out['iterations']} rounds ran, fitness {out['fitness']:.6f}, active "
           f"rows per round {active_counts} [{card}]", flush=True)
     return out

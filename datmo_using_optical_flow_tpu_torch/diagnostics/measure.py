@@ -1,4 +1,4 @@
-"""Timing, labelling and inputs shared by the diagnostics.
+"""Timing and labelling shared by the diagnostics.
 
 On the card a call's time is taken with CUDA events around it (median over
 the repetitions, each ending in a synchronize), and its device time from a
@@ -16,7 +16,6 @@ import subprocess
 import time
 from typing import Callable
 
-import numpy as np
 import torch
 
 from datmo_using_optical_flow_tpu_torch.diagnostics.roofline import Work
@@ -129,14 +128,3 @@ def stage_row(name: str, fn: Callable, dev: torch.device, card: str, reps: int =
           f"{fmt(row['busy_share'])} [{card}]", flush=True)
     return row
 
-
-def moving_frames(n: int, h: int, w: int, seed: int = 0) -> np.ndarray:
-    """(n, h, w) uint8 frames of a smooth random texture that moves 2 px down
-    and 3 px right per frame (for the diagnostics' command lines)."""
-    rng = np.random.default_rng(seed)
-    coarse = rng.uniform(0, 255, (h // 8 + 2, w // 8 + 2))
-    xs = np.linspace(0, coarse.shape[1] - 1, w)
-    ys = np.linspace(0, coarse.shape[0] - 1, h)
-    rows = np.stack([np.interp(xs, np.arange(coarse.shape[1]), r) for r in coarse])
-    tex = np.stack([np.interp(ys, np.arange(coarse.shape[0]), c) for c in rows.T], axis=1)
-    return np.stack([np.roll(tex, (2 * t, 3 * t), axis=(0, 1)) for t in range(n)]).astype(np.uint8)

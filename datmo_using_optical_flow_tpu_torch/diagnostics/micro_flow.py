@@ -23,11 +23,11 @@ import torch
 
 from datmo_using_optical_flow_tpu_torch.config import FarnebackConfig
 from datmo_using_optical_flow_tpu_torch.diagnostics import roofline
-from datmo_using_optical_flow_tpu_torch.diagnostics.measure import (card_label, kernel_row,
-                                                                     moving_frames)
+from datmo_using_optical_flow_tpu_torch.diagnostics.measure import card_label, kernel_row
 from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
 from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
 from datmo_using_optical_flow_tpu_torch.oracle.np_farneback import level_sizes
+from datmo_using_optical_flow_tpu_torch.sim.frames import make_frames
 from datmo_using_optical_flow_tpu_torch.utils.device import resolve_device
 
 
@@ -75,7 +75,7 @@ def main() -> None:
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--width", type=int, default=1920)
     args = ap.parse_args()
-    print(json.dumps(run(moving_frames(2, args.height, args.width))))
+    print(json.dumps(run(make_frames(2, args.height, args.width))))
 
 
 if __name__ == "__main__":

@@ -21,11 +21,11 @@ import numpy as np
 import torch
 
 from datmo_using_optical_flow_tpu_torch.config import CapacityConfig, PipelineAConfig
-from datmo_using_optical_flow_tpu_torch.diagnostics.measure import (card_label,
-                                                                     moving_frames, stage_row)
+from datmo_using_optical_flow_tpu_torch.diagnostics.measure import card_label, stage_row
 from datmo_using_optical_flow_tpu_torch.models.optical_flow_datmo import PipelineA, _datmo_tail
 from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
 from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
+from datmo_using_optical_flow_tpu_torch.sim.frames import make_frames
 from datmo_using_optical_flow_tpu_torch.utils.device import resolve_device
 
 
@@ -86,7 +86,7 @@ def main() -> None:
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--width", type=int, default=1920)
     args = ap.parse_args()
-    print(json.dumps(run(moving_frames(2, args.height, args.width))))
+    print(json.dumps(run(make_frames(2, args.height, args.width))))
 
 
 if __name__ == "__main__":

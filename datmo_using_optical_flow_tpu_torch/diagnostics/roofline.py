@@ -2,12 +2,18 @@
 
 The bound of a call is the larger of two times: the bytes the function must
 move (each input read once, each output written once) over the card's memory
-rate, and its float32 operations over the card's float32 rate outside the
-tensor cores, which none of the port's kernels uses.  The rates are the H100
-SXM's published 3.35 TB/s (HBM3) and 67 TFLOP/s (float32), at its 700 W limit.
+rate, and its float32 operations over the card's float32 instruction rate
+outside the tensor cores, which none of the port's kernels uses.  The memory
+rate is the H100 SXM's published 3.35 TB/s (HBM3).  The operation rate is
+33.5e12 separately rounded float32 instructions per second: 132 SMs x 128
+float32 lanes x 1.98 GHz.  The published 67 TFLOP/s counts a fused
+multiply-add as two operations; the kernels are built with ``-fmad=false``
+(``kernels/build.py``), so none of their operations is fused, and each
+counted operation below is one instruction.  Both rates hold at the card's
+700 W limit.
 
-Operations are counted from the kernels' code (``csrc/*.cu``, built with
-``-fmad=false``): each add, multiply, divide, compare or floor is one.  They
+Operations are counted from the kernels' code (``csrc/*.cu``): each add,
+multiply, divide, compare or floor is one.  They
 are counted per output pixel for the flow kernels, without the halo that the
 windowed kernels recompute (the bound is for the work, not for one design of
 it), and per (source row, target) pair in the visited tiles for the 1-NN
@@ -23,7 +29,8 @@ import numpy as np
 from datmo_using_optical_flow_tpu_torch.oracle.np_farneback import prepare_gaussian
 
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+FP32_OPS_PER_S = 33.5e12  # separately rounded instructions (see above)
+SMS = 132
 
 # K3/K4's per-pixel warp and M assembly (csrc/flow_kernels.cu::warp_assemble):
 # positions, floors and fractions 6; the inside test 4; bilinear weights 6;
@@ -95,6 +102,16 @@ def nearest_neighbors(n_src: int, n_tgt: int, tile_visits: int, live_blocks: int
     nbytes = (12 * n_src + 4 * n_blocks + 8 * (tile_visits + live_blocks)
               + 20 * m_tiles * NN_BLOCK + 28 * n_blocks * NN_BLOCK)
     return Work(nbytes, NN_PAIR_OPS * tile_visits * NN_BLOCK * NN_BLOCK)
+
+
+def nearest_neighbors_serial_us(max_visits: int, cluster: int = 1) -> float:
+    """K5's serial bound: the busiest block's ``max_visits`` tiles of
+    ``NN_PAIR_OPS`` x 256 x 256 operations at one SM's share of the rate,
+    split over the ``cluster`` SMs that share the block's walk.  When it
+    exceeds the work bound, the longest walk, not the total work, sets the
+    least time."""
+    ops = NN_PAIR_OPS * max_visits * NN_BLOCK * NN_BLOCK
+    return ops / (FP32_OPS_PER_S / SMS) / cluster * 1e6
 
 
 def tiny(numel: int) -> Work:

@@ -1,6 +1,8 @@
-"""Build and load the port's CUDA kernels (nvcc by hand, bound with ctypes).
+"""Build, load and launch the port's CUDA kernels (nvcc by hand, bound with
+ctypes).
 
-The sources are ``csrc/*.cu`` of this package.  They are compiled for Hopper
+The sources are ``csrc/*.cu`` of this package (with the headers
+``csrc/*.cuh`` they include).  They are compiled for Hopper
 (``sm_90a``), one ``nvcc`` process per source, all started together, and
 linked into one shared library with a plain C interface, named by a hash of
 the sources and flags, under ``build/kernels/`` of the checkout.  The build
@@ -12,6 +14,11 @@ elementwise ops round them, so each kernel can be held to its plain PyTorch
 version at the same tolerance as the CPU tests hold that version to the JAX
 kernel (the near-singular 2x2 solves at attenuated border pixels amplify a
 one-ulp change in M by ~1000x).
+
+Every wrapper launches through one :class:`Entry` per C entry point: the
+function and its argument types are resolved once, the stream is read as a
+raw integer, and the device switch happens in C (``csrc/device_guard.cuh``),
+so a launch costs one ctypes call and no Python device context.
 """
 
 from __future__ import annotations
@@ -26,6 +33,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
@@ -36,15 +45,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C entry points of csrc/*.cu: (argtypes, restype)
+# C entry points of csrc/*.cu: (argtypes, restype).  Each kernel's entry ends
+# with the device index and the stream.
+_NN_SWEEP = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _F, _F]
 _SIGNATURES = {
-    "datmo_poly_exp": ([_P, _P, _I, _I, _I, _P, _P, _P, _P, _P], _I),
-    "datmo_blur_solve": ([_P, _P, _P, _I, _I, _P, _I, _F, _P], _I),
-    "datmo_fused_iteration": ([_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _F, _P], _I),
-    "datmo_nn_sweep": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _F,
-                        _F, _P], _I),
-    "datmo_warp_matrices": ([_P, _P, _P, _P, _P, _I, _I, _P], _I),
-    "datmo_tiny": ([_P, _P, ctypes.c_int64, _P], _I),
+    "datmo_poly_exp": ([_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P], _I),
+    "datmo_blur_solve": ([_P, _P, _P, _I, _I, _P, _I, _F, _I, _P], _I),
+    "datmo_fused_iteration": ([_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _F, _I, _P], _I),
+    "datmo_nn_sweep": ([*_NN_SWEEP, _I, _P], _I),
+    "datmo_nn_sweep_active": ([*_NN_SWEEP, _I, _P], _I),
+    "datmo_nn_sweep_sized": ([*_NN_SWEEP, _I, _I, _P], _I),
+    "datmo_warp_matrices": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "datmo_tiny": ([_P, _P, ctypes.c_int64, _I, _P], _I),
     "datmo_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -71,9 +83,9 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libdatmo_kernels_{h.hexdigest()[:16]}.so"
@@ -131,3 +143,38 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = library().datmo_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err}: {msg}")
+
+
+class Entry:
+    """A kernel's C entry point, launched on the current stream of a device.
+
+    ``entry(device_index, *args)`` calls the C function with ``args``, the
+    device index and that device's current stream (a raw integer), and
+    raises through :func:`check` on a nonzero return.  The function, with its
+    argument types, is resolved at the first call, which builds and loads the
+    library; so is ``torch._C._cuda_getCurrentRawStream``, which only CUDA
+    builds of torch have.
+    """
+
+    __slots__ = ("name", "what", "_fn", "_stream")
+
+    def __init__(self, name: str, what: str):
+        if name not in _SIGNATURES:
+            raise KeyError(f"no C entry point {name}")
+        self.name, self.what = name, what
+        self._fn = self._stream = None
+
+    def resolve(self) -> tuple:
+        """The ctypes function and the raw-stream lookup, resolved once."""
+        if self._fn is None:
+            self._stream = torch._C._cuda_getCurrentRawStream
+            self._fn = getattr(library(), self.name)
+        return self._fn, self._stream
+
+    def __call__(self, device_index: int, *args) -> None:
+        fn = self._fn
+        if fn is None:
+            fn = self.resolve()[0]
+        err = fn(*args, device_index, self._stream(device_index))
+        if err:
+            check(err, self.what)

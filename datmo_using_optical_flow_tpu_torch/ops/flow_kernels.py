@@ -5,7 +5,8 @@ The counterpart of ``datmo_using_optical_flow_tpu.ops.flow_pallas`` and
 :func:`fused_iteration` (K3) and :func:`warp_matrices` (K4) dispatches on its
 input's device alone: a CPU tensor takes the plain version (``*_reference``),
 a CUDA tensor launches the hand-written kernel of ``csrc/flow_kernels.cu`` on
-the current stream, and any other device raises.  There is no fallback from a
+the current stream (through ``kernels/build.Entry``), and any other device
+raises.  There is no fallback from a
 kernel to its plain version.
 
 ``LAUNCHES`` counts kernel launches (not calls of the plain versions), so a run
@@ -24,6 +25,10 @@ from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
 from datmo_using_optical_flow_tpu_torch.oracle.np_farneback import prepare_gaussian
 
 LAUNCHES = {"poly_exp": 0, "blur_solve": 0, "fused_iteration": 0, "warp_matrices": 0}
+_POLY_EXP = build.Entry("datmo_poly_exp", "poly_exp")
+_BLUR_SOLVE = build.Entry("datmo_blur_solve", "blur_solve")
+_FUSED_ITERATION = build.Entry("datmo_fused_iteration", "fused_iteration")
+_WARP_MATRICES = build.Entry("datmo_warp_matrices", "warp_matrices")
 
 
 def reset_launches() -> None:
@@ -122,11 +127,8 @@ def poly_exp(img: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
         return poly_exp_reference(img, n, sigma)
     g, xg, xxg, igs = _poly_taps(n, float(sigma))
     out = torch.empty((5, h, w), dtype=torch.float32, device=img.device)
-    with torch.cuda.device(img.device):
-        err = build.library().datmo_poly_exp(
-            out.data_ptr(), img.data_ptr(), h, w, n, g.ctypes.data, xg.ctypes.data,
-            xxg.ctypes.data, igs.ctypes.data, torch.cuda.current_stream().cuda_stream)
-    build.check(err, "poly_exp")
+    _POLY_EXP(img.device.index, out.data_ptr(), img.data_ptr(), h, w, n, g.ctypes.data,
+              xg.ctypes.data, xxg.ctypes.data, igs.ctypes.data)
     LAUNCHES["poly_exp"] += 1
     return out
 
@@ -153,11 +155,8 @@ def blur_solve(M: torch.Tensor, winsize: int, gaussian: bool = False
     taps, scale = _window(winsize, gaussian)
     dx = torch.empty((h, w), dtype=torch.float32, device=M.device)
     dy = torch.empty_like(dx)
-    with torch.cuda.device(M.device):
-        err = build.library().datmo_blur_solve(
-            dx.data_ptr(), dy.data_ptr(), M.data_ptr(), h, w, taps.ctypes.data, winsize,
-            scale, torch.cuda.current_stream().cuda_stream)
-    build.check(err, "blur_solve")
+    _BLUR_SOLVE(M.device.index, dx.data_ptr(), dy.data_ptr(), M.data_ptr(), h, w,
+                taps.ctypes.data, winsize, scale)
     LAUNCHES["blur_solve"] += 1
     return dx, dy
 
@@ -194,12 +193,9 @@ def fused_iteration(R0: torch.Tensor, R1: torch.Tensor, dx: torch.Tensor,
     taps, scale = _window(winsize, gaussian)
     odx = torch.empty((h, w), dtype=torch.float32, device=R0.device)
     ody = torch.empty_like(odx)
-    with torch.cuda.device(R0.device):
-        err = build.library().datmo_fused_iteration(
-            odx.data_ptr(), ody.data_ptr(), R0.data_ptr(), R1.data_ptr(), dx.data_ptr(),
-            dy.data_ptr(), h, w, taps.ctypes.data, winsize, scale,
-            torch.cuda.current_stream().cuda_stream)
-    build.check(err, "fused_iteration")
+    _FUSED_ITERATION(R0.device.index, odx.data_ptr(), ody.data_ptr(), R0.data_ptr(),
+                     R1.data_ptr(), dx.data_ptr(), dy.data_ptr(), h, w, taps.ctypes.data,
+                     winsize, scale)
     LAUNCHES["fused_iteration"] += 1
     return odx, ody
 
@@ -222,10 +218,7 @@ def warp_matrices(R0: torch.Tensor, R1: torch.Tensor, dx: torch.Tensor,
     if not _on_cuda(R0, R1, dx, dy):
         return warp_matrices_reference(R0, R1, dx, dy)
     M = torch.empty((5, h, w), dtype=torch.float32, device=R0.device)
-    with torch.cuda.device(R0.device):
-        err = build.library().datmo_warp_matrices(
-            M.data_ptr(), R0.data_ptr(), R1.data_ptr(), dx.data_ptr(), dy.data_ptr(), h, w,
-            torch.cuda.current_stream().cuda_stream)
-    build.check(err, "warp_matrices")
+    _WARP_MATRICES(R0.device.index, M.data_ptr(), R0.data_ptr(), R1.data_ptr(), dx.data_ptr(),
+                   dy.data_ptr(), h, w)
     LAUNCHES["warp_matrices"] += 1
     return M

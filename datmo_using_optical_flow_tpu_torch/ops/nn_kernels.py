@@ -17,8 +17,16 @@ other target, and the winner's coordinates.
 takes :func:`nearest_neighbors_reference`, a CUDA tensor launches the kernel
 of ``csrc/nn_kernels.cu`` on the current stream, and any other device raises.
 There is no fallback from the kernel to the plain version.  Both take the
-same prepared inputs and do the same float32 operations in the same order,
-so on one device they agree bit for bit.
+same prepared inputs (:func:`prepare`) and do the same float32 operations in
+the same order, so on one device they agree bit for bit.
+
+The kernel spreads each block's walk over a thread-block cluster: its CTAs
+scan the next few tiles at once and every CTA replays their results in tile
+order.  A full query launches 4 CTAs per block, an active query (one with
+per-block active counts: ICP's, whose few mixed blocks walk nearly every
+tile) 16; the sizes were measured per GMFA step (``csrc/nn_kernels.cu``).
+The plain version's ``chunk`` argument replays as the clusters do, so the
+CPU tests hold that scheme to the serial definition (``chunk=1``).
 
 Unlike the TPU kernel there is no dynamic grid: a block whose active count is
 0 exits at once and writes the constant outputs, with the same values.
@@ -49,6 +57,10 @@ _BIG_I = 2 ** 30
 _HUGE = 3e38  # finite-value test of the squared norms and distances
 
 LAUNCHES = {"nearest_neighbors": 0}
+_SWEEP = build.Entry("datmo_nn_sweep", "nn_sweep")
+_SWEEP_ACTIVE = build.Entry("datmo_nn_sweep_active", "nn_sweep")
+_SWEEP_SIZED = build.Entry("datmo_nn_sweep_sized", "nn_sweep")
+CLUSTER_SIZES = (1, 2, 4, 8, 16)  # what datmo_nn_sweep_sized takes
 
 
 def reset_launches() -> None:
@@ -193,7 +205,7 @@ def build_block_table(src: torch.Tensor, index: TargetIndex, n: int | None = Non
     return lb, torder
 
 
-class _Prepared(NamedTuple):
+class Prepared(NamedTuple):
     """The sweep's inputs, shared by the kernel and its plain version."""
 
     src: torch.Tensor           # (np_, 3) float32, edge-padded
@@ -212,7 +224,9 @@ def _scalar(x, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
     return torch.full((1,), x, dtype=dtype, device=dev)
 
 
-def _prepare(src, index, n_active, cap2, block_counts, block_table, drift) -> _Prepared:
+def prepare(src: torch.Tensor, index: TargetIndex, n_active=None, cap2=None,
+            block_counts=None, block_table=None, drift=None) -> Prepared:
+    """The sweep's inputs for :func:`nearest_neighbors`'s arguments."""
     n = src.shape[0]
     if src.ndim != 2 or src.shape[1] != 3 or n == 0:
         raise ValueError(f"src: expected (N, 3) with N > 0, got {tuple(src.shape)}")
@@ -231,18 +245,61 @@ def _prepare(src, index, n_active, cap2, block_counts, block_table, drift) -> _P
     if drift is not None:
         lb_lin = torch.clamp(lb_lin - _scalar(drift, torch.float32, dev), min=0.0)
     lb2 = torch.where(torch.isfinite(lb_lin), lb_lin * lb_lin, torch.inf)
-    return _Prepared(srcf, block_counts, cap2, lb2.contiguous(),
-                     torder.to(torch.int32).contiguous(), index)
+    return Prepared(srcf, block_counts, cap2, lb2.contiguous(),
+                    torder.to(torch.int32).contiguous(), index)
 
 
-def _sweep_reference(p: _Prepared):
-    """Plain version of the sweep, vectorised over blocks: at step j every
-    block still running handles its j-th tile; a block stops for good at its
-    first tile with ``lb2 > bmax``.  Returns the padded (np_,) / (np_, 3)
-    outputs and, per block, the number of tiles it visited (0 for a block
-    with no active row)."""
+def _scan_tile(p: Prepared, j: int, cent, sx, sy, sz):
+    """Every block's scan of its ``j``-th tile: the tile id and, per row, the
+    minimum, the lowest original index among the minima, the two bound terms
+    ``tl`` and ``t2l`` and the winner's coordinates."""
     idx_all = p.index
-    m_tiles = idx_all.packed.shape[0]
+    jt = p.torder[:, j]
+    jtl = jt.long()
+    tile = idx_all.packed[jtl]                                 # (nb, 8, T)
+    tn_raw = idx_all.tn[jtl, 0]                                # (nb, T)
+    tidx = idx_all.tidx[jtl, 0]
+    tpx = tile[:, 0] - cent[:, 0:1]
+    tpy = tile[:, 1] - cent[:, 1:2]
+    tpz = tile[:, 2] - cent[:, 2:3]
+    tpn = (tpx * tpx + tpy * tpy) + tpz * tpz
+    valid_t = tn_raw < _HUGE
+    tn = torch.where(valid_t, tpn, torch.inf)
+    cross = ((sx[:, :, None] * tpx[:, None, :] + sy[:, :, None] * tpy[:, None, :])
+             + sz[:, :, None] * tpz[:, None, :])
+    d2 = tn[:, None, :] - 2.0 * cross                          # (nb, B, T)
+    td = torch.amin(d2, dim=2)
+    eq = d2 == td[:, :, None]
+    ti = torch.amin(torch.where(eq, tidx[:, None, :], _BIG_I), dim=2)
+    maxtpn = torch.amax(torch.where(valid_t, tpn, 0.0), dim=1)[:, None]
+    tl = td - ALPHA * maxtpn
+    n_min = torch.sum(eq, dim=2)
+    t2raw = torch.amin(torch.where(eq, torch.inf, d2), dim=2)
+    t2 = torch.where(n_min > 1, td, t2raw)
+    # the winner's position in the tile: unique (d2, original index) pair
+    pos = torch.argmax((eq & (tidx[:, None, :] == ti[:, :, None])).to(torch.uint8), dim=2)
+    sel = torch.gather(tile[:, :3, :], 2, pos[:, None, :].expand(-1, 3, -1)).transpose(1, 2)
+    return jt, td, ti, tl, t2 - ALPHA * maxtpn, sel
+
+
+def _take(td, ti, bd, bi):
+    """Whether a tile's minimum replaces the running best (ties: lower index)."""
+    return (td < bd) | ((td == bd) & (td < _HUGE) & (ti < bi))
+
+
+def _sweep_reference(p: Prepared, chunk: int = 1):
+    """Plain version of the sweep, vectorised over blocks: each block visits
+    its tiles in order and stops for good at its first tile with
+    ``lb2 > bmax``.  Returns the padded (np_,) / (np_, 3) outputs and, per
+    block, the number of tiles it visited (0 for a block with no active row).
+
+    ``chunk=1`` is the serial definition.  ``chunk=c`` replays as the
+    kernel's clusters of ``c`` CTAs do: the next ``c`` tiles are scanned
+    first; then each block's best after each of them, as if every one were
+    taken, gives bmax before each, the block stops at the first tile whose
+    bound exceeds it, and the tiles before the stop are applied in order.
+    The results are the serial ones."""
+    m_tiles = p.index.packed.shape[0]
     nb = p.block_counts.shape[0]
     dev = p.src.device
     blocks = p.src.reshape(nb, SRC_BLOCK, 3)
@@ -260,51 +317,42 @@ def _sweep_reference(p: _Prepared):
     bmax = cap2.expand(nb).clone()
     running = p.block_counts > 0
     j_fin = torch.zeros(nb, dtype=torch.int64, device=dev)
-    for j in range(m_tiles):
-        go = running & (p.lb2[:, j] <= bmax)
-        running = go
-        if not bool(go.any()):
-            break
-        j_fin = torch.where(go, j + 1, j_fin)
-        jt = p.torder[:, j]
-        jtl = jt.long()
-        tile = idx_all.packed[jtl]                                 # (nb, 8, T)
-        tn_raw = idx_all.tn[jtl, 0]                                # (nb, T)
-        tidx = idx_all.tidx[jtl, 0]
-        tpx = tile[:, 0] - cent[:, 0:1]
-        tpy = tile[:, 1] - cent[:, 1:2]
-        tpz = tile[:, 2] - cent[:, 2:3]
-        tpn = (tpx * tpx + tpy * tpy) + tpz * tpz
-        valid_t = tn_raw < _HUGE
-        tn = torch.where(valid_t, tpn, torch.inf)
-        cross = ((sx[:, :, None] * tpx[:, None, :] + sy[:, :, None] * tpy[:, None, :])
-                 + sz[:, :, None] * tpz[:, None, :])
-        d2 = tn[:, None, :] - 2.0 * cross                          # (nb, B, T)
-        td = torch.amin(d2, dim=2)
-        eq = d2 == td[:, :, None]
-        ti = torch.amin(torch.where(eq, tidx[:, None, :], _BIG_I), dim=2)
-        finite = td < _HUGE
-        take = go[:, None] & ((td < bd) | ((td == bd) & finite & (ti < bi)))
-        maxtpn = torch.amax(torch.where(valid_t, tpn, 0.0), dim=1)[:, None]
-        tl = td - ALPHA * maxtpn
-        n_min = torch.sum(eq, dim=2)
-        t2raw = torch.amin(torch.where(eq, torch.inf, d2), dim=2)
-        t2 = torch.where(n_min > 1, td, t2raw)
-        g = go[:, None]
-        sm2 = torch.where(g, torch.minimum(sm2, t2 - ALPHA * maxtpn), sm2)
-        is_new_min = g & (tl < s1)
-        s2 = torch.where(is_new_min, s1, torch.where(g, torch.minimum(s2, tl), s2))
-        s1t = torch.where(is_new_min, jt[:, None], s1t)
-        s1 = torch.where(is_new_min, tl, s1)
-        # the winner's position in the tile: unique (d2, original index) pair
-        pos = torch.argmax((eq & (tidx[:, None, :] == ti[:, :, None])).to(torch.uint8), dim=2)
-        sel = torch.gather(tile[:, :3, :], 2, pos[:, None, :].expand(-1, 3, -1)).transpose(1, 2)
-        bti = torch.where(take, jt[:, None], bti)
-        bi = torch.where(take, ti, bi)
-        bd = torch.where(take, td, bd)
-        w = torch.where(take[:, :, None], sel, w)
-        bl = torch.where(g, torch.minimum(bl, tl), bl)
-        bmax = torch.where(go, torch.minimum(torch.amax(bd + sn, dim=1), cap2), bmax)
+    for j0 in range(0, m_tiles, chunk):
+        cols = range(j0, min(j0 + chunk, m_tiles))
+        scans = [_scan_tile(p, j, cent, sx, sy, sz) for j in cols[:-1]]
+        # bmax before each tile of the chunk: the best after the tiles before
+        # it, had each been taken (for a block still running, it was)
+        bmax_before = [bmax]
+        bd_t, bi_t = bd, bi
+        for _, td, ti, _, _, _ in scans:
+            take = _take(td, ti, bd_t, bi_t)
+            bd_t, bi_t = torch.where(take, td, bd_t), torch.where(take, ti, bi_t)
+            bmax_before.append(torch.minimum(torch.amax(bd_t + sn, dim=1), cap2))
+        for k, j in enumerate(cols):
+            go = running & (p.lb2[:, j] <= bmax_before[k])
+            running = go
+            if not bool(go.any()):
+                break
+            j_fin = torch.where(go, j + 1, j_fin)
+            if k == len(scans):
+                scans.append(_scan_tile(p, j, cent, sx, sy, sz))
+            jt, td, ti, tl, t2l, sel = scans[k]
+            g = go[:, None]
+            take = g & _take(td, ti, bd, bi)
+            sm2 = torch.where(g, torch.minimum(sm2, t2l), sm2)
+            is_new_min = g & (tl < s1)
+            s2 = torch.where(is_new_min, s1, torch.where(g, torch.minimum(s2, tl), s2))
+            s1t = torch.where(is_new_min, jt[:, None], s1t)
+            s1 = torch.where(is_new_min, tl, s1)
+            bti = torch.where(take, jt[:, None], bti)
+            bi = torch.where(take, ti, bi)
+            bd = torch.where(take, td, bd)
+            w = torch.where(take[:, :, None], sel, w)
+            bl = torch.where(g, torch.minimum(bl, tl), bl)
+            bmax = torch.where(go, torch.minimum(torch.amax(bd + sn, dim=1), cap2), bmax)
+        else:  # every tile of the chunk had a running block
+            continue
+        break
 
     skipped = (p.block_counts <= 0)[:, None]
     idx = torch.where(bi == _BIG_I, 0, bi)
@@ -334,8 +382,11 @@ def _check_index(index: TargetIndex) -> None:
                              f"got {t.dtype} {tuple(t.shape)}")
 
 
-def _sweep_kernel(p: _Prepared):
-    """Launch K5 (``csrc/nn_kernels.cu``) on the current stream."""
+def _sweep_kernel(p: Prepared, cluster: int | None = None, active: bool = False):
+    """Launch K5 (``csrc/nn_kernels.cu``) on the current stream: with the
+    source's cluster size for a full query, or for an ``active`` one (a
+    query with per-block active counts, ICP's), or with ``cluster`` CTAs per
+    block (one of ``CLUSTER_SIZES``, for measuring the size)."""
     _check_index(p.index)
     np_ = p.src.shape[0]
     nb = p.block_counts.shape[0]
@@ -348,14 +399,17 @@ def _sweep_kernel(p: _Prepared):
     idx = torch.empty(np_, dtype=torch.int32, device=dev)
     d2, lo, d2nd = (torch.empty(np_, dtype=torch.float32, device=dev) for _ in range(3))
     crd = torch.empty((np_, 3), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = build.library().datmo_nn_sweep(
-            idx.data_ptr(), d2.data_ptr(), lo.data_ptr(), d2nd.data_ptr(), crd.data_ptr(),
+    args = (idx.data_ptr(), d2.data_ptr(), lo.data_ptr(), d2nd.data_ptr(), crd.data_ptr(),
             p.src.data_ptr(), p.block_counts.data_ptr(), p.cap2.data_ptr(),
             p.lb2.data_ptr(), p.torder.data_ptr(), mt_pad,
             p.index.packed.data_ptr(), p.index.tn.data_ptr(), p.index.tidx.data_ptr(),
-            nb, m_tiles, ALPHA, _ONE_MINUS_ALPHA, torch.cuda.current_stream().cuda_stream)
-    build.check(err, "nn_sweep")
+            nb, m_tiles, ALPHA, _ONE_MINUS_ALPHA)
+    if cluster is None:
+        (_SWEEP_ACTIVE if active else _SWEEP)(dev.index, *args)
+    elif cluster in CLUSTER_SIZES:
+        _SWEEP_SIZED(dev.index, *args, cluster)
+    else:
+        raise ValueError(f"cluster: expected one of {CLUSTER_SIZES}, got {cluster}")
     LAUNCHES["nearest_neighbors"] += 1
     return idx, d2, lo, d2nd, crd
 
@@ -379,7 +433,7 @@ def nearest_neighbors_reference_visits(src: torch.Tensor, index: TargetIndex, n_
     count of tiles each 256-row block visited before its stopping rule fired.
     The kernel applies the same rule to the same bounds and values, so these
     are its visits too."""
-    p = _prepare(src, index, n_active, cap2, block_counts, block_table, drift)
+    p = prepare(src, index, n_active, cap2, block_counts, block_table, drift)
     res, visits = _sweep_reference(p)
     return _outputs(res, src.shape[0]), visits
 
@@ -401,7 +455,8 @@ def nearest_neighbors(src: torch.Tensor, index: TargetIndex, n_active=None, cap2
     lower bounds <= cap2.  ``block_table`` reuses :func:`build_block_table`'s
     output; ``drift`` is the most any row moved since that table was built.
     """
-    p = _prepare(src, index, n_active, cap2, block_counts, block_table, drift)
+    p = prepare(src, index, n_active, cap2, block_counts, block_table, drift)
     if not _on_cuda(p.src, p.index.packed, p.lb2):
         return _outputs(_sweep_reference(p)[0], src.shape[0])
-    return _outputs(_sweep_kernel(p), src.shape[0])
+    active = n_active is not None or block_counts is not None
+    return _outputs(_sweep_kernel(p, active=active), src.shape[0])

@@ -5,7 +5,9 @@ The counterpart of ``tiny_pallas`` in the JAX package's ICP-round diagnostic
 (``benchmarks/diag_icp_body.py``), which times one kernel launch per loop
 step.  :func:`tiny` dispatches on its input's device alone: a CPU tensor takes
 :func:`tiny_reference`, a CUDA tensor launches the kernel of
-``csrc/probe_kernels.cu`` on the current stream, and any other device raises.
+``csrc/probe_kernels.cu`` on the current stream (through
+``kernels/build.Entry``, the launch path every wrapper shares), and any other
+device raises.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from datmo_using_optical_flow_tpu_torch.kernels import build
 from datmo_using_optical_flow_tpu_torch.ops.flow_kernels import _on_cuda
 
 LAUNCHES = {"tiny": 0}
+_TINY = build.Entry("datmo_tiny", "tiny")
 
 
 def reset_launches() -> None:
@@ -36,9 +39,6 @@ def tiny(x: torch.Tensor) -> torch.Tensor:
     if not _on_cuda(x):
         return tiny_reference(x)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = build.library().datmo_tiny(out.data_ptr(), x.data_ptr(), x.numel(),
-                                         torch.cuda.current_stream().cuda_stream)
-    build.check(err, "tiny")
+    _TINY(x.device.index, out.data_ptr(), x.data_ptr(), x.numel())
     LAUNCHES["tiny"] += 1
     return out

@@ -3,9 +3,11 @@
 The port must import neither jax nor yaml (the GPU deployment carries
 neither), so it keeps its own copies of both pipelines' config dataclasses and
 of the numpy Farnebäck helpers; these tests hold the copies equal to the
-originals.
+originals (the scene and frame generators' copies: ``test_torch_sim.py``).
+``chip_smoke.py`` imports nothing of the JAX side either.
 """
 
+import ast
 import dataclasses
 import os
 import subprocess
@@ -48,8 +50,31 @@ def test_port_imports_no_jax_and_no_yaml():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.strip().split(" ", 1)
-    assert int(count) >= 34, proc.stdout  # every module of the port was imported
+    assert int(count) >= 37, proc.stdout  # every module of the port was imported
     assert bad == "[]", bad
+
+
+_JAX_SIDE = ("jax", "jaxlib", "datmo_using_optical_flow_tpu", "bench")
+
+
+def test_chip_smoke_imports_nothing_of_the_jax_side():
+    """chip_smoke.py, read as source: no import of jax, of the JAX package or
+    of its benchmark script, and no module loaded by file path."""
+    with open(os.path.join(_REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    imported = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            imported.append(node.module or "")
+    assert "datmo_using_optical_flow_tpu_torch.sim" in imported  # the walk sees imports
+    bad = sorted(m for m in imported if m.split(".")[0] in _JAX_SIDE)
+    assert bad == [], bad
+    names = {n.attr if isinstance(n, ast.Attribute) else n.id for n in ast.walk(tree)
+             if isinstance(n, (ast.Attribute, ast.Name))}
+    loaders = names & {"spec_from_file_location", "import_module", "__import__", "run_path"}
+    assert not loaders, loaders
 
 
 _CONFIG_CLASSES = ("RansacConfig", "FarnebackConfig", "MaskConfig", "DbscanConfig",

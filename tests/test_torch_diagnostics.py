@@ -9,24 +9,25 @@ import numpy as np
 import pytest
 import torch
 
-from datmo_using_optical_flow_tpu_torch.diagnostics import (icp_body, measure, micro_flow,
-                                                            profile_1080p, roofline)
+from datmo_using_optical_flow_tpu_torch.diagnostics import (icp_body, micro_flow, profile_1080p,
+                                                            roofline)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 
-@pytest.mark.parametrize("kernel,args,nbytes,bound_us", [
-    ("poly_exp", (1080, 1920), 49_766_400, 14.8556),
-    ("poly_exp", (324, 576), 4_478_976, 1.3370),
-    ("fused_iteration", (1080, 1920), 116_121_600, 34.6632),
-    ("warp_matrices", (1080, 1920), 141_004_800, 42.0910),
-    ("blur_solve", (97, 173), 469_868, 0.14026),
-    ("tiny", (1024,), 8_192, 0.0024454),
+@pytest.mark.parametrize("kernel,args,nbytes,bound_us,bound_by", [
+    ("poly_exp", (1080, 1920), 49_766_400, 14.8556, "bytes"),
+    ("poly_exp", (324, 576), 4_478_976, 1.3370, "bytes"),
+    ("fused_iteration", (1080, 1920), 116_121_600, 34.6632, "bytes"),
+    ("warp_matrices", (1080, 1920), 141_004_800, 42.0910, "bytes"),
+    # 308 operations per pixel at 33.5e12/s outweigh its 28 bytes
+    ("blur_solve", (97, 173), 469_868, 0.154285, "operations"),
+    ("tiny", (1024,), 8_192, 0.0024454, "bytes"),
 ])
-def test_roofline_counts_at_the_main_path_shapes(kernel, args, nbytes, bound_us):
+def test_roofline_counts_at_the_main_path_shapes(kernel, args, nbytes, bound_us, bound_by):
     work = getattr(roofline, kernel)(*args)
     assert work.bytes == nbytes
     assert work.bound_us() == pytest.approx(bound_us, rel=1e-4)
-    assert work.bound_by() == "bytes"
+    assert work.bound_by() == bound_by
 
 
 def test_roofline_operation_counts():
@@ -39,12 +40,28 @@ def test_roofline_operation_counts():
     work = roofline.nearest_neighbors(102_400, 102_400, 400 * 30, 400)
     assert work.ops == 10 * 400 * 30 * 256 * 256
     assert work.bound_by() == "operations"
-    assert work.bound_us() == pytest.approx(work.ops / 67e12 * 1e6)
+    assert work.bound_us() == pytest.approx(work.ops / 33.5e12 * 1e6)
+    # the busiest block's 399 tiles on one SM, and split over a cluster of 8
+    serial = roofline.nearest_neighbors_serial_us(399)
+    assert serial == pytest.approx(399 * 10 * 256 * 256 / (33.5e12 / 132) * 1e6)
+    assert roofline.nearest_neighbors_serial_us(399, 8) == pytest.approx(serial / 8)
+
+
+def _moving_frames(n: int, h: int, w: int, seed: int = 0) -> np.ndarray:
+    """(n, h, w) uint8 frames of a smooth random texture that moves 2 px down
+    and 3 px right per frame."""
+    rng = np.random.default_rng(seed)
+    coarse = rng.uniform(0, 255, (h // 8 + 2, w // 8 + 2))
+    xs = np.linspace(0, coarse.shape[1] - 1, w)
+    ys = np.linspace(0, coarse.shape[0] - 1, h)
+    rows = np.stack([np.interp(xs, np.arange(coarse.shape[1]), r) for r in coarse])
+    tex = np.stack([np.interp(ys, np.arange(coarse.shape[0]), c) for c in rows.T], axis=1)
+    return np.stack([np.roll(tex, (2 * t, 3 * t), axis=(0, 1)) for t in range(n)]).astype(np.uint8)
 
 
 @pytest.fixture(scope="module")
 def frames():
-    return measure.moving_frames(2, 112, 160, seed=3)  # two pyramid levels
+    return _moving_frames(2, 112, 160, seed=3)  # two pyramid levels
 
 
 def _check_rows(res, names, keys):

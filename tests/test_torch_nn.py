@@ -205,6 +205,67 @@ def test_with_bound_and_active_match_jax():
     assert np.isinf(al[~active]).all() and (ab[~active] == 0).all() and (ac[~active] == 0).all()
 
 
+def _bmax_after(p, k):
+    """Each block's bmax after its first ``k`` tiles: the serial sweep on the
+    table cut after ``k`` tiles gives each row's best then."""
+    lb2 = p.lb2.clone()
+    lb2[:, k:] = torch.inf
+    d2 = tk._sweep_reference(p._replace(lb2=lb2))[0][1]
+    return torch.minimum(d2.reshape(-1, tk.SRC_BLOCK).amax(1), p.cap2[0])
+
+
+def _chunk_case(kind):
+    """Prepared sweep inputs for the replay test: ``long``, an active subset
+    partitioned to the front whose last live block mixes active rows with
+    inactive ones from across the cloud (its bounds are 0 for every tile, so
+    it walks them all); ``mid``, a Morton-sorted cloud whose blocks stop at
+    their 4th tile, on a bmax that fell at their 3rd (the 4th bound is set
+    between bmax after the 2nd and after the 3rd tile, so every chunk size
+    must replay that drop to stop there); ``capped``, the active subset with
+    an ICP-style cap."""
+    rng = np.random.default_rng(7)
+    tgt = rng.uniform(-8, 8, size=(6000, 3)).astype(np.float32)
+    mask = np.ones(6000, bool)
+    mask[rng.choice(6000, 150, replace=False)] = False
+    src = (tgt[:2000] + rng.normal(0, 0.05, size=(2000, 3))).astype(np.float32)
+    index = tk.build_target_index(torch.as_tensor(tgt), torch.as_tensor(mask))
+    src_s = torch.as_tensor(src)[tk.sort_order(torch.as_tensor(src), torch.ones(2000, dtype=bool))
+                                 .long()]
+    if kind == "mid":
+        p = tk.prepare(src_s, index)
+        b2, b3 = _bmax_after(p, 2), _bmax_after(p, 3)
+        lb2 = p.lb2.clone()
+        lb2[:, 3] = torch.where(b3 < b2, (b2 + b3) * 0.5, lb2[:, 3])
+        return p._replace(lb2=lb2)
+    active = torch.as_tensor(rng.uniform(size=2000) < 0.15)
+    src_c, _, n_active = tnn.partition_active(src_s, active)
+    cap2 = float(np.float32(0.3) * np.float32(0.3)) if kind == "capped" else None
+    return tk.prepare(src_c, index, n_active, cap2)
+
+
+@pytest.mark.parametrize("kind", ["long", "mid", "capped"])
+@pytest.mark.parametrize("chunk", [2, 4, 8])
+def test_chunked_replay_equals_the_serial_sweep(kind, chunk):
+    """The kernel's cluster scheme (``chunk`` tiles scanned at once, then
+    replayed in order) gives the serial sweep's outputs and visits, bit for
+    bit."""
+    p = _chunk_case(kind)
+    m_tiles = p.index.packed.shape[0]
+    want, want_visits = tk._sweep_reference(p)
+    got, got_visits = tk._sweep_reference(p, chunk=chunk)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(got_visits, want_visits)
+    live = want_visits[p.block_counts > 0]
+    if kind == "long":
+        # the mixed block walks every tile that holds a valid target
+        assert int(live.max()) == int(torch.isfinite(p.lb2[0]).sum()) > m_tiles // 2
+    if kind == "mid":  # stops inside a chunk, on a bmax that fell within it
+        assert bool((live == 3).any()), live
+    if kind == "capped":
+        assert bool((live < m_tiles).all()), live
+
+
 def test_oversized_target_raises():
     src = torch.zeros((4, 3))
     tgt = torch.zeros(((1 << 18) + 1, 3))
