@@ -10,15 +10,17 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
 1. device and toolchain: the card, its power limit, torch/CUDA/nvcc versions;
 2. build of the CUDA kernels from ``datmo_using_optical_flow_tpu_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes, with the CPU tests' tolerances, and both timed (CUDA
-   events, median of 20 calls each, in turns plain, kernel, kernel, plain);
-   K4 with the converged flow of two 1080x1920 frames, and K4 into K2
-   against K3 there; K1 and K6 also beside one PyTorch call of the same
+   path's shapes, K2 and K3 bit for bit (``torch.equal``), the others with
+   the CPU tests' tolerances, and both timed (CUDA events, median of 20
+   calls each, in turns plain, kernel, kernel, plain), K3 also by its device
+   µs at both levels that run it; K4 with the converged flow of two
+   1080x1920 frames, and K4 into K2 bit-equal to K3 there; K1 and K6 also
+   beside one PyTorch call of the same
    function (``F.conv2d``, ``torch.add``), timed and not used by the port;
    K6's launch path split into its parts, each timed over 1,000 calls;
 4. the same at the CPU tests' other shapes and options (untimed), with K4
-   at 160x384, 130x384 and 160x1920 and K4 into K2 against K3 at the shapes
-   of ``tests/test_flow_pallas.py``;
+   at 160x384, 130x384 and 160x1920 and K4 into K2 bit-equal to K3 at the
+   shapes of ``tests/test_flow_pallas.py``;
 5. the 256x320 slice on the card (kernels) against the CPU (plain versions);
 6. pipeline A's main path: the stream step on 25 ``make_frames`` 1080x1920
    frames (``bench.py``'s workload) with ``bench.py``'s configuration,
@@ -82,8 +84,8 @@ SOURCES = {"poly_exp": "flow_kernels.cu", "blur_solve": "flow_kernels.cu",
            "fused_iteration": "flow_kernels.cu", "warp_matrices": "flow_kernels.cu",
            "nearest_neighbors": "nn_kernels.cu", "tiny": "probe_kernels.cu"}
 PER_STEP = {"poly_exp": 3, "fused_iteration": 10, "blur_solve": 5}  # 1080p, 3 levels
-TOL = {"poly_exp": 1e-5, "blur_solve": 1e-4, "fused_iteration": 2e-4, "warp_matrices": 2e-4,
-       "tiny": 0.0}
+TOL = {"poly_exp": 1e-5, "warp_matrices": 2e-4}
+EXACT = ("blur_solve", "fused_iteration")  # held to torch.equal with their plain versions
 
 
 def log(msg: str) -> None:
@@ -135,6 +137,28 @@ def max_abs(a, b) -> float:
     return float(torch.max(torch.abs(a - b)))
 
 
+def equal(a, b) -> bool:
+    if isinstance(a, tuple):
+        return all(equal(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def check(kernel: str, label: str, got, want, scale: float = 1.0) -> float:
+    """Raise unless ``got`` agrees with ``want``: bit for bit for K2 and K3
+    (``EXACT``), else within ``TOL`` x ``scale``.  Logs and returns the max
+    abs error."""
+    err = max_abs(got, want)
+    if kernel in EXACT:
+        ok, tol = equal(got, want), "bit-equal required"
+    else:
+        ok = err <= TOL[kernel] * scale
+        tol = f"tol {TOL[kernel]:g}" + (f" x plane scale {scale:.3e}" if scale != 1.0 else "")
+    log(f"{kernel} {label}: max_abs_err {err:.3e} ({tol})")
+    if not ok:
+        raise AssertionError(f"{kernel} {label}: error {err} ({tol})")
+    return err
+
+
 def smooth_flow(h: int, w: int, dev, amp: float = 4.0):
     yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
                             torch.arange(w, dtype=torch.float32, device=dev), indexing="ij")
@@ -145,6 +169,7 @@ def smooth_flow(h: int, w: int, dev, amp: float = 4.0):
 
 def kernel_phases(dev, name: str, smi: str, h: int, w: int) -> dict:
     """Each kernel against its plain version at the main path's shapes, timed."""
+    from datmo_using_optical_flow_tpu_torch.diagnostics.measure import device_us_per_call
     from datmo_using_optical_flow_tpu_torch.sim.frames import make_frames
     from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
     from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
@@ -156,13 +181,10 @@ def kernel_phases(dev, name: str, smi: str, h: int, w: int) -> dict:
     results = {k: {"max_abs_err": 0.0} for k in REPLACES}
     top = len(pyr[0]) - 1
 
-    def record(kernel: str, label: str, err: float, scale: float, ms: float, plain_ms: float,
-               timed: bool):
-        log(f"{kernel} {label}: max_abs_err {err:.3e} (tol {TOL[kernel]:g}"
-            f"{f' x plane scale {scale:.3e}' if scale != 1.0 else ''}) kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms [{name}, {smi}]")
-        if err > TOL[kernel] * scale:
-            raise AssertionError(f"{kernel} {label}: error {err} over tolerance")
+    def record(kernel: str, label: str, got, want, scale: float, ms: float, plain_ms: float,
+               timed: bool) -> None:
+        err = check(kernel, label, got, want, scale)
+        log(f"{kernel} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{name}, {smi}]")
         res = results[kernel]
         res["max_abs_err"] = max(res["max_abs_err"], err)
         if timed:
@@ -176,8 +198,7 @@ def kernel_phases(dev, name: str, smi: str, h: int, w: int) -> dict:
         ms, plain_ms = time_pair(lambda: fk.poly_exp_reference(img, 5, 5.0),
                                  lambda: fk.poly_exp(img, 5, 5.0))
         scale = float(want.abs().max())
-        record("poly_exp", f"{lh}x{lw}", max_abs(got, want), scale, ms, plain_ms,
-               timed=level == top)
+        record("poly_exp", f"{lh}x{lw}", got, want, scale, ms, plain_ms, timed=level == top)
         if level == top:
             results["poly_exp"]["library_ms"] = library_phase(
                 "poly_exp", f"{lh}x{lw}", poly_exp_conv(img, 5, 5.0), want, 1e-3 * scale, dev,
@@ -191,20 +212,25 @@ def kernel_phases(dev, name: str, smi: str, h: int, w: int) -> dict:
         ms, plain_ms = time_pair(lambda: fk.blur_solve_reference(M, 15, gaussian),
                                  lambda: fk.blur_solve(M, 15, gaussian))
         record("blur_solve", f"{R0.shape[1]}x{R0.shape[2]} {'gauss' if gaussian else 'box'}",
-               max_abs(got, want), 1.0, ms, plain_ms, timed=not gaussian)
+               got, want, 1.0, ms, plain_ms, timed=not gaussian)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = [(pyr[0][top], pyr[1][top]), (pyr[0][top - 1], pyr[1][top - 1]),
              (torch.randn((5, 130, 384), device=dev, generator=gen),
               torch.randn((5, 130, 384), device=dev, generator=gen))]
+    levels = results["fused_iteration"]["levels"] = {}
     for i, (R0, R1) in enumerate(cases):  # h = 130: h % 32 < winsize // 2
         dx, dy = smooth_flow(R0.shape[1], R0.shape[2], dev)
         got = fk.fused_iteration(R0, R1, dx, dy, 15)
         want = fk.fused_iteration_reference(R0, R1, dx, dy, 15)
         ms, plain_ms = time_pair(lambda: fk.fused_iteration_reference(R0, R1, dx, dy, 15),
                                  lambda: fk.fused_iteration(R0, R1, dx, dy, 15))
-        record("fused_iteration", f"{R0.shape[1]}x{R0.shape[2]}", max_abs(got, want), 1.0, ms,
-               plain_ms, timed=i == 0)
+        label = f"{R0.shape[1]}x{R0.shape[2]}"
+        record("fused_iteration", label, got, want, 1.0, ms, plain_ms, timed=i == 0)
+        if i < 2:  # the two levels that run K3 on the main path
+            us = device_us_per_call(lambda: fk.fused_iteration(R0, R1, dx, dy, 15), dev)
+            levels[label] = {"ms": ms, "plain_ms": plain_ms, "device_us": us}
+            log(f"fused_iteration {label}: device {us:.1f} us per call [{name}, {smi}]")
 
     # K4 with the two frames' converged flow, as the diagnostics run it
     flow = fb.flow_from_pyramids(pyr[0], pyr[1], 0.3, 15, 5, True, False)
@@ -216,21 +242,23 @@ def kernel_phases(dev, name: str, smi: str, h: int, w: int) -> dict:
                              lambda: fk.warp_matrices(R0, R1, fdx, fdy))
     record("warp_matrices", f"{h}x{w} converged flow dx [{float(fdx.min()):.2f}, "
            f"{float(fdx.max()):.2f}] dy [{float(fdy.min()):.2f}, {float(fdy.max()):.2f}]",
-           max_abs(got, want), 1.0, ms, plain_ms, timed=True)
+           got, want, 1.0, ms, plain_ms, timed=True)
     check_k4_into_k2(R0, R1, fdx, fdy, 15, False, f"{h}x{w} converged flow")
     return results
 
 
 def check_k4_into_k2(R0, R1, dx, dy, win: int, gaussian: bool, label: str) -> None:
-    """K4 then K2 equals K3 (tests/test_flow_pallas.py:119-141 on the card)."""
+    """K4 then K2 equals K3, bit for bit (tests/test_flow_pallas.py:119-141
+    on the card)."""
     from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
 
-    err = max_abs(fk.blur_solve(fk.warp_matrices(R0, R1, dx, dy), win, gaussian),
-                  fk.fused_iteration(R0, R1, dx, dy, win, gaussian))
+    got = fk.blur_solve(fk.warp_matrices(R0, R1, dx, dy), win, gaussian)
+    want = fk.fused_iteration(R0, R1, dx, dy, win, gaussian)
+    err = max_abs(got, want)
     log(f"warp_matrices into blur_solve vs fused_iteration {label} win={win} gauss={gaussian}: "
-        f"max_abs_err {err:.3e} (tol 2e-4)")
-    if err > 2e-4:
-        raise AssertionError(f"K4 into K2 {label}: error {err} against K3 over 2e-4")
+        f"max_abs_err {err:.3e} (bit-equal required)")
+    if not equal(got, want):
+        raise AssertionError(f"K4 into K2 {label}: differs from K3 (max_abs_err {err})")
 
 
 def poly_exp_conv(img, n: int, sigma: float):
@@ -337,34 +365,26 @@ def other_shapes_phase(dev) -> None:
     def rand(*shape):
         return torch.randn(shape, device=dev, generator=gen)
 
-    checks = []
     for h, w, n, sigma in ((37, 131, 5, 5.0), (64, 200, 7, 1.5)):
         img = rand(h, w) * 50 + 100
         want = fk.poly_exp_reference(img, n, sigma)
-        checks.append(("poly_exp", f"{h}x{w} n={n}", max_abs(fk.poly_exp(img, n, sigma), want),
-                       float(want.abs().max())))
+        check("poly_exp", f"{h}x{w} n={n}", fk.poly_exp(img, n, sigma), want,
+              float(want.abs().max()))
     for h, w, win, gauss in ((17, 33, 7, True), (30, 41, 31, False), (64, 128, 15, True)):
         M = rand(5, h, w) ** 2
-        checks.append(("blur_solve", f"{h}x{w} win={win} gauss={gauss}",
-                       max_abs(fk.blur_solve(M, win, gauss),
-                               fk.blur_solve_reference(M, win, gauss)), 1.0))
+        check("blur_solve", f"{h}x{w} win={win} gauss={gauss}", fk.blur_solve(M, win, gauss),
+              fk.blur_solve_reference(M, win, gauss))
     for h, w, win, gauss in ((132, 384, 7, True), (160, 384, 31, False), (140, 300, 15, False)):
         R0, R1 = rand(5, h, w), rand(5, h, w)
         dx, dy = smooth_flow(h, w, dev)
-        checks.append(("fused_iteration", f"{h}x{w} win={win} gauss={gauss}",
-                       max_abs(fk.fused_iteration(R0, R1, dx, dy, win, gauss),
-                               fk.fused_iteration_reference(R0, R1, dx, dy, win, gauss)), 1.0))
+        check("fused_iteration", f"{h}x{w} win={win} gauss={gauss}",
+              fk.fused_iteration(R0, R1, dx, dy, win, gauss),
+              fk.fused_iteration_reference(R0, R1, dx, dy, win, gauss))
     for h, w in ((160, 384), (130, 384), (160, 1920)):  # tests/test_torch_warp_matrices.py
         R0, R1 = rand(5, h, w), rand(5, h, w)
         dx, dy = smooth_flow(h, w, dev)
-        checks.append(("warp_matrices", f"{h}x{w}",
-                       max_abs(fk.warp_matrices(R0, R1, dx, dy),
-                               fk.warp_matrices_reference(R0, R1, dx, dy)), 1.0))
-    for kernel, label, err, scale in checks:
-        log(f"{kernel} {label}: max_abs_err {err:.3e} (tol {TOL[kernel]:g}"
-            f"{f' x plane scale {scale:.3e}' if scale != 1.0 else ''})")
-        if err > TOL[kernel] * scale:
-            raise AssertionError(f"{kernel} {label}: error {err} over tolerance")
+        check("warp_matrices", f"{h}x{w}", fk.warp_matrices(R0, R1, dx, dy),
+              fk.warp_matrices_reference(R0, R1, dx, dy))
     for h, w, win, gauss in ((160, 384, 15, False), (140, 300, 15, False), (132, 384, 7, True),
                              (130, 384, 15, False)):
         dx, dy = smooth_flow(h, w, dev)
@@ -862,6 +882,8 @@ def main() -> None:
                         "library_ms": res.get("library_ms"), "lib_ms": res.get("library_ms")})
         if k == "nearest_neighbors":  # its time per GMFA step, by cluster size
             kernels[-1]["device_ms_per_step"] = {str(c): v for c, v in k5_step_ms.items()}
+        if k == "fused_iteration":  # per call and device time at both levels that run it
+            kernels[-1]["levels"] = res["levels"]
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

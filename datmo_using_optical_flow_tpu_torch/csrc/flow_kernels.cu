@@ -26,6 +26,11 @@
 // after the horizontal pass.  The library is built with -fmad=false (see
 // kernels/build.py) so no multiply-add is contracted.
 //
+// K2 and K3 have two window stages.  The main path's window (winsize 15) runs
+// a compile-time instance, box or Gaussian (window_solve_fixed: register-
+// blocked passes, taps out of shared memory); every other winsize runs the
+// runtime-radius window_solve.  The C entry points pick the instance.
+//
 // Each C entry point makes the given device current (device_guard.cuh),
 // launches on the stream it is given and returns cudaGetLastError(); the Python
 // wrapper raises when that is not cudaSuccess.
@@ -33,6 +38,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <type_traits>
 
 #include "device_guard.cuh"
 
@@ -48,6 +54,11 @@ constexpr int kMaxPolyN = 7;        // poly_n in {5, 7}
 constexpr int kMaxPolyTaps = 2 * kMaxPolyN + 1;
 constexpr int kBorder = 5;          // OpenCV's certainty attenuation band
 __constant__ float kBorderAtten[kBorder] = {0.14f, 0.14f, 0.4472f, 0.4472f, 0.4472f};
+constexpr int kMainR = 7;           // the main path's window radius (winsize 15)
+// Blocks per SM the winsize-15 instances are built for (56 registers for K3).
+// 5 (48 registers, 5 blocks of 43.2 KB) measured slower on the H100: K3 122.4
+// against 87.1 us at 1080x1920, the M stage's gathers losing L1 (PERF.md).
+constexpr int kWindowMinBlocks = 4;
 
 struct Window {
   float w[kMaxTaps];
@@ -67,7 +78,23 @@ __device__ __forceinline__ float border_atten(int i, int size) {
   return near < kBorder ? kBorderAtten[near] : 1.0f;
 }
 
-// Window sum of the five staged M planes, then the per-pixel 2x2 solve.
+// The per-pixel 2x2 solve of the five window sums a[0..4] at pixel (i, j),
+// stored when the pixel lies in the image.
+__device__ __forceinline__ void solve_store(const float* a, float scale, int i, int j, int h,
+                                            int w, float* odx, float* ody) {
+  if (i >= h || j >= w) return;
+  const float g11 = a[0] * scale;
+  const float g12 = a[1] * scale;
+  const float g22 = a[2] * scale;
+  const float h1 = a[3] * scale;
+  const float h2 = a[4] * scale;
+  const float idet = 1.0f / (g11 * g22 - g12 * g12 + 1e-3f);
+  odx[static_cast<size_t>(i) * w + j] = (g11 * h2 - g12 * h1) * idet;
+  ody[static_cast<size_t>(i) * w + j] = (g22 * h1 - g12 * h2) * idet;
+}
+
+// Window sum of the five staged M planes, then the per-pixel 2x2 solve, at a
+// radius r known only at run time (every winsize but the main path's).
 //
 // ms: 5 planes of e x e (tile plus a halo of r on each side, e = kTile + 2r);
 // vbuf: kTile x e scratch; taps: 2r+1 window weights in shared memory.  Writes
@@ -101,20 +128,107 @@ __device__ void window_solve(const float* ms, float* vbuf, const float* taps, in
     }
   }
 #pragma unroll
-  for (int q = 0; q < kRowsPerThread; ++q) {
-    const int i = y0 + threadIdx.y + q * kBlockY;
-    const int j = x0 + threadIdx.x;
-    if (i < h && j < w) {
-      const float g11 = acc[q][0] * scale;
-      const float g12 = acc[q][1] * scale;
-      const float g22 = acc[q][2] * scale;
-      const float h1 = acc[q][3] * scale;
-      const float h2 = acc[q][4] * scale;
-      const float idet = 1.0f / (g11 * g22 - g12 * g12 + 1e-3f);
-      odx[static_cast<size_t>(i) * w + j] = (g11 * h2 - g12 * h1) * idet;
-      ody[static_cast<size_t>(i) * w + j] = (g22 * h1 - g12 * h2) * idet;
+  for (int q = 0; q < kRowsPerThread; ++q)
+    solve_store(acc[q], scale, y0 + threadIdx.y + q * kBlockY, x0 + threadIdx.x, h, w, odx,
+                ody);
+}
+
+// Layout of the five staged planes of a block: edge e = kTile + 2r, rows
+// `stride` floats apart, planes e * stride apart.  kR > 0 is a compile-time
+// radius, whose rows get an odd stride (window_solve_fixed); kR == 0 takes
+// the radius r at run time, rows packed (window_solve).
+template <int kR>
+struct Staged {
+  int e, stride;
+  __device__ __host__ explicit Staged(int r)
+      : e(kTile + 2 * (kR > 0 ? kR : r)), stride(kR > 0 ? (e | 1) : e) {}
+  __device__ __host__ int plane() const { return e * stride; }
+  // the staged position of flat index idx = li * e + lj
+  __device__ int at(int idx, int li, int lj) const { return kR > 0 ? li * stride + lj : idx; }
+};
+
+// The window sum and solve at the compile-time radius R: the main path's
+// winsize-15 instance (R = 7), box (kBox: every tap 1.0f) or with the
+// window's taps.
+//
+// ms: the 5 staged planes of M in Staged<R>'s layout (row stride e | 1); the
+// vertical pass overwrites their first kTile rows.  No shared scratch and no
+// taps in shared memory: box sums are plain chains of adds (1.0f * m == m, so
+// they equal the plain version's 1.0 * m terms bit for bit), Gaussian taps are
+// kernel parameters read at unrolled, constant indices.
+//
+// Vertical pass: thread (c, j), 5 e of the block's threads, owns column j of
+// plane c.  It reads the column's e values once, top to bottom, each into the
+// (up to 2R + 1) running sums whose window covers it, and stores output row i
+// over input row i as soon as row i + 2R is read; no other thread reads that
+// column, so the pass works in place.  e loads for kTile sums instead of
+// kTile (2R + 1).  Horizontal pass: each thread sums a run of kRun
+// consecutive outputs of one row of the five planes (kRun + 2R loads for kRun
+// sums); a warp takes 4 rows x 8 runs, and the odd row stride puts its 32
+// lanes on 32 distinct banks.  Each output still adds its terms in ascending
+// tap order, as the plain version, and the scale follows the horizontal pass.
+template <int R, bool kBox>
+__device__ void window_solve_fixed(float* ms, const Window& win, float scale, int y0, int x0,
+                                   int h, int w, float* odx, float* ody) {
+  constexpr int kTaps = 2 * R + 1;
+  constexpr int kE = kTile + 2 * R;
+  constexpr int kStride = kE | 1;
+  constexpr int kPlane = kE * kStride;
+  constexpr int kRun = 4;
+  constexpr int kRowsPerWarp = 32 * kRun / kTile;
+  static_assert(kBlockX * kBlockY / 32 * kRowsPerWarp == kTile, "one output row per run slot");
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  float taps[kTaps];
+#pragma unroll
+  for (int k = 0; k < kTaps; ++k) taps[k] = kBox ? 1.0f : win.w[k];
+
+  __syncthreads();  // M staged
+  if (tid < 5 * kE) {
+    const int c = tid / kE;
+    float* col = ms + c * kPlane + (tid - c * kE);
+    float acc[kTile];
+#pragma unroll
+    for (int y = 0; y < kE; ++y) {
+      const float v = col[y * kStride];
+#pragma unroll
+      for (int k = 0; k < kTaps; ++k) {
+        const int i = y - k;  // output row i takes tap k from row y
+        if (i >= 0 && i < kTile) {
+          const float term = kBox ? v : taps[k] * v;
+          acc[i] = k == 0 ? term : acc[i] + term;
+        }
+      }
+      if (y >= 2 * R) col[(y - 2 * R) * kStride] = acc[y - 2 * R];
     }
   }
+  __syncthreads();
+
+  const int lane = tid & 31;
+  const int row = (tid >> 5) * kRowsPerWarp + lane / (kTile / kRun);
+  const int c0 = (lane % (kTile / kRun)) * kRun;
+  float out[kRun][5];
+#pragma unroll
+  for (int c = 0; c < 5; ++c) {
+    const float* v = ms + c * kPlane + row * kStride + c0;
+    float acc[kRun];
+#pragma unroll
+    for (int x = 0; x < kRun + 2 * R; ++x) {
+      const float val = v[x];
+#pragma unroll
+      for (int k = 0; k < kTaps; ++k) {
+        const int q = x - k;  // output q takes tap k from column x
+        if (q >= 0 && q < kRun) {
+          const float term = kBox ? val : taps[k] * val;
+          acc[q] = k == 0 ? term : acc[q] + term;
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kRun; ++q) out[q][c] = acc[q];
+  }
+#pragma unroll
+  for (int q = 0; q < kRun; ++q)
+    solve_store(out[q], scale, y0 + row, x0 + c0 + q, h, w, odx, ody);
 }
 
 __device__ void load_taps(float* dst, const Window& win, int ntaps) {
@@ -290,29 +404,37 @@ poly_exp_kernel(const float* __restrict__ img, float* __restrict__ out, int h, i
 // Tiling: the 32x32 tile plus its (win//2) halo of all five planes is staged in
 // shared memory (edge-clamped), the blurred planes live only in registers, and
 // only the two flow components are written.
-__global__ void __launch_bounds__(kBlockX * kBlockY)
+//
+// kR > 0 is the compile-time instance of that radius (window_solve_fixed,
+// box when kBox); kR == 0 takes the radius r at run time (window_solve).
+template <int kR, bool kBox>
+__global__ void __launch_bounds__(kBlockX * kBlockY, kR > 0 ? kWindowMinBlocks : 1)
 blur_solve_kernel(const float* __restrict__ M, float* __restrict__ odx,
                   float* __restrict__ ody, int h, int w, int r, Window win, float scale) {
   extern __shared__ float smem[];
-  const int e = kTile + 2 * r;
+  if (kR > 0) r = kR;
+  const Staged<kR> st(r);
   float* ms = smem;
-  float* vbuf = ms + 5 * e * e;
-  float* taps = vbuf + kTile * e;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nthreads = blockDim.x * blockDim.y;
   const int y0 = blockIdx.y * kTile;
   const int x0 = blockIdx.x * kTile;
   const size_t plane = static_cast<size_t>(h) * w;
-  load_taps(taps, win, 2 * r + 1);
-  for (int idx = tid; idx < e * e; idx += nthreads) {
-    const int li = idx / e;
-    const int lj = idx - li * e;
+  float* vbuf = ms + 5 * st.plane();
+  float* taps = vbuf + kTile * st.e;
+  if (kR == 0) load_taps(taps, win, 2 * r + 1);
+  for (int idx = tid; idx < st.e * st.e; idx += nthreads) {
+    const int li = idx / st.e;
+    const int lj = idx - li * st.e;
     const int gi = clampi(y0 - r + li, 0, h - 1);
     const int gj = clampi(x0 - r + lj, 0, w - 1);
     const size_t p = static_cast<size_t>(gi) * w + gj;
-    for (int c = 0; c < 5; ++c) ms[c * e * e + idx] = M[c * plane + p];
+    for (int c = 0; c < 5; ++c) ms[c * st.plane() + st.at(idx, li, lj)] = M[c * plane + p];
   }
-  window_solve(ms, vbuf, taps, r, scale, y0, x0, h, w, odx, ody);
+  if constexpr (kR > 0)
+    window_solve_fixed<kR, kBox>(ms, win, scale, y0, x0, h, w, odx, ody);
+  else
+    window_solve(ms, vbuf, taps, r, scale, y0, x0, h, w, odx, ody);
 }
 
 // ---------------------------------------------------------------- K3
@@ -329,34 +451,43 @@ blur_solve_kernel(const float* __restrict__ M, float* __restrict__ odx,
 // Bound on the H100: ~56 bytes of unique traffic per pixel (R0 and R1's five
 // planes, the flow in and out; the gathers of a smooth flow hit L1/L2) against
 // ~470 separately rounded flops per pixel once the halo recompute (x2.07 at
-// winsize 15) is counted, so it leans compute- and shared-memory-bound.
+// winsize 15) is counted, so it leans compute-bound.  With the winsize-15
+// window stage (window_solve_fixed) the window's adds run near the SM's
+// instruction throughput, and the M stage's gathers, at 2.07 staged positions
+// per pixel, take most of the time.
 // Tiling: the block computes M for its 32x32 tile plus a (win//2) halo into
-// shared memory (42 KB at winsize 15; dynamic shared memory above 48 KB),
+// shared memory (43 KB at winsize 15; dynamic shared memory above 48 KB),
 // M at a halo position outside the image is M at the clamped pixel, then the
-// window sum and solve run from shared memory as in K2.
-__global__ void __launch_bounds__(kBlockX * kBlockY)
+// window sum and solve run from shared memory as in K2, with the same
+// choice of window stage (kR, kBox).
+template <int kR, bool kBox>
+__global__ void __launch_bounds__(kBlockX * kBlockY, kR > 0 ? kWindowMinBlocks : 1)
 fused_iteration_kernel(const float* __restrict__ R0, const float* __restrict__ R1,
                        const float* __restrict__ dx, const float* __restrict__ dy,
                        float* __restrict__ odx, float* __restrict__ ody, int h, int w,
                        int r, Window win, float scale) {
   extern __shared__ float smem[];
-  const int e = kTile + 2 * r;
+  if (kR > 0) r = kR;
+  const Staged<kR> st(r);
   float* ms = smem;
-  float* vbuf = ms + 5 * e * e;
-  float* taps = vbuf + kTile * e;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nthreads = blockDim.x * blockDim.y;
   const int y0 = blockIdx.y * kTile;
   const int x0 = blockIdx.x * kTile;
-  load_taps(taps, win, 2 * r + 1);
-  for (int idx = tid; idx < e * e; idx += nthreads) {
-    const int li = idx / e;
-    const int lj = idx - li * e;
+  float* vbuf = ms + 5 * st.plane();
+  float* taps = vbuf + kTile * st.e;
+  if (kR == 0) load_taps(taps, win, 2 * r + 1);
+  for (int idx = tid; idx < st.e * st.e; idx += nthreads) {
+    const int li = idx / st.e;
+    const int lj = idx - li * st.e;
     const int gi = clampi(y0 - r + li, 0, h - 1);
     const int gj = clampi(x0 - r + lj, 0, w - 1);
-    warp_assemble(R0, R1, dx, dy, gi, gj, h, w, ms + idx, static_cast<size_t>(e) * e);
+    warp_assemble(R0, R1, dx, dy, gi, gj, h, w, ms + st.at(idx, li, lj), st.plane());
   }
-  window_solve(ms, vbuf, taps, r, scale, y0, x0, h, w, odx, ody);
+  if constexpr (kR > 0)
+    window_solve_fixed<kR, kBox>(ms, win, scale, y0, x0, h, w, odx, ody);
+  else
+    window_solve(ms, vbuf, taps, r, scale, y0, x0, h, w, odx, ody);
 }
 
 // ---------------------------------------------------------------- K4
@@ -383,9 +514,13 @@ warp_matrices_kernel(const float* __restrict__ R0, const float* __restrict__ R1,
   warp_assemble(R0, R1, dx, dy, gi, gj, h, w, M + p, plane);
 }
 
+// K2 and K3's dynamic shared memory: the staged planes, plus the vertical
+// pass's scratch and the taps at the runtime radius.
+template <int kR>
 size_t window_smem_bytes(int r) {
-  const int e = kTile + 2 * r;
-  return sizeof(float) * (5 * static_cast<size_t>(e) * e + kTile * e + kMaxTaps);
+  const Staged<kR> st(r);
+  const size_t scratch = kR > 0 ? 0 : static_cast<size_t>(kTile) * st.e + kMaxTaps;
+  return sizeof(float) * (5 * st.plane() + scratch);
 }
 
 template <typename Kernel>
@@ -399,6 +534,18 @@ bool window_from_host(Window* win, const float* taps, int winsize) {
   if (winsize < 1 || winsize > kMaxTaps - 1 || winsize % 2 == 0) return false;
   for (int k = 0; k < winsize; ++k) win->w[k] = taps[k];
   return true;
+}
+
+// Calls launch(radius, box) with the window stage's instance for `win`: the
+// compile-time kMainR one for winsize 15 (box when every tap is 1.0f), else the
+// runtime-radius one (radius 0).  Both are std::integral_constant values.
+template <typename Launch>
+cudaError_t with_window_instance(const Window& win, int winsize, Launch launch) {
+  using Main = std::integral_constant<int, kMainR>;
+  if (winsize != 2 * kMainR + 1) return launch(std::integral_constant<int, 0>{}, std::false_type{});
+  for (int k = 0; k < winsize; ++k)
+    if (win.w[k] != 1.0f) return launch(Main{}, std::false_type{});
+  return launch(Main{}, std::true_type{});
 }
 
 dim3 tile_grid(int h, int w) { return dim3((w + kTile - 1) / kTile, (h + kTile - 1) / kTile); }
@@ -434,12 +581,15 @@ int datmo_blur_solve(float* odx, float* ody, const float* M, int h, int w,
   datmo::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
   const int r = winsize / 2;
-  const size_t smem = window_smem_bytes(r);
-  cudaError_t err = set_smem(blur_solve_kernel, smem);
-  if (err != cudaSuccess) return err;
-  blur_solve_kernel<<<tile_grid(h, w), dim3(kBlockX, kBlockY), smem,
-                      static_cast<cudaStream_t>(stream)>>>(M, odx, ody, h, w, r, win, scale);
-  return cudaGetLastError();
+  return with_window_instance(win, winsize, [&](auto radius, auto box) {
+    const auto kernel = blur_solve_kernel<decltype(radius)::value, decltype(box)::value>;
+    const size_t smem = window_smem_bytes<decltype(radius)::value>(r);
+    cudaError_t err = set_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<tile_grid(h, w), dim3(kBlockX, kBlockY), smem, static_cast<cudaStream_t>(stream)>>>(
+        M, odx, ody, h, w, r, win, scale);
+    return cudaGetLastError();
+  });
 }
 
 // taps (winsize) is a HOST pointer.
@@ -452,13 +602,15 @@ int datmo_fused_iteration(float* odx, float* ody, const float* R0, const float* 
   datmo::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
   const int r = winsize / 2;
-  const size_t smem = window_smem_bytes(r);
-  cudaError_t err = set_smem(fused_iteration_kernel, smem);
-  if (err != cudaSuccess) return err;
-  fused_iteration_kernel<<<tile_grid(h, w), dim3(kBlockX, kBlockY), smem,
-                           static_cast<cudaStream_t>(stream)>>>(R0, R1, dx, dy, odx, ody, h,
-                                                                w, r, win, scale);
-  return cudaGetLastError();
+  return with_window_instance(win, winsize, [&](auto radius, auto box) {
+    const auto kernel = fused_iteration_kernel<decltype(radius)::value, decltype(box)::value>;
+    const size_t smem = window_smem_bytes<decltype(radius)::value>(r);
+    cudaError_t err = set_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<tile_grid(h, w), dim3(kBlockX, kBlockY), smem, static_cast<cudaStream_t>(stream)>>>(
+        R0, R1, dx, dy, odx, ody, h, w, r, win, scale);
+    return cudaGetLastError();
+  });
 }
 
 // All pointers are DEVICE pointers.

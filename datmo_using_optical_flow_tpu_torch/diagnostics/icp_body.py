@@ -26,14 +26,23 @@ changes no output of the kernel: ICP runs as it does in the pipeline, with a
 recorder around its active query (:func:`record_icp_rounds`, which also gives
 the rounds' K5 inputs to ``chip_smoke.py``).
 
-    python -m datmo_using_optical_flow_tpu_torch.diagnostics.icp_body [--points N]
+With ``--parent DIR``, an older checkout of the repo (``git archive <rev> |
+tar -x -C build/parent``, say), that checkout's ``ops/icp.py`` is loaded as a
+module of its own (its imports resolve to this package), and three parts are
+timed for both in turns (the parent, this code twice, the parent; the best of
+each): ``transform_points`` on the clouds, the cached round's algebra without
+K5, and one cached ``registration_icp`` on the probe's pair.
+
+    python -m datmo_using_optical_flow_tpu_torch.diagnostics.icp_body [--points N] [--parent DIR]
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import time
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -177,11 +186,39 @@ def icp_tile_probe(source, source_mask, target, target_mask, threshold: float,
     return out
 
 
+def parent_icp(parent: str | Path):
+    """``ops/icp.py`` of the checkout at ``parent`` as a module of its own."""
+    path = Path(parent) / "datmo_using_optical_flow_tpu_torch" / "ops" / "icp.py"
+    spec = importlib.util.spec_from_file_location("parent_icp", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _turns_row(name: str, body_of, modules: dict, steps: int, dev: torch.device, card: str,
+               reps: int) -> dict:
+    """``body_of(module)`` for each of ``modules`` ({"package": icp, "parent":
+    its parent}) in turns: the parent, the package twice, the parent; the
+    best total of each."""
+    runs = {"package": [], "parent": []}
+    for key in ("parent", "package", "package", "parent"):
+        runs[key].append(_loop_row(f"{name} [{key}]", body_of(modules[key]), steps, dev, card,
+                                   reps))
+    row = {"name": name, "steps": steps, "turns": runs}
+    for key, prefix in (("package", ""), ("parent", "parent_")):
+        best = min(runs[key], key=lambda r: r["ms_total"])
+        row.update({f"{prefix}{k}": best[k] for k in ("ms_total", "ms_per_step",
+                                                       "device_ms_total")})
+    return row
+
+
 def run(src, dst, weights, device: str | torch.device = "cuda", steps: int = 30,
-        reps: int = 3, probe=None, threshold: float = 0.02, max_iterations: int = 30) -> dict:
+        reps: int = 3, probe=None, threshold: float = 0.02, max_iterations: int = 30,
+        parent: str | Path | None = None) -> dict:
     """Rows for the (N, 3) clouds ``src``, ``dst`` and (N,) ``weights``;
     ``probe`` = (source, source_mask, target, target_mask) for the tile probe
-    (default: ``src`` against itself turned and moved a little)."""
+    (default: ``src`` against itself turned and moved a little); ``parent``
+    as ``--parent``."""
     dev = resolve_device(device)
     card = card_label(dev)
     s = torch.as_tensor(np.asarray(src, np.float32), device=dev)
@@ -233,10 +270,33 @@ def run(src, dst, weights, device: str | torch.device = "cuda", steps: int = 30,
     rows = [_loop_row(name, body, steps, dev, card, reps) for name, body in parts]
     if probe is None:
         probe = _probe_pair(s)
-    tiles = icp_tile_probe(*(torch.as_tensor(t, device=dev) for t in probe), threshold,
-                           max_iterations, card)
+    probe = tuple(torch.as_tensor(t, device=dev) for t in probe)
+    if parent is not None:
+        modules = {"package": icp, "parent": parent_icp(parent)}
+        a = np.deg2rad(0.2)
+        moved = torch.tensor([[np.cos(a), -np.sin(a), 0, 0.05], [np.sin(a), np.cos(a), 0, -0.03],
+                              [0, 0, 1, 0], [0, 0, 0, 1]], dtype=torch.float32, device=dev)
+
+        def algebra(m):
+            def body(i):
+                cache = state.get(m, (fixed[1], d, s, fixed[3]))
+                state[m] = m._eval_cached(s, mask, d, mask, thr2, moved, cache, live, None,
+                                          None, lambda *a, **k: fixed)[4]
+            return body
+
+        rows += [
+            _turns_row(f"transform_points ({n} points)",
+                       lambda m: lambda i: m.transform_points(s, moved), modules, steps, dev,
+                       card, reps),
+            _turns_row("eval_cached algebra (no K5), moved", algebra, modules, steps, dev, card,
+                       reps),
+            _turns_row(f"registration_icp cached ({max_iterations} rounds)",
+                       lambda m: lambda i: m.registration_icp(*probe, threshold, max_iterations,
+                                                              cached=True),
+                       modules, 1, dev, card, reps)]
+    tiles = icp_tile_probe(*probe, threshold, max_iterations, card)
     return {"card": card, "device": str(dev), "points": n, "steps": steps, "rows": rows,
-            "tile_probe": tiles}
+            "tile_probe": tiles, "parent": None if parent is None else str(parent)}
 
 
 def clouds(n: int, seed: int = 0):
@@ -251,8 +311,9 @@ def clouds(n: int, seed: int = 0):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--points", type=int, default=102400)
+    ap.add_argument("--parent", help="an older checkout whose ops/icp.py to time beside")
     args = ap.parse_args()
-    print(json.dumps(run(*clouds(args.points), threshold=0.2)))
+    print(json.dumps(run(*clouds(args.points), threshold=0.2, parent=args.parent)))
 
 
 if __name__ == "__main__":

@@ -89,18 +89,36 @@ def _kabsch(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor) -> torch.Tens
     return out.to(src.device)
 
 
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``fma(a, b, c)`` of float32 tensors, rounded once to float32.
+
+    The float64 product is exact; the float64 sum is rounded to odd (when
+    TwoSum's error is nonzero and the sum's last bit is even, it steps one
+    ulp toward the error), and a sum rounded to odd with 53 bits rounds to
+    the nearest float32 as the exact sum would.  Only elementwise float64
+    operations, so the card and the CPU agree bit for bit."""
+    # each op casts its float32 operands to float64 itself (exactly), and
+    # ``err * inf`` is NaN only where ``err`` is 0, where it is not taken
+    p = a * b.to(torch.float64)
+    s = p + c
+    pv = s - c
+    err = (c - (s - pv)) + (p - pv)
+    step = (err != 0) & ((s.view(torch.int64) & 1) == 0)
+    return torch.where(step, torch.nextafter(s, err * torch.inf), s).to(torch.float32)
+
+
 def transform_points(points: torch.Tensor, transformation: torch.Tensor) -> torch.Tensor:
     """Apply a 4x4 rigid transform ((R @ p) + t, the reference's GMFA.py:77).
 
     The rotation is the fused multiply-add chain ``fma(z, r2, fma(y, r1,
-    x * r0))`` that the JAX package's compiled ``dot`` computes, emulated with
-    float64 products (exact for float32 operands) so that the card and the CPU
-    round it alike."""
-    r, t = transformation[:3, :3].to(torch.float64), transformation[:3, 3]
-    x, y, z = (points[:, i:i + 1].to(torch.float64) for i in range(3))
-    acc = (x * r[:, 0]).to(torch.float32)
-    acc = (y * r[:, 1] + acc.to(torch.float64)).to(torch.float32)
-    acc = (z * r[:, 2] + acc.to(torch.float64)).to(torch.float32)
+    x * r0))`` that the JAX package's compiled ``dot`` computes, each step
+    rounded once (:func:`_fma32`), so that the card and the CPU round it
+    alike."""
+    r, t = transformation[:3, :3], transformation[:3, 3]
+    x, y, z = (points[:, i:i + 1] for i in range(3))
+    acc = x * r[:, 0]
+    acc = _fma32(y, r[:, 1], acc)
+    acc = _fma32(z, r[:, 2], acc)
     return acc + t
 
 

@@ -5,6 +5,8 @@ On the CPU a diagnostic's times come from the host clock and its device times
 are ``None`` (not measured); the rows and counts are what these tests check.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -74,15 +76,19 @@ def _check_rows(res, names, keys):
 
 def test_micro_flow_runs_every_row(frames):
     res = micro_flow.run(frames, device="cpu", reps=1)
-    _check_rows(res, ["K3 fused_iteration 112x160", "K4 warp_matrices 112x160",
+    _check_rows(res, ["K3 fused_iteration 112x160",
+                      "K3 fused_iteration 112x160, Gaussian window", "K4 warp_matrices 112x160",
                       "K2 blur_solve on K4's M 112x160",
                       "update_matrices packed (plain) 112x160",
+                      "K3 fused_iteration 34x48, second level",
+                      "K2 blur_solve on packed M 34x48, coarsest level",
                       "K1 poly_exp 112x160", "K1 poly_exp 34x48"],
                 ("ms", "device_us", "bytes", "ops", "bound_us", "bound_by", "share_of_bound"))
     for r in res["rows"]:
         assert r["ms"] > 0 and r["bytes"] > 0 and r["bound_us"] > 0
         assert r["device_us"] is None and r["share_of_bound"] is None  # not measured here
-    assert res["rows"][1]["bytes"] == roofline.warp_matrices(112, 160).bytes
+    assert res["rows"][2]["bytes"] == roofline.warp_matrices(112, 160).bytes
+    assert res["parent"] is None and "parent_device_us" not in res["rows"][0]
 
 
 def test_profile_1080p_runs_every_stage(frames):
@@ -113,6 +119,23 @@ def test_icp_body_runs_every_part_and_the_tile_probe():
     assert probe["active_rows_per_round"][0] == 2048 and probe["iterations"] >= 2
     active = probe["rounds"]["active"]
     assert active["round"] >= 1 and active["active_rows"] > 0
+
+
+def test_icp_body_times_a_parent_checkout_in_turns():
+    """The repo itself as the parent: its ``ops/icp.py`` loads as a module of
+    its own, and each compared part gets one row with both times."""
+    root = Path(__file__).resolve().parents[1]
+    assert icp_body.parent_icp(root) is not icp_body.icp
+    res = icp_body.run(*icp_body.clouds(1024), device="cpu", steps=2, reps=1, threshold=0.2,
+                       max_iterations=3, parent=root)
+    compared = res["rows"][6:]
+    assert [r["name"] for r in compared] == ["transform_points (1024 points)",
+                                             "eval_cached algebra (no K5), moved",
+                                             "registration_icp cached (3 rounds)"]
+    for r in compared:
+        assert r["ms_total"] > 0 and r["parent_ms_total"] > 0
+        assert [len(r["turns"][k]) for k in ("package", "parent")] == [2, 2]
+    assert res["parent"] == str(root)
 
 
 def test_tile_visits_leave_the_outputs_alone():
@@ -156,3 +179,23 @@ def test_diagnostics_ask_for_the_card_by_default(frames):
         pytest.skip("a card is present: the default runs there")
     with pytest.raises(RuntimeError, match="cuda"):
         micro_flow.run(frames)
+
+
+def test_micro_flow_builds_the_parent_only_for_the_card(frames, tmp_path):
+    with pytest.raises(RuntimeError, match="card"):
+        micro_flow.run(frames, device="cpu", parent=tmp_path)
+
+
+def test_against_parent_refuses_a_build_that_differs():
+    """Both builds are held to the plain version bit for bit before either is
+    timed: a parent one ulp off in one pixel is refused."""
+    a = torch.linspace(0, 1, 12).reshape(3, 4)
+    off = a.clone()
+    off[1, 2] = torch.nextafter(off[1, 2], torch.tensor(2.0))
+    work = roofline.blur_solve(3, 4, 15)
+    with pytest.raises(AssertionError, match="the parent differs"):
+        micro_flow.against_parent(lambda: (a, a), lambda: (a, off), lambda: (a, a.clone()), work,
+                                  torch.device("cpu"), "cpu")
+    with pytest.raises(AssertionError, match="this build differs"):
+        micro_flow.against_parent(lambda: (off, a), lambda: (a, a), lambda: (a, a), work,
+                                  torch.device("cpu"), "cpu")
