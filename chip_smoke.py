@@ -10,16 +10,19 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
 1. device and toolchain: the card, its power limit, torch/CUDA/nvcc versions;
 2. build of the CUDA kernels from ``datmo_using_optical_flow_tpu_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes, K2 and K3 bit for bit (``torch.equal``), the others with
-   the CPU tests' tolerances, and both timed (CUDA events, median of 20
-   calls each, in turns plain, kernel, kernel, plain), K3 also by its device
-   µs at both levels that run it; K4 with the converged flow of two
-   1080x1920 frames, and K4 into K2 bit-equal to K3 there; K1 and K6 also
-   beside one PyTorch call of the same
-   function (``F.conv2d``, ``torch.add``), timed and not used by the port;
-   K6's launch path split into its parts, each timed over 1,000 calls;
-4. the same at the CPU tests' other shapes and options (untimed), with K4
-   at 160x384, 130x384 and 160x1920 and K4 into K2 bit-equal to K3 at the
+   path's shapes, K1, K2 and K3 bit for bit (``torch.equal``), the others
+   with the CPU tests' tolerances, and both timed (CUDA events, median of 20
+   calls each, in turns plain, kernel, kernel, plain); K1 at all three
+   pyramid levels and K3 at both levels that run it also by their device
+   µs; K4 with the converged flow of two 1080x1920 frames, and K4 into K2
+   bit-equal to K3 there; K1 (at each level) and K6 also beside one PyTorch
+   call of the same function (``F.conv2d``, ``torch.add``), timed and not
+   used by the port; K6's launch path split into its parts, each timed over
+   1,000 calls;
+4. the same at the CPU tests' other shapes and options (untimed): K1 at
+   ragged shapes with poly_n 5 and 7, through both of its tile heights and
+   both of its C paths (a sigma of 0.3 takes the runtime-n kernel), K4 at
+   160x384, 130x384 and 160x1920 and K4 into K2 bit-equal to K3 at the
    shapes of ``tests/test_flow_pallas.py``;
 5. the 256x320 slice on the card (kernels) against the CPU (plain versions);
 6. pipeline A's main path: the stream step on 25 ``make_frames`` 1080x1920
@@ -84,8 +87,8 @@ SOURCES = {"poly_exp": "flow_kernels.cu", "blur_solve": "flow_kernels.cu",
            "fused_iteration": "flow_kernels.cu", "warp_matrices": "flow_kernels.cu",
            "nearest_neighbors": "nn_kernels.cu", "tiny": "probe_kernels.cu"}
 PER_STEP = {"poly_exp": 3, "fused_iteration": 10, "blur_solve": 5}  # 1080p, 3 levels
-TOL = {"poly_exp": 1e-5, "warp_matrices": 2e-4}
-EXACT = ("blur_solve", "fused_iteration")  # held to torch.equal with their plain versions
+TOL = {"warp_matrices": 2e-4}
+EXACT = ("poly_exp", "blur_solve", "fused_iteration")  # held to torch.equal
 
 
 def log(msg: str) -> None:
@@ -143,16 +146,16 @@ def equal(a, b) -> bool:
     return torch.equal(a, b)
 
 
-def check(kernel: str, label: str, got, want, scale: float = 1.0) -> float:
-    """Raise unless ``got`` agrees with ``want``: bit for bit for K2 and K3
-    (``EXACT``), else within ``TOL`` x ``scale``.  Logs and returns the max
+def check(kernel: str, label: str, got, want) -> float:
+    """Raise unless ``got`` agrees with ``want``: bit for bit for K1, K2 and
+    K3 (``EXACT``), else within ``TOL``.  Logs and returns the max
     abs error."""
     err = max_abs(got, want)
     if kernel in EXACT:
         ok, tol = equal(got, want), "bit-equal required"
     else:
-        ok = err <= TOL[kernel] * scale
-        tol = f"tol {TOL[kernel]:g}" + (f" x plane scale {scale:.3e}" if scale != 1.0 else "")
+        ok = err <= TOL[kernel]
+        tol = f"tol {TOL[kernel]:g}"
     log(f"{kernel} {label}: max_abs_err {err:.3e} ({tol})")
     if not ok:
         raise AssertionError(f"{kernel} {label}: error {err} ({tol})")
@@ -169,6 +172,7 @@ def smooth_flow(h: int, w: int, dev, amp: float = 4.0):
 
 def kernel_phases(dev, name: str, smi: str, h: int, w: int) -> dict:
     """Each kernel against its plain version at the main path's shapes, timed."""
+    from datmo_using_optical_flow_tpu_torch.diagnostics import roofline
     from datmo_using_optical_flow_tpu_torch.diagnostics.measure import device_us_per_call
     from datmo_using_optical_flow_tpu_torch.sim.frames import make_frames
     from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
@@ -181,9 +185,9 @@ def kernel_phases(dev, name: str, smi: str, h: int, w: int) -> dict:
     results = {k: {"max_abs_err": 0.0} for k in REPLACES}
     top = len(pyr[0]) - 1
 
-    def record(kernel: str, label: str, got, want, scale: float, ms: float, plain_ms: float,
+    def record(kernel: str, label: str, got, want, ms: float, plain_ms: float,
                timed: bool) -> None:
-        err = check(kernel, label, got, want, scale)
+        err = check(kernel, label, got, want)
         log(f"{kernel} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{name}, {smi}]")
         res = results[kernel]
         res["max_abs_err"] = max(res["max_abs_err"], err)
@@ -191,18 +195,25 @@ def kernel_phases(dev, name: str, smi: str, h: int, w: int) -> dict:
             res["ms"], res["plain_ms"] = ms, plain_ms
 
     full = torch.as_tensor(frames[0], device=dev).float()
-    for level in (top, top - 1):  # the full-size level and the next
+    k1_levels = results["poly_exp"]["levels"] = {}
+    for level in range(top, -1, -1):  # every level K1 runs at, the full-size one first
         lh, lw = pyr[0][level].shape[1:]
         img = fb.level_image(full, 0.3 ** (top - level), lh, lw).contiguous()
+        label = f"{lh}x{lw}"
         got, want = fk.poly_exp(img, 5, 5.0), fk.poly_exp_reference(img, 5, 5.0)
         ms, plain_ms = time_pair(lambda: fk.poly_exp_reference(img, 5, 5.0),
                                  lambda: fk.poly_exp(img, 5, 5.0))
-        scale = float(want.abs().max())
-        record("poly_exp", f"{lh}x{lw}", got, want, scale, ms, plain_ms, timed=level == top)
+        record("poly_exp", label, got, want, ms, plain_ms, timed=level == top)
+        us = device_us_per_call(lambda: fk.poly_exp(img, 5, 5.0), dev)
+        lib_ms = library_phase("poly_exp", label, poly_exp_conv(img, 5, 5.0), want,
+                               1e-3 * float(want.abs().max()), dev, name, smi)
+        bound = roofline.poly_exp(lh, lw).bound_us()
+        k1_levels[label] = {"ms": ms, "plain_ms": plain_ms, "device_us": us,
+                            "library_ms": lib_ms, "bound_us": bound}
+        log(f"poly_exp {label}: device {us:.1f} us per call, bound {bound:.3f} us, share "
+            f"{bound / us:.3f} [{name}, {smi}]")
         if level == top:
-            results["poly_exp"]["library_ms"] = library_phase(
-                "poly_exp", f"{lh}x{lw}", poly_exp_conv(img, 5, 5.0), want, 1e-3 * scale, dev,
-                name, smi)
+            results["poly_exp"]["library_ms"] = lib_ms
 
     R0, R1 = pyr[0][0], pyr[1][0]  # the coarsest level
     zero = torch.zeros(R0.shape[1:], dtype=torch.float32, device=dev)
@@ -212,7 +223,7 @@ def kernel_phases(dev, name: str, smi: str, h: int, w: int) -> dict:
         ms, plain_ms = time_pair(lambda: fk.blur_solve_reference(M, 15, gaussian),
                                  lambda: fk.blur_solve(M, 15, gaussian))
         record("blur_solve", f"{R0.shape[1]}x{R0.shape[2]} {'gauss' if gaussian else 'box'}",
-               got, want, 1.0, ms, plain_ms, timed=not gaussian)
+               got, want, ms, plain_ms, timed=not gaussian)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = [(pyr[0][top], pyr[1][top]), (pyr[0][top - 1], pyr[1][top - 1]),
@@ -226,7 +237,7 @@ def kernel_phases(dev, name: str, smi: str, h: int, w: int) -> dict:
         ms, plain_ms = time_pair(lambda: fk.fused_iteration_reference(R0, R1, dx, dy, 15),
                                  lambda: fk.fused_iteration(R0, R1, dx, dy, 15))
         label = f"{R0.shape[1]}x{R0.shape[2]}"
-        record("fused_iteration", label, got, want, 1.0, ms, plain_ms, timed=i == 0)
+        record("fused_iteration", label, got, want, ms, plain_ms, timed=i == 0)
         if i < 2:  # the two levels that run K3 on the main path
             us = device_us_per_call(lambda: fk.fused_iteration(R0, R1, dx, dy, 15), dev)
             levels[label] = {"ms": ms, "plain_ms": plain_ms, "device_us": us}
@@ -242,7 +253,7 @@ def kernel_phases(dev, name: str, smi: str, h: int, w: int) -> dict:
                              lambda: fk.warp_matrices(R0, R1, fdx, fdy))
     record("warp_matrices", f"{h}x{w} converged flow dx [{float(fdx.min()):.2f}, "
            f"{float(fdx.max()):.2f}] dy [{float(fdy.min()):.2f}, {float(fdy.max()):.2f}]",
-           got, want, 1.0, ms, plain_ms, timed=True)
+           got, want, ms, plain_ms, timed=True)
     check_k4_into_k2(R0, R1, fdx, fdy, 15, False, f"{h}x{w} converged flow")
     return results
 
@@ -357,7 +368,11 @@ def launch_path_breakdown(x, name: str, smi: str, n: int = 1000) -> dict:
 def other_shapes_phase(dev) -> None:
     """The CPU tests' other shapes and options on the card, untimed: ragged
     tiles, poly_n = 7, Gaussian windows, and winsize 31, whose shared memory
-    (85 KB) needs the dynamic opt-in above 48 KB."""
+    (85 KB) needs the dynamic opt-in above 48 KB.  K1 takes both of its tile
+    heights (16 rows where the 32-row grid has fewer blocks than the card has
+    SMs), stores with and without float4 (w % 4), and both C paths: a sigma
+    of 0.3 underflows g's end taps in float32, so it runs the runtime-n
+    kernel."""
     from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
 
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -365,11 +380,17 @@ def other_shapes_phase(dev) -> None:
     def rand(*shape):
         return torch.randn(shape, device=dev, generator=gen)
 
-    for h, w, n, sigma in ((37, 131, 5, 5.0), (64, 200, 7, 1.5)):
+    paths = set()
+    for h, w, n, sigma in ((37, 131, 5, 5.0), (64, 200, 5, 5.0), (130, 1100, 5, 5.0),
+                           (2, 3, 5, 5.0), (64, 200, 7, 1.5), (37, 131, 7, 1.5),
+                           (330, 1003, 7, 1.5), (64, 200, 5, 0.3), (37, 131, 5, 0.3)):
         img = rand(h, w) * 50 + 100
-        want = fk.poly_exp_reference(img, n, sigma)
-        check("poly_exp", f"{h}x{w} n={n}", fk.poly_exp(img, n, sigma), want,
-              float(want.abs().max()))
+        path = "compile-time instance" if fk.poly_exp_compiled(n, sigma) else "runtime-n kernel"
+        paths.add(path)
+        check("poly_exp", f"{h}x{w} n={n} sigma={sigma} ({path})", fk.poly_exp(img, n, sigma),
+              fk.poly_exp_reference(img, n, sigma))
+    if len(paths) != 2:
+        raise AssertionError(f"K1's checks took only {paths}")
     for h, w, win, gauss in ((17, 33, 7, True), (30, 41, 31, False), (64, 128, 15, True)):
         M = rand(5, h, w) ** 2
         check("blur_solve", f"{h}x{w} win={win} gauss={gauss}", fk.blur_solve(M, win, gauss),
@@ -882,7 +903,7 @@ def main() -> None:
                         "library_ms": res.get("library_ms"), "lib_ms": res.get("library_ms")})
         if k == "nearest_neighbors":  # its time per GMFA step, by cluster size
             kernels[-1]["device_ms_per_step"] = {str(c): v for c, v in k5_step_ms.items()}
-        if k == "fused_iteration":  # per call and device time at both levels that run it
+        if k in ("poly_exp", "fused_iteration"):  # times at each level that runs it
             kernels[-1]["levels"] = res["levels"]
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

@@ -13,7 +13,9 @@
 //
 // Layouts are the JAX package's: images (H, W) and coefficient / normal-equation
 // planes (5, H, W), float32, row-major and contiguous.  K1-K3 give each block one
-// 32x32 output tile (blockDim 32x8, four rows per thread) and stage the tile plus
+// 32x32 output tile (blockDim 32x8, four rows per thread; K1's compile-time
+// instance 256 threads, or 128 for a 16x32 tile on a grid of one wave) and
+// stage the tile plus
 // its halo in shared memory, recomputing the halo rather than exchanging it:
 // blocks run in any order, nothing carries between them.  Halo positions outside
 // the image take the value at the clamped pixel (BORDER_REPLICATE), so a partial
@@ -25,6 +27,10 @@
 // the vertical pass before the horizontal one, and the 1/win^2 box scale comes
 // after the horizontal pass.  The library is built with -fmad=false (see
 // kernels/build.py) so no multiply-add is contracted.
+//
+// K1 has two kernels: a compile-time instance for poly_n 5 and 7, taken when
+// the taps have their structural zero pattern (register-blocked passes, taps
+// out of shared memory), and the runtime-n kernel for any other taps.
 //
 // K2 and K3 have two window stages.  The main path's window (winsize 15) runs
 // a compile-time instance, box or Gaussian (window_solve_fixed: register-
@@ -38,6 +44,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 #include <type_traits>
 
 #include "device_guard.cuh"
@@ -59,6 +66,10 @@ constexpr int kMainR = 7;           // the main path's window radius (winsize 15
 // 5 (48 registers, 5 blocks of 43.2 KB) measured slower on the H100: K3 122.4
 // against 87.1 us at 1080x1920, the M stage's gathers losing L1 (PERF.md).
 constexpr int kWindowMinBlocks = 4;
+// Blocks per SM K1's compile-time instances are built for: 32 registers for
+// 32-row tiles (256 threads), which beat 40 and 44 at 1080x1920 on the H100;
+// 16-row tiles (128 threads) take the 44 they need (PERF.md).
+constexpr int kPolyMinBlocks = 8;
 
 struct Window {
   float w[kMaxTaps];
@@ -303,12 +314,196 @@ __device__ __forceinline__ void warp_assemble(const float* __restrict__ R0,
 // Replaces ops/flow_pallas.py::poly_exp_pallas.  Bound on the H100: it moves
 // 24 bytes per pixel (one image read, five plane writes) for ~190 separately
 // rounded flops, about the card's float32 flop:byte balance, so neither side
-// dominates at 1080p.  Tiling: the block reads its 32x32 tile plus an n-pixel
-// halo once into shared memory (edge-clamped, which is the plain version's edge
+// dominates at 1080p.  Tiling: the block reads its tile plus an n-pixel halo
+// once into shared memory (edge-clamped, which is the plain version's edge
 // padding of the image and of the row planes), keeps the three vertical
 // correlations there, and writes only the five planes.  Skip rules as the plain
 // version: xg's zero centre tap is skipped in the vertical pass, xxg's is kept;
 // horizontal taps that are zero in float32 are skipped.
+//
+// Two kernels.  poly_exp_fixed_kernel<N, kTileH> is the compile-time instance
+// for poly_n N (5 or 7) when the taps have the structural zero pattern (every g
+// tap nonzero, xg and xxg zero exactly at the centre), which every poly_sigma
+// but a tiny one gives; poly_exp_kernel takes n and any zero pattern at run
+// time.  datmo_poly_exp picks one, and the instance's tile height: 16 rows
+// when that grid fits in one wave (kPolyMinBlocks blocks per SM), where one
+// block's latency sets the time (324x576 and 97x173 at 1080p), else 32 rows,
+// 8 blocks of 256 threads per SM for throughput (1080x1920).
+
+// Shared-memory layout and thread maps of poly_exp_fixed_kernel<N, kTileH>:
+// a kTileH x kTile output tile, its image staged as kRows x kE.
+template <int N, int kTileH>
+struct PolyFixed {
+  static constexpr int kE = kTile + 2 * N;      // staged columns
+  static constexpr int kRows = kTileH + 2 * N;  // staged image rows
+  static constexpr int kRun = 8;                // vertical pass: output rows per thread
+  static constexpr int kRuns = kTileH / kRun;   // runs per staged column
+  static constexpr int kHRun = 4;               // horizontal pass: outputs per thread
+  static constexpr int kRunsPerRow = kTile / kHRun;
+  static constexpr int kThreads = kTileH * kRunsPerRow;
+  // A vertical warp is (32 / kRuns) columns x kRuns runs, kRun rows apart: its
+  // 32 lanes fall on 32 banks when kRun * stride is an odd multiple of
+  // 32 / kRuns modulo 32, i.e. an odd stride for 4 runs, 2 mod 4 for 2.  A
+  // horizontal warp is 4 rows x 8 runs of the row planes: 32 banks with an odd
+  // row stride.  (The vertical stores of 16-row tiles take 2-way conflicts.)
+  static constexpr int kImgStride = kRuns == 4 ? (kE | 1) : kE + (6 - kE % 4) % 4;
+  static constexpr int kRowStride = kE | 1;
+  static_assert(kRuns == 2 || kRuns == 4, "16- or 32-row tiles");
+  static_assert(kRuns * kE <= kThreads, "one thread per (column, run)");
+};
+
+// The compile-time instance: the vertical pass has each of kRuns * kE threads
+// read one staged column's kRun + 2N values once, top to bottom, each into the
+// open g, xg and xxg sums of the kRun outputs whose window covers it ((kRun +
+// 2N) loads for 3 kRun sums instead of 4 loads per tap and sum); the horizontal
+// pass has each thread read kHRun + 2N values of each row plane once into the
+// 6 x kHRun sums of its run of outputs.  Taps are kernel parameters read at
+// unrolled, constant indices (constant-bank operands), and the skip rules are
+// fixed: vertically xg skips its centre and g, xxg keep every tap;
+// horizontally the centres of xg and xxg, zero in float32, are skipped.  Every
+// sum still adds its terms in ascending tap order, as the plain version.
+// The image is staged by cp.async, global to shared memory with no register
+// in between, under one wait: faster than loads through registers at every
+// level on the H100 (PERF.md).  `vec`: the five planes are stored as float4
+// (w % 4 == 0, out 16-byte aligned).
+template <int N, int kTileH>
+__global__ void __launch_bounds__(PolyFixed<N, kTileH>::kThreads, kPolyMinBlocks)
+poly_exp_fixed_kernel(const float* __restrict__ img, float* __restrict__ out, int h, int w,
+                      bool vec, PolyTaps pt) {
+  using L = PolyFixed<N, kTileH>;
+  constexpr int kTaps = 2 * N + 1;
+  constexpr int kStaged = L::kRows * L::kE;
+  __shared__ float s_img[L::kRows * L::kImgStride];
+  __shared__ float s_rows[3][kTileH * L::kRowStride];
+  const int tid = threadIdx.x;
+  const int y0 = blockIdx.y * kTileH;
+  const int x0 = blockIdx.x * kTile;
+#pragma unroll
+  for (int it = 0; it < (kStaged + L::kThreads - 1) / L::kThreads; ++it) {
+    const int idx = tid + it * L::kThreads;
+    if (idx < kStaged) {
+      const int li = idx / L::kE;
+      const int lj = idx - li * L::kE;
+      const int gi = clampi(y0 - N + li, 0, h - 1);
+      const int gj = clampi(x0 - N + lj, 0, w - 1);
+      const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(
+          s_img + li * L::kImgStride + lj));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+                   "l"(img + static_cast<size_t>(gi) * w + gj));
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  if (tid < L::kRuns * L::kE) {
+    const int col = tid / L::kRuns;
+    const int run = tid - col * L::kRuns;
+    const float* src = s_img + run * L::kRun * L::kImgStride + col;
+    float ag[L::kRun], axg[L::kRun], axxg[L::kRun];
+#pragma unroll
+    for (int y = 0; y < L::kRun + 2 * N; ++y) {
+      const float v = src[y * L::kImgStride];
+#pragma unroll
+      for (int k = 0; k < kTaps; ++k) {
+        const int i = y - k;  // output row i takes tap k from row y
+        if (i >= 0 && i < L::kRun) {
+          const float tg = pt.g[k] * v;
+          ag[i] = k == 0 ? tg : ag[i] + tg;
+          if (k != N) {
+            const float txg = pt.xg[k] * v;
+            axg[i] = k == 0 ? txg : axg[i] + txg;
+          }
+          const float txxg = pt.xxg[k] * v;
+          axxg[i] = k == 0 ? txxg : axxg[i] + txxg;
+        }
+      }
+    }
+    const int base = run * L::kRun * L::kRowStride + col;
+#pragma unroll
+    for (int i = 0; i < L::kRun; ++i) {
+      s_rows[0][base + i * L::kRowStride] = ag[i];
+      s_rows[1][base + i * L::kRowStride] = axg[i];
+      s_rows[2][base + i * L::kRowStride] = axxg[i];
+    }
+  }
+  __syncthreads();
+
+  // b1 = g*row_g, b2 = xg*row_g, b3 = g*row_xg, b4 = xxg*row_g,
+  // b5 = g*row_xxg, b6 = xg*row_xg
+  constexpr int kH = L::kHRun;
+  const int lane = tid & 31;
+  const int row = (tid >> 5) * (32 / L::kRunsPerRow) + lane / L::kRunsPerRow;
+  const int c0 = (lane % L::kRunsPerRow) * kH;
+  float b1[kH], b2[kH], b3[kH], b4[kH], b5[kH], b6[kH];
+  const float* rg = s_rows[0] + row * L::kRowStride + c0;
+#pragma unroll
+  for (int x = 0; x < kH + 2 * N; ++x) {
+    const float v = rg[x];
+#pragma unroll
+    for (int k = 0; k < kTaps; ++k) {
+      const int q = x - k;  // output q takes tap k from column x
+      if (q >= 0 && q < kH) {
+        b1[q] = k == 0 ? pt.g[k] * v : b1[q] + pt.g[k] * v;
+        if (k != N) {
+          b2[q] = k == 0 ? pt.xg[k] * v : b2[q] + pt.xg[k] * v;
+          b4[q] = k == 0 ? pt.xxg[k] * v : b4[q] + pt.xxg[k] * v;
+        }
+      }
+    }
+  }
+  const float* rxg = s_rows[1] + row * L::kRowStride + c0;
+#pragma unroll
+  for (int x = 0; x < kH + 2 * N; ++x) {
+    const float v = rxg[x];
+#pragma unroll
+    for (int k = 0; k < kTaps; ++k) {
+      const int q = x - k;
+      if (q >= 0 && q < kH) {
+        b3[q] = k == 0 ? pt.g[k] * v : b3[q] + pt.g[k] * v;
+        if (k != N) b6[q] = k == 0 ? pt.xg[k] * v : b6[q] + pt.xg[k] * v;
+      }
+    }
+  }
+  const float* rxxg = s_rows[2] + row * L::kRowStride + c0;
+#pragma unroll
+  for (int x = 0; x < kH + 2 * N; ++x) {
+    const float v = rxxg[x];
+#pragma unroll
+    for (int k = 0; k < kTaps; ++k) {
+      const int q = x - k;
+      if (q >= 0 && q < kH) b5[q] = k == 0 ? pt.g[k] * v : b5[q] + pt.g[k] * v;
+    }
+  }
+
+  const int i = y0 + row;
+  const int j = x0 + c0;
+  if (i >= h || j >= w) return;
+  float o[5][kH];
+#pragma unroll
+  for (int q = 0; q < kH; ++q) {
+    o[0][q] = b3[q] * pt.ig[0];
+    o[1][q] = b2[q] * pt.ig[0];
+    o[2][q] = b1[q] * pt.ig[1] + b5[q] * pt.ig[2];
+    o[3][q] = b1[q] * pt.ig[1] + b4[q] * pt.ig[2];
+    o[4][q] = b6[q] * pt.ig[3];
+  }
+  const size_t plane = static_cast<size_t>(h) * w;
+  const size_t p = static_cast<size_t>(i) * w + j;
+#pragma unroll
+  for (int c = 0; c < 5; ++c) {
+    float* dst = out + c * plane + p;
+    if (vec) {  // j + 3 < w: w and j are multiples of 4
+      *reinterpret_cast<float4*>(dst) = make_float4(o[c][0], o[c][1], o[c][2], o[c][3]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < kH; ++q)
+        if (j + q < w) dst[q] = o[c][q];
+    }
+  }
+}
+
+// The runtime-n kernel: any poly_n up to kMaxPolyN and any zero pattern of
+// the taps, which it tests one by one.
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 poly_exp_kernel(const float* __restrict__ img, float* __restrict__ out, int h, int w,
                 int n, PolyTaps pt) {
@@ -548,7 +743,41 @@ cudaError_t with_window_instance(const Window& win, int winsize, Launch launch) 
   return launch(Main{}, std::true_type{});
 }
 
-dim3 tile_grid(int h, int w) { return dim3((w + kTile - 1) / kTile, (h + kTile - 1) / kTile); }
+dim3 tile_grid(int h, int w, int tile_h = kTile) {
+  return dim3((w + kTile - 1) / kTile, (h + tile_h - 1) / tile_h);
+}
+
+// The structural zero pattern of K1's taps, which the compile-time instances
+// take: every g tap nonzero, xg and xxg zero exactly at the centre.
+bool poly_taps_structural(const PolyTaps& pt, int n) {
+  for (int k = 0; k < 2 * n + 1; ++k) {
+    const bool centre = k == n;
+    if (pt.g[k] == 0.0f || (pt.xg[k] == 0.0f) != centre || (pt.xxg[k] == 0.0f) != centre)
+      return false;
+  }
+  return true;
+}
+
+// K1's compile-time instance for poly_n N: 16-row tiles when their grid fits
+// in one wave of kPolyMinBlocks blocks per SM, else 32-row tiles.
+template <int N>
+cudaError_t launch_poly_fixed(float* out, const float* img, int h, int w, const PolyTaps& pt,
+                              int device, cudaStream_t stream) {
+  int sms = 0;
+  const cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const bool vec = w % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  constexpr int kShort = kTile / 2;
+  const dim3 short_grid = tile_grid(h, w, kShort);
+  if (static_cast<int>(short_grid.x * short_grid.y) <= kPolyMinBlocks * sms) {
+    poly_exp_fixed_kernel<N, kShort><<<short_grid, PolyFixed<N, kShort>::kThreads, 0, stream>>>(
+        img, out, h, w, vec, pt);
+  } else {
+    poly_exp_fixed_kernel<N, kTile><<<tile_grid(h, w), PolyFixed<N, kTile>::kThreads, 0,
+                                      stream>>>(img, out, h, w, vec, pt);
+  }
+  return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -568,8 +797,12 @@ int datmo_poly_exp(float* out, const float* img, int h, int w, int n, const floa
     pt.xxg[k] = xxg[k];
   }
   for (int k = 0; k < 4; ++k) pt.ig[k] = ig[k];
-  poly_exp_kernel<<<tile_grid(h, w), dim3(kBlockX, kBlockY), 0,
-                    static_cast<cudaStream_t>(stream)>>>(img, out, h, w, n, pt);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (poly_taps_structural(pt, n)) {
+    if (n == 5) return launch_poly_fixed<5>(out, img, h, w, pt, device, s);
+    if (n == 7) return launch_poly_fixed<7>(out, img, h, w, pt, device, s);
+  }
+  poly_exp_kernel<<<tile_grid(h, w), dim3(kBlockX, kBlockY), 0, s>>>(img, out, h, w, n, pt);
   return cudaGetLastError();
 }
 

@@ -9,16 +9,17 @@ with the Gaussian one), K4 (the standalone warp and M), K2 on K4's M and the
 packed-gather ``update_matrices`` (plain PyTorch, for reference); K3 at the
 second level (324x576 at 1080p) with that level's converged flow; K2 at the
 coarsest level (97x173) on the packed ``update_matrices``' M with that
-level's converged flow, as the step runs it; and K1 at the two finest
-levels.  Each row gives ms per call, device µs, the bytes and operations of
+level's converged flow, as the step runs it; and K1 at every level, on the
+image ``build_pyramid`` gives it (1080x1920, 324x576 and 97x173 at 1080p).
+Each row gives ms per call, device µs, the bytes and operations of
 the work, its bound on the H100 and the share of the bound reached
 (``roofline``).
 
 With ``--parent DIR``, an older checkout of the repo (``git archive <rev> |
 tar -x -C build/parent``, say), that checkout's ``flow_kernels.cu`` is built
-by hand beside the package's, and every K2 and K3 row also holds both builds
-bit-equal to the plain version and takes their device µs in turns on the
-same inputs (the parent, this build twice, the parent; three times).
+by hand beside the package's, and every K1, K2 and K3 row also holds both
+builds bit-equal to the plain version and takes their device µs in turns on
+the same inputs (the parent, this build twice, the parent; three times).
 
     python -m datmo_using_optical_flow_tpu_torch.diagnostics.micro_flow [--height H --width W]
         [--parent DIR]
@@ -50,6 +51,7 @@ from datmo_using_optical_flow_tpu_torch.sim.frames import make_frames
 from datmo_using_optical_flow_tpu_torch.utils.device import resolve_device
 
 _WINDOW_ENTRIES = ("datmo_fused_iteration", "datmo_blur_solve")
+_PARENT_ENTRIES = (*_WINDOW_ENTRIES, "datmo_poly_exp")
 
 
 class Inputs(NamedTuple):
@@ -81,7 +83,7 @@ def inputs(frames: np.ndarray, dev: torch.device) -> Inputs:
 def parent_library(parent: str | Path) -> ctypes.CDLL:
     """``flow_kernels.cu`` of the checkout at ``parent``, built by hand with
     the package's flags into ``build/parent_kernels/``, with the C signatures
-    of its K2 and K3 entry points set."""
+    of its K1, K2 and K3 entry points set."""
     source = Path(parent) / "datmo_using_optical_flow_tpu_torch" / "csrc" / "flow_kernels.cu"
     out = build.BUILD_DIR.parent / "parent_kernels" / "libflow_kernels.so"
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -91,7 +93,7 @@ def parent_library(parent: str | Path) -> ctypes.CDLL:
         raise RuntimeError(f"nvcc failed for {source}:\n{' '.join(cmd)}\n"
                            f"{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(str(out))
-    for entry in _WINDOW_ENTRIES:
+    for entry in _PARENT_ENTRIES:
         fn = getattr(lib, entry)
         fn.argtypes, fn.restype = build._SIGNATURES[entry]
     return lib
@@ -113,6 +115,24 @@ def parent_call(lib: ctypes.CDLL, args: tuple, winsize: int, gaussian: bool) -> 
                        scale, first.device.index,
                        torch.cuda.current_stream(first.device).cuda_stream), "parent")
         return odx, ody
+
+    return call
+
+
+def parent_poly_exp(lib: ctypes.CDLL, img: torch.Tensor, n: int, sigma: float) -> Callable:
+    """A call of the parent's K1 on ``img`` on the current stream, allocating
+    its output as the wrapper does; returns ``(planes,)``."""
+    h, w = img.shape
+    taps = fk._poly_taps(n, float(sigma))
+    ptr = img.data_ptr()
+
+    def call():
+        out = torch.empty((5, h, w), dtype=torch.float32, device=img.device)
+        build.check(lib.datmo_poly_exp(out.data_ptr(), ptr, h, w, n,
+                                       *(t.ctypes.data for t in taps), img.device.index,
+                                       torch.cuda.current_stream(img.device).cuda_stream),
+                    "parent")
+        return (out,)
 
     return call
 
@@ -195,12 +215,19 @@ def run(frames: np.ndarray, device: str | torch.device = "cuda", reps: int = 20,
                    gaussian),
         window_row(f"K2 blur_solve on packed M {ch}x{cw}, coarsest level", (Mc,), gaussian),
     ]
-    # K1 on the two finest levels' images, as build_pyramid feeds it
-    for _, scale, lh, lw in level_sizes(h, w, c.pyr_scale, c.levels)[::-1][:2]:
+    # K1 on every level's image, finest first, as build_pyramid feeds it
+    n, sigma = c.poly_n, c.poly_sigma
+    for _, scale, lh, lw in level_sizes(h, w, c.pyr_scale, c.levels)[::-1]:
         img = fb.level_image(inp.image, scale, lh, lw)
-        rows.append(kernel_row(f"K1 poly_exp {lh}x{lw}", lambda img=img: fk.poly_exp(
-            img, c.poly_n, c.poly_sigma), roofline.poly_exp(lh, lw, c.poly_n, c.poly_sigma),
-            dev, card, reps))
+        work = roofline.poly_exp(lh, lw, n, sigma)
+        row = kernel_row(f"K1 poly_exp {lh}x{lw}", lambda img=img: fk.poly_exp(img, n, sigma),
+                         work, dev, card, reps)
+        if lib is not None:
+            row.update(against_parent(lambda img=img: (fk.poly_exp(img, n, sigma),),
+                                      parent_poly_exp(lib, img, n, sigma),
+                                      lambda img=img: (fk.poly_exp_reference(img, n, sigma),),
+                                      work, dev, card))
+        rows.append(row)
     return {"card": card, "device": str(dev), "shape": [h, w],
             "parent": None if parent is None else str(parent), "rows": rows}
 

@@ -64,6 +64,18 @@ def _poly_taps(n: int, sigma: float) -> tuple[np.ndarray, ...]:
     return tuple(np.ascontiguousarray(a, dtype=np.float32) for a in (g, xg, xxg, igs))
 
 
+def poly_exp_compiled(n: int, sigma: float) -> bool:
+    """Whether ``datmo_poly_exp`` runs K1's compile-time instance for these
+    taps (the rule of ``csrc/flow_kernels.cu::poly_taps_structural``): poly_n
+    5 or 7, every g tap nonzero in float32, xg and xxg zero exactly at the
+    centre.  Other taps (a small sigma whose tails underflow) take the
+    runtime-n kernel."""
+    g, xg, xxg, _ = _poly_taps(n, float(sigma))
+    centre = np.arange(2 * n + 1) == n
+    return n in (5, 7) and bool((g != 0).all() and ((xg == 0) == centre).all()
+                                and ((xxg == 0) == centre).all())
+
+
 @functools.lru_cache(maxsize=8)
 def _window(winsize: int, gaussian: bool) -> tuple[np.ndarray, float]:
     """float32 window taps and the post-sum scale (1/win² for the box)."""

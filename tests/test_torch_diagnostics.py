@@ -19,6 +19,7 @@ from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 @pytest.mark.parametrize("kernel,args,nbytes,bound_us,bound_by", [
     ("poly_exp", (1080, 1920), 49_766_400, 14.8556, "bytes"),
     ("poly_exp", (324, 576), 4_478_976, 1.3370, "bytes"),
+    ("poly_exp", (97, 173), 402_744, 0.12022, "bytes"),
     ("fused_iteration", (1080, 1920), 116_121_600, 34.6632, "bytes"),
     ("warp_matrices", (1080, 1920), 141_004_800, 42.0910, "bytes"),
     # 308 operations per pixel at 33.5e12/s outweigh its 28 bytes
@@ -74,20 +75,23 @@ def _check_rows(res, names, keys):
             assert k in r, (r["name"], k)
 
 
-def test_micro_flow_runs_every_row(frames):
-    res = micro_flow.run(frames, device="cpu", reps=1)
-    _check_rows(res, ["K3 fused_iteration 112x160",
-                      "K3 fused_iteration 112x160, Gaussian window", "K4 warp_matrices 112x160",
-                      "K2 blur_solve on K4's M 112x160",
-                      "update_matrices packed (plain) 112x160",
-                      "K3 fused_iteration 34x48, second level",
-                      "K2 blur_solve on packed M 34x48, coarsest level",
-                      "K1 poly_exp 112x160", "K1 poly_exp 34x48"],
+def test_micro_flow_runs_every_row():
+    """Three pyramid levels (360x384, 108x115, 32x35), as at 1080p: K1 has a
+    row at each."""
+    res = micro_flow.run(_moving_frames(2, 360, 384, seed=3), device="cpu", reps=1)
+    _check_rows(res, ["K3 fused_iteration 360x384",
+                      "K3 fused_iteration 360x384, Gaussian window", "K4 warp_matrices 360x384",
+                      "K2 blur_solve on K4's M 360x384",
+                      "update_matrices packed (plain) 360x384",
+                      "K3 fused_iteration 108x115, second level",
+                      "K2 blur_solve on packed M 32x35, coarsest level",
+                      "K1 poly_exp 360x384", "K1 poly_exp 108x115", "K1 poly_exp 32x35"],
                 ("ms", "device_us", "bytes", "ops", "bound_us", "bound_by", "share_of_bound"))
     for r in res["rows"]:
         assert r["ms"] > 0 and r["bytes"] > 0 and r["bound_us"] > 0
         assert r["device_us"] is None and r["share_of_bound"] is None  # not measured here
-    assert res["rows"][2]["bytes"] == roofline.warp_matrices(112, 160).bytes
+    assert res["rows"][2]["bytes"] == roofline.warp_matrices(360, 384).bytes
+    assert res["rows"][-1]["bytes"] == roofline.poly_exp(32, 35).bytes
     assert res["parent"] is None and "parent_device_us" not in res["rows"][0]
 
 

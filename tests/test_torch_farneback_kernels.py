@@ -40,17 +40,37 @@ def _t(a):
     return torch.as_tensor(np.asarray(a))
 
 
-@pytest.mark.parametrize("h,w", [(64, 200), (37, 131), (270, 480)])
-def test_poly_exp_reference_matches_pallas_kernel(h, w):
+@pytest.mark.parametrize("h,w,n,sigma", [
+    pytest.param(64, 200, 5, 5.0, id="64-200"),
+    pytest.param(37, 131, 5, 5.0, id="37-131"),
+    pytest.param(270, 480, 5, 5.0, id="270-480"),
+    pytest.param(97, 173, 5, 5.0, id="97-173"),      # the main path's coarsest level
+    pytest.param(37, 131, 7, 1.5, id="37-131-n7"),   # the other poly_n
+    pytest.param(64, 200, 5, 0.3, id="64-200-s0.3"),  # g's end taps underflow in float32
+])
+def test_poly_exp_reference_matches_pallas_kernel(h, w, n, sigma):
     """K1: atol 1e-5 relative to the plane scale (the JAX kernel itself differs
     from the jnp path by ~1 ulp of FMA formation)."""
     rng = np.random.default_rng(h)
     img = rng.normal(size=(h, w)).astype(np.float32) * 50 + 100
-    want = np.asarray(flow_pallas.poly_exp_pallas(jnp.asarray(img), 5, 5.0))
-    got = fk.poly_exp(_t(img), 5, 5.0).numpy()
+    want = np.asarray(flow_pallas.poly_exp_pallas(jnp.asarray(img), n, sigma))
+    got = fk.poly_exp(_t(img), n, sigma).numpy()
     scale = np.abs(want).max()
     assert np.abs(got - want).max() <= 1e-5 * scale
-    np.testing.assert_array_equal(got, fb.poly_exp(_t(img), 5, 5.0).numpy())
+    np.testing.assert_array_equal(got, fb.poly_exp(_t(img), n, sigma).numpy())
+
+
+@pytest.mark.parametrize("n,sigma,compiled", [(5, 5.0, True), (7, 1.5, True), (5, 1.1, True),
+                                              (5, 0.3, False), (7, 0.3, False)])
+def test_poly_exp_instance_follows_the_structural_zero_pattern(n, sigma, compiled):
+    """The configurations' taps (5, 5.0), (7, 1.5) and (5, 1.1) have the
+    structural zero pattern (xg and xxg zero only at the centre), so the card
+    runs K1's compile-time instance; sigma 0.3 underflows the end taps of g
+    in float32 and takes the runtime-n kernel."""
+    g, xg, xxg, _ = fk._poly_taps(n, sigma)
+    assert fk.poly_exp_compiled(n, sigma) == compiled
+    assert xg[n] == 0.0 and xxg[n] == 0.0
+    assert bool((g != 0).all()) == compiled
 
 
 @pytest.mark.parametrize("h,w,win,gaussian", [(17, 33, 7, False), (64, 128, 15, False),
