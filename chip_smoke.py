@@ -49,11 +49,23 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
     count set to 0 just before it and read just after: ``micro_flow`` and
     ``profile_1080p`` on two ``make_frames`` 1080x1920 frames (K1-K4), and
     ``icp_body`` at 102,400 points (K6), whose K5 tile probe runs ICP on the
-    reference scene's frame pair 0 -> 1 (K5).
+    reference scene's frame pair 0 -> 1 (K5);
+11. pipeline A from PCD files at the reference's production shape
+    (``benchmarks/from_points.py``: 12 frames of ~56,000 points, 5000 RANSAC
+    hypotheses, a 200x200 BEV): the preprocess and step warm-up with
+    synchronising CUDA operations turned into errors, the card's BEV equal
+    to the CPU's on 3 frames, K1 and K2 bit-equal at 200x200 and 60x60 and
+    timed, then ``process_files`` with float32 and with q16 points, each
+    with the launch counts set to 0 just before and read just after (2 K1
+    and 10 K2 launches per frame, no frame skipped, tracks out), and a
+    4-frame run on the card against the CPU's;
+12. the port's two benchmarks once each, shortened, each in its own
+    process (``benchmarks/stream_1080p.py``, ``benchmarks/from_points.py``).
 
 The GMFA clouds are made with numpy and the port's point ops: flip x, drop
-``|z| <= 0.5`` (a stand-in for RANSAC ground removal on the z = 0 plane, which
-the port does not have yet), the ROI, compaction and densification x10.
+``|z| <= 0.5`` (a stand-in for RANSAC ground removal on the z = 0 plane: the
+port's GMFA has no ``preprocess`` yet), the ROI, compaction and
+densification x10.
 
 The second-to-last line is a JSON summary of the kernels, each with its
 bound on the H100 for the timed call's work (``diagnostics/roofline.py``);
@@ -68,6 +80,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -412,23 +425,13 @@ def other_shapes_phase(dev) -> None:
         check_k4_into_k2(rand(5, h, w), rand(5, h, w), dx, dy, win, gauss, f"{h}x{w}")
 
 
-def bench_config(h: int, w: int, max_cells: int):
-    from datmo_using_optical_flow_tpu_torch.config import CapacityConfig, PipelineAConfig
-
-    cfg = PipelineAConfig(x_range=(0.0, h * 0.1), y_range=(0.0, w * 0.1),
-                          grid_resolution=(0.1, 0.1),
-                          capacities=CapacityConfig(max_cells=max_cells, max_clusters=32,
-                                                    max_tracks=64))
-    assert cfg.grid_shape == (h, w), cfg.grid_shape
-    return cfg
-
-
 def slice_phase(dev, h: int, w: int) -> None:
     """The slice on the card (kernels) against the CPU (plain versions)."""
+    from datmo_using_optical_flow_tpu_torch.benchmarks.stream_1080p import config
     from datmo_using_optical_flow_tpu_torch.sim.frames import make_frames
     from datmo_using_optical_flow_tpu_torch.models.optical_flow_datmo import PipelineA
 
-    cfg = bench_config(h, w, 1024)
+    cfg = config(h, w, max_cells=1024)
     gpipe, cpipe = PipelineA(cfg, dev), PipelineA(cfg, "cpu")
     gc, cc = gpipe.init_stream_carry(), cpipe.init_stream_carry()
     for i, f in enumerate(make_frames(3, h, w)):
@@ -448,10 +451,11 @@ def slice_phase(dev, h: int, w: int) -> None:
 
 def main_path(dev, name: str, smi: str, h: int, w: int, n_frames: int) -> dict:
     """bench.py's workload through the port: prime, then n_frames - 1 steps."""
+    from datmo_using_optical_flow_tpu_torch.benchmarks.stream_1080p import config, timed_sweep
     from datmo_using_optical_flow_tpu_torch.sim.frames import make_frames
     from datmo_using_optical_flow_tpu_torch.models.optical_flow_datmo import PipelineA
 
-    cfg = bench_config(h, w, 4096)
+    cfg = config(h, w)
     bevs = [torch.as_tensor(f, device=dev) for f in make_frames(n_frames, h, w)]
     pipe = PipelineA(cfg, dev, fast_warp=True)
     carry = pipe.init_stream_carry()  # warm-up, not counted
@@ -463,14 +467,7 @@ def main_path(dev, name: str, smi: str, h: int, w: int, n_frames: int) -> dict:
     torch.cuda.synchronize()
 
     reset_launches()
-    carry = pipe.init_stream_carry()
-    carry, out = pipe.step_stream(bevs[0], carry)  # prime the pyramid
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for f in bevs[1:]:
-        carry, out = pipe.step_stream(f, carry)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
+    elapsed, carry, out = timed_sweep(pipe, bevs)  # the benchmark's sweep: prime, then steps
     launches = read_launches()
     n_levels = len(carry.pyr)
     log(f"{h}x{w} launches over {n_frames} steps ({n_levels} levels): {launches}")
@@ -837,6 +834,192 @@ def diagnostics_phase(dev, gmfa_cfg, pair) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ pipeline A from points
+
+def from_points_k1_k2(dev, name: str, smi: str, bevs, c) -> dict:
+    """K1 and K2 at the from-points levels (200x200 and 60x60) against their
+    plain versions, bit for bit, on two consecutive BEVs of the run; each
+    timed (per call, device µs) beside its bound, K1 also beside
+    ``F.conv2d``.  K2's M comes from the two frames' pyramids at zero flow;
+    ``c`` is the Farnebäck configuration."""
+    from datmo_using_optical_flow_tpu_torch.diagnostics import roofline
+    from datmo_using_optical_flow_tpu_torch.diagnostics.measure import device_us_per_call
+    from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
+    from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
+
+    full = bevs[0].to(torch.float32)
+    pyr = [fb.build_pyramid(b.to(torch.float32), c.pyr_scale, c.levels, c.poly_n, c.poly_sigma)
+           for b in bevs[:2]]
+    top = len(pyr[0]) - 1
+    rows = {"poly_exp": {}, "blur_solve": {}}
+    for level in range(top, -1, -1):
+        lh, lw = pyr[0][level].shape[1:]
+        label = f"{lh}x{lw}"
+        img = fb.level_image(full, c.pyr_scale ** (top - level), lh, lw).contiguous()
+        want = fk.poly_exp_reference(img, c.poly_n, c.poly_sigma)
+        err = check("poly_exp", f"from points {label}", fk.poly_exp(img, c.poly_n, c.poly_sigma),
+                    want)
+        ms, plain_ms = time_pair(lambda: fk.poly_exp_reference(img, c.poly_n, c.poly_sigma),
+                                 lambda: fk.poly_exp(img, c.poly_n, c.poly_sigma))
+        us = device_us_per_call(lambda: fk.poly_exp(img, c.poly_n, c.poly_sigma), dev)
+        lib_ms = library_phase("poly_exp", f"from points {label}",
+                               poly_exp_conv(img, c.poly_n, c.poly_sigma), want,
+                               1e-3 * float(want.abs().max()), dev, name, smi)
+        bound = roofline.poly_exp(lh, lw, c.poly_n, c.poly_sigma).bound_us()
+        rows["poly_exp"][label] = {"ms": ms, "plain_ms": plain_ms, "device_us": us,
+                                   "library_ms": lib_ms, "bound_us": bound, "max_abs_err": err}
+        log(f"poly_exp from points {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, device "
+            f"{us:.1f} us, bound {bound:.3f} us, share {bound / us:.3f}, F.conv2d {lib_ms:.4f} "
+            f"ms [{name}, {smi}]")
+        R0, R1 = pyr[0][level], pyr[1][level]
+        zero = torch.zeros((lh, lw), dtype=torch.float32, device=dev)
+        M = fb.update_matrices(R0, R1, zero, zero, fb.pack_corner_pairs(R1))
+        want = fk.blur_solve_reference(M, c.winsize, False)
+        err = check("blur_solve", f"from points {label}", fk.blur_solve(M, c.winsize, False), want)
+        ms, plain_ms = time_pair(lambda: fk.blur_solve_reference(M, c.winsize, False),
+                                 lambda: fk.blur_solve(M, c.winsize, False))
+        us = device_us_per_call(lambda: fk.blur_solve(M, c.winsize, False), dev)
+        bound = roofline.blur_solve(lh, lw, c.winsize).bound_us()
+        rows["blur_solve"][label] = {"ms": ms, "plain_ms": plain_ms, "device_us": us,
+                                     "library_ms": None, "bound_us": bound, "max_abs_err": err}
+        log(f"blur_solve from points {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"device {us:.1f} us, bound {bound:.3f} us, share {bound / us:.3f} [{name}, {smi}]")
+    return rows
+
+
+def from_points_phase(dev, name: str, smi: str, root: str, n_frames: int = 12
+                      ) -> tuple[dict, dict]:
+    """Pipeline A from PCD files at the reference's production shape
+    (``benchmarks/from_points.py``: 65,536 raw points, 5000 RANSAC
+    hypotheses, a 200x200 BEV): the preprocess warm-up with synchronising
+    CUDA operations turned into errors; the card's BEV against the CPU's, bit
+    for bit, on the first 3 frames; K1 and K2 at both levels; then
+    ``process_files`` over ``n_frames`` frames with float32 and with q16
+    points, each with the launch counts set to 0 just before and read just
+    after; the card's 4-frame run against the CPU's.  Returns the launches
+    and K1/K2's rows."""
+    from datmo_using_optical_flow_tpu_torch.benchmarks import from_points as fpb
+    from datmo_using_optical_flow_tpu_torch.io.frames import DiskFrameSource
+    from datmo_using_optical_flow_tpu_torch.models.optical_flow_datmo import PipelineA
+    from datmo_using_optical_flow_tpu_torch.sim.synthetic import write_synthetic_sequence
+    from datmo_using_optical_flow_tpu_torch.utils import prng
+
+    cfg = fpb.config()
+    t0 = time.perf_counter()
+    paths = write_synthetic_sequence(fpb.scene(), os.path.join(root, "seq"), n_frames)
+    frames = list(DiskFrameSource(paths[:3], capacity=cfg.capacities.max_raw_points))
+    log(f"from points: {n_frames} frames written ({int(frames[0][1].sum())} raw points in "
+        f"frame 0) in {time.perf_counter() - t0:.2f} s")
+    keys = [prng.fold_in(prng.PRNGKey(0), i) for i in range(3)]
+    inputs = [(torch.from_numpy(p).to(dev), torch.from_numpy(m).to(dev), k.to(dev))
+              for (p, m), k in zip(frames, keys)]
+    pipe, cpu = PipelineA(cfg, dev), PipelineA(cfg, "cpu")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # preprocess and step must not wait for the card
+    try:
+        carry = pipe.init_stream_carry()
+        for x in inputs[:2]:
+            carry, _ = pipe.step_stream(pipe.preprocess(*x), carry)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("from points warm-up: preprocess and steps ran with no host synchronisation")
+
+    bevs = []
+    for i, ((p, m), k) in enumerate(zip(frames, keys)):
+        t0 = time.perf_counter()
+        want = cpu.preprocess(torch.from_numpy(p), torch.from_numpy(m), k)
+        cpu_s = time.perf_counter() - t0
+        got = pipe.preprocess(*inputs[i])
+        bevs.append(got)
+        same = torch.equal(got.cpu(), want)
+        log(f"from points frame {i}: card BEV {'equals' if same else 'DIFFERS FROM'} the CPU's "
+            f"bit for bit ({int((got.cpu() != want).sum())} cells differ, {int((want > 0).sum())} "
+            f"nonzero; CPU preprocess {cpu_s:.2f} s)")
+        if not same or int((want > 0).sum()) == 0:
+            raise AssertionError(f"from points frame {i}: card BEV differs from the CPU's")
+    rows = from_points_k1_k2(dev, name, smi, bevs, cfg.farneback)
+
+    launches = {}
+    for q16 in (False, True):
+        label = "q16" if q16 else "float32"
+        reset_launches()
+        t0 = time.perf_counter()
+        summary = pipe.process_files(paths, output_dir=os.path.join(root, f"out_{label}"),
+                                     h2d_q16=q16)
+        elapsed = time.perf_counter() - t0
+        counts = read_launches()
+        per = {k: v / n_frames * 1e3 for k, v in summary["timings"].items()}
+        log(f"from points process_files ({label}): {n_frames} frames, {summary['pairs']} pairs, "
+            f"{len(summary['tracks'])} tracks, {n_frames / elapsed:.3f} frames/s "
+            f"({elapsed / n_frames * 1e3:.3f} ms/frame; runner stages, ms/frame: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in per.items())
+            + f"), launches {counts} [{name}, {smi}]")
+        want = {"poly_exp": 2 * n_frames, "blur_solve": 10 * n_frames}
+        finite = all(np.isfinite(st).all() for st in summary["tracks"].values())
+        if summary["pairs"] != n_frames - 1 or not summary["tracks"] or not finite:
+            raise AssertionError(f"from points ({label}): a frame was skipped, or no finite "
+                                 f"track came out ({summary['pairs']} pairs)")
+        if {k: counts[k] for k in want} != want or any(
+                v for k, v in counts.items() if k not in want):
+            raise AssertionError(f"from points ({label}): launches {counts}, expected {want}")
+        for k in want:
+            launches[k] = launches.get(k, 0) + counts[k]
+
+    # the card's run against the CPU's on the first 4 frames (the tests' tolerances)
+    t0 = time.perf_counter()
+    cdir, gdir = os.path.join(root, "cpu4"), os.path.join(root, "card4")
+    csum = cpu.process_files(paths[:4], output_dir=cdir)
+    gsum = pipe.process_files(paths[:4], output_dir=gdir)
+    if sorted(os.listdir(cdir)) != sorted(os.listdir(gdir)):
+        raise AssertionError("from points: the card and the CPU wrote different files")
+    verr = 0.0
+    for i in range(4):
+        for f in ("bev_frame_%d.npy",) + (("dbscan_labels_frame_%d.npy",
+                                           "dbscan_indices_frame_%d.npy") if i < 3 else ()):
+            if not np.array_equal(np.load(os.path.join(cdir, f % i)),
+                                  np.load(os.path.join(gdir, f % i))):
+                raise AssertionError(f"from points: {f % i} differs between card and CPU")
+        if i < 3:
+            for f in ("velocity_x_frame_%d.npy", "velocity_y_frame_%d.npy"):
+                verr = max(verr, float(np.abs(np.load(os.path.join(cdir, f % i))
+                                              - np.load(os.path.join(gdir, f % i))).max()))
+    same_ids = set(gsum["tracks"]) == set(csum["tracks"])
+    terr = max((float(np.abs(gsum["tracks"][t] - s).max()) for t, s in csum["tracks"].items()
+                if same_ids), default=0.0)
+    log(f"from points, 4 frames, card vs CPU: BEVs and DBSCAN files equal, velocity max_abs_err "
+        f"{verr:.3e} (tol 1e-4), tracks {sorted(gsum['tracks'])}/{sorted(csum['tracks'])}, "
+        f"state max_abs_err {terr:.3e} (tol 5e-3); {time.perf_counter() - t0:.1f} s")
+    if verr > 1e-4 or not same_ids or terr > 5e-3:
+        raise AssertionError("from points: the card's 4-frame run disagrees with the CPU's")
+    return launches, rows
+
+
+def benchmarks_phase() -> dict:
+    """The port's two benchmarks once each, shortened (9 frames and 1 sweep
+    at 1080x1920, 6 frames from points), each run as a user runs it: its own
+    process (``python -m``), whose last line of output is its JSON record.
+    A fresh process also keeps the benchmark's profiler traces out of this
+    long one (late in it, traces have lost their first records)."""
+    out = {}
+    pkg = "datmo_using_optical_flow_tpu_torch.benchmarks"
+    for label, args in (("stream_1080p", ["--frames", "9", "--sweeps", "1"]),
+                        ("from_points", ["--frames", "6"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"{pkg}.{label}", *args], cwd=ROOT,
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"benchmarks.{label} exited {proc.returncode}:\n"
+                                 f"{proc.stderr[-4000:]}")
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        log(f"benchmarks.{label} (shortened, {time.perf_counter() - t0:.1f} s): "
+            f"{json.dumps(rec)}")
+        if not (np.isfinite(rec["value"]) and rec["value"] > 0):
+            raise AssertionError(f"benchmarks.{label}: no rate")
+        out[label] = rec
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -869,6 +1052,7 @@ def main() -> None:
     slice_phase(dev, 256, 320)
     n_frames = 25
     launches = main_path(dev, name, smi, 1080, 1920, n_frames)
+    by_path = {"stream_1080p": dict(launches)}
     want = {k: PER_STEP.get(k, 0) * n_frames for k in launches}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
@@ -880,7 +1064,19 @@ def main() -> None:
     k5_launches, k5_step_ms = gmfa_main_path(dev, name, smi, 7)
     launches.update(k5_launches)
     diag = diagnostics_phase(dev, cfg, (*pair[0], *pair[1]))
+    by_path.update(gmfa=k5_launches, diagnostics=diag)
     launches.update({k: diag[k] for k in ("warp_matrices", "tiny")})
+    with tempfile.TemporaryDirectory() as root:
+        fp_launches, fp_rows = from_points_phase(dev, name, smi, root)
+    benchmarks_phase()
+    by_path["from_points"] = fp_launches
+    for k, v in fp_launches.items():
+        launches[k] += v
+    results["poly_exp"]["levels"].update(fp_rows["poly_exp"])
+    results["blur_solve"]["levels"] = fp_rows["blur_solve"]
+    for k, rows in fp_rows.items():
+        results[k]["max_abs_err"] = max([results[k]["max_abs_err"]]
+                                        + [r["max_abs_err"] for r in rows.values()])
 
     from datmo_using_optical_flow_tpu_torch.diagnostics import roofline
 
@@ -897,13 +1093,14 @@ def main() -> None:
         kernels.append({"name": k, "route": "cuda",
                         "source": f"datmo_using_optical_flow_tpu_torch/csrc/{SOURCES[k]}",
                         "replaces": REPLACES[k], "launches": launches[k],
+                        "launches_by_path": {p: c[k] for p, c in by_path.items() if c.get(k)},
                         "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                         "plain_ms": res["plain_ms"], "bound_ms": bound_us / 1e3,
                         "bound_us": bound_us, "bound_by": work[k].bound_by(),
                         "library_ms": res.get("library_ms"), "lib_ms": res.get("library_ms")})
         if k == "nearest_neighbors":  # its time per GMFA step, by cluster size
             kernels[-1]["device_ms_per_step"] = {str(c): v for c, v in k5_step_ms.items()}
-        if k in ("poly_exp", "fused_iteration"):  # times at each level that runs it
+        if k in ("poly_exp", "blur_solve", "fused_iteration"):  # times at each level that runs it
             kernels[-1]["levels"] = res["levels"]
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

@@ -1,10 +1,12 @@
-"""Pipeline configurations, without yaml.
+"""Pipeline configurations.
 
 A copy of the pipeline-A and GMFA (pipeline B) dataclasses of
 ``datmo_using_optical_flow_tpu.config`` (same field names, defaults,
-``grid_shape`` and ``validate``).  The port cannot
-import that module: it imports yaml, which the GPU deployment does not carry.
-``tests/test_torch_boundary.py`` holds the copy equal to the original.
+``grid_shape`` and ``validate``) and of its YAML loading for pipeline A
+(the reference's schema or the native one).  The port cannot import that
+module: it imports yaml at import time, which the GPU deployment does not
+carry; here only :func:`load_config` imports it.  ``tests/test_torch_boundary.py`` holds the
+copy equal to the original.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass, field
+from typing import Any
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -21,7 +24,7 @@ def _check(cond: bool, msg: str) -> None:
 
 @dataclass(frozen=True)
 class RansacConfig:
-    """Ground-plane RANSAC (a field of both pipelines' configs; not run by the port yet)."""
+    """Ground-plane RANSAC (pipeline A runs it in preprocess; GMFA not yet)."""
 
     distance_threshold: float = 0.5
     ransac_n: int = 5
@@ -229,3 +232,60 @@ class GMFAConfig:
         self.som.validate()
         self.capacities.validate()
         return self
+
+
+# YAML loading of pipeline A's config: the reference's schema
+# (Optical_flow/config.yaml) or the nested native one.
+
+def _tup(x: Any) -> Any:
+    return tuple(x) if isinstance(x, (list, tuple)) else x
+
+
+def _subconfig(cls, raw: dict | None):
+    raw = dict(raw or {})
+    fields = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(raw) - fields
+    _check(not unknown, f"unknown keys for {cls.__name__}: {sorted(unknown)}")
+    return cls(**{k: _tup(v) for k, v in raw.items()})
+
+
+def pipeline_a_config_from_dict(raw: dict) -> PipelineAConfig:
+    """Build a :class:`PipelineAConfig` from a reference-schema YAML dict.
+
+    Reference keys consumed: grid_resolution, x_range, y_range, z_max, roi_bounds,
+    ransac.*, farneback_params.*, masks.alpha_p/[0], masks.alpha_cont/[0], dt,
+    dbscan_params.*, pcd_files, input_folder, output_folder.  Unlike the reference,
+    the ransac/farneback blocks are honored.
+    """
+    raw = dict(raw)
+    masks_raw = dict(raw.pop("masks", {}) or {})
+    # reference stores thresholds as 1-element lists (Optical_flow/config.yaml:20-22)
+    for k in ("alpha_p", "alpha_cont"):
+        if k in masks_raw and isinstance(masks_raw[k], (list, tuple)):
+            masks_raw[k] = masks_raw[k][0]
+    fb_raw = dict(raw.pop("farneback_params", {}) or {})
+    kw: dict[str, Any] = {}
+    for key in ("grid_resolution", "x_range", "y_range", "z_max", "roi_bounds", "dt",
+                "noise_std", "bev_a", "bev_b", "velocity_threshold",
+                "input_folder", "output_folder", "pcd_files"):
+        if raw.get(key) is not None:
+            kw[key] = _tup(raw[key])
+    cfg = PipelineAConfig(
+        ransac=_subconfig(RansacConfig, raw.get("ransac")),
+        farneback=_subconfig(FarnebackConfig, fb_raw),
+        masks=_subconfig(MaskConfig, masks_raw),
+        dbscan=_subconfig(DbscanConfig, raw.get("dbscan_params")),
+        tracker=_subconfig(TrackerAConfig, raw.get("tracker")),
+        capacities=_subconfig(CapacityConfig, raw.get("capacities")),
+        **kw,
+    )
+    return cfg.validate()
+
+
+def load_config(path: str) -> PipelineAConfig:
+    """Load pipeline A's YAML config file (reference schema or native schema)."""
+    import yaml  # only a YAML config needs pyyaml
+
+    with open(path, "r") as f:
+        raw = yaml.safe_load(f) or {}
+    return pipeline_a_config_from_dict(raw)

@@ -1,8 +1,9 @@
 """Stage split of pipeline A's stream step, each stage synchronized.
 
 The counterpart of the JAX package's ``benchmarks/profile_1080p.py``, with
-``bench.py``'s configuration (grid = frame size at 0.1 m, 4096 cells, 32
-clusters, 64 tracks; Farnebäck 0.3/5/15/5/5/5.0, ``fast_warp``).  Stages: the
+``bench.py``'s configuration (``benchmarks.stream_1080p.config``: grid =
+frame size at 0.1 m, 4096 cells, 32 clusters, 64 tracks; Farnebäck
+0.3/5/15/5/5/5.0, ``fast_warp``).  Stages: the
 whole stream step; ``flow_from_pyramids`` over all levels; K4 and K3 at the
 finest level with the converged flow and with zero flow; the DATMO tail; the
 flow of the levels below the finest; ``build_pyramid``.  Each row gives ms per
@@ -20,7 +21,7 @@ import json
 import numpy as np
 import torch
 
-from datmo_using_optical_flow_tpu_torch.config import CapacityConfig, PipelineAConfig
+from datmo_using_optical_flow_tpu_torch.benchmarks import stream_1080p
 from datmo_using_optical_flow_tpu_torch.diagnostics.measure import card_label, stage_row
 from datmo_using_optical_flow_tpu_torch.models.optical_flow_datmo import PipelineA, _datmo_tail
 from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
@@ -35,10 +36,7 @@ def run(frames: np.ndarray, device: str | torch.device = "cuda", reps: int = 5,
     dev = resolve_device(device)
     card = card_label(dev)
     h, w = frames.shape[1:]
-    cfg = PipelineAConfig(x_range=(0.0, h * 0.1), y_range=(0.0, w * 0.1),
-                          grid_resolution=(0.1, 0.1),
-                          capacities=CapacityConfig(max_cells=max_cells, max_clusters=32,
-                                                    max_tracks=64))
+    cfg = stream_1080p.config(h, w, max_cells)
     c = cfg.farneback
     gaussian = bool(c.flags & fb.OPTFLOW_FARNEBACK_GAUSSIAN)
     pipe = PipelineA(cfg, dev, fast_warp=True)

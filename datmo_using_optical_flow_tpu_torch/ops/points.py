@@ -4,13 +4,15 @@
 * X-flip          — ``Optical_flow/main.py:65`` / ``GMFA/GMFA.py:36``
 * ROI box filter  — ``filter_points_in_roi`` (``Optical_flow/main.py:30-36``)
 * densifier       — ``increase_point_density`` (``Optical_flow/main.py:38-57``);
-  the jitter is passed in explicitly (``torch`` cannot draw ``jax.random``'s
-  numbers, so callers make it with a seeded generator of their own)
+  the jitter is drawn from a key with :func:`utils.prng.normal` (the JAX
+  package's ``jax.random.normal`` draw, bit for bit), or passed in explicitly
 """
 
 from __future__ import annotations
 
 import torch
+
+from datmo_using_optical_flow_tpu_torch.utils import prng
 
 
 def flip_x(points: torch.Tensor) -> torch.Tensor:
@@ -34,10 +36,12 @@ def roi_mask_2d(points: torch.Tensor, roi_bounds_xy) -> torch.Tensor:
     return (x >= x_min) & (x <= x_max) & (y >= y_min) & (y <= y_max)
 
 
-def densify(points: torch.Tensor, mask: torch.Tensor, noise: torch.Tensor,
-            expansion_factor: int = 10) -> tuple[torch.Tensor, torch.Tensor]:
-    """Replicate each point ``expansion_factor`` times and add ``noise``
-    (``(N * k, 3)``, already scaled by the noise std).
+def densify(points: torch.Tensor, mask: torch.Tensor, noise: torch.Tensor | None = None,
+            expansion_factor: int = 10, key: torch.Tensor | None = None,
+            noise_std: float = 0.01) -> tuple[torch.Tensor, torch.Tensor]:
+    """Replicate each point ``expansion_factor`` times and add jitter: the
+    given ``noise`` (``(N * k, 3)``, already scaled by the noise std), or else
+    ``normal(key, (N * k, 3)) * noise_std``, as the JAX package draws it.
 
     ``np.repeat`` ordering (point i's replicas occupy rows ``i*k .. i*k+k-1``);
     padding rows keep their sentinel coordinates.  Returns
@@ -46,6 +50,10 @@ def densify(points: torch.Tensor, mask: torch.Tensor, noise: torch.Tensor,
     k = expansion_factor
     rep = torch.repeat_interleave(points, k, dim=0)
     rep_mask = torch.repeat_interleave(mask, k, dim=0)
+    if noise is None:
+        if key is None:
+            raise ValueError("densify: pass noise or a key to draw it from")
+        noise = prng.normal(key, tuple(rep.shape)) * noise_std
     if tuple(noise.shape) != tuple(rep.shape):
         raise ValueError(f"noise: expected shape {tuple(rep.shape)}, got {tuple(noise.shape)}")
     out = rep + noise.to(points.dtype)

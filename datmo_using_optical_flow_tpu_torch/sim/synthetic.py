@@ -2,9 +2,10 @@
 
 A copy of the scene generator of ``datmo_using_optical_flow_tpu.sim.synthetic``
 (``BoxTarget``, ``SyntheticScene``, ``synthetic_frame`` and the helpers they
-call), kept here so that the port and its smoke run need nothing of the JAX
-package; ``tests/test_torch_sim.py`` holds the copy equal to the original, bit
-for bit.  A frame is a ground plane at z = 0, static boxes and moving box
+call, and ``write_synthetic_sequence`` through the port's PCD writer), kept
+here so that the port and its smoke run need nothing of the JAX package;
+``tests/test_torch_sim.py`` holds the copy equal to the original, bit for
+bit.  A frame is a ground plane at z = 0, static boxes and moving box
 targets, with sensor noise, optional transient clutter and an optional LiDAR
 shadow model; every frame is a function of (seed, frame index).
 """
@@ -162,3 +163,21 @@ def synthetic_frame(scene: SyntheticScene, frame_index: int, dt: float = 1.0) ->
     if scene.occlusion and occluders:
         pts = _occlude(pts, occluders)
     return pts
+
+
+def write_synthetic_sequence(scene: SyntheticScene, out_dir: str, num_frames: int,
+                             dt: float = 1.0) -> list[str]:
+    """Write frames 0..num_frames-1 as binary PCD files
+    (``lidar_frame_<30 i>.pcd``, as the capture harness names them); returns
+    the paths."""
+    import os
+
+    from datmo_using_optical_flow_tpu_torch.io.pcd import write_pcd
+
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for i in range(num_frames):
+        p = os.path.join(out_dir, f"lidar_frame_{i * 30}.pcd")
+        write_pcd(p, synthetic_frame(scene, i, dt))
+        paths.append(p)
+    return paths

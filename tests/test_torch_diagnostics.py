@@ -203,3 +203,18 @@ def test_against_parent_refuses_a_build_that_differs():
     with pytest.raises(AssertionError, match="this build differs"):
         micro_flow.against_parent(lambda: (off, a), lambda: (a, a), lambda: (a, a), work,
                                   torch.device("cpu"), "cpu")
+
+
+def test_stage_row_reports_a_lost_trace_as_not_measured(monkeypatch, capsys):
+    """A stage's device time whose profiler traces keep losing a sentinel end
+    is not measured (None), and the row says so; the stage's ms stands."""
+    from datmo_using_optical_flow_tpu_torch.diagnostics import measure
+
+    def lost(fn, dev, reps=5):
+        raise measure.LostTrace("the profiler lost a sentinel end of 3 traces on the card")
+
+    monkeypatch.setattr(measure, "device_us_per_call", lost)
+    row = measure.stage_row("a stage", lambda: torch.ones(4).sum(), torch.device("cpu"), "cpu",
+                            reps=1)
+    assert row["ms"] > 0 and row["device_ms"] is None and row["busy_share"] is None
+    assert "a stage: device time not measured" in capsys.readouterr().out
