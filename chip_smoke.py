@@ -30,27 +30,34 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
    counting each kernel's launches, and frames/s over the 24 steps after the
    priming frame; the warm-up steps run with synchronising CUDA operations
    turned into errors;
-7. K5 (the NN sweep) bit-equal to its serial plain version at GMFA's
-   reference load (102,400 x 102,400 points): uncapped, with the
-   classification cap, an ICP-style active subset, every target twice (tied
-   minima), and the inputs of ICP's busiest active round on the reference
-   scene's frame pair 0 -> 1; at each cluster size (1, 2, 4, 8, 16 CTAs per
-   block) with its device µs and the busiest block's serial bound, and at
-   the kept sizes; its bounds checked sound against a float64 ``cKDTree``
-   on 4096 sampled rows; wrapper and plain version timed as in phase 3;
-8. the GMFA step at a small configuration on the card against the CPU;
-9. GMFA's main path: ``benchmarks/bench_gmfa.py``'s scene and configuration
-   (7 frames, 102,400 expanded points per cloud), ``seed_carry`` and 6
-   ``step`` calls, with K5's launches and the host synchronisations per
-   step; then K5's device ms per step, full and active sweeps apart, at the
-   kept sizes and at each cluster size (one step's sweeps recorded, then
-   replayed under the profiler);
-10. the diagnostics that run K4 and K6, at full size, each with every launch
+7. GMFA's ``preprocess`` at the reference load
+   (``benchmarks/gmfa_reference_load.py``'s configuration, scene and keys: 7
+   frames of ~56,000 raw points, RANSAC with 5000 hypotheses, 102,400
+   expanded points): its first call with synchronising CUDA operations
+   turned into errors, then the card's clouds equal to the CPU port's bit
+   for bit on frames 0-2, with float32 and with q16 points;
+8. K5 (the NN sweep) bit-equal to its serial plain version on frames 0 and
+   1 of those clouds: uncapped, with the classification cap, an ICP-style
+   active subset, every target twice (tied minima), and the inputs of ICP's
+   busiest active round on that frame pair; at each cluster size (1, 2, 4,
+   8, 16 CTAs per block) with its device µs and the busiest block's serial
+   bound, and at the kept sizes; its bounds checked sound against a float64
+   ``cKDTree`` on 4096 sampled rows; wrapper and plain version timed as in
+   phase 3;
+9. the GMFA step at a small configuration on the card against the CPU, on
+   clouds the port preprocessed, with the same step keys (so the same new
+   track ids);
+10. GMFA's main path on the 7 clouds: ``seed_carry`` and 6 ``step`` calls,
+    with K5's launches, the host synchronisations per step and the moving
+    points against the 16,384 cap; then K5's device ms per step, full and
+    active sweeps apart, at the kept sizes and at each cluster size (one
+    step's sweeps recorded, then replayed under the profiler);
+11. the diagnostics that run K4 and K6, at full size, each with every launch
     count set to 0 just before it and read just after: ``micro_flow`` and
     ``profile_1080p`` on two ``make_frames`` 1080x1920 frames (K1-K4), and
     ``icp_body`` at 102,400 points (K6), whose K5 tile probe runs ICP on the
-    reference scene's frame pair 0 -> 1 (K5);
-11. pipeline A from PCD files at the reference's production shape
+    preprocessed frame pair 0 -> 1 (K5);
+12. pipeline A from PCD files at the reference's production shape
     (``benchmarks/from_points.py``: 12 frames of ~56,000 points, 5000 RANSAC
     hypotheses, a 200x200 BEV): the preprocess and step warm-up with
     synchronising CUDA operations turned into errors, the card's BEV equal
@@ -59,13 +66,12 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
     with the launch counts set to 0 just before and read just after (2 K1
     and 10 K2 launches per frame, no frame skipped, tracks out), and a
     4-frame run on the card against the CPU's;
-12. the port's two benchmarks once each, shortened, each in its own
-    process (``benchmarks/stream_1080p.py``, ``benchmarks/from_points.py``).
-
-The GMFA clouds are made with numpy and the port's point ops: flip x, drop
-``|z| <= 0.5`` (a stand-in for RANSAC ground removal on the z = 0 plane: the
-port's GMFA has no ``preprocess`` yet), the ROI, compaction and
-densification x10.
+13. GMFA from PCD files at a small configuration: ``process_files`` over 4
+    ``synth`` frames on the card against the CPU (rows, track ids, states,
+    SOM) and resumed on the card from a mid-run checkpoint (same rows);
+14. the port's three benchmarks once each, shortened, each in its own
+    process (``benchmarks/stream_1080p.py``, ``benchmarks/from_points.py``,
+    ``benchmarks/gmfa_reference_load.py``).
 
 The second-to-last line is a JSON summary of the kernels, each with its
 bound on the H100 for the timed call's work (``diagnostics/roofline.py``);
@@ -484,47 +490,48 @@ def main_path(dev, name: str, smi: str, h: int, w: int, n_frames: int) -> dict:
 
 # ------------------------------------------------------------------ GMFA (pipeline B)
 
-def gmfa_clouds(scene, cfg, n_frames: int, dev, seed: int, dt: float | None = None):
-    """Expanded clouds ((P, 3), (P,)) on ``dev`` for frames 0..n_frames-1,
-    ``dt`` seconds apart (default: the configuration's)."""
-    from datmo_using_optical_flow_tpu_torch.ops import points as point_ops
-    from datmo_using_optical_flow_tpu_torch.sim import synthetic as synth
-    from datmo_using_optical_flow_tpu_torch.utils.padding import compact_masked
+def gmfa_preprocess_phase(dev, pipe, frames, n_check: int = 3) -> list:
+    """GMFA's ``preprocess`` on the card: its first call with synchronising
+    CUDA operations turned into errors, then every frame of ``frames``
+    (padded numpy points, ``benchmarks/gmfa_reference_load``'s keys), the
+    first ``n_check`` held to the CPU port's bit for bit (``torch.equal``),
+    with float32 and with q16 points.  Returns the card's clouds."""
+    from datmo_using_optical_flow_tpu_torch.benchmarks import gmfa_reference_load as grl
+    from datmo_using_optical_flow_tpu_torch.io.frames import pad_points_q16
+    from datmo_using_optical_flow_tpu_torch.models.gmfa import GMFAPipeline
 
-    rng = np.random.default_rng(seed)
-    caps = cfg.capacities
-    out = []
-    for i in range(n_frames):
-        raw = synth.synthetic_frame(scene, i, dt=cfg.dt if dt is None else dt)
-        raw = torch.as_tensor(raw.astype(np.float32))
-        p = point_ops.flip_x(raw)
-        # stand-in for RANSAC ground removal (the ground is the z = 0 plane)
-        keep = (p[:, 2].abs() > 0.5) & point_ops.roi_mask(p, cfg.roi_bounds)
-        cpts, cmask, _ = compact_masked(p, keep, caps.max_roi_points)
-        noise = rng.normal(0.0, cfg.noise_std, size=(caps.max_expanded_points, 3))
-        ex, exm = point_ops.densify(cpts, cmask, torch.as_tensor(noise.astype(np.float32)),
-                                    caps.expansion_factor)
-        out.append((ex.to(dev).contiguous(), exm.to(dev)))
-    return out
-
-
-def bench_gmfa_setup():
-    """``benchmarks/bench_gmfa.py``'s configuration and scene (seed 42)."""
-    from datmo_using_optical_flow_tpu_torch.config import CapacityConfig, GMFAConfig
-    from datmo_using_optical_flow_tpu_torch.sim import synthetic as synth
-
-    box = synth.BoxTarget
-    cfg = GMFAConfig(capacities=CapacityConfig(max_raw_points=65536, max_roi_points=10240,
-                                               max_cells=4096, max_clusters=32, max_tracks=64))
-    scene = synth.SyntheticScene(
-        ground_points=40000, ground_extent=25.0,
-        static_boxes=(box(center0=(-8.0, 6.0, 1.0), velocity=(0, 0), points_per_frame=4000),),
-        targets=(box(center0=(6.0, -4.0, 0.75), velocity=(1.5, 0.8), points_per_frame=4000),
-                 box(center0=(-6.0, 5.0, 0.75), velocity=(-1.0, -1.2), size=(3.0, 1.6, 1.4),
-                     points_per_frame=4000),
-                 box(center0=(0.0, 10.0, 0.75), velocity=(0.5, -1.5), points_per_frame=4000)),
-        seed=42)
-    return cfg, scene
+    cpu = GMFAPipeline(pipe.cfg, pipe.max_moving, "cpu")
+    first = [torch.from_numpy(a).to(dev) for a in frames[0]] + [grl.frame_key(0, dev)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # preprocess must not wait for the card
+    try:
+        pipe.preprocess(*first)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("GMFA preprocess warm-up: no host synchronisation (torch.cuda.set_sync_debug_mode)")
+    clouds = grl.clouds(pipe, frames)
+    cap = pipe.cfg.capacities.max_raw_points
+    for q16 in (False, True):
+        for i in range(n_check):
+            pts, mask = frames[i]
+            if q16:
+                pts, mask = pad_points_q16(pts[mask], cap)
+            t0 = time.perf_counter()
+            want = cpu.preprocess(torch.from_numpy(pts), torch.from_numpy(mask),
+                                  grl.frame_key(i, "cpu"))
+            cpu_s = time.perf_counter() - t0
+            got = (pipe.preprocess(torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev),
+                                   grl.frame_key(i, dev)) if q16 else clouds[i])
+            got = tuple(t.cpu() for t in got)
+            rows = int((got[0] != want[0]).any(dim=1).sum())
+            same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            log(f"GMFA preprocess frame {i} ({'q16' if q16 else 'float32'}): card "
+                f"{'equals' if same else 'DIFFERS FROM'} the CPU bit for bit ({rows} of "
+                f"{int(want[1].sum())} expanded rows differ; CPU preprocess {cpu_s:.2f} s)")
+            if not same or int(want[1].sum()) == 0:
+                raise AssertionError(f"GMFA preprocess frame {i}: the card differs from the CPU")
+    return clouds
 
 
 def _k5_equal(label: str, got, want) -> None:
@@ -658,6 +665,7 @@ def k5_step_phase(dev, name: str, smi: str, pipe, clouds) -> dict:
 
     from datmo_using_optical_flow_tpu_torch.diagnostics.measure import device_us_per_call
     from datmo_using_optical_flow_tpu_torch.ops import nn_kernels as k5
+    from datmo_using_optical_flow_tpu_torch.utils import prng
 
     calls = []
     original = k5.nearest_neighbors
@@ -670,7 +678,7 @@ def k5_step_phase(dev, name: str, smi: str, pipe, clouds) -> dict:
 
     carry = pipe.seed_carry(*clouds[0])
     with mock.patch.object(k5, "nearest_neighbors", recorder):
-        pipe.step(*clouds[1], carry)
+        pipe.step(*clouds[1], carry, prng.PRNGKey(0))
     torch.cuda.synchronize()
     groups = {"full": [p for p, a in calls if not a], "active": [p for p, a in calls if a]}
 
@@ -696,11 +704,14 @@ def k5_step_phase(dev, name: str, smi: str, pipe, clouds) -> dict:
 
 def gmfa_slice_phase(dev) -> None:
     """A small GMFA configuration on the card (kernels) against the CPU (plain
-    versions), with the same clouds and new-track ids."""
+    versions), on the same clouds (preprocessed by the port on the CPU) and
+    step keys."""
     from datmo_using_optical_flow_tpu_torch.config import (CapacityConfig, DbscanConfig,
                                                            GMFAConfig, IcpConfig)
+    from datmo_using_optical_flow_tpu_torch.io.frames import pad_points
     from datmo_using_optical_flow_tpu_torch.models.gmfa import GMFAPipeline
     from datmo_using_optical_flow_tpu_torch.sim import synthetic as synth
+    from datmo_using_optical_flow_tpu_torch.utils import prng
 
     cfg = GMFAConfig(dbscan=DbscanConfig(eps=1.0, min_samples=30), icp=IcpConfig(threshold=0.2),
                      capacities=CapacityConfig(max_raw_points=8192, max_roi_points=512,
@@ -709,15 +720,19 @@ def gmfa_slice_phase(dev) -> None:
         synth.BoxTarget(center0=(5.0, -4.0, 0.75), velocity=(1.5, 0.8), points_per_frame=300),
         synth.BoxTarget(center0=(-6.0, 5.0, 0.75), velocity=(-1.0, -1.2), size=(3.0, 1.6, 1.4),
                         points_per_frame=250)))
-    clouds = gmfa_clouds(scene, cfg, 4, "cpu", seed=1, dt=1.0)  # as tests/test_gmfa_pipeline
     gpipe, cpipe = GMFAPipeline(cfg, 2048, dev), GMFAPipeline(cfg, 2048, "cpu")
+    clouds = []
+    for i in range(4):  # frames 1 s apart, as tests/test_torch_gmfa_pipeline.py makes them
+        pts, mask = pad_points(synth.synthetic_frame(scene, i).astype(np.float32),
+                               cfg.capacities.max_raw_points)
+        clouds.append(cpipe.preprocess(torch.from_numpy(pts), torch.from_numpy(mask),
+                                       prng.fold_in(prng.PRNGKey(17), i)))
     gc = gpipe.seed_carry(clouds[0][0].to(dev), clouds[0][1].to(dev))
     cc = cpipe.seed_carry(*clouds[0])
-    rng = np.random.default_rng(7)
     for i in range(1, len(clouds)):
-        ids = torch.as_tensor(rng.integers(0, 100000, 8).astype(np.int32))
-        gc, go = gpipe.step(clouds[i][0].to(dev), clouds[i][1].to(dev), gc, ids.to(dev))
-        cc, co = cpipe.step(*clouds[i], cc, ids)
+        key = prng.split(prng.fold_in(prng.PRNGKey(5), i))[1]
+        gc, go = gpipe.step(clouds[i][0].to(dev), clouds[i][1].to(dev), gc, key)
+        cc, co = cpipe.step(*clouds[i], cc, key)
         terr = max_abs(go.transformation.cpu(), co.transformation)
         agree = float((go.classifications.cpu() == co.classifications).float().mean())
         same = (int(go.moving_count) == int(co.moving_count)
@@ -733,21 +748,21 @@ def gmfa_slice_phase(dev) -> None:
             raise AssertionError(f"GMFA slice frame {i} disagrees with the CPU run")
 
 
-def gmfa_main_path(dev, name: str, smi: str, n_frames: int) -> tuple[dict, dict]:
-    """bench_gmfa.py's workload through the port: seed_carry, then n_frames - 1
-    steps, at 102,400 expanded points per cloud; then K5's device ms per step
-    (:func:`k5_step_phase`).  Returns the launches and those ms."""
-    from datmo_using_optical_flow_tpu_torch.models.gmfa import GMFAPipeline
+def gmfa_main_path(dev, name: str, smi: str, pipe, clouds) -> tuple[dict, dict]:
+    """``benchmarks/gmfa_reference_load``'s workload through the port:
+    seed_carry, then one step per later cloud (102,400 expanded points each,
+    preprocessed by the port on the card), keyed as the benchmark keys its
+    first sweep; then K5's device ms per step (:func:`k5_step_phase`).
+    Returns the launches and those ms."""
     from datmo_using_optical_flow_tpu_torch.ops import icp as icp_ops
     from datmo_using_optical_flow_tpu_torch.ops import nn_kernels as k5
+    from datmo_using_optical_flow_tpu_torch.utils import prng
 
-    cfg, scene = bench_gmfa_setup()
-    t0 = time.perf_counter()
-    clouds = gmfa_clouds(scene, cfg, n_frames, dev, seed=0)
-    n_exp = int(clouds[0][1].sum())
-    log(f"GMFA clouds: {n_frames} x {clouds[0][0].shape[0]} expanded points ({n_exp} valid), "
-        f"made in {time.perf_counter() - t0:.2f} s")
-    pipe = GMFAPipeline(cfg, max_moving_points=16384, device=dev, seed=0)
+    cfg = pipe.cfg
+    n_frames = len(clouds)
+    keys = [prng.fold_in(prng.PRNGKey(0), 100 + i) for i in range(n_frames)]
+    log(f"GMFA clouds: {n_frames} x {clouds[0][0].shape[0]} expanded points, valid "
+        f"{[int(m.sum()) for _, m in clouds]} (the port's preprocess)")
 
     # warm-up (not counted): the first steps, with every host synchronisation
     # recorded through torch.cuda.set_sync_debug_mode
@@ -758,7 +773,7 @@ def gmfa_main_path(dev, name: str, smi: str, n_frames: int) -> tuple[dict, dict]
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             try:
-                carry, out = pipe.step(*clouds[i], carry)
+                carry, out = pipe.step(*clouds[i], carry, keys[i])
                 torch.cuda.synchronize()
             finally:
                 torch.cuda.set_sync_debug_mode("default")
@@ -772,15 +787,16 @@ def gmfa_main_path(dev, name: str, smi: str, n_frames: int) -> tuple[dict, dict]
     t0 = time.perf_counter()
     outs = []
     for i in range(1, n_frames):
-        carry, out = pipe.step(*clouds[i], carry)
+        carry, out = pipe.step(*clouds[i], carry, keys[i])
         outs.append(out)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = k5.LAUNCHES["nearest_neighbors"]
     steps = n_frames - 1
     for i, o in enumerate(outs, start=1):
-        log(f"GMFA frame {i}: skip {bool(o.skip)}, moving {int(o.moving_count)}, clusters "
-            f"{int(o.n_clusters)}, fitness {float(o.fitness):.6f}, |T - I| "
+        log(f"GMFA frame {i}: skip {bool(o.skip)}, moving {int(o.moving_count)} (cap "
+            f"{pipe.max_moving}{', hit' if int(o.moving_count) >= pipe.max_moving else ''}), "
+            f"clusters {int(o.n_clusters)}, fitness {float(o.fitness):.6f}, |T - I| "
             f"{float((o.transformation - torch.eye(4, device=dev)).abs().max()):.3e}")
     alive = int(carry.table.alive.sum())
     icp = icp_ops.registration_icp(clouds[0][0], clouds[0][1], clouds[1][0], clouds[1][1],
@@ -791,13 +807,63 @@ def gmfa_main_path(dev, name: str, smi: str, n_frames: int) -> tuple[dict, dict]
         f"{[int(x) for x in icp.sweep_stats.tolist()]}")
     log(f"GMFA main path: {steps / elapsed:.3f} frames/s ({elapsed / steps * 1e3:.3f} ms/frame "
         f"over {steps} steps), K5 launches {launches} ({launches / steps:.1f} per step), "
-        f"live tracks {alive} [{name}, {smi}]")
+        f"live tracks {alive}, track ids {sorted(carry.table.tid[carry.table.alive].tolist())} "
+        f"[{name}, {smi}]")
     finite = all(bool(torch.isfinite(t).all()) for o in outs
                  for t in (o.transformation, o.fitness, o.residuals))
     finite = finite and bool(torch.isfinite(carry.table.state).all())
     if not finite or launches <= 0 or sum(int(o.moving_count) for o in outs) <= 0:
         raise AssertionError(f"GMFA outputs: finite={finite} launches={launches}")
     return {"nearest_neighbors": launches}, k5_step_phase(dev, name, smi, pipe, clouds)
+
+
+def gmfa_files_phase(dev, name: str, smi: str, root: str) -> None:
+    """GMFA from PCD files at a small configuration: ``process_files`` over 4
+    ``synth`` frames on the card and on the CPU (rows: the same count,
+    frames and track ids, states within the CPU tests' 1e-4 + 1e-5 relative,
+    the SOM within 1e-6), and the card's run resumed from its checkpoint
+    after frame 2, which gives the same rows for frame 3."""
+    from datmo_using_optical_flow_tpu_torch.config import (CapacityConfig, DbscanConfig,
+                                                           GMFAConfig, IcpConfig, RansacConfig)
+    from datmo_using_optical_flow_tpu_torch.models.gmfa import GMFAPipeline
+    from datmo_using_optical_flow_tpu_torch.sim import synthetic as synth
+
+    cfg = GMFAConfig(dbscan=DbscanConfig(eps=1.0, min_samples=20), icp=IcpConfig(threshold=0.2),
+                     ransac=RansacConfig(num_iterations=300),
+                     capacities=CapacityConfig(max_raw_points=4096, max_roi_points=384,
+                                               max_cells=1024, max_clusters=8, max_tracks=16))
+    scene = synth.SyntheticScene(ground_points=2500, ground_extent=10.0, seed=21, targets=(
+        synth.BoxTarget(center0=(-3.0, -2.0, 0.75), velocity=(0.6, 0.3), points_per_frame=150),
+        synth.BoxTarget(center0=(3.0, 2.5, 0.75), velocity=(-0.4, -0.45), size=(3.0, 1.6, 1.4),
+                        points_per_frame=150)))
+    paths = synth.write_synthetic_sequence(scene, os.path.join(root, "gmfa_seq"), 4)
+    ckpt = os.path.join(root, "gmfa_state.npz")
+    t0 = time.perf_counter()
+    card = GMFAPipeline(cfg, 1024, dev).process_files(paths, checkpoint_every=3,
+                                                       checkpoint_path=ckpt)
+    cpu = GMFAPipeline(cfg, 1024, "cpu").process_files(paths)
+    resumed = GMFAPipeline(cfg, 1024, dev).process_files(paths, checkpoint_path=ckpt,
+                                                          resume=True)
+
+    def ids(rows):
+        return [(r["Frame"], r["Track ID"]) for r in rows]
+
+    def states(rows):
+        return np.array([[r[c] for c in ("X", "Y", "VX", "VY")] for r in rows], np.float64)
+
+    same_ids = ids(card["rows"]) == ids(cpu["rows"]) and len(cpu["rows"]) > 0
+    close = same_ids and np.allclose(states(card["rows"]), states(cpu["rows"]), atol=1e-4,
+                                     rtol=1e-5)
+    serr = float(np.abs(states(card["rows"]) - states(cpu["rows"])).max()) if same_ids else None
+    som_err = float(np.abs(card["som"] - cpu["som"]).max())
+    tail = [r for r in card["rows"] if r["Frame"] >= 2]
+    log(f"GMFA process_files, 4 frames, card vs CPU: rows {len(card['rows'])}/{len(cpu['rows'])}, "
+        f"frames and ids {'equal' if same_ids else 'DIFFER'}, state max_abs_err {serr} (tol "
+        f"1e-4 + 1e-5 rel), SOM max_abs_err {som_err:.3e} (tol 1e-6); resumed at frame 3: "
+        f"{'same rows' if resumed['rows'] == tail else 'DIFFERENT rows'}; card stages (host s) "
+        f"{card['timings']}; {time.perf_counter() - t0:.1f} s [{name}, {smi}]")
+    if not close or som_err > 1e-6 or not tail or resumed["rows"] != tail:
+        raise AssertionError("GMFA process_files: the card disagrees with the CPU or its resume")
 
 
 def diagnostics_phase(dev, gmfa_cfg, pair) -> dict:
@@ -996,15 +1062,17 @@ def from_points_phase(dev, name: str, smi: str, root: str, n_frames: int = 12
 
 
 def benchmarks_phase() -> dict:
-    """The port's two benchmarks once each, shortened (9 frames and 1 sweep
-    at 1080x1920, 6 frames from points), each run as a user runs it: its own
+    """The port's three benchmarks once each, shortened (9 frames and 1 sweep
+    at 1080x1920, 6 frames from points, 4 GMFA frames and 1 sweep), each run
+    as a user runs it: its own
     process (``python -m``), whose last line of output is its JSON record.
     A fresh process also keeps the benchmark's profiler traces out of this
     long one (late in it, traces have lost their first records)."""
     out = {}
     pkg = "datmo_using_optical_flow_tpu_torch.benchmarks"
     for label, args in (("stream_1080p", ["--frames", "9", "--sweeps", "1"]),
-                        ("from_points", ["--frames", "6"])):
+                        ("from_points", ["--frames", "6"]),
+                        ("gmfa_reference_load", ["--frames", "4", "--sweeps", "1"])):
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", f"{pkg}.{label}", *args], cwd=ROOT,
                               capture_output=True, text=True, timeout=300)
@@ -1025,7 +1093,9 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script runs only on a CUDA device")
     sys.path.insert(0, ROOT)
+    from datmo_using_optical_flow_tpu_torch.benchmarks import gmfa_reference_load as grl
     from datmo_using_optical_flow_tpu_torch.kernels import build
+    from datmo_using_optical_flow_tpu_torch.models.gmfa import GMFAPipeline
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -1057,17 +1127,22 @@ def main() -> None:
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
 
-    cfg, scene = bench_gmfa_setup()
-    pair = gmfa_clouds(scene, cfg, 2, dev, 0)
-    results["nearest_neighbors"] = nn_phase(dev, name, smi, nn_cases(dev, pair, cfg.icp))
+    gcfg = grl.config()
+    gpipe = GMFAPipeline(gcfg, grl.MAX_MOVING, dev)
+    t0 = time.perf_counter()
+    gclouds = gmfa_preprocess_phase(dev, gpipe, grl.raw_frames(gcfg, grl.scene(), grl.N_FRAMES))
+    log(f"GMFA preprocess phase: {time.perf_counter() - t0:.1f} s")
+    pair = gclouds[:2]
+    results["nearest_neighbors"] = nn_phase(dev, name, smi, nn_cases(dev, pair, gcfg.icp))
     gmfa_slice_phase(dev)
-    k5_launches, k5_step_ms = gmfa_main_path(dev, name, smi, 7)
+    k5_launches, k5_step_ms = gmfa_main_path(dev, name, smi, gpipe, gclouds)
     launches.update(k5_launches)
-    diag = diagnostics_phase(dev, cfg, (*pair[0], *pair[1]))
+    diag = diagnostics_phase(dev, gcfg, (*pair[0], *pair[1]))
     by_path.update(gmfa=k5_launches, diagnostics=diag)
     launches.update({k: diag[k] for k in ("warp_matrices", "tiny")})
     with tempfile.TemporaryDirectory() as root:
         fp_launches, fp_rows = from_points_phase(dev, name, smi, root)
+        gmfa_files_phase(dev, name, smi, root)
     benchmarks_phase()
     by_path["from_points"] = fp_launches
     for k, v in fp_launches.items():

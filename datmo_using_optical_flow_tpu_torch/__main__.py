@@ -2,13 +2,15 @@
 
 Commands:
   run-a      optical-flow DATMO over PCDs (the reference's Optical_flow/main.py)
+  run-b      GMFA over PCDs (the reference's GMFA/GMFA.py), writing the track log
   synth      write a deterministic synthetic PCD sequence
-  run-b      GMFA over PCDs (not ported yet)
   simulate   CARLA capture harness (not ported yet)
 
-``run-a`` runs on the card unless ``--device cpu`` is given.  Its input is a
-folder of ``.pcd`` files or a YAML config (the reference's schema; a YAML
-input needs pyyaml, a folder does not).
+``run-a`` and ``run-b`` run on the card unless ``--device cpu`` is given.
+Their input is a folder of ``.pcd`` files or a YAML config (the reference's
+schema; a YAML input needs pyyaml, a folder does not).  ``run-b`` writes the
+track log as ``<output name>.csv`` (``-o track_data.xlsx`` gives
+``track_data.csv``), as the JAX package does without openpyxl.
 """
 
 from __future__ import annotations
@@ -18,20 +20,22 @@ import os
 import sys
 
 
-def _resolve(inp: str):
-    """A PCD folder or a YAML config -> (PipelineAConfig, sorted PCD files)."""
-    from datmo_using_optical_flow_tpu_torch.config import PipelineAConfig, load_config
+def _resolve(inp: str, pipeline: str):
+    """A PCD folder or a YAML config -> (config of ``pipeline``, PCD files):
+    a folder's files in natural order; a config's list as the JAX package
+    takes it (sorted for pipeline A, as given for GMFA)."""
+    from datmo_using_optical_flow_tpu_torch.config import GMFAConfig, PipelineAConfig, load_config
     from datmo_using_optical_flow_tpu_torch.io.frames import pcd_files_in
 
     if inp.endswith((".yaml", ".yml")):
-        cfg = load_config(inp)
+        cfg = load_config(inp, pipeline)
         files = list(cfg.pcd_files)
         if not files and cfg.input_folder:
             files = pcd_files_in(cfg.input_folder)
-        return cfg, sorted(files)  # plain order, as the JAX package sorts a config's list
+        return cfg, sorted(files) if pipeline == "a" else files
     if not os.path.isdir(inp):
         raise FileNotFoundError(f"no such folder or YAML config: {inp}")
-    return PipelineAConfig(), pcd_files_in(inp)
+    return (PipelineAConfig() if pipeline == "a" else GMFAConfig()), pcd_files_in(inp)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -46,9 +50,14 @@ def main(argv: list[str] | None = None) -> int:
     pa.add_argument("--png", action="store_true", help="also render PNG artifacts")
     pa.add_argument("--device", default="cuda", help="torch device (default: cuda)")
 
-    for name in ("run-b", "simulate"):
-        ps = sub.add_parser(name, help="not ported yet")
-        ps.add_argument("args", nargs=argparse.REMAINDER)
+    pb = sub.add_parser("run-b", help="GMFA pipeline")
+    pb.add_argument("input", help="PCD folder or YAML config")
+    pb.add_argument("-o", "--output", default="track_data.xlsx",
+                    help="track log; written as <name>.csv")
+    pb.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+
+    ps = sub.add_parser("simulate", help="not ported yet")
+    ps.add_argument("args", nargs=argparse.REMAINDER)
 
     pg = sub.add_parser("synth", help="write synthetic PCD frames")
     pg.add_argument("output_dir")
@@ -59,13 +68,24 @@ def main(argv: list[str] | None = None) -> int:
     if args.cmd == "run-a":
         from datmo_using_optical_flow_tpu_torch.models.optical_flow_datmo import PipelineA
 
-        cfg, files = _resolve(args.input)
+        cfg, files = _resolve(args.input, "a")
         if len(files) < 2:
             print("need >= 2 PCD files")
             return 1
         summary = PipelineA(cfg, args.device).process_files(
             files, output_dir=args.output, save_png=args.png, progress=True)
         print(f"{summary['pairs']} pairs, {len(summary['tracks'])} live tracks")
+        return 0
+    if args.cmd == "run-b":
+        from datmo_using_optical_flow_tpu_torch.models.gmfa import GMFAPipeline
+
+        cfg, files = _resolve(args.input, "b")
+        if not files:
+            print("No PCD files found in the folder.")
+            return 1
+        summary = GMFAPipeline(cfg, device=args.device).process_files(
+            files, output_xlsx=args.output, progress=True)
+        print(f"{len(summary['rows'])} track-log rows")
         return 0
     if args.cmd == "synth":
         from datmo_using_optical_flow_tpu_torch.sim.synthetic import (SyntheticScene,

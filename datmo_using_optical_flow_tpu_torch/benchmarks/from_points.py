@@ -123,6 +123,7 @@ def stage_rows(pipe: PipelineA, paths: list[str], out_dir: str, card: str,
     _, out = pipe.step_stream(bev2, primed)
     pack, packer = obs_packer(c)
     r = c.ransac
+    rep = torch.zeros((c.capacities.max_expanded_points, 3), device=dev)
     rows += [stage_row(name, fn, dev, card, reps) for name, fn in (
         ("host-to-device copy of the points", lambda: (torch.from_numpy(pts).to(dev),
                                                        torch.from_numpy(mask).to(dev))),
@@ -130,8 +131,7 @@ def stage_rows(pipe: PipelineA, paths: list[str], out_dir: str, card: str,
         ("  RANSAC remove_ground", lambda: remove_ground(point_ops.flip_x(P), M, kr,
                                                          r.distance_threshold, r.ransac_n,
                                                          r.num_iterations)),
-        ("  densify noise (prng.normal)",
-         lambda: prng.normal(kd, (c.capacities.max_expanded_points, 3))),
+        ("  densify jitter (prng.normal_fma)", lambda: prng.normal_fma(kd, rep, c.noise_std)),
         ("stream step", lambda: pipe.step_stream(bev2, primed)),
         ("pack + device-to-host copy", lambda: pack(bev2, out).cpu()))]
     sink = ArtifactSink(out_dir, save_png=False)

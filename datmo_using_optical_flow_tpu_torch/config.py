@@ -2,7 +2,7 @@
 
 A copy of the pipeline-A and GMFA (pipeline B) dataclasses of
 ``datmo_using_optical_flow_tpu.config`` (same field names, defaults,
-``grid_shape`` and ``validate``) and of its YAML loading for pipeline A
+``grid_shape`` and ``validate``) and of its YAML loading for both pipelines
 (the reference's schema or the native one).  The port cannot import that
 module: it imports yaml at import time, which the GPU deployment does not
 carry; here only :func:`load_config` imports it.  ``tests/test_torch_boundary.py`` holds the
@@ -24,7 +24,7 @@ def _check(cond: bool, msg: str) -> None:
 
 @dataclass(frozen=True)
 class RansacConfig:
-    """Ground-plane RANSAC (pipeline A runs it in preprocess; GMFA not yet)."""
+    """Ground-plane RANSAC (both pipelines run it in preprocess)."""
 
     distance_threshold: float = 0.5
     ransac_n: int = 5
@@ -234,8 +234,8 @@ class GMFAConfig:
         return self
 
 
-# YAML loading of pipeline A's config: the reference's schema
-# (Optical_flow/config.yaml) or the nested native one.
+# YAML loading: the reference's schemas (Optical_flow/config.yaml,
+# GMFA/config.yaml) or the nested native one.
 
 def _tup(x: Any) -> Any:
     return tuple(x) if isinstance(x, (list, tuple)) else x
@@ -282,10 +282,41 @@ def pipeline_a_config_from_dict(raw: dict) -> PipelineAConfig:
     return cfg.validate()
 
 
-def load_config(path: str) -> PipelineAConfig:
-    """Load pipeline A's YAML config file (reference schema or native schema)."""
+def gmfa_config_from_dict(raw: dict) -> GMFAConfig:
+    """Build a :class:`GMFAConfig` from a reference-schema YAML dict.
+
+    DBSCAN's ``min_samples`` defaults to the 1000 the reference executes
+    (GMFA.py:480 hard-codes it, ignoring its YAML's value) unless the dict
+    sets it."""
+    raw = dict(raw)
+    kw: dict[str, Any] = {}
+    for key in ("roi_bounds", "moving_roi_bounds", "static_threshold", "moving_threshold",
+                "dt", "noise_std", "cost_threshold", "input_folder", "output_folder",
+                "pcd_files"):
+        if raw.get(key) is not None:
+            kw[key] = _tup(raw[key])
+    dbscan_raw = dict(raw.get("dbscan_params") or {})
+    dbscan_raw.setdefault("min_samples", 1000)
+    cfg = GMFAConfig(
+        dbscan=_subconfig(DbscanConfig, dbscan_raw),
+        ransac=_subconfig(RansacConfig, raw.get("ransac")),
+        icp=_subconfig(IcpConfig, raw.get("icp")),
+        som=_subconfig(SomConfig, raw.get("som")),
+        capacities=_subconfig(CapacityConfig, raw.get("capacities")),
+        **kw,
+    )
+    return cfg.validate()
+
+
+def load_config(path: str, pipeline: str = "a") -> PipelineAConfig | GMFAConfig:
+    """Load a YAML config file (reference schema or native schema) for
+    pipeline ``"a"`` (``"optical_flow"``) or ``"b"`` (``"gmfa"``)."""
     import yaml  # only a YAML config needs pyyaml
 
     with open(path, "r") as f:
         raw = yaml.safe_load(f) or {}
-    return pipeline_a_config_from_dict(raw)
+    if pipeline.lower() in ("a", "optical_flow"):
+        return pipeline_a_config_from_dict(raw)
+    if pipeline.lower() in ("b", "gmfa"):
+        return gmfa_config_from_dict(raw)
+    raise ValueError(f"unknown pipeline {pipeline!r}; expected 'a'/'optical_flow' or 'b'/'gmfa'")

@@ -22,6 +22,7 @@ from datmo_using_optical_flow_tpu_torch.diagnostics.roofline import Work
 
 _SENTINELS = 8  # kernels that close each trace (device_us_per_call)
 _SENTINEL_NAME = "spin_kernel"
+_ATTEMPTS = 5  # traces taken before LostTrace
 
 
 def card_label(dev: torch.device) -> str:
@@ -62,43 +63,94 @@ def ms_per_call(fn: Callable, dev: torch.device, reps: int = 10, warmup: int = 2
 
 
 class LostTrace(RuntimeError):
-    """Three profiler traces in a row lost a sentinel end."""
+    """``_ATTEMPTS`` profiler traces in a row lost kernel records."""
 
 
-def device_us_per_call(fn: Callable, dev: torch.device, reps: int = 5) -> float | None:
+def traced_us(kernels: list[tuple[str, float]], reps: int, launches: int) -> float | None:
+    """Device µs per call from one trace's kernel records ``(name, µs)`` in
+    start order, or ``None`` when the trace lost records.
+
+    The trace is ``_SENTINELS`` sentinels, the ``reps`` calls with one sentinel
+    between each two, and ``_SENTINELS`` sentinels.  The opening sentinels may
+    lose records (the card's traces lose their first ones), so it counts when
+    its first and last records are sentinels, it holds at least
+    ``_SENTINELS + reps`` of them (one opening, the separators, the closing
+    ones), and each call left at least ``launches`` records of positive
+    duration."""
+    if not kernels or not all(_SENTINEL_NAME in name for name, _ in (kernels[0], kernels[-1])):
+        return None
+    calls, run = [], []
+    for name, us in kernels:
+        if _SENTINEL_NAME in name:
+            if run:
+                calls.append(run)
+            run = []
+        else:
+            run.append(us)
+    n_sentinels = sum(_SENTINEL_NAME in name for name, _ in kernels)
+    if not _SENTINELS + reps <= n_sentinels <= 2 * _SENTINELS + reps - 1:
+        return None
+    if launches and (len(calls) != reps
+                     or any(len(c) < launches or min(c) <= 0 for c in calls)):
+        return None
+    return sum(sum(c) for c in calls) / reps
+
+
+def trace_layout(kernels: list[tuple[str, float]]) -> str:
+    """A trace's records in start order, run-length coded: ``S`` sentinels,
+    ``K`` other kernels, ``0`` kernels of no duration (``S8 K1 S1 K1 S8``)."""
+    runs: list[list] = []
+    for name, us in kernels:
+        tag = "S" if _SENTINEL_NAME in name else ("K" if us > 0 else "0")
+        if runs and runs[-1][0] == tag:
+            runs[-1][1] += 1
+        else:
+            runs.append([tag, 1])
+    text = " ".join(f"{tag}{n}" for tag, n in runs)
+    return text if len(text) <= 160 else text[:157] + "..."
+
+
+def device_us_per_call(fn: Callable, dev: torch.device, reps: int = 5,
+                       launches: int = 1) -> float | None:
     """Mean device time (µs) of the work one call of ``fn`` puts on the card;
-    ``None`` on the CPU."""
+    ``None`` on the CPU.  ``launches`` is the least number of kernels one call
+    launches (0 for a stage that may run on the host alone)."""
     if dev.type != "cuda":
         return None
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    # Late in a long process the H100's traces lost their first kernel
-    # records (unguarded, K3 read 4/5 of its time over 5 calls).  So sentinel
-    # kernels (torch.cuda._sleep's spin_kernel) open and close each trace; it
-    # counts only when its first and last records are sentinels, and they are
-    # left out of the sum.  It is taken again, up to three times, and said,
-    # when it does not; then :class:`LostTrace` is raised.
-    def sentinels():
+    # Late in a long process the H100's traces lose their first kernel
+    # records (unguarded, K3 read 4/5 of its time over 5 calls; guarded only
+    # by sentinel ends, K2 once read 0 µs: the opening sentinels and all five
+    # calls were lost).  So sentinel kernels (torch.cuda._sleep's
+    # spin_kernel) open and close each trace and stand between the calls, and
+    # :func:`traced_us` holds the trace to that layout.  It is taken again, up to ``_ATTEMPTS`` times in all, and
+    # said, when it does not; then :class:`LostTrace` is raised.
+    def sentinels(n):
         sync(dev)
-        for _ in range(_SENTINELS):
+        for _ in range(n):
             torch.cuda._sleep(1000)
         sync(dev)
 
-    for attempt in range(3):
+    for attempt in range(_ATTEMPTS):
         sync(dev)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            sentinels()
-            for _ in range(reps):
+            sentinels(_SENTINELS)
+            for i in range(reps):
+                if i:
+                    sentinels(1)
                 fn()
-            sentinels()
+            sentinels(_SENTINELS)
         kernels = sorted((ev for ev in prof.events() if ev.device_type == DeviceType.CUDA),
                          key=lambda ev: ev.time_range.start)
-        if kernels and all(_SENTINEL_NAME in ev.name for ev in (kernels[0], kernels[-1])):
-            return sum(ev.device_time_total for ev in kernels
-                       if _SENTINEL_NAME not in ev.name) / reps
-        print(f"profiler trace {attempt + 1} lost a sentinel end; profiling again", flush=True)
-    raise LostTrace("the profiler lost a sentinel end of 3 traces on the card")
+        records = [(ev.name, ev.device_time_total) for ev in kernels]
+        us = traced_us(records, reps, launches)
+        if us is not None:
+            return us
+        print(f"profiler trace {attempt + 1} lost kernel records ({trace_layout(records)}); "
+              f"profiling again", flush=True)
+    raise LostTrace(f"the profiler lost kernel records in {_ATTEMPTS} traces on the card")
 
 
 def fmt(x: float | None, spec: str = ".3f") -> str:
@@ -127,7 +179,7 @@ def stage_row(name: str, fn: Callable, dev: torch.device, card: str, reps: int =
     stage's row is a breakdown, not a check)."""
     ms = ms_per_call(fn, dev, reps, warmup=1)
     try:
-        us = device_us_per_call(fn, dev, reps=max(1, reps // 2))
+        us = device_us_per_call(fn, dev, reps=max(1, reps // 2), launches=0)
     except LostTrace as e:
         print(f"{name}: device time not measured ({e})", flush=True)
         us = None

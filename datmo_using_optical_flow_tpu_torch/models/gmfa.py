@@ -1,11 +1,15 @@
 """Pipeline B, the General Model-Free Approach (GMFA), in PyTorch: the
-counterpart of ``datmo_using_optical_flow_tpu.models.gmfa`` for the frame
-step on preprocessed (expanded) clouds.
+counterpart of ``datmo_using_optical_flow_tpu.models.gmfa``, from PCD files
+to the track log.
 
-ICP ego-motion -> residual-motion classification -> moving-point ROI and
-DBSCAN -> Hungarian association -> track update and birth -> static
-occupancy map -> per-track KF (the reference's ``GMFA/GMFA.py:424-536``).
-The reference quirks the JAX package replicates are kept:
+:meth:`GMFAPipeline.preprocess` turns one frame's padded points into the
+expanded cloud (flip x, RANSAC ground removal, ROI, compaction,
+densification), with no host synchronisation.  The frame step runs ICP
+ego-motion -> residual-motion classification -> moving-point ROI and DBSCAN
+-> Hungarian association -> track update and birth -> static occupancy map
+-> per-track KF (the reference's ``GMFA/GMFA.py:424-536``), and
+:meth:`GMFAPipeline.process_files` runs a PCD sequence end to end.  The
+reference quirks the JAX package replicates are kept:
 
 * a frame with zero moving ROI points is skipped without updating the
   previous cloud (GMFA.py:477's ``continue``), on the device: the whole carry
@@ -16,23 +20,25 @@ The reference quirks the JAX package replicates are kept:
   (GMFA.py:491/134);
 * unmatched tracks are dropped, and every surviving track KF-updates against
   its own feature centroid (GMFA.py:216-232, :494-497);
-* new-track ids are random ints below 1e5 (GMFA.py:252): here from the
-  pipeline's ``torch.Generator``, or passed in as ``new_ids``;
+* new-track ids are random ints below 1e5 (GMFA.py:252), drawn from the
+  step's threefry key with ``prng.randint`` (JAX's draw, bit for bit) on the
+  host (:func:`new_track_ids`);
 * the birth-velocity lookup refreshes only on frames with a live track
   (GMFA.py:500-523).
-
-Preprocessing (RANSAC ground removal), the file runner and its artifacts are
-not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import csv
+import os
+import time
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from datmo_using_optical_flow_tpu_torch.config import GMFAConfig
+from datmo_using_optical_flow_tpu_torch.io.frames import DiskFrameSource, dequantize_points_q16
 from datmo_using_optical_flow_tpu_torch.ops import nn_kernels
 from datmo_using_optical_flow_tpu_torch.ops import points as point_ops
 from datmo_using_optical_flow_tpu_torch.ops.dbscan import dbscan
@@ -40,8 +46,12 @@ from datmo_using_optical_flow_tpu_torch.ops.hungarian import linear_sum_assignme
 from datmo_using_optical_flow_tpu_torch.ops.icp import (_CACHED_MIN, registration_icp,
                                                         transform_points)
 from datmo_using_optical_flow_tpu_torch.ops.nn import nearest_neighbors_with_bound
+from datmo_using_optical_flow_tpu_torch.ops.ransac import remove_ground
 from datmo_using_optical_flow_tpu_torch.ops.som import update_som
+from datmo_using_optical_flow_tpu_torch.utils import prng
+from datmo_using_optical_flow_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from datmo_using_optical_flow_tpu_torch.utils.device import resolve_device
+from datmo_using_optical_flow_tpu_torch.utils.hostpack import HostMirror, HostPacker
 from datmo_using_optical_flow_tpu_torch.utils.tree import select, stack
 from datmo_using_optical_flow_tpu_torch.utils.ordered import inv2, matmul_terms, segment_sum
 from datmo_using_optical_flow_tpu_torch.utils.padding import compact_masked
@@ -143,6 +153,37 @@ def _kf_model(cfg: GMFAConfig, dev: torch.device) -> _KfModel:
                           device=dev))
 
 
+def _gmfa_preprocess_impl(points: torch.Tensor, mask: torch.Tensor, key: torch.Tensor,
+                          cfg: GMFAConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """flip -> RANSAC ground removal -> ROI -> compact -> densify (the
+    reference's ``preprocess_pcd``, ``GMFA/GMFA.py:31-55``).  int16 points
+    are q16 fixed point, dequantised here."""
+    c = cfg
+    if points.dtype == torch.int16:
+        points = dequantize_points_q16(points)
+    kr, kd = prng.split(key)
+    p = point_ops.flip_x(points)
+    _, non_ground = remove_ground(p, mask, kr, c.ransac.distance_threshold,
+                                  c.ransac.ransac_n, c.ransac.num_iterations)
+    roi = non_ground & point_ops.roi_mask(p, c.roi_bounds)
+    cpts, cmask, _ = compact_masked(p, roi, c.capacities.max_roi_points)
+    return point_ops.densify(cpts, cmask, kd, c.capacities.expansion_factor,
+                             noise_std=c.noise_std)
+
+
+def new_track_ids(key: torch.Tensor, k: int, dev: torch.device) -> torch.Tensor:
+    """The ``k`` ids a step can give the tracks it births,
+    ``randint(key, (k,), 0, 100000)`` as the JAX package draws them, put on
+    ``dev``.  The draw runs where ``key`` lies (the int64 code is bit-equal on
+    both devices): from a host key, the ~500 small operations of threefry cost
+    no launches, and the ids reach the card in one non-blocking copy from
+    pinned memory."""
+    ids = prng.randint(key, (k,), 0, 100000)
+    if ids.is_cuda or dev.type != "cuda":
+        return ids.to(dev)
+    return ids.pin_memory().to(dev, non_blocking=True)
+
+
 def _gmfa_step_impl(points: torch.Tensor, mask: torch.Tensor, carry: GmfaCarry,
                     new_ids: torch.Tensor, cfg: GMFAConfig, max_moving: int,
                     kfm: _KfModel) -> tuple[GmfaCarry, GmfaOutputs]:
@@ -197,7 +238,7 @@ def _gmfa_step_impl(points: torch.Tensor, mask: torch.Tensor, carry: GmfaCarry,
     labels, _ = dbscan(mpts, mmask, c.dbscan.eps, c.dbscan.min_samples)
     kmax = c.capacities.max_clusters
     feats, centroids2d, exists, _ = _cluster_features(mpts, labels, kmax)
-    n_clusters = torch.sum(exists.to(torch.int32))
+    n_clusters = torch.sum(exists.to(torch.int32)).to(torch.int32)
 
     # 6. Hungarian association on feature distances (GMFA.py:182-213)
     tb = carry.table
@@ -236,7 +277,7 @@ def _gmfa_step_impl(points: torch.Tensor, mask: torch.Tensor, carry: GmfaCarry,
     features = _put(features, target_slot, feats)
     init_cov = torch.eye(4, device=dev) * c.initial_covariance
     cov = _put(tb.cov, target_slot, init_cov.expand(kmax, 4, 4))
-    tid = _put(tb.tid, target_slot, new_ids.to(torch.int32))
+    tid = _put(tb.tid, target_slot, new_ids)
     age = _put(age, target_slot, torch.ones(kmax, dtype=torch.int32, device=dev))
     born = _put(torch.zeros(cap, dtype=torch.bool, device=dev), target_slot, unassigned)
     alive = alive | born
@@ -283,20 +324,22 @@ def _gmfa_step_impl(points: torch.Tensor, mask: torch.Tensor, carry: GmfaCarry,
 
 
 class GMFAPipeline:
-    """Streaming runner for the GMFA step on one device (the card unless the
-    caller passes ``device="cpu"``; without CUDA the default raises).
-
-    ``seed`` seeds the ``torch.Generator`` (on ``device``) that draws new
-    track ids when :meth:`step` is not given them.
-    """
+    """Streaming runner for the GMFA pipeline on one device (the card unless
+    the caller passes ``device="cpu"``; without CUDA the default raises)."""
 
     def __init__(self, cfg: GMFAConfig | None = None, max_moving_points: int = 8192,
-                 device: str | torch.device = "cuda", seed: int = 0):
+                 device: str | torch.device = "cuda"):
         self.cfg = (cfg or GMFAConfig()).validate()
         self.max_moving = max_moving_points
         self.device = resolve_device(device)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._kf = _kf_model(self.cfg, self.device)
+
+    def preprocess(self, points: torch.Tensor, mask: torch.Tensor, key: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Padded points (float32, or int16 q16) and their mask -> the
+        expanded cloud and its mask (the reference's ``preprocess_pcd``), all
+        on this pipeline's device."""
+        return _gmfa_preprocess_impl(points, mask, key, self.cfg)
 
     def init_carry(self) -> GmfaCarry:
         c = self.cfg
@@ -325,26 +368,156 @@ class GMFAPipeline:
                               prev_order=nn_kernels.sort_order(points, mask))
 
     def step(self, points: torch.Tensor, mask: torch.Tensor, carry: GmfaCarry,
-             new_ids: torch.Tensor | None = None) -> tuple[GmfaCarry, GmfaOutputs]:
-        """One GMFA frame step.  ``new_ids`` ((max_clusters,) int32): the ids
-        given to tracks born this frame; drawn from the pipeline's generator
-        when absent.  A skipped frame returns the old carry values."""
-        if new_ids is None:
-            new_ids = torch.randint(0, 100000, (self.cfg.capacities.max_clusters,),
-                                    generator=self.generator, device=self.device,
-                                    dtype=torch.int32)
-        return _gmfa_step_impl(points, mask, carry, new_ids, self.cfg, self.max_moving,
-                               self._kf)
+             key: torch.Tensor) -> tuple[GmfaCarry, GmfaOutputs]:
+        """One GMFA frame step.  ``key`` (a threefry key, ``utils.prng``)
+        draws the ids of the tracks born this frame (:func:`new_track_ids`;
+        keep it on the host: a key on the card draws there, ~500 launches).
+        A skipped frame returns the old carry values."""
+        ids = new_track_ids(key, self.cfg.capacities.max_clusters, self.device)
+        return _gmfa_step_impl(points, mask, carry, ids, self.cfg, self.max_moving, self._kf)
 
     def scan_steps(self, points: torch.Tensor, masks: torch.Tensor, carry: GmfaCarry,
-                   new_ids: torch.Tensor | None = None) -> tuple[GmfaCarry, GmfaOutputs]:
+                   seed: int = 0) -> tuple[GmfaCarry, GmfaOutputs]:
         """A (T, P, 3) clip: frame 0 seeds the previous cloud, then T-1 steps.
-        Returns the final carry and the T-1 outputs stacked; ``new_ids``
-        ((T-1, max_clusters)) optional, as for :meth:`step`."""
+        Returns the final carry and the T-1 outputs stacked.  Frame i's key
+        is ``split(fold_in(PRNGKey(seed), i))[1]``, as :meth:`process_files`
+        derives it with seed 0, so the two give the same track ids."""
         carry = self.seed_carry(points[0], masks[0], carry)
+        base = prng.PRNGKey(seed)
         outs = []
         for i in range(1, points.shape[0]):
             carry, out = self.step(points[i], masks[i], carry,
-                                   None if new_ids is None else new_ids[i - 1])
+                                   prng.split(prng.fold_in(base, i))[1])
             outs.append(out)
         return carry, stack(outs)
+
+    def process_files(self, pcd_files: Sequence[str], output_xlsx: str | None = None,
+                      progress: bool = False, checkpoint_every: int = 0,
+                      checkpoint_path: str | None = None, resume: bool = False,
+                      h2d_q16: bool = False) -> dict:
+        """Run GMFA over a PCD sequence (the reference's ``__main__``,
+        GMFA.py:424-536) and write the track log (:func:`save_tracks_to_excel`).
+
+        Frame i's keys are ``kp, ks = split(fold_in(PRNGKey(0), i))``: ``kp``
+        preprocesses it and ``ks`` draws its new track ids, as the JAX
+        package derives them (its default seed), so a resumed run continues
+        the uninterrupted one bit for bit.  The first frame seeds the carry
+        without a step; a skipped frame writes no rows.  With
+        ``checkpoint_every=K`` the carry goes to ``checkpoint_path`` (.npz,
+        the JAX package's keys) every K frames, after the rows of every frame
+        before it; ``resume=True`` restores it and continues from the frame
+        it records.  ``h2d_q16`` ships the points as int16 fixed point.
+
+        Each frame's track-log observables are packed on the device into one
+        uint8 buffer; a transfer thread copies a drained batch of buffers to
+        the host at once and a writer thread turns them into rows, through
+        bounded queues.  A thread's first error fails the run.  Returns the
+        rows (``Frame`` is ``i - 1``, as the reference logs them), the final
+        SOM and carry, the loop's seconds and host seconds per stage (the
+        device stages' are launch times: the calls return before the card
+        finishes).
+        """
+        c = self.cfg
+        dev = self.device
+        source = DiskFrameSource(pcd_files, capacity=c.capacities.max_raw_points,
+                                 quantize_q16=h2d_q16)
+        carry = self.init_carry()
+        base = prng.PRNGKey(0)
+        rows: list[dict] = []
+        have_prev = False
+        start_frame = 0
+        if resume and checkpoint_path:
+            with np.load(checkpoint_path) as data:
+                start_frame = int(data["step"])
+            carry = load_checkpoint(checkpoint_path, carry)
+            have_prev = True  # the carry holds the previous expanded cloud
+            if progress:
+                print(f"resumed from {checkpoint_path} at frame {start_frame}")
+
+        timings = {"preprocess": 0.0, "step": 0.0}
+        pack, packer = obs_packer(c)
+
+        def log_rows(i: int, obs: dict) -> None:
+            if bool(obs["skip"]):
+                if progress:
+                    print(f"frame {i}: no moving ROI points, skipped")
+                return  # the step kept the stale carry (GMFA.py:477)
+            alive = obs["alive"].astype(bool)
+            for s in np.nonzero(alive)[0]:
+                st = obs["state"][s]
+                rows.append({"Frame": i - 1, "Track ID": int(obs["tid"][s]),
+                             "X": float(st[0]), "Y": float(st[1]),
+                             "VX": float(st[2]), "VY": float(st[3])})
+            if progress:
+                print(f"frame {i}: moving={int(obs['moving_count'])} "
+                      f"clusters={int(obs['n_clusters'])} tracks={int(alive.sum())}")
+
+        mirror = HostMirror(packer, log_rows)
+        t_start = time.perf_counter()
+        try:
+            for i, (pts, mask) in enumerate(source):
+                if i < start_frame:
+                    continue
+                kp, ks = prng.split(prng.fold_in(base, i))  # ks stays on the host
+                t0 = time.perf_counter()
+                ex, exmask = self.preprocess(torch.from_numpy(pts).to(dev),
+                                             torch.from_numpy(mask).to(dev), kp.to(dev))
+                timings["preprocess"] += time.perf_counter() - t0
+                if not have_prev:
+                    carry = self.seed_carry(ex, exmask, carry)
+                    have_prev = True
+                else:
+                    t0 = time.perf_counter()
+                    carry, out = self.step(ex, exmask, carry, ks)
+                    timings["step"] += time.perf_counter() - t0
+                    mirror.put(i, pack(out, carry.table))
+                if checkpoint_every and checkpoint_path and (i + 1) % checkpoint_every == 0:
+                    mirror.flush()  # a snapshot never runs ahead of its frames' rows
+                    save_checkpoint(checkpoint_path, carry, step=i + 1)
+        finally:
+            mirror.close()
+        mirror.check()
+        timings.update(track_log=mirror.seconds["mirror"],
+                       track_log_transfer=mirror.seconds["transfer"])
+        elapsed = time.perf_counter() - t_start
+        if output_xlsx:
+            save_tracks_to_excel(rows, output_xlsx)
+        return {"rows": rows, "som": carry.som.cpu().numpy(), "carry": carry,
+                "elapsed": elapsed, "timings": timings}
+
+
+TRACK_LOG_COLUMNS = ("Frame", "Track ID", "X", "Y", "VX", "VY")
+
+
+def save_tracks_to_excel(rows: list[dict], output_file: str = "track_data.xlsx") -> None:
+    """The reference's ``save_tracks_to_excel`` (``GMFA.py:419-422``) as the
+    JAX package writes it without openpyxl: ``<name>.csv`` beside the
+    requested file, header ``Frame,Track ID,X,Y,VX,VY``."""
+    path = os.path.splitext(output_file)[0] + ".csv"
+    with open(path, "w", newline="") as f:
+        out = csv.DictWriter(f, fieldnames=TRACK_LOG_COLUMNS)
+        out.writeheader()
+        out.writerows(rows)
+    print(f"Track data saved to {path}")
+
+
+def obs_packer(cfg: GMFAConfig):
+    """``(pack, packer)``: ``pack(outputs, table)`` puts one frame's
+    track-log observables (skip flag, alive, tid and state of every slot,
+    the moving-point and cluster counts) into one uint8 buffer on the
+    device, in the JAX package's layout; ``packer.unpack`` rebuilds them on
+    the host."""
+    def shrink(out: GmfaOutputs, table: TrackTableB) -> dict:
+        return {"skip": out.skip, "alive": table.alive, "tid": table.tid,
+                "state": table.state, "moving_count": out.moving_count,
+                "n_clusters": out.n_clusters}
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    t = cfg.capacities.max_tracks
+    packer = HostPacker({"skip": meta((), torch.bool), "alive": meta((t,), torch.bool),
+                         "tid": meta((t,), torch.int32), "state": meta((t, 4), torch.float32),
+                         "moving_count": meta((), torch.int32),
+                         "n_clusters": meta((), torch.int32)})
+    return (lambda out, table: packer.pack(shrink(out, table))), packer

@@ -21,8 +21,6 @@ carries, outputs and semantics:
 
 from __future__ import annotations
 
-import queue
-import threading
 import time
 from typing import NamedTuple, Sequence
 
@@ -48,7 +46,7 @@ from datmo_using_optical_flow_tpu_torch.oracle.np_farneback import level_sizes
 from datmo_using_optical_flow_tpu_torch.utils import prng
 from datmo_using_optical_flow_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from datmo_using_optical_flow_tpu_torch.utils.device import resolve_device
-from datmo_using_optical_flow_tpu_torch.utils.hostpack import HostPacker
+from datmo_using_optical_flow_tpu_torch.utils.hostpack import HostMirror, HostPacker
 from datmo_using_optical_flow_tpu_torch.utils.padding import compact_masked
 from datmo_using_optical_flow_tpu_torch.utils.tree import select, stack
 
@@ -105,7 +103,7 @@ def _preprocess_impl(points: torch.Tensor, mask: torch.Tensor, key: torch.Tensor
                                   c.ransac.ransac_n, c.ransac.num_iterations)
     roi = non_ground & point_ops.roi_mask(p, c.roi_bounds)
     cpts, cmask, _ = compact_masked(p, roi, c.capacities.max_roi_points)
-    ex, exmask = point_ops.densify(cpts, cmask, None, c.capacities.expansion_factor, key=kd,
+    ex, exmask = point_ops.densify(cpts, cmask, kd, c.capacities.expansion_factor,
                                    noise_std=c.noise_std)
     return bev_ops.compute_bev_grid(ex, exmask, c.grid_shape, c.x_range, c.y_range,
                                     c.grid_resolution, c.bev_a, c.bev_b, c.z_max)
@@ -283,15 +281,11 @@ class PipelineA:
             if progress:
                 print(f"resumed from {checkpoint_path} at frame {start_frame}")
 
-        timings = {"preprocess": 0.0, "step": 0.0, "artifacts": 0.0,
-                   "artifacts_transfer": 0.0}
+        timings = {"preprocess": 0.0, "step": 0.0}
         state = {"pairs": 0}
-        work: queue.Queue = queue.Queue(maxsize=32)    # packed device buffers
-        ready: queue.Queue = queue.Queue(maxsize=4)    # host batches
         pack, packer = obs_packer(c)
-        exc: list[BaseException] = []
 
-        def mirror(i: int, obs: dict) -> None:
+        def write_artifacts(i: int, obs: dict) -> None:
             sink.save_bev(obs["bev"], i)
             if bool(obs["skip"]):
                 return  # a skipped pair writes no pair artifacts (main.py:572-574)
@@ -304,60 +298,11 @@ class PipelineA:
                 print(f"pair {i - 1}: WARNING valid cells exceed "
                       f"max_cells={c.capacities.max_cells}; clustering truncated")
 
-        # each thread records its first error and keeps draining its queue, so
-        # the producer never blocks on a dead consumer; the loop re-raises it
-        def transfer() -> None:
-            done = False
-            while not done:
-                batch = [work.get()]
-                while len(batch) < 16:
-                    try:
-                        batch.append(work.get_nowait())
-                    except queue.Empty:
-                        break
-                got = len(batch)
-                if batch[-1] is None:
-                    done = True
-                    batch.pop()
-                if batch and not exc:
-                    try:
-                        t0 = time.perf_counter()
-                        bufs = HostPacker.stack([b for _, b in batch]).cpu().numpy()
-                        timings["artifacts_transfer"] += time.perf_counter() - t0
-                        ready.put(([i for i, _ in batch], bufs))
-                    except BaseException as e:  # noqa: BLE001  (re-raised by the loop)
-                        exc.append(e)
-                for _ in range(got):
-                    work.task_done()
-            ready.put(None)
-
-        def writer() -> None:
-            while True:
-                item = ready.get()
-                if item is None:
-                    ready.task_done()
-                    return
-                idxs, bufs = item
-                if not exc:
-                    try:
-                        t0 = time.perf_counter()
-                        for i, buf in zip(idxs, bufs):
-                            mirror(i, packer.unpack(buf))
-                        timings["artifacts"] += time.perf_counter() - t0
-                    except BaseException as e:  # noqa: BLE001  (re-raised by the loop)
-                        exc.append(e)
-                ready.task_done()
-
-        threads = [threading.Thread(target=transfer, daemon=True),
-                   threading.Thread(target=writer, daemon=True)]
-        for t in threads:
-            t.start()
+        mirror = HostMirror(packer, write_artifacts)
         try:
             for i, (pts, mask) in enumerate(source):
                 if i < start_frame:
                     continue
-                if exc:
-                    raise exc[0]
                 k = prng.fold_in(key, i)
                 try:
                     t0 = time.perf_counter()
@@ -377,22 +322,16 @@ class PipelineA:
                 carry, out = self.step_stream(bev, carry)
                 timings["step"] += time.perf_counter() - t0
 
-                work.put((i, pack(bev, out)))
+                mirror.put(i, pack(bev, out))
                 if (i and checkpoint_every and checkpoint_path
                         and (i + 1) % checkpoint_every == 0):
-                    # flush the artifacts first: a snapshot never runs ahead of
-                    # its frames' files
-                    work.join()
-                    ready.join()
-                    if exc:
-                        raise exc[0]
+                    mirror.flush()  # a snapshot never runs ahead of its frames' files
                     save_checkpoint(checkpoint_path, carry, step=i + 1)
         finally:
-            work.put(None)
-            for t in threads:
-                t.join()
-        if exc:
-            raise exc[0]
+            mirror.close()
+        mirror.check()
+        timings.update(artifacts=mirror.seconds["mirror"],
+                       artifacts_transfer=mirror.seconds["transfer"])
 
         tracks = self._tracks_dict(carry.step.table)
         sink.print_final_track_velocities(tracks)

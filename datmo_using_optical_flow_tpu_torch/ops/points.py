@@ -4,8 +4,9 @@
 * X-flip          — ``Optical_flow/main.py:65`` / ``GMFA/GMFA.py:36``
 * ROI box filter  — ``filter_points_in_roi`` (``Optical_flow/main.py:30-36``)
 * densifier       — ``increase_point_density`` (``Optical_flow/main.py:38-57``);
-  the jitter is drawn from a key with :func:`utils.prng.normal` (the JAX
-  package's ``jax.random.normal`` draw, bit for bit), or passed in explicitly
+  the jitter is drawn from a key with :func:`utils.prng.normal_fma` (the JAX
+  package's compiled ``rep + jax.random.normal(key) * noise_std``, bit for
+  bit)
 """
 
 from __future__ import annotations
@@ -36,12 +37,12 @@ def roi_mask_2d(points: torch.Tensor, roi_bounds_xy) -> torch.Tensor:
     return (x >= x_min) & (x <= x_max) & (y >= y_min) & (y <= y_max)
 
 
-def densify(points: torch.Tensor, mask: torch.Tensor, noise: torch.Tensor | None = None,
-            expansion_factor: int = 10, key: torch.Tensor | None = None,
-            noise_std: float = 0.01) -> tuple[torch.Tensor, torch.Tensor]:
-    """Replicate each point ``expansion_factor`` times and add jitter: the
-    given ``noise`` (``(N * k, 3)``, already scaled by the noise std), or else
-    ``normal(key, (N * k, 3)) * noise_std``, as the JAX package draws it.
+def densify(points: torch.Tensor, mask: torch.Tensor, key: torch.Tensor,
+            expansion_factor: int = 10, noise_std: float = 0.01
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Replicate each point ``expansion_factor`` times and add the jitter
+    ``normal(key, (N * k, 3)) * noise_std`` as the JAX package's compiled
+    preprocessing adds it (one rounding, ``prng.normal_fma``).
 
     ``np.repeat`` ordering (point i's replicas occupy rows ``i*k .. i*k+k-1``);
     padding rows keep their sentinel coordinates.  Returns
@@ -50,11 +51,5 @@ def densify(points: torch.Tensor, mask: torch.Tensor, noise: torch.Tensor | None
     k = expansion_factor
     rep = torch.repeat_interleave(points, k, dim=0)
     rep_mask = torch.repeat_interleave(mask, k, dim=0)
-    if noise is None:
-        if key is None:
-            raise ValueError("densify: pass noise or a key to draw it from")
-        noise = prng.normal(key, tuple(rep.shape)) * noise_std
-    if tuple(noise.shape) != tuple(rep.shape):
-        raise ValueError(f"noise: expected shape {tuple(rep.shape)}, got {tuple(noise.shape)}")
-    out = rep + noise.to(points.dtype)
+    out = prng.normal_fma(key, rep, noise_std)
     return torch.where(rep_mask[:, None], out, rep), rep_mask

@@ -7,9 +7,16 @@ bytes on the device (``Tensor.view(torch.uint8)``; bool as one byte) and the
 bytes are concatenated into one flat uint8 buffer, the JAX package's layout.
 Buffers of several frames are stacked on the device and copied to the host
 together; :meth:`HostPacker.unpack` rebuilds the tree of numpy arrays.
+:class:`HostMirror` is the two background threads both file runners put
+behind their loops.
 """
 
 from __future__ import annotations
+
+import queue
+import threading
+import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -83,3 +90,93 @@ class HostPacker:
                 a = seg.copy().view(npdtype)
             out.append(a.reshape(shape))
         return _rebuild(self._example, iter(out))
+
+
+class HostMirror:
+    """Two background threads behind a runner's loop, through bounded queues
+    (a slow consumer holds the loop back instead of piling up device
+    buffers): a transfer thread copies a drained batch of packed device
+    buffers (up to 16) to the host in one copy, and a writer thread hands
+    each frame's unpacked observables to ``mirror(frame, obs)``, in order.
+
+    Each thread records its first error and keeps draining its queue, so the
+    loop never blocks on a dead consumer; :meth:`put`, :meth:`flush` and
+    :meth:`check` re-raise it.  ``seconds`` holds each thread's busy time.
+    """
+
+    def __init__(self, packer: HostPacker, mirror: Callable[[int, object], None]):
+        self._packer, self._mirror = packer, mirror
+        self._work: queue.Queue = queue.Queue(maxsize=32)   # packed device buffers
+        self._ready: queue.Queue = queue.Queue(maxsize=4)   # host batches
+        self._exc: list[BaseException] = []
+        self.seconds = {"transfer": 0.0, "mirror": 0.0}
+        self._threads = [threading.Thread(target=self._transfer, daemon=True),
+                         threading.Thread(target=self._write, daemon=True)]
+        for t in self._threads:
+            t.start()
+
+    def check(self) -> None:
+        """Raise the first error either thread recorded."""
+        if self._exc:
+            raise self._exc[0]
+
+    def put(self, frame: int, buf: torch.Tensor) -> None:
+        """Queue frame ``frame``'s packed buffer (an earlier error raises first)."""
+        self.check()
+        self._work.put((frame, buf))
+
+    def flush(self) -> None:
+        """Wait until every queued frame has been mirrored."""
+        self._work.join()
+        self._ready.join()
+        self.check()
+
+    def close(self) -> None:
+        """Mirror what is queued and stop both threads (call :meth:`check`
+        after it: close runs in a ``finally`` and must not mask the loop's
+        own error)."""
+        self._work.put(None)
+        for t in self._threads:
+            t.join()
+
+    def _transfer(self) -> None:
+        done = False
+        while not done:
+            batch = [self._work.get()]
+            while len(batch) < 16:
+                try:
+                    batch.append(self._work.get_nowait())
+                except queue.Empty:
+                    break
+            got = len(batch)
+            if batch[-1] is None:
+                done = True
+                batch.pop()
+            if batch and not self._exc:
+                try:
+                    t0 = time.perf_counter()
+                    bufs = HostPacker.stack([b for _, b in batch]).cpu().numpy()
+                    self.seconds["transfer"] += time.perf_counter() - t0
+                    self._ready.put(([i for i, _ in batch], bufs))
+                except BaseException as e:  # noqa: BLE001  (re-raised in the loop's thread)
+                    self._exc.append(e)
+            for _ in range(got):
+                self._work.task_done()
+        self._ready.put(None)
+
+    def _write(self) -> None:
+        while True:
+            item = self._ready.get()
+            if item is None:
+                self._ready.task_done()
+                return
+            frames, bufs = item
+            if not self._exc:
+                try:
+                    t0 = time.perf_counter()
+                    for i, buf in zip(frames, bufs):
+                        self._mirror(i, self._packer.unpack(buf))
+                    self.seconds["mirror"] += time.perf_counter() - t0
+                except BaseException as e:  # noqa: BLE001  (re-raised in the loop's thread)
+                    self._exc.append(e)
+            self._ready.task_done()

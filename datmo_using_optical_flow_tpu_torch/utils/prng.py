@@ -15,7 +15,9 @@ drawing on the card needs no host round trip.
   (:func:`erf_inv`; ``torch.erfinv`` is another approximation), over XLA's
   CPU ``log1p`` and ``log`` approximations, with the multiply-adds XLA's CPU
   code contracts rounded once (``ordered.fma32``), so the draws equal JAX's
-  bit for bit.
+  bit for bit; :func:`normal_fma` is a scaled draw added to a tensor as a
+  jitted JAX function computes it (the densifier's jitter).
+* :func:`randint` is bit-equal to ``jax.random.randint`` in int32.
 
 Everything is elementwise +, *, /, comparisons, bit operations and
 float64 roundings, correctly rounded on both devices, so the card draws
@@ -182,6 +184,49 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.abs(x) == 1.0, x * float("inf"), p * x)
 
 
+_INT32_MIN, _INT32_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def _rem(x, span: int):
+    """XLA's unsigned remainder: ``x`` itself when ``span`` is 0."""
+    return x % span if span else x
+
+
+def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
+    """``a * b mod 2^32`` for uint32 values, in halves: no int64 overflow."""
+    lo = a * (b & 0xFFFF)
+    hi = ((a * (b >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK
+
+
+def randint(key: torch.Tensor, shape: tuple[int, ...], minval: int, maxval: int
+            ) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, int32)``, bit for bit.
+
+    Two 32-bit draws from the halves of ``split(key)``, ``hi`` and ``lo``,
+    reduced modulo ``span = maxval - minval`` (uint32) as ``((hi % span) *
+    m + lo % span) % span`` in wrapping uint32 arithmetic, where ``m =
+    (2^16 % span)^2 % span`` is ``2^32 mod span`` only up to spans of 2^16:
+    above, JAX's uint32 square wraps to 0 and so does ``m`` here.  The
+    bounds are clipped to int32; ``maxval <= minval`` gives ``minval``, and a
+    ``maxval`` above the int32 range widens the span by one, as JAX's does.
+    """
+    out_of_range = maxval > _INT32_MAX
+    lo_v = min(max(minval, _INT32_MIN), _INT32_MAX)
+    hi_v = min(max(maxval, _INT32_MIN), _INT32_MAX)
+    span = (hi_v - lo_v) & _MASK
+    if hi_v <= lo_v:
+        span = 1
+    elif out_of_range:
+        span = (span + 1) & _MASK
+    multiplier = _rem((_rem(2 ** 16, span) ** 2) & _MASK, span)
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    offset = (_mul32(_rem(higher, span), multiplier) + _rem(lower, span)) & _MASK
+    word = (_rem(offset, span) + (lo_v & _MASK)) & _MASK
+    return torch.where(word > _INT32_MAX, word - 2 ** 32, word).to(torch.int32)
+
+
 _NORMAL_LO = -0.9999999403953552  # nextafter(-1, 0) in float32
 _SQRT2 = 1.4142135381698608  # float32(sqrt(2))
 
@@ -190,3 +235,12 @@ def normal(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)``, bit for bit."""
     u = uniform(key, shape, _NORMAL_LO, 1.0)
     return erf_inv(u) * _SQRT2
+
+
+def normal_fma(key: torch.Tensor, addend: torch.Tensor, scale: float) -> torch.Tensor:
+    """``addend + normal(key, addend.shape) * scale`` as XLA compiles it
+    inside a jitted function: ``sqrt(2) * scale`` folded into one float32
+    constant, and its product with ``erf_inv(u)`` added to ``addend`` in one
+    rounding (``ordered.fma32``)."""
+    u = uniform(key, tuple(addend.shape), _NORMAL_LO, 1.0)
+    return fma32(erf_inv(u), float(np.float32(_SQRT2) * np.float32(scale)), addend)

@@ -206,15 +206,64 @@ def test_against_parent_refuses_a_build_that_differs():
 
 
 def test_stage_row_reports_a_lost_trace_as_not_measured(monkeypatch, capsys):
-    """A stage's device time whose profiler traces keep losing a sentinel end
+    """A stage's device time whose profiler traces keep losing kernel records
     is not measured (None), and the row says so; the stage's ms stands."""
     from datmo_using_optical_flow_tpu_torch.diagnostics import measure
 
-    def lost(fn, dev, reps=5):
-        raise measure.LostTrace("the profiler lost a sentinel end of 3 traces on the card")
+    def lost(fn, dev, reps=5, launches=1):
+        raise measure.LostTrace("the profiler lost kernel records in 3 traces on the card")
 
     monkeypatch.setattr(measure, "device_us_per_call", lost)
     row = measure.stage_row("a stage", lambda: torch.ones(4).sum(), torch.device("cpu"), "cpu",
                             reps=1)
     assert row["ms"] > 0 and row["device_ms"] is None and row["busy_share"] is None
     assert "a stage: device time not measured" in capsys.readouterr().out
+
+
+def _trace(*calls, head=8, tail=8):
+    """Kernel records ``(name, µs)`` as :func:`measure.device_us_per_call`
+    lays a trace out: sentinels, the calls with one sentinel between each
+    two, sentinels."""
+    s = ("void at::native::spin_kernel(long)", 0.5)
+    out = [s] * head
+    for i, call in enumerate(calls):
+        out += ([s] if i else []) + [("datmo_blur_solve", us) for us in call]
+    return out + [s] * tail
+
+
+@pytest.mark.parametrize("calls, head, tail, launches, want", [
+    (([2.0], [4.0], [3.0]), 8, 8, 1, 3.0),
+    (([2.0], [4.0], [3.0]), 1, 8, 1, 3.0),
+    (([2.0, 1.0], [4.0, 2.0]), 8, 8, 2, 4.5),
+    (([], [], []), 8, 8, 0, 0.0),
+    (([2.0], [], [3.0]), 8, 8, 1, None),
+    (([], [], []), 8, 8, 1, None),
+    (([2.0], [4.0], [3.0]), 0, 8, 1, None),
+    (([2.0], [4.0], [3.0]), 8, 0, 1, None),
+    (([], [], []), 0, 8, 0, None),
+    (([2.0], [0.0], [3.0]), 8, 8, 1, None),
+    (([2.0, 1.0], [4.0], [3.0, 1.0]), 8, 8, 2, None),
+    (([2.0], [4.0], [3.0]), 9, 8, 1, None),
+])
+def test_traced_us_refuses_a_trace_that_lost_records(calls, head, tail, launches, want):
+    """Device time is read from a trace only when its ends are sentinels and
+    every call left its kernels; the opening sentinels may lose records (the
+    H100's traces lose their first ones: ``S6 K1 S1 K1 S1 K1 S8`` in
+    chip_smoke), a call or a closing sentinel may not."""
+    from datmo_using_optical_flow_tpu_torch.diagnostics import measure
+
+    got = measure.traced_us(_trace(*calls, head=head, tail=tail), len(calls), launches)
+    assert got == want
+
+
+def test_traced_us_refuses_a_trace_left_with_its_closing_sentinels():
+    """A trace that lost its opening sentinels and every call, keeping only
+    the closing sentinels, is lost, not 0 µs (K2's five calls once read 0 µs
+    on the H100 so, and chip_smoke divided by it)."""
+    from datmo_using_optical_flow_tpu_torch.diagnostics import measure
+
+    closing = _trace([1.0], [1.0], [1.0], [1.0], [1.0])[-5:]
+    assert [name for name, _ in closing] == ["void at::native::spin_kernel(long)"] * 5
+    assert measure.traced_us(closing, 5, 1) is None
+    assert measure.trace_layout(closing) == "S5"
+    assert measure.trace_layout(_trace([2.0], [0.0], head=6)) == "S6 K1 S1 01 S8"

@@ -7,6 +7,9 @@ associative scan); cluster features within 1e-5 (float32 segment sums in
 another order, through a 3x3 eigensolver).
 """
 
+from functools import partial
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +25,7 @@ from datmo_using_optical_flow_tpu_torch.ops import dbscan as tdb
 from datmo_using_optical_flow_tpu_torch.ops import hungarian as th
 from datmo_using_optical_flow_tpu_torch.ops import points as tpts
 from datmo_using_optical_flow_tpu_torch.ops import som as tsom
+from datmo_using_optical_flow_tpu_torch.utils import prng
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 
@@ -127,9 +131,10 @@ def test_point_ops_match_jax():
     np.testing.assert_array_equal(
         tpts.roi_mask_2d(torch.as_tensor(pts), bounds[:4]).numpy(),
         np.asarray(jpts.roi_mask_2d(jnp.asarray(pts), bounds[:4])))
-    noise = (rng.normal(size=(5000, 3)) * 0.01).astype(np.float32)
-    want = jpts.densify(jnp.asarray(pts), jnp.asarray(mask), None, 10, noise=jnp.asarray(noise))
-    got = tpts.densify(torch.as_tensor(pts), torch.as_tensor(mask), torch.as_tensor(noise), 10)
+    # the jitter from a key, against the compiled densify that JAX's preprocess runs
+    jitted = jax.jit(partial(jpts.densify, expansion_factor=10, noise_std=0.01))
+    want = jitted(jnp.asarray(pts), jnp.asarray(mask), jax.random.PRNGKey(4))
+    got = tpts.densify(torch.as_tensor(pts), torch.as_tensor(mask), prng.PRNGKey(4), 10)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
 

@@ -1,6 +1,7 @@
 """The port's GMFA step (pipeline B) against the JAX package's on the same
-JAX-preprocessed clouds (as ``tests/test_gmfa_pipeline.py`` feeds them), with
-the JAX package's track-id draws passed to the port as ``new_ids``.
+JAX-preprocessed clouds (as ``tests/test_gmfa_pipeline.py`` feeds them), each
+step given the JAX step's threefry key (as int64 numpy words): the port draws
+the new track ids from it with ``prng.randint``, which must give JAX's ids.
 
 Tolerances: classifications agree on >= 99.9% of points (a residual within
 float32 rounding of a threshold may flip); transformation within 1e-5;
@@ -44,7 +45,7 @@ N_STEPS = 3
 @pytest.fixture(scope="module")
 def run():
     """Four expanded clouds and the JAX package's run over them: the seeded
-    carry, then per step (new ids, carry, outputs)."""
+    carry, then per step (key, carry before, carry after, outputs)."""
     jcfg = JConfig(dbscan=JDbscan(eps=1.0, min_samples=30), icp=JIcp(threshold=0.2),
                    capacities=JCapacity(**_CAPS))
     scene = SyntheticScene(seed=33, targets=(
@@ -64,13 +65,12 @@ def run():
     seeded = jax.device_get(carry)
     steps = []
     key = jax.random.PRNGKey(5)
-    kmax = jcfg.capacities.max_clusters
     for i in range(1, N_STEPS + 1):
         key, k = jax.random.split(key)
-        ids = np.asarray(jax.random.randint(k, (kmax,), 0, 100000)).astype(np.int32)
         before = jax.device_get(carry)
         carry, out = pipe.step(jnp.asarray(clouds[i][0]), jnp.asarray(clouds[i][1]), carry, k)
-        steps.append((ids, before, jax.device_get(carry), jax.device_get(out)))
+        steps.append((np.asarray(k).astype(np.int64), before, jax.device_get(carry),
+                      jax.device_get(out)))
     return clouds, seeded, steps
 
 
@@ -106,9 +106,9 @@ def test_gmfa_steps_match_jax(run):
         carry.prev_order.numpy(),
         np.asarray(jnp_nn.sort_order(jnp.asarray(clouds[0][0]), jnp.asarray(clouds[0][1]))))
     tracks = 0
-    for i, (ids, _, jcarry, jout) in enumerate(steps, start=1):
+    for i, (key, _, jcarry, jout) in enumerate(steps, start=1):
         carry, out = pipe.step(torch.as_tensor(clouds[i][0]), torch.as_tensor(clouds[i][1]),
-                               carry, torch.as_tensor(ids))
+                               carry, torch.as_tensor(key))
         _compare(out, carry, jout, jcarry, int(clouds[i][1].sum()))
         assert not bool(jout.skip) and int(jout.n_clusters) >= 1
         tracks += int(jcarry.table.alive.sum())
@@ -118,11 +118,11 @@ def test_gmfa_steps_match_jax(run):
 def test_jax_carry_continues_in_the_port(run):
     """A JAX carry moved across by carry_from_numpy gives the same next step."""
     clouds, _, steps = run
-    ids, before, jcarry, jout = steps[-1]
+    key, before, jcarry, jout = steps[-1]
     tcarry = carry_from_numpy(before, "cpu")
     assert isinstance(tcarry, tgmfa.GmfaCarry) and isinstance(tcarry.table, tgmfa.TrackTableB)
     carry, out = _port().step(torch.as_tensor(clouds[N_STEPS][0]),
-                              torch.as_tensor(clouds[N_STEPS][1]), tcarry, torch.as_tensor(ids))
+                              torch.as_tensor(clouds[N_STEPS][1]), tcarry, torch.as_tensor(key))
     _compare(out, carry, jout, jcarry, int(clouds[N_STEPS][1].sum()))
 
 
@@ -134,7 +134,7 @@ def test_skip_frame_keeps_the_carry(run):
     pts = torch.as_tensor(clouds[N_STEPS][0])
     mask = torch.as_tensor(clouds[N_STEPS][1])
     carry = carry._replace(prev_points=pts, prev_mask=mask)
-    new, out = pipe.step(pts, mask, carry)  # identical cloud: nothing moves
+    new, out = pipe.step(pts, mask, carry, torch.as_tensor(steps[-1][0]))  # nothing moves
     assert bool(out.skip) and int(out.moving_count) == 0
     for a, b in zip(carry_to_numpy(new)[:2] + (carry_to_numpy(new).som,),
                     carry_to_numpy(carry)[:2] + (carry_to_numpy(carry).som,)):

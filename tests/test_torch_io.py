@@ -31,7 +31,7 @@ from datmo_using_optical_flow_tpu_torch.models.optical_flow_datmo import (Pipeli
                                                                           obs_packer)
 from datmo_using_optical_flow_tpu_torch.models.tracker_a import TrackTable
 from datmo_using_optical_flow_tpu_torch.utils import checkpoint as tckpt
-from datmo_using_optical_flow_tpu_torch.utils.hostpack import HostPacker
+from datmo_using_optical_flow_tpu_torch.utils.hostpack import HostMirror, HostPacker
 from datmo_using_optical_flow_tpu_torch.utils.state import carry_from_numpy
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
@@ -224,6 +224,37 @@ def test_packed_observables_equal_jax_layout():
         for a, b in zip(jax.tree.leaves(tree[k]), jax.tree.leaves(jtree[k])):
             assert a.dtype == b.dtype
             np.testing.assert_array_equal(a, b)
+
+
+def test_host_mirror_order_and_first_error():
+    """Frames reach the mirror in order, batched copies included; a
+    mirror's error is re-raised in the loop's thread and later frames are
+    not mirrored; ``close`` itself never raises."""
+    packer = HostPacker({"x": torch.empty((3,), dtype=torch.int32, device="meta")})
+    seen = []
+    mirror = HostMirror(packer, lambda i, obs: seen.append((i, obs["x"].tolist())))
+    for i in range(40):
+        mirror.put(i, packer.pack({"x": torch.tensor([i, i + 1, i + 2], dtype=torch.int32)}))
+    mirror.flush()
+    mirror.close()
+    mirror.check()
+    assert seen == [(i, [i, i + 1, i + 2]) for i in range(40)]
+
+    def fail_at_3(i, obs):
+        if i == 3:
+            raise ValueError("disk full")
+        seen.append(i)
+
+    seen.clear()
+    mirror = HostMirror(packer, fail_at_3)
+    with pytest.raises(ValueError, match="disk full"):
+        for i in range(10):
+            mirror.put(i, packer.pack({"x": torch.zeros(3, dtype=torch.int32)}))
+            mirror.flush()
+    mirror.close()
+    with pytest.raises(ValueError, match="disk full"):
+        mirror.check()
+    assert seen == [0, 1, 2]
 
 
 def test_checkpoint_keys_and_values_equal_jax(tmp_path):
