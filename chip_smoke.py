@@ -71,7 +71,19 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
     SOM) and resumed on the card from a mid-run checkpoint (same rows);
 14. the port's three benchmarks once each, shortened, each in its own
     process (``benchmarks/stream_1080p.py``, ``benchmarks/from_points.py``,
-    ``benchmarks/gmfa_reference_load.py``).
+    ``benchmarks/gmfa_reference_load.py``);
+15. the reference-API surface (``compat``, ``ops/nn``) on the card against
+    the port on the CPU, each part with the launch counts set to 0 just
+    before and read just after: ``compute_velocity_vectors`` on two 200x200
+    from-points BEVs (K1 4, K2 10) and on two 1080x1920 frames (K1 6, K3
+    10, K2 5), as compat's Farnebäck defaults and the level sizes predict;
+    the propagation and continuity masks, DBSCAN and the road filter on the
+    200x200 flow (equal); ``process_multiple_frames`` over 4 from-points
+    files with seeds 0 and 5 (tracks within the CPU tests' 5e-3);
+    ``align_by_nearest`` on GMFA's preprocessed clouds (one K5 launch; 16,384
+    rows of it equal to the CPU's); ``nearest_neighbors_scan`` at 300,000 targets
+    and 4,096 queries against a float64 ``cKDTree`` within its envelope,
+    timed (no plots: this machine has no matplotlib).
 
 The second-to-last line is a JSON summary of the kernels, each with its
 bound on the H100 for the timed call's work (``diagnostics/roofline.py``);
@@ -1061,6 +1073,220 @@ def from_points_phase(dev, name: str, smi: str, root: str, n_frames: int = 12
     return launches, rows
 
 
+# ------------------------------------------------------------------ the reference-API surface
+
+def flow_launches(h: int, w: int, fb) -> dict:
+    """The kernel launches one ``compute_velocity_vectors`` call should make
+    at (h, w) with Farnebäck settings ``fb``: K1 once per image and level;
+    ``fb.iterations`` K3 launches on each level of at least 128x256, K2
+    launches on each smaller one."""
+    from datmo_using_optical_flow_tpu_torch.oracle.np_farneback import level_sizes
+    from datmo_using_optical_flow_tpu_torch.ops import warp
+
+    out = {"poly_exp": 0, "fused_iteration": 0, "blur_solve": 0}
+    for _, _, lh, lw in level_sizes(h, w, fb.pyr_scale, fb.levels):
+        out["poly_exp"] += 2
+        out["fused_iteration" if warp.eligible(lh, lw) else "blur_solve"] += fb.iterations
+    return out
+
+
+def _counted(label: str, fn, want: dict):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after; raises unless the counts are ``want`` (kernels not named: 0)."""
+    reset_launches()
+    out = fn()
+    counts = read_launches()
+    expected = {k: want.get(k, 0) for k in counts}
+    log(f"compat {label}: launches {counts}")
+    if counts != expected:
+        raise AssertionError(f"compat {label}: launches {counts}, expected {expected}")
+    return out, counts
+
+
+def _host_ms(fn, reps: int = 5) -> float:
+    """Median host ms of ``fn()``, which returns numpy (so it waits for the card)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _np_equal(label: str, got, want) -> None:
+    same = all(np.array_equal(g, w) for g, w in zip(got, want))
+    log(f"compat {label}: card {'equals' if same else 'DIFFERS FROM'} the CPU")
+    if not same:
+        raise AssertionError(f"compat {label}: the card differs from the CPU")
+
+
+def _flow_close(label: str, got, want) -> None:
+    """The flow's velocities within 1e-4 and its curl within 2e-4 of the
+    CPU's (``tests/test_torch_compat.py``'s limits)."""
+    errs = [float(np.abs(g - w).max()) for g, w in zip(got, want)]
+    same = all(np.array_equal(g, w) for g, w in zip(got, want))
+    log(f"compat {label}: card vs CPU vx/vy/curl max_abs_err {errs[0]:.3e}/{errs[1]:.3e}/"
+        f"{errs[2]:.3e} (tol 1e-4/1e-4/2e-4){'; bit-equal' if same else ''}")
+    if errs[0] > 1e-4 or errs[1] > 1e-4 or errs[2] > 2e-4:
+        raise AssertionError(f"compat {label}: the card's flow differs from the CPU's")
+
+
+def compat_phase(dev, name: str, smi: str, root: str, gclouds) -> dict:
+    """The reference-API surface on the card (``compat``, ``ops/nn``), each
+    part against the port on the CPU: ``compute_velocity_vectors`` on two
+    200x200 BEVs of ``benchmarks/from_points.py``'s scene (``preprocess_pcd``
+    on the card, equal to the CPU's) and on two ``make_frames`` 1080x1920
+    frames, each with the launches its level sizes give; the propagation
+    masks, DBSCAN and the road filter on the 200x200 flow;
+    ``process_multiple_frames`` over 4 of the from-points files with seeds 0
+    and 5; ``align_by_nearest`` on GMFA's preprocessed clouds (one K5 launch
+    per call); ``nearest_neighbors_scan`` at 300,000 targets and 4,096
+    queries against a float64 ``cKDTree`` and the CPU, timed.  The plots are
+    not drawn: this machine has no matplotlib.  Returns the launches."""
+    from scipy.spatial import cKDTree
+
+    from datmo_using_optical_flow_tpu_torch import compat
+    from datmo_using_optical_flow_tpu_torch.benchmarks import from_points as fpb
+    from datmo_using_optical_flow_tpu_torch.config import FarnebackConfig
+    from datmo_using_optical_flow_tpu_torch.io.frames import pcd_files_in
+    from datmo_using_optical_flow_tpu_torch.ops import nn
+    from datmo_using_optical_flow_tpu_torch.sim.frames import make_frames
+
+    t_phase = time.perf_counter()
+    cfg, fb = fpb.config(), FarnebackConfig()
+    launches: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    paths = pcd_files_in(os.path.join(root, "seq"))[:4]
+    pre = (cfg.grid_resolution, cfg.x_range, cfg.y_range, cfg.z_max, cfg.roi_bounds)
+    bevs = [compat.preprocess_pcd(p, *pre, seed=i) for i, p in enumerate(paths[:2])]
+    _np_equal("preprocess_pcd (frames 0, 1; seeds 0, 1)", bevs,
+              [compat.preprocess_pcd(p, *pre, seed=i, device="cpu")
+               for i, p in enumerate(paths[:2])])
+    for label, (im1, im2), ranges in (
+            ("200x200 from-points BEVs", bevs, (cfg.x_range, cfg.y_range)),
+            ("1080x1920 make_frames", make_frames(2, 1080, 1920), ((0, 1920), (0, 1080)))):
+        h, w = im1.shape
+        want = flow_launches(h, w, fb)
+        got, counts = _counted(f"compute_velocity_vectors {label}", lambda: compat.
+                               compute_velocity_vectors(im1, im2, *ranges), want)
+        add(counts)
+        cpu = compat.compute_velocity_vectors(im1, im2, *ranges, device="cpu")
+        _flow_close(f"compute_velocity_vectors {label}", got, cpu)
+        ms = _host_ms(lambda: compat.compute_velocity_vectors(im1, im2, *ranges))
+        speed = np.hypot(got[0], got[1])
+        log(f"compat compute_velocity_vectors {label}: {ms:.3f} ms per call on the card, numpy "
+            f"in and out (median of 5), launches {counts} as the level sizes predict; |v| max "
+            f"{speed.max():.3f} [{name}, {smi}]")
+        if not all(np.isfinite(a).all() for a in got) or speed.max() <= 0:
+            raise AssertionError(f"compat {label}: no finite, moving flow")
+
+    vx, vy, _ = compat.compute_velocity_vectors(*bevs, cfg.x_range, cfg.y_range)
+    res = cfg.grid_resolution
+    ax, ay = np.gradient(vx)[0] * 10, np.gradient(vy)[1] * 10
+    valid = np.hypot(vx, vy) > 0.1
+    road = np.array([[0, 0], [110, 0], [60, 100], [110, 200], [0, 200]], np.float32)
+    card_cpu = {}
+    for dev_name in ("cuda", "cpu"):
+        masks = (compat.propagation_mask(vx, vy, 0.1, res, 0.5, device=dev_name),
+                 compat.propagation_mask_with_acceleration(vx, vy, ax, ay, 0.1, res, 0.5,
+                                                           device=dev_name),
+                 compat.continuity_mask(vx, vy, 0.5, device=dev_name))
+        labels, idx = compat.dbscan_clustering(vx, vy, valid, eps=5.0, min_samples=5,
+                                               device=dev_name)
+        kept = compat.filter_clusters_by_roi(labels, idx, (vx, vy), valid, road,
+                                             device=dev_name)
+        card_cpu[dev_name] = (*masks, labels, idx, *kept)
+    _np_equal(f"masks, dbscan_clustering ({int(valid.sum())} cells, "
+              f"{len(set(card_cpu['cuda'][3].tolist()) - {-1})} clusters) and "
+              f"filter_clusters_by_roi ({len(card_cpu['cuda'][5])} cells kept) on the 200x200 "
+              "flow", card_cpu["cuda"], card_cpu["cpu"])
+    clustered = int((card_cpu["cuda"][3] >= 0).sum())
+    if not 0 < len(card_cpu["cuda"][5]) < clustered:
+        raise AssertionError(f"compat: the road filter kept {len(card_cpu['cuda'][5])} of "
+                             f"{clustered} clustered cells")
+
+    for seed in (0, 5):
+        t0 = time.perf_counter()
+        got, counts = _counted(
+            f"process_multiple_frames seed {seed}",
+            lambda: compat.process_multiple_frames(
+                paths, cfg, output_dir=os.path.join(root, f"compat_card_{seed}"), seed=seed),
+            {"poly_exp": 2 * len(paths), "blur_solve": 10 * len(paths)})
+        fps = len(paths) / (time.perf_counter() - t0)
+        add(counts)
+        want = compat.process_multiple_frames(
+            paths, cfg, output_dir=os.path.join(root, f"compat_cpu_{seed}"), seed=seed,
+            device="cpu")
+        same_ids = set(got) == set(want) and len(want) > 0
+        err = max((float(np.abs(got[t] - s).max()) for t, s in want.items()), default=0.0) \
+            if same_ids else None
+        log(f"compat process_multiple_frames seed {seed}, 4 frames: tracks "
+            f"{sorted(got)}/{sorted(want)} (card/CPU), state max_abs_err {err} (tol 5e-3), "
+            f"{fps:.3f} frames/s on the card (a 4-frame run: preprocess, steps and artifacts) "
+            f"[{name}, {smi}]")
+        if not same_ids or err > 5e-3:
+            raise AssertionError(f"compat process_multiple_frames seed {seed}: the card's "
+                                 "tracks differ from the CPU's")
+
+    (p1, _), (p0, m0) = gclouds[1], gclouds[0]
+    aligned, counts = _counted(f"align_by_nearest ({p1.shape[0]} points)",
+                               lambda: nn.align_by_nearest(p1, p0, m0), {"nearest_neighbors": 1})
+    add(counts)
+    if not torch.isfinite(aligned).all():
+        raise AssertionError("compat align_by_nearest: non-finite points")
+    # the same call on 16,384 rows of cloud 1 on both devices (the full cloud
+    # takes ~65 s on the CPU; a row's winner at a near-tie depends on its
+    # block, so the card's full run and a CPU run on a subset may differ)
+    part = p1[:16384]
+    _np_equal("align_by_nearest (16,384 rows of cloud 1 onto cloud 0)",
+              [nn.align_by_nearest(part, p0, m0).cpu().numpy()],
+              [nn.align_by_nearest(part.cpu(), p0.cpu(), m0.cpu()).numpy()])
+
+    tgt = torch.cat([c[0] for c in gclouds[:3]])[:300_000]
+    tmask = torch.cat([c[1] for c in gclouds[:3]])[:300_000]
+    src = gclouds[3][0][gclouds[3][1]][:4096]
+    idx, d2 = nn.nearest_neighbors_scan(src, tgt, tmask)
+    lo = nn._scan_lower_bound(src, tgt, tmask, d2)
+    s64, t64 = src.cpu().double().numpy(), tgt.cpu().double().numpy()
+    tm = tmask.cpu().numpy()
+    true_d, _ = cKDTree(t64[tm]).query(s64)
+    true_d2 = true_d ** 2
+    # the envelope _scan_lower_bound subtracts, before its clamp at 0
+    env = 2e-6 * ((s64 ** 2).sum(1) + (t64[tm] ** 2).sum(1).max()) + 1e-6
+    at_idx = ((s64 - t64[idx.cpu().long().numpy()]) ** 2).sum(1)
+    d2_err = np.abs(d2.cpu().double().numpy() - true_d2)
+    sound = bool((lo.cpu().double().numpy() <= true_d2).all())
+    ok = sound and bool((d2_err <= env).all()) and bool((at_idx - true_d2 <= 2 * env).all()) \
+        and bool(tm[idx.cpu().long().numpy()].all())
+    c_idx, c_d2 = nn.nearest_neighbors_scan(src.cpu(), tgt.cpu(), tmask.cpu())
+    cpu_err = float(torch.max(torch.abs(c_d2 - d2.cpu())))
+    same_idx = float((c_idx == idx.cpu()).float().mean())
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(7):
+        start.record()
+        nn.nearest_neighbors_scan(src, tgt, tmask)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    scan_ms = statistics.median(times[2:])
+    log(f"nearest_neighbors_scan, 4,096 queries x 300,000 targets: {scan_ms:.3f} ms per call "
+        f"(CUDA events, median of 5 after 2 warm-up calls); vs float64 cKDTree: bound sound "
+        f"{sound}, d2 max_abs_err {d2_err.max():.3e} within the envelope (max "
+        f"{env.max():.3e}), winners within twice it; vs the CPU: d2 max_abs_err "
+        f"{cpu_err:.3e}, indices equal on {same_idx:.4f} of rows [{name}, {smi}]")
+    if not ok or cpu_err > float(env.max()):
+        raise AssertionError("nearest_neighbors_scan: outside the envelope of the true NN")
+    log(f"compat phase: plots not drawn on this machine (no matplotlib; "
+        f"tests/test_torch_viz.py runs them on the CPU); launches {launches}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def benchmarks_phase() -> dict:
     """The port's three benchmarks once each, shortened (9 frames and 1 sweep
     at 1080x1920, 6 frames from points, 4 GMFA frames and 1 sweep), each run
@@ -1143,10 +1369,12 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as root:
         fp_launches, fp_rows = from_points_phase(dev, name, smi, root)
         gmfa_files_phase(dev, name, smi, root)
-    benchmarks_phase()
-    by_path["from_points"] = fp_launches
-    for k, v in fp_launches.items():
-        launches[k] += v
+        benchmarks_phase()
+        compat_launches = compat_phase(dev, name, smi, root, gclouds)
+    by_path.update(from_points=fp_launches, compat=compat_launches)
+    for counts in (fp_launches, compat_launches):
+        for k, v in counts.items():
+            launches[k] += v
     results["poly_exp"]["levels"].update(fp_rows["poly_exp"])
     results["blur_solve"]["levels"] = fp_rows["blur_solve"]
     for k, rows in fp_rows.items():

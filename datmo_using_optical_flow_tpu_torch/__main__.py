@@ -10,7 +10,9 @@ Commands:
 Their input is a folder of ``.pcd`` files or a YAML config (the reference's
 schema; a YAML input needs pyyaml, a folder does not).  ``run-b`` writes the
 track log as ``<output name>.csv`` (``-o track_data.xlsx`` gives
-``track_data.csv``), as the JAX package does without openpyxl.
+``track_data.csv``), as the JAX package does without openpyxl, and with
+``--plot-dir DIR`` the reference's per-frame plots as PNGs (needs
+matplotlib).
 """
 
 from __future__ import annotations
@@ -54,6 +56,9 @@ def main(argv: list[str] | None = None) -> int:
     pb.add_argument("input", help="PCD folder or YAML config")
     pb.add_argument("-o", "--output", default="track_data.xlsx",
                     help="track log; written as <name>.csv")
+    pb.add_argument("--plot-dir", default=None,
+                    help="save the reference's per-frame plots here (GMFA.py:525-527; "
+                         "non-blocking PNGs; needs matplotlib)")
     pb.add_argument("--device", default="cuda", help="torch device (default: cuda)")
 
     ps = sub.add_parser("simulate", help="not ported yet")
@@ -84,7 +89,7 @@ def main(argv: list[str] | None = None) -> int:
             print("No PCD files found in the folder.")
             return 1
         summary = GMFAPipeline(cfg, device=args.device).process_files(
-            files, output_xlsx=args.output, progress=True)
+            files, output_xlsx=args.output, plot_dir=args.plot_dir, progress=True)
         print(f"{len(summary['rows'])} track-log rows")
         return 0
     if args.cmd == "synth":

@@ -392,21 +392,27 @@ class GMFAPipeline:
         return carry, stack(outs)
 
     def process_files(self, pcd_files: Sequence[str], output_xlsx: str | None = None,
-                      progress: bool = False, checkpoint_every: int = 0,
-                      checkpoint_path: str | None = None, resume: bool = False,
-                      h2d_q16: bool = False) -> dict:
+                      seed: int = 0, progress: bool = False, plot_dir: str | None = None,
+                      checkpoint_every: int = 0, checkpoint_path: str | None = None,
+                      resume: bool = False, h2d_q16: bool = False) -> dict:
         """Run GMFA over a PCD sequence (the reference's ``__main__``,
         GMFA.py:424-536) and write the track log (:func:`save_tracks_to_excel`).
 
-        Frame i's keys are ``kp, ks = split(fold_in(PRNGKey(0), i))``: ``kp``
-        preprocesses it and ``ks`` draws its new track ids, as the JAX
-        package derives them (its default seed), so a resumed run continues
-        the uninterrupted one bit for bit.  The first frame seeds the carry
+        Frame i's keys are ``kp, ks = split(fold_in(PRNGKey(seed), i))``:
+        ``kp`` preprocesses it and ``ks`` draws its new track ids, as the JAX
+        package derives them, so a resumed run continues the uninterrupted
+        one bit for bit.  The first frame seeds the carry
         without a step; a skipped frame writes no rows.  With
         ``checkpoint_every=K`` the carry goes to ``checkpoint_path`` (.npz,
         the JAX package's keys) every K frames, after the rows of every frame
         before it; ``resume=True`` restores it and continues from the frame
         it records.  ``h2d_q16`` ships the points as int16 fixed point.
+        With ``plot_dir``, the reference's four per-frame plots
+        (GMFA.py:525-527 and the positions plot: SOM heat map, moving vs
+        static, positions and velocities, final positions) are saved there as
+        PNGs, drawn by the writer thread from the packed observables (which
+        then also carry the moving cloud and the SOM); without matplotlib the
+        run raises before its first frame.
 
         Each frame's track-log observables are packed on the device into one
         uint8 buffer; a transfer thread copies a drained batch of buffers to
@@ -417,12 +423,14 @@ class GMFAPipeline:
         device stages' are launch times: the calls return before the card
         finishes).
         """
+        if plot_dir:
+            import matplotlib  # noqa: F401  (the plots need it: fail before the first frame)
         c = self.cfg
         dev = self.device
         source = DiskFrameSource(pcd_files, capacity=c.capacities.max_raw_points,
                                  quantize_q16=h2d_q16)
         carry = self.init_carry()
-        base = prng.PRNGKey(0)
+        base = prng.PRNGKey(seed)
         rows: list[dict] = []
         have_prev = False
         start_frame = 0
@@ -435,7 +443,7 @@ class GMFAPipeline:
                 print(f"resumed from {checkpoint_path} at frame {start_frame}")
 
         timings = {"preprocess": 0.0, "step": 0.0}
-        pack, packer = obs_packer(c)
+        pack, packer = obs_packer(c, self.max_moving if plot_dir else None)
 
         def log_rows(i: int, obs: dict) -> None:
             if bool(obs["skip"]):
@@ -451,6 +459,8 @@ class GMFAPipeline:
             if progress:
                 print(f"frame {i}: moving={int(obs['moving_count'])} "
                       f"clusters={int(obs['n_clusters'])} tracks={int(alive.sum())}")
+            if plot_dir:
+                save_frame_plots(plot_dir, i, obs)
 
         mirror = HostMirror(packer, log_rows)
         t_start = time.perf_counter()
@@ -470,7 +480,7 @@ class GMFAPipeline:
                     t0 = time.perf_counter()
                     carry, out = self.step(ex, exmask, carry, ks)
                     timings["step"] += time.perf_counter() - t0
-                    mirror.put(i, pack(out, carry.table))
+                    mirror.put(i, pack(out, carry.table, carry.som))
                 if checkpoint_every and checkpoint_path and (i + 1) % checkpoint_every == 0:
                     mirror.flush()  # a snapshot never runs ahead of its frames' rows
                     save_checkpoint(checkpoint_path, carry, step=i + 1)
@@ -501,23 +511,53 @@ def save_tracks_to_excel(rows: list[dict], output_file: str = "track_data.xlsx")
     print(f"Track data saved to {path}")
 
 
-def obs_packer(cfg: GMFAConfig):
-    """``(pack, packer)``: ``pack(outputs, table)`` puts one frame's
+def obs_packer(cfg: GMFAConfig, plot_points: int | None = None):
+    """``(pack, packer)``: ``pack(outputs, table, som=None)`` puts one frame's
     track-log observables (skip flag, alive, tid and state of every slot,
     the moving-point and cluster counts) into one uint8 buffer on the
     device, in the JAX package's layout; ``packer.unpack`` rebuilds them on
-    the host."""
-    def shrink(out: GmfaOutputs, table: TrackTableB) -> dict:
-        return {"skip": out.skip, "alive": table.alive, "tid": table.tid,
-                "state": table.state, "moving_count": out.moving_count,
-                "n_clusters": out.n_clusters}
+    the host.  With ``plot_points`` (the moving-point capacity) the buffer
+    also carries the moving cloud and the SOM, for the per-frame plots."""
+    def shrink(out: GmfaOutputs, table: TrackTableB, som: torch.Tensor) -> dict:
+        obs = {"skip": out.skip, "alive": table.alive, "tid": table.tid,
+               "state": table.state, "moving_count": out.moving_count,
+               "n_clusters": out.n_clusters}
+        if plot_points:
+            obs.update(moving_points=out.moving_points, som=som)
+        return obs
 
     def meta(shape, dtype):
         return torch.empty(shape, dtype=dtype, device="meta")
 
-    t = cfg.capacities.max_tracks
-    packer = HostPacker({"skip": meta((), torch.bool), "alive": meta((t,), torch.bool),
-                         "tid": meta((t,), torch.int32), "state": meta((t, 4), torch.float32),
-                         "moving_count": meta((), torch.int32),
-                         "n_clusters": meta((), torch.int32)})
-    return (lambda out, table: packer.pack(shrink(out, table))), packer
+    t, g = cfg.capacities.max_tracks, cfg.som.grid_size
+    example = {"skip": meta((), torch.bool), "alive": meta((t,), torch.bool),
+               "tid": meta((t,), torch.int32), "state": meta((t, 4), torch.float32),
+               "moving_count": meta((), torch.int32), "n_clusters": meta((), torch.int32)}
+    if plot_points:
+        example.update(moving_points=meta((plot_points, 3), torch.float32),
+                       som=meta((g, g), torch.float32))
+    packer = HostPacker(example)
+    return (lambda out, table, som=None: packer.pack(shrink(out, table, som))), packer
+
+
+def save_frame_plots(plot_dir: str, frame: int, obs: dict) -> None:
+    """The reference's per-frame plots (GMFA.py:525-527: SOM heat map,
+    moving vs static, positions and velocities, final moving-object
+    detection) as PNGs in ``plot_dir``, from one frame's packed host
+    observables (:func:`obs_packer` with ``plot_points``)."""
+    from datmo_using_optical_flow_tpu_torch.io import viz
+
+    os.makedirs(plot_dir, exist_ok=True)
+    n_mov = int(obs["moving_count"])
+    pts = np.asarray(obs["moving_points"])[:n_mov]
+    cls = np.full(n_mov, 2)
+    states = [obs["state"][s] for s in np.nonzero(obs["alive"].astype(bool))[0]]
+    viz.plot_som_heat_map(np.asarray(obs["som"]),
+                          save_path=os.path.join(plot_dir, f"som_frame_{frame}.png"))
+    viz.plot_moving_vs_static(pts, cls, states, save_path=os.path.join(
+        plot_dir, f"moving_static_frame_{frame}.png"))
+    viz.visualize_positions_and_velocities(pts, cls, states, save_path=os.path.join(
+        plot_dir, f"positions_frame_{frame}.png"))
+    viz.visualize_final_positions_and_velocities(
+        pts, states, title=f"Frame {frame}: Moving Object Detection",
+        save_path=os.path.join(plot_dir, f"final_positions_frame_{frame}.png"))

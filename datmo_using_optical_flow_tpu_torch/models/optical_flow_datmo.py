@@ -241,15 +241,15 @@ class PipelineA:
         return _preprocess_impl(points, mask, key, self.cfg)
 
     def process_files(self, pcd_files: Sequence[str], output_dir: str | None = None,
-                      save_png: bool = False, progress: bool = False,
+                      save_png: bool = False, seed: int = 0, progress: bool = False,
                       checkpoint_every: int = 0, checkpoint_path: str | None = None,
                       resume: bool = False, h2d_q16: bool = False) -> dict:
         """Run the pipeline over a PCD sequence and write the reference's
         artifacts (``process_multiple_frames``, ``Optical_flow/main.py:541``).
 
-        Frame i's preprocessing key is ``fold_in(PRNGKey(0), i)``, as the JAX
-        package's is, so a run is reproducible and a resumed run continues
-        it bit for bit.  With ``checkpoint_every=K`` the carry goes to
+        Frame i's preprocessing key is ``fold_in(PRNGKey(seed), i)``, as the
+        JAX package's is, so a run is reproducible and a resumed run
+        continues it bit for bit.  With ``checkpoint_every=K`` the carry goes to
         ``checkpoint_path`` (.npz) every K frames, after the artifacts of
         every frame before it are written; ``resume=True`` restores it and
         continues from the frame it records.  ``h2d_q16`` ships the points
@@ -271,7 +271,7 @@ class PipelineA:
         source = DiskFrameSource(pcd_files, capacity=c.capacities.max_raw_points,
                                  quantize_q16=h2d_q16)
         carry = self.init_stream_carry()
-        key = prng.PRNGKey(0)
+        key = prng.PRNGKey(seed)
 
         start_frame = 0
         if resume and checkpoint_path:

@@ -4,11 +4,20 @@
 Every query goes through K5 (:func:`ops.nn_kernels.nearest_neighbors`): the
 targets are Morton-sorted into an index, the sources are Morton-permuted so
 each 256-row block is spatially compact, and the results are un-permuted.
-Tie-breaking uses original target indices, so the permutations change only
-how much the sweep prunes, never the results.
+Tie-breaking uses original target indices.  The source permutation decides
+each row's block, and so the point the sweep recentres that row on: two
+targets within the sweep's error envelope of each other may then swap, so a
+row's winner can differ between two queries that block it differently (1
+row of 16,384 when those rows were queried alone, against the same rows of
+a 102,400-row query, on uniform clouds of 102,400 points).  The same query
+gives the same results on the card and the CPU.
 
-Targets above ``MAX_TARGET`` (2^18) points raise: the JAX package's tiled-scan
-fallback for them is not ported (GMFA's clouds are 102,400 points).
+Targets above ``nn_kernels.MAX_TARGET`` (2^18) points go to
+:func:`nearest_neighbors_scan`, the JAX package's tiled scan: one plain
+float32 matrix product per 512-target tile (``torch.matmul``, TF32 off as
+``utils/device`` sets it) with a running minimum, exact (it ignores
+``cap2``), and with :func:`_scan_lower_bound`'s error envelope as its lower
+bound.  GMFA's clouds (102,400 points) stay on K5.
 The JAX package's ``active_cap`` tiers of :func:`nearest_neighbors_active`
 (prefix-sized launches that cut TPU grid and table overheads, with the same
 values on active rows) are not ported either: the port always sweeps the
@@ -23,19 +32,17 @@ import torch
 from datmo_using_optical_flow_tpu_torch.ops import nn_kernels
 
 
-def _require_eligible(m: int) -> None:
-    if not nn_kernels.eligible(m):
-        raise ValueError(f"{m} target points exceed the NN kernel's limit "
-                         f"({nn_kernels.MAX_TARGET}); the JAX package's scan fallback "
-                         "for larger targets is not ported")
+_TILE = 512  # targets per tile of the scan
+
+
+def _sumsq(v: torch.Tensor) -> torch.Tensor:
+    return (v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1]) + v[:, 2] * v[:, 2]
 
 
 def _exact_d2(src: torch.Tensor, crd: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     """d2 recomputed by direct subtraction at the returned winner (where one
     was found): the sweep value carries the recentred expansion's rounding."""
-    diff = src - crd
-    exact = (diff[:, 0] * diff[:, 0] + diff[:, 1] * diff[:, 1]) + diff[:, 2] * diff[:, 2]
-    return torch.where(torch.isfinite(d2), exact, d2)
+    return torch.where(torch.isfinite(d2), _sumsq(src - crd), d2)
 
 
 def nearest_neighbors_with_bound(src: torch.Tensor, tgt: torch.Tensor, tgt_mask: torch.Tensor,
@@ -46,8 +53,12 @@ def nearest_neighbors_with_bound(src: torch.Tensor, tgt: torch.Tensor, tgt_mask:
     target; idx 0 and d2 +inf when there is none.  ``lower_bound`` is sound
     (true NN d2 >= it).  ``cap2``: rows whose true NN d2 is below it are
     exact; other rows return d2 >= cap2 or +inf.  ``tgt_order`` /
-    ``src_order``: precomputed Morton permutations (:func:`sort_order`)."""
-    _require_eligible(tgt.shape[0])
+    ``src_order``: precomputed Morton permutations (:func:`sort_order`).
+    Targets above ``nn_kernels.MAX_TARGET`` take the exact scan, with its
+    envelope as the bound (``cap2`` and the orders are not used there)."""
+    if not nn_kernels.eligible(tgt.shape[0]):
+        idx, d2 = nearest_neighbors_scan(src, tgt, tgt_mask)
+        return idx, d2, _scan_lower_bound(src, tgt, tgt_mask, d2)
     n = src.shape[0]
     srcf = src.to(torch.float32)
     index = nn_kernels.build_target_index(tgt, tgt_mask, order=tgt_order)
@@ -80,9 +91,17 @@ def nearest_neighbors_active(src: torch.Tensor, tgt: torch.Tensor, tgt_mask: tor
     the destination array is its own inverse permutation), so a
     Morton-sorted ``src`` keeps its active prefix spatially coherent, and the
     sweep is told the active count, so blocks past the prefix skip it.
+    Targets above ``nn_kernels.MAX_TARGET`` take the full scan with masked
+    outputs, as the JAX package's fallback: no savings, and the second
+    bound is 0 (it never certifies).
     """
-    _require_eligible(tgt.shape[0])
     srcf = src.to(torch.float32)
+    if not nn_kernels.eligible(tgt.shape[0]):
+        idx, d2, lo = nearest_neighbors_with_bound(src, tgt, tgt_mask)
+        crd = torch.where(torch.isfinite(d2)[:, None], tgt.to(torch.float32)[idx.long()], 0.0)
+        return (torch.where(active, idx, 0), torch.where(active, d2, torch.inf),
+                torch.where(active, lo, torch.inf), torch.zeros_like(d2),
+                torch.where(active[:, None], crd, 0.0))
     if index is None:
         index = nn_kernels.build_target_index(tgt, tgt_mask)
     src_c, pos, n_active = partition_active(srcf, active)
@@ -117,3 +136,50 @@ def unpartition(res, pos: torch.Tensor, active: torch.Tensor):
             torch.where(active, lo_s[pos], torch.inf),
             torch.where(active, b2_s[pos], 0.0),
             torch.where(active[:, None], crd_s[pos], 0.0))
+
+
+def nearest_neighbors_scan(src: torch.Tensor, tgt: torch.Tensor, tgt_mask: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(idx int32, d2)`` of each ``src`` row's nearest valid target by a
+    scan over 512-target tiles (JAX ``ops/nn.nearest_neighbors_scan``, the
+    fallback above ``nn_kernels.MAX_TARGET``): d2 by the expansion ``|s|^2 +
+    |t|^2 - 2 s.t`` (one matrix product per tile), clamped at 0; the first
+    tile's minimum wins a tie between tiles and the lowest index one within a
+    tile.  idx 0 and d2 +inf when there is no valid target."""
+    n, m = src.shape[0], tgt.shape[0]
+    dev = src.device
+    pad = (-m) % _TILE
+    tgt_p = torch.cat([tgt.to(torch.float32),
+                       torch.full((pad, 3), 3e18, dtype=torch.float32, device=dev)])
+    mask_p = torch.cat([tgt_mask.to(torch.bool), torch.zeros(pad, dtype=torch.bool, device=dev)])
+    srcf = src.to(torch.float32)
+    sn = _sumsq(srcf)
+    best_d = torch.full((n,), torch.inf, dtype=torch.float32, device=dev)
+    best_i = torch.zeros(n, dtype=torch.int32, device=dev)
+    for j in range(0, m + pad, _TILE):
+        tile, tm = tgt_p[j:j + _TILE], mask_p[j:j + _TILE]
+        d2 = sn[:, None] + _sumsq(tile)[None, :] - 2.0 * (srcf @ tile.T)
+        d2 = torch.where(tm[None, :], torch.clamp(d2, min=0.0), torch.inf)
+        td, ti = torch.amin(d2, dim=1), torch.argmin(d2, dim=1)
+        take = td < best_d
+        best_d = torch.where(take, td, best_d)
+        best_i = torch.where(take, ti.to(torch.int32) + j, best_i)
+    return best_i, best_d
+
+
+def _scan_lower_bound(src: torch.Tensor, tgt: torch.Tensor, tgt_mask: torch.Tensor,
+                      d2: torch.Tensor) -> torch.Tensor:
+    """A sound lower bound on the true NN d2 under the scan's d2: the
+    expansion's absolute error is bounded by ~10 ulp of (|s|^2 + max |t|^2)."""
+    sn = _sumsq(src.to(torch.float32))
+    tn = torch.where(tgt_mask, _sumsq(tgt.to(torch.float32)), 0.0)
+    env = 2e-6 * (sn + torch.max(tn)) + 1e-6
+    return torch.clamp(d2 - env, min=0.0)
+
+
+def align_by_nearest(points: torch.Tensor, reference: torch.Tensor,
+                     ref_mask: torch.Tensor) -> torch.Tensor:
+    """Each point replaced by its nearest valid reference point (the
+    reference's NN "alignment" of clouds of different sizes, GMFA.py:84-91)."""
+    idx, _ = nearest_neighbors(points, reference, ref_mask)
+    return reference[idx.long()]

@@ -11,11 +11,12 @@ new track ids are the same draws (``prng.randint``).  ICP's float32 rounds
 part the two runs on frame pairs 1 -> 2 and 3 -> 4
 (``test_torch_gmfa_icp_drift``: the two sides' Kabsch solves drift apart
 until a correspondence near the gate falls on the other side of it; a
-float64 ICP ends next to the port's transform).  So rows are held as
-follows: ``Frame`` and ``Track ID`` exact and in the same order; X, Y, VX,
-VY of the frames before the first parting within 1e-4 absolute plus 1e-5
-relative (``test_torch_gmfa_pipeline``'s state tolerance: centroid
-differences over dt = 0.1 s from float32 sums taken in other orders); from
+float64 ICP follows the port's transform until its own such parting).  So
+rows are held as follows: ``Frame`` and ``Track ID`` exact and in the same
+order; X, Y, VX, VY of the frames before the first parting within 1e-4
+absolute plus 1e-5 relative (``test_torch_gmfa_pipeline``'s state
+tolerance: centroid differences over dt = 0.1 s from float32 sums taken in
+other orders); from
 it on, positions within ``DRIFT_M`` and velocities within ``DRIFT_M / dt``:
 the partings move the clusters' centroids by up to 1.0e-2 m (float32
 points) and 1.8e-2 m (q16).  The SOM: every cell within 1e-6 but at most

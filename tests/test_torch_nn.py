@@ -267,7 +267,14 @@ def test_chunked_replay_equals_the_serial_sweep(kind, chunk):
 
 
 def test_oversized_target_raises():
-    src = torch.zeros((4, 3))
-    tgt = torch.zeros(((1 << 18) + 1, 3))
-    with pytest.raises(ValueError, match="scan fallback"):
-        tnn.nearest_neighbors(src, tgt, torch.ones(tgt.shape[0], dtype=torch.bool))
+    """Targets above K5's 2^18 (which raised before the scan was ported)
+    take the tiled scan: the same result as ``nearest_neighbors_scan``."""
+    rng = np.random.default_rng(9)
+    tgt = torch.from_numpy(rng.uniform(-50, 50, ((1 << 18) + 1, 3)).astype(np.float32))
+    rows = [5, 100000, 1 << 18, 7]
+    src = tgt[rows] + 1e-3
+    mask = torch.ones(tgt.shape[0], dtype=torch.bool)
+    idx, d2 = tnn.nearest_neighbors(src, tgt, mask)
+    s_idx, s_d2 = tnn.nearest_neighbors_scan(src, tgt, mask)
+    assert idx.tolist() == rows == s_idx.tolist()
+    assert torch.equal(d2, s_d2)
