@@ -39,7 +39,9 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
 8. K5 (the NN sweep) bit-equal to its serial plain version on frames 0 and
    1 of those clouds: uncapped, with the classification cap, an ICP-style
    active subset, every target twice (tied minima), and the inputs of ICP's
-   busiest active round on that frame pair; at each cluster size (1, 2, 4,
+   busiest active round on that frame pair, with the compacting sweep and
+   with the in-place one (per-block counts that are no prefix, filled rows, a
+   block table shifted by the drift); at each cluster size (1, 2, 4,
    8, 16 CTAs per block) with its device µs and the busiest block's serial
    bound, and at the kept sizes; its bounds checked sound against a float64
    ``cKDTree`` on 4096 sampled rows; wrapper and plain version timed as in
@@ -48,10 +50,16 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
    clouds the port preprocessed, with the same step keys (so the same new
    track ids);
 10. GMFA's main path on the 7 clouds: ``seed_carry`` and 6 ``step`` calls,
-    with K5's launches, the host synchronisations per step and the moving
-    points against the 16,384 cap; then K5's device ms per step, full and
-    active sweeps apart, at the kept sizes and at each cluster size (one
-    step's sweeps recorded, then replayed under the profiler);
+    with K5's and K7's launches, the host synchronisations per step and the
+    moving points against the 16,384 cap; then K5's device ms per step, full
+    and active sweeps apart, at the kept sizes and at each cluster size (one
+    step's sweeps recorded, then replayed under the profiler); then K7 (the
+    once-rounded fma and sum of squares, ``ops/round_kernels``) bit-equal to
+    its plain version on every input that one 1080x1920 stream step and one
+    GMFA step give it (recorded through the wrappers) and on infinities,
+    NaNs and subnormals, each kernel timed at its largest such input beside
+    its plain version and one PyTorch call (``torch.addcmul``,
+    ``torch.linalg.vecdot`` / ``vector_norm``);
 11. the diagnostics that run K4 and K6, at full size, each with every launch
     count set to 0 just before it and read just after: ``micro_flow`` and
     ``profile_1080p`` on two ``make_frames`` 1080x1920 frames (K1-K4), and
@@ -83,7 +91,25 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
     ``align_by_nearest`` on GMFA's preprocessed clouds (one K5 launch; 16,384
     rows of it equal to the CPU's); ``nearest_neighbors_scan`` at 300,000 targets
     and 4,096 queries against a float64 ``cKDTree`` within its envelope,
-    timed (no plots: this machine has no matplotlib).
+    timed (no plots: this machine has no matplotlib);
+16. ICP's options: ``coarse_stride=4`` and ``sweep="inplace"`` on small
+    clouds, each card call with the launch counts set to 0 just before and
+    read just after (K5 once per round of each phase and once at the end,
+    K7 launched), the card equal to the CPU field by field; at GMFA's
+    reference load ``diagnostics/icp_sound``'s violation counts (all 0: K5's
+    ``lo`` against a float64 scan, its sub-cap winners within K5's envelope
+    and within 1e-6, one ~2 mm exclusion step) and one
+    cached ICP per sweep, compact and in place, with its ms, K5's device ms,
+    and the busiest round's K5 µs and busiest block (``icp_body --sweeps``,
+    in a process of its own; K5 on that in-place round's inputs is phase
+    8's last case);
+17. the stream-parallel paths (``parallel/streams``): pipeline A's
+    frame-pair step and stream-mode step over 4 feeds at 1080x1920 and
+    GMFA's step over 4 feeds at reference load, each multi-stream step
+    counted alone after the single-stream steps it is held to (every feed's
+    outputs and carry equal, the metrics equal to the sums, the launches
+    equal to the single-stream steps' sum); then
+    ``benchmarks/multistream_4x1080p`` in a process of its own.
 
 The second-to-last line is a JSON summary of the kernels, each with its
 bound on the H100 for the timed call's work (``diagnostics/roofline.py``);
@@ -113,13 +139,20 @@ REPLACES = {
     "warp_matrices": "datmo_using_optical_flow_tpu/ops/warp_pallas.py:308",
     "nearest_neighbors": "datmo_using_optical_flow_tpu/ops/nn_pallas.py:402",
     "tiny": "benchmarks/diag_icp_body.py:174",
+    # K7: no Pallas kernel; XLA fuses these multiply-adds at sites such as
+    "fma32": "datmo_using_optical_flow_tpu/models/optical_flow_datmo.py:601",
+    "sumsq": "datmo_using_optical_flow_tpu/models/tracker_a.py:169",
 }
 SOURCES = {"poly_exp": "flow_kernels.cu", "blur_solve": "flow_kernels.cu",
            "fused_iteration": "flow_kernels.cu", "warp_matrices": "flow_kernels.cu",
-           "nearest_neighbors": "nn_kernels.cu", "tiny": "probe_kernels.cu"}
+           "nearest_neighbors": "nn_kernels.cu", "tiny": "probe_kernels.cu",
+           "fma32": "round_kernels.cu", "sumsq": "round_kernels.cu"}
 PER_STEP = {"poly_exp": 3, "fused_iteration": 10, "blur_solve": 5}  # 1080p, 3 levels
 TOL = {"warp_matrices": 2e-4}
 EXACT = ("poly_exp", "blur_solve", "fused_iteration")  # held to torch.equal
+# K7's launches follow the data (tracker A's association runs once per
+# cluster slot), so the exact per-path counts below are of K1-K6 alone
+ROUNDING = ("fma32", "sumsq")
 
 
 def log(msg: str) -> None:
@@ -127,9 +160,10 @@ def log(msg: str) -> None:
 
 
 def _counted_modules():
-    from datmo_using_optical_flow_tpu_torch.ops import flow_kernels, nn_kernels, probe_kernels
+    from datmo_using_optical_flow_tpu_torch.ops import (flow_kernels, nn_kernels, probe_kernels,
+                                                        round_kernels)
 
-    return flow_kernels, nn_kernels, probe_kernels
+    return flow_kernels, nn_kernels, probe_kernels, round_kernels
 
 
 def reset_launches() -> None:
@@ -142,6 +176,18 @@ def read_launches() -> dict:
     for mod in _counted_modules():
         out.update(mod.LAUNCHES)
     return out
+
+
+def tpu_kernels(counts: dict) -> dict:
+    """The counts of K1-K6, the kernels with a count fixed by the shapes."""
+    return {k: v for k, v in counts.items() if k not in ROUNDING}
+
+
+def need_rounding(label: str, counts: dict) -> None:
+    """Raise unless both K7 kernels launched in a counted run."""
+    if any(counts[k] <= 0 for k in ROUNDING):
+        raise AssertionError(f"{label}: K7 {[counts[k] for k in ROUNDING]} launches; "
+                             f"both kernels run on this path")
 
 
 def time_pair(plain, kernel, rounds: int = 10, warmup: int = 3) -> tuple[float, float]:
@@ -497,6 +543,7 @@ def main_path(dev, name: str, smi: str, h: int, w: int, n_frames: int) -> dict:
         f"over {n_frames - 1} steps), cells {cells}, alive tracks {alive} [{name}, {smi}]")
     if not finite or cells <= 0 or bool(out.skip):
         raise AssertionError(f"outputs: finite={finite} cells={cells} skip={bool(out.skip)}")
+    need_rounding(f"{h}x{w} main path", launches)
     return launches
 
 
@@ -581,8 +628,10 @@ def nn_cases(dev, pair, icp_cfg):
     as the classification sweep and ICP's final evaluation give them), an
     ICP-style ~13% active subset partitioned to the front, every target twice
     (so every row's minimum is tied), and the inputs ICP's busiest active
-    round gave K5 on this frame pair (recorded around its active query)."""
+    round gave K5 on this frame pair (recorded around its active query),
+    with the compacting sweep and with the in-place one."""
     from datmo_using_optical_flow_tpu_torch.diagnostics import icp_body
+    from datmo_using_optical_flow_tpu_torch.ops import nn as icp_nn
     from datmo_using_optical_flow_tpu_torch.ops import nn_kernels as k5
 
     (prev, prev_m), (cur, cur_m) = pair
@@ -602,7 +651,15 @@ def nn_cases(dev, pair, icp_cfg):
                                                     icp_cfg.max_iterations)
     rp = icp_body.round_inputs(rounds[busiest])
     r_act = int(rp.block_counts.sum())
-    every = torch.ones(src.shape[0], dtype=torch.bool, device=dev)
+    # the in-place sweep's busiest round: per-block counts that are no
+    # prefix, inactive rows of mixed blocks filled with the block's first
+    # active row, and the ICP's one block table shifted by the round's drift
+    _, irounds, ibusiest = icp_body.record_icp_rounds(
+        prev, prev_m, cur, cur_m, icp_cfg.threshold, icp_cfg.max_iterations, sweep="inplace")
+    ipts, iactive, _, icap2, itable, idrift = irounds[ibusiest]
+    isrc, icounts = icp_nn.inplace_inputs(ipts, iactive)
+    i_live = int((icounts > 0).sum())
+    i_mixed = int(((icounts > 0) & (icounts < k5.SRC_BLOCK)).sum())
     return [("uncapped", src, index, {}, src_valid, cur, cur_m),
             ("capped (2*0.6)^2", src, index, {"cap2": cls_cap2}, src_valid, cur, cur_m),
             (f"active {n_act}/{src.shape[0]} cap (5*0.02)^2", src_c, index,
@@ -612,7 +669,11 @@ def nn_cases(dev, pair, icp_cfg):
              src_valid, dup, dup_m),
             (f"ICP round {busiest} ({r_act} active rows)", rp.src, rp.index,
              {"n_active": r_act, "cap2": float(rp.cap2[0])},
-             torch.arange(rp.src.shape[0], device=dev) < r_act, cur, cur_m)]
+             torch.arange(rp.src.shape[0], device=dev) < r_act, cur, cur_m),
+            (f"in-place ICP round {ibusiest} ({int(iactive.sum())} active rows in {i_live} "
+             f"blocks, {i_mixed} mixed, drift {float(idrift):.3e} m)", isrc, index,
+             {"cap2": icap2, "block_counts": icounts, "block_table": itable, "drift": idrift},
+             iactive, cur, cur_m)]
 
 
 def nn_phase(dev, name: str, smi: str, cases) -> dict:
@@ -628,7 +689,7 @@ def nn_phase(dev, name: str, smi: str, cases) -> dict:
     res = {"max_abs_err": 0.0, "cases": []}
     for i, (label, s, index, kw, rows, tgt, tgt_m) in enumerate(cases):
         p = k5.prepare(s, index, **kw)
-        active = "n_active" in kw  # as the wrapper chooses the kept size
+        active = "n_active" in kw or "block_counts" in kw  # as the wrapper chooses
         want, visits = k5._sweep_reference(p)
         got = k5._sweep_kernel(p, active=active)
         torch.cuda.synchronize()
@@ -793,9 +854,9 @@ def gmfa_main_path(dev, name: str, smi: str, pipe, clouds) -> tuple[dict, dict]:
     log(f"GMFA warm-up steps: host synchronisations per step {syncs} "
         f"(torch.cuda.set_sync_debug_mode)")
 
-    k5.reset_launches()
-    carry = pipe.seed_carry(*clouds[0])
     torch.cuda.synchronize()
+    reset_launches()
+    carry = pipe.seed_carry(*clouds[0])
     t0 = time.perf_counter()
     outs = []
     for i in range(1, n_frames):
@@ -803,7 +864,8 @@ def gmfa_main_path(dev, name: str, smi: str, pipe, clouds) -> tuple[dict, dict]:
         outs.append(out)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = k5.LAUNCHES["nearest_neighbors"]
+    counts = read_launches()
+    launches = counts["nearest_neighbors"]
     steps = n_frames - 1
     for i, o in enumerate(outs, start=1):
         log(f"GMFA frame {i}: skip {bool(o.skip)}, moving {int(o.moving_count)} (cap "
@@ -818,7 +880,8 @@ def gmfa_main_path(dev, name: str, smi: str, pipe, clouds) -> tuple[dict, dict]:
         f"{float(icp.fitness):.6f}, rmse {float(icp.inlier_rmse):.6f}, sweep stats "
         f"{[int(x) for x in icp.sweep_stats.tolist()]}")
     log(f"GMFA main path: {steps / elapsed:.3f} frames/s ({elapsed / steps * 1e3:.3f} ms/frame "
-        f"over {steps} steps), K5 launches {launches} ({launches / steps:.1f} per step), "
+        f"over {steps} steps), K5 launches {launches} ({launches / steps:.1f} per step), K7 "
+        f"{[counts[k] for k in ROUNDING]}, "
         f"live tracks {alive}, track ids {sorted(carry.table.tid[carry.table.alive].tolist())} "
         f"[{name}, {smi}]")
     finite = all(bool(torch.isfinite(t).all()) for o in outs
@@ -826,7 +889,9 @@ def gmfa_main_path(dev, name: str, smi: str, pipe, clouds) -> tuple[dict, dict]:
     finite = finite and bool(torch.isfinite(carry.table.state).all())
     if not finite or launches <= 0 or sum(int(o.moving_count) for o in outs) <= 0:
         raise AssertionError(f"GMFA outputs: finite={finite} launches={launches}")
-    return {"nearest_neighbors": launches}, k5_step_phase(dev, name, smi, pipe, clouds)
+    need_rounding("GMFA main path", counts)
+    return ({k: v for k, v in counts.items() if k == "nearest_neighbors" or k in ROUNDING},
+            k5_step_phase(dev, name, smi, pipe, clouds))
 
 
 def gmfa_files_phase(dev, name: str, smi: str, root: str) -> None:
@@ -1039,7 +1104,7 @@ def from_points_phase(dev, name: str, smi: str, root: str, n_frames: int = 12
             raise AssertionError(f"from points ({label}): a frame was skipped, or no finite "
                                  f"track came out ({summary['pairs']} pairs)")
         if {k: counts[k] for k in want} != want or any(
-                v for k, v in counts.items() if k not in want):
+                v for k, v in tpu_kernels(counts).items() if k not in want):
             raise AssertionError(f"from points ({label}): launches {counts}, expected {want}")
         for k in want:
             launches[k] = launches.get(k, 0) + counts[k]
@@ -1096,9 +1161,9 @@ def _counted(label: str, fn, want: dict):
     reset_launches()
     out = fn()
     counts = read_launches()
-    expected = {k: want.get(k, 0) for k in counts}
+    expected = {k: want.get(k, 0) for k in tpu_kernels(counts)}
     log(f"compat {label}: launches {counts}")
-    if counts != expected:
+    if tpu_kernels(counts) != expected:
         raise AssertionError(f"compat {label}: launches {counts}, expected {expected}")
     return out, counts
 
@@ -1314,6 +1379,392 @@ def benchmarks_phase() -> dict:
     return out
 
 
+# ------------------------------------------------------------------ K7 (once-rounded fma)
+
+def _sig(x):
+    return tuple(x.shape) if isinstance(x, torch.Tensor) else "number"
+
+
+def _keep(x):
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+def round_cases(runs) -> dict:
+    """Each ``runs`` callable run once on the card (not counted) with every K7
+    wrapper call's inputs recorded: the first call of each signature (kernel,
+    operand shapes, root) is kept."""
+    from unittest import mock
+
+    from datmo_using_optical_flow_tpu_torch.ops import round_kernels as rk
+
+    cases, fma_orig, sumsq_orig = {}, rk._fma32, rk._sumsq
+
+    def fma_rec(a, b, c, root):
+        key = ("fma32", _sig(a), _sig(b), _sig(c), root)
+        if key not in cases:  # an operand passed twice stays one tensor (its bytes once)
+            ka = _keep(a)
+            cases[key] = (ka, ka if b is a else _keep(b), ka if c is a else _keep(c), root)
+        return fma_orig(a, b, c, root)
+
+    def sumsq_rec(v, root):
+        cases.setdefault(("sumsq", _sig(v), root), (v.clone(), root))
+        return sumsq_orig(v, root)
+
+    with mock.patch.object(rk, "_fma32", fma_rec), mock.patch.object(rk, "_sumsq", sumsq_rec):
+        for run in runs:
+            run()
+    torch.cuda.synchronize()
+    return cases
+
+
+def round_runs(dev, gpipe, gclouds) -> tuple:
+    """The main paths' steps whose K7 inputs :func:`round_cases` records:
+    pipeline A's stream step at 1080x1920 (a priming frame, then one step)
+    and GMFA's step at reference load on clouds 0 -> 1."""
+    from datmo_using_optical_flow_tpu_torch.benchmarks.stream_1080p import config
+    from datmo_using_optical_flow_tpu_torch.models.optical_flow_datmo import PipelineA
+    from datmo_using_optical_flow_tpu_torch.sim.frames import make_frames
+    from datmo_using_optical_flow_tpu_torch.utils import prng
+
+    pipe = PipelineA(config(1080, 1920), dev, fast_warp=True)
+    bevs = [torch.as_tensor(f, device=dev) for f in make_frames(2, 1080, 1920)]
+
+    def a_step():
+        carry = pipe.init_stream_carry()
+        for f in bevs:
+            carry, _ = pipe.step_stream(f, carry)
+
+    return (a_step, lambda: gpipe.step(*gclouds[1], gpipe.seed_carry(*gclouds[0]),
+                                       prng.PRNGKey(0)))
+
+
+def _bits_equal(got, want) -> bool:
+    """Equal bits, NaN where NaN (a NaN's payload is not compared)."""
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) and torch.equal(
+        torch.where(nan, 0.0, got).view(torch.int32), torch.where(nan, 0.0, want).view(torch.int32))
+
+
+def round_phase(dev, name: str, smi: str, cases: dict) -> dict:
+    """K7 against its plain version, bit for bit, on every recorded input of
+    the main paths and on operands with infinities, NaNs, subnormals and
+    float32's extremes; each kernel timed at its largest recorded input,
+    with its bound and the one PyTorch call that computes the same function
+    (``torch.addcmul`` for a fma, ``torch.linalg.vecdot`` or ``vector_norm``
+    for a sum of squares; none for a fma's root)."""
+    from datmo_using_optical_flow_tpu_torch.diagnostics import roofline
+    from datmo_using_optical_flow_tpu_torch.ops import round_kernels as rk
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    special = torch.tensor([float("inf"), -float("inf"), float("nan"), 0.0, -0.0, 1e-40,
+                            -3e-39, 3.4e38, -3.4e38, 1.0, 1e-20, 1e20], device=dev)
+    pick = torch.randint(0, special.numel(), (3, 4096), device=dev, generator=gen)
+    a, b, c = (special[pick[i]] * torch.rand(4096, device=dev, generator=gen).add(0.5)
+               for i in range(3))
+    cases = dict(cases)
+    for root in (False, True):
+        cases[("fma32", "special", root)] = (a, b, c, root)
+        cases[("sumsq", "special", root)] = (torch.stack([a, b, c], dim=1), root)
+    out = {}
+    for key, case in cases.items():
+        kernel = key[0]
+        if kernel == "fma32":
+            got, want = rk._fma32(*case), rk.fma32_reference(*case)
+        else:
+            got, want = rk._sumsq(*case), rk.sumsq_reference(*case)
+        if not _bits_equal(got, want):
+            raise AssertionError(f"{kernel} {key[1:]}: the kernel differs from its plain version")
+        res = out.setdefault(kernel, {"max_abs_err": 0.0, "cases": 0, "numel": -1})
+        res["cases"] += 1
+        if key[1] != "special" and got.numel() > res["numel"]:
+            res["numel"], res["case"] = got.numel(), case
+    for kernel, res in out.items():
+        case = res.pop("case")
+        if kernel == "fma32":
+            a, b, c, root = case
+            fns = (lambda: rk.fma32_reference(a, b, c, root), lambda: rk._fma32(a, b, c, root))
+            lib = None if root or not all(isinstance(x, torch.Tensor) for x in (b, c)) else (
+                lambda: torch.addcmul(c, a, b))
+            inputs = len({x.data_ptr() for x in (a, b, c) if isinstance(x, torch.Tensor)})
+            work = roofline.fma32(res["numel"], inputs, root)
+            shape = f"{tuple(a.shape)}, {_sig(b)}, {_sig(c)}, root={root}"
+        else:
+            v, root = case
+            fns = (lambda: rk.sumsq_reference(v, root), lambda: rk._sumsq(v, root))
+            lib = ((lambda: torch.linalg.vector_norm(v, dim=-1)) if root
+                   else (lambda: torch.linalg.vecdot(v, v)))
+            work = roofline.sumsq(res["numel"], v.shape[-1], root)
+            shape = f"{tuple(v.shape)}, root={root}"
+        res["ms"], res["plain_ms"] = time_pair(*fns)
+        want = fns[0]()
+        res["library_ms"] = None if lib is None else library_phase(
+            kernel, shape, lib, want, 1e-5 * float(want[torch.isfinite(want)].abs().max()),
+            dev, name, smi)
+        res["work"] = work
+        log(f"{kernel}: bit-equal to its plain version on {res['cases']} inputs (the main "
+            f"paths' and special values); at {shape}: kernel {res['ms']:.4f} ms, plain "
+            f"{res['plain_ms']:.4f} ms, bound {work.bound_us():.3f} us ({work.bound_by()}) "
+            f"[{name}, {smi}]")
+    return out
+
+
+# ------------------------------------------------------------------ ICP's options
+
+def _icp_equal(label: str, got, want) -> None:
+    """Raise unless two ``IcpResult`` are equal field by field."""
+    bad = [f for f, g, w in zip(got._fields, got, want) if not torch.equal(g.cpu(), w.cpu())]
+    log(f"ICP {label}: card {'equals' if not bad else 'DIFFERS FROM'} the CPU "
+        f"(iterations {int(got.iterations)}, fitness {float(got.fitness):.6f}, stats "
+        f"{[int(x) for x in got.sweep_stats.tolist()]})")
+    if bad:
+        raise AssertionError(f"ICP {label}: the card differs from the CPU in {bad}")
+
+
+def _icp_case(seed: int, n: int, yaw: float, shift, noise: float, pad: int):
+    """A uniform cloud, its rigid move plus noise, both padded with 1e9 rows."""
+    rng = np.random.default_rng(seed)
+    cloud = rng.uniform(-15, 15, size=(n, 3)).astype(np.float32)
+    c, s = np.cos(yaw), np.sin(yaw)
+    target = (cloud @ np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]]).T + np.asarray(shift)
+              + rng.normal(scale=noise, size=cloud.shape)).astype(np.float32)
+    src, dst = (np.full((pad, 3), 1e9, np.float32) for _ in range(2))
+    src[:n], dst[:n] = cloud, target
+    mask = np.zeros(pad, bool)
+    mask[:n] = True
+    return tuple(torch.from_numpy(a) for a in (src, mask, dst, mask))
+
+
+def icp_options_phase(dev, name: str, smi: str, pair, icp_cfg) -> dict:
+    """ICP's options on the card: ``coarse_stride=4`` and ``sweep="inplace"``
+    on small clouds equal to the CPU run field by field; at GMFA's reference
+    load (frames 0 -> 1), ``diagnostics/icp_sound``'s violation counts (all
+    must be 0) and one cached ICP per sweep, compact and in place, timed with
+    K5's device ms (``icp_body --sweeps``, in a process of its own).
+    Returns the launches and that comparison."""
+    from datmo_using_optical_flow_tpu_torch.diagnostics import icp_sound
+    from datmo_using_optical_flow_tpu_torch.ops import icp as icp_ops
+
+    t0 = time.perf_counter()
+    counts: dict = {}
+    for label, case, kw in (
+            ("coarse_stride=4 (4096 points, 0.5 m)",
+             _icp_case(0, 4096, 0.02, [0.1, -0.05, 0.02], 0.02, 4096),
+             dict(threshold=0.5, coarse_stride=4)),
+            ("sweep=inplace (3000 of 4096 points, 0.05 m)",
+             _icp_case(11, 3000, 0.01, [0.05, -0.03, 0.01], 0.01, 4096),
+             dict(threshold=0.05, cached=True, sweep="inplace")),
+            ("sweep=inplace (3000 of 4096 points, 0.5 m)",
+             _icp_case(11, 3000, 0.01, [0.05, -0.03, 0.01], 0.01, 4096),
+             dict(threshold=0.5, cached=True, sweep="inplace"))):
+        want = icp_ops.registration_icp(*case, **kw)  # the CPU's, outside the count
+        card = tuple(t.to(dev) for t in case)
+        torch.cuda.synchronize()
+        reset_launches()
+        got = icp_ops.registration_icp(*card, **kw)
+        torch.cuda.synchronize()
+        c = read_launches()
+        # one K5 query per round of each phase (frozen rounds too), one at the end
+        k5_want = (2 if "coarse_stride" in kw else 1) * 30 + 1
+        log(f"ICP {label}: launches {c} (K5 expected {k5_want})")
+        if c["nearest_neighbors"] != k5_want:
+            raise AssertionError(f"ICP {label}: K5 launched {c['nearest_neighbors']} times, "
+                                 f"expected {k5_want}")
+        need_rounding(f"ICP {label}", c)
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        _icp_equal(label, got, want)
+    report = icp_sound.probe(*pair[0], *pair[1], icp_cfg.threshold)  # not counted
+    log(f"icp_sound at reference load: {report} [{name}, {smi}]")
+    if icp_sound.violations(report):
+        raise AssertionError(f"icp_sound: violations {report}")
+    log(f"icp_sound: {icp_sound.strict_violations(report)} winners farther than the truth by "
+        f"over 1e-6 (the JAX probe's tolerance), all within K5's envelope")
+    # the sweep comparison in a process of its own: late in this one the
+    # profiler loses kernel records (PERF.md §7)
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           "datmo_using_optical_flow_tpu_torch.diagnostics.icp_body", "--sweeps"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"icp_body --sweeps exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    for line in proc.stdout.strip().splitlines()[:-1]:
+        log(f"  {line}")
+    ab = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"ICP sweeps at reference load ({time.perf_counter() - t1:.1f} s, its own process): "
+        f"compact {ab['compact']['ms']:.3f} ms per ICP, K5 {ab['compact']['k5_device_ms']} ms; "
+        f"in place {ab['inplace']['ms']:.3f} ms, K5 {ab['inplace']['k5_device_ms']} ms; "
+        f"|T_inplace - T_compact| {ab['inplace_vs_compact']:.3e} [{name}, {smi}]")
+    log(f"ICP options phase: launches {counts}, {time.perf_counter() - t0:.1f} s")
+    return counts, ab
+
+
+# ------------------------------------------------------------------ stream-parallel paths
+
+def _leaves(tree):
+    if isinstance(tree, tuple):
+        return [x for leaf in tree for x in _leaves(leaf)]
+    return [tree]
+
+
+def _tree_equal(label: str, got, want) -> None:
+    """Raise unless every leaf is equal (NaN where NaN)."""
+    bad = sum(not (torch.equal(g, w) or (g.is_floating_point() and torch.equal(
+        torch.nan_to_num(g, nan=1.5), torch.nan_to_num(w, nan=1.5))))
+        for g, w in zip(_leaves(got), _leaves(want), strict=True))
+    if bad:
+        raise AssertionError(f"{label}: {bad} leaves differ from the single-stream step")
+
+
+def streams_phase(dev, name: str, smi: str, gclouds) -> dict:
+    """``parallel/streams`` on the card: pipeline A's frame-pair step and its
+    stream-mode step over 4 feeds at 1080x1920 (``bench.py``'s configuration;
+    feed s is ``make_frames(., seed=s)``) and GMFA's step over 4 feeds at
+    reference load (feed s steps cloud s -> s + 1 of ``gmfa_reference_load``'s
+    frames, one step after seeding).  Each single-stream step on each feed
+    runs first, each with the launch counts set to 0 just before it and read
+    just after; then the multi-stream step, counted alone the same way.
+    Every feed's outputs and carry equal the single-stream step's, the
+    metrics equal the sums, and the multi-stream step's launches equal the
+    sum of the single-stream steps' (K1-K5 and K7 alike).  Then
+    ``benchmarks/multistream_4x1080p`` in a process of its own.  Returns the
+    multi-stream steps' launches."""
+    from datmo_using_optical_flow_tpu_torch.benchmarks import gmfa_reference_load as grl
+    from datmo_using_optical_flow_tpu_torch.benchmarks.stream_1080p import config
+    from datmo_using_optical_flow_tpu_torch.models.gmfa import GMFAPipeline
+    from datmo_using_optical_flow_tpu_torch.models.optical_flow_datmo import PipelineA
+    from datmo_using_optical_flow_tpu_torch.parallel import streams
+    from datmo_using_optical_flow_tpu_torch.sim.frames import make_frames
+    from datmo_using_optical_flow_tpu_torch.utils import prng
+    from datmo_using_optical_flow_tpu_torch.utils.tree import unstack
+
+    n = 4
+    launches: dict = {}
+
+    def counted(fn):
+        """``fn()`` and the launches it made, counted alone."""
+        torch.cuda.synchronize()
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, read_launches()
+
+    def singles(fns):
+        """Each feed's single-stream run, counted alone; their outputs and summed launches."""
+        outs, total = [], {}
+        for fn in fns:
+            out, c = counted(fn)
+            outs.append(out)
+            for k, v in c.items():
+                total[k] = total.get(k, 0) + v
+        return outs, total
+
+    def multi(label, fn, want, kernels):
+        t0 = time.perf_counter()
+        out, c = counted(fn)
+        log(f"streams {label}: launches {c}, the single-stream steps' {want}, "
+            f"{time.perf_counter() - t0:.1f} s")
+        if c != want or any(c[k] <= 0 for k in kernels):
+            raise AssertionError(f"streams {label}: launches {c}, expected the single-stream "
+                                 f"steps' {want} with {kernels} launched")
+        for k, v in c.items():
+            launches[k] = launches.get(k, 0) + v
+        return out
+
+    cfg = config()
+    frames = np.stack([make_frames(3, 1080, 1920, seed=s) for s in range(n)])
+    bevs = [torch.as_tensor(frames[:, t], device=dev) for t in range(3)]
+    single = PipelineA(cfg, dev, fast_warp=True)
+    flow = ("poly_exp", "blur_solve", "fused_iteration", *ROUNDING)
+
+    # A's frame-pair step
+    ref, want = singles([lambda s=s: single.step(bevs[0][s], bevs[1][s], single.init_carry())
+                         for s in range(n)])
+    step = streams.make_multi_stream_step(cfg, fast_warp=True, device=dev)
+    carry, outs, metrics = multi(
+        "A frame-pair step", lambda: step(bevs[0], bevs[1], streams.init_stream_carry(cfg, n, dev)),
+        want, flow)
+    for s, (c1, o1) in enumerate(ref):
+        _tree_equal(f"A frame-pair feed {s}", unstack(outs, s), o1)
+        _tree_equal(f"A frame-pair carry {s}", unstack(carry, s), c1)
+    cells, tracks = int(metrics["total_cells"]), int(metrics["total_tracks"])
+    if (cells != int(outs.cell_count.sum()) or tracks != int(carry.table.alive.sum())
+            or cells <= 0):
+        raise AssertionError(f"A metrics {cells}, {tracks}")
+    log(f"streams A frame-pair step, 4x1080x1920: every feed equals PipelineA.step on the "
+        f"card; total_cells {cells} (per feed {outs.cell_count.tolist()}), total_tracks "
+        f"{tracks}")
+
+    # A's stream mode, 3 frames
+    def feed_stream(s):
+        c1, outs1 = single.init_stream_carry(), []
+        for t in range(3):
+            c1, o1 = single.step_stream(bevs[t][s], c1)
+            outs1.append(o1)
+        return c1, outs1
+
+    def stream_mode():
+        step = streams.make_stream_mode_step(cfg, fast_warp=True, device=dev)
+        carry, outs = streams.init_stream_mode_carry(cfg, n, dev), []
+        for t in range(3):
+            carry, out, cells = step(bevs[t], carry)
+            outs.append(out)
+        return carry, outs, cells
+
+    ref, want = singles([lambda s=s: feed_stream(s) for s in range(n)])
+    carry, outs, cells = multi("A stream-mode step", stream_mode, want, flow)
+    for s, (c1, outs1) in enumerate(ref):
+        for t in range(3):
+            _tree_equal(f"A stream-mode feed {s} frame {t}", unstack(outs[t], s), outs1[t])
+        _tree_equal(f"A stream-mode carry {s}", unstack(carry, s), c1)
+    log(f"streams A stream-mode step, 4x1080x1920, 3 frames: every feed equals "
+        f"PipelineA.step_stream on the card; cells {int(cells)}")
+
+    # GMFA's step
+    gcfg = grl.config()
+    gpipe = GMFAPipeline(gcfg, grl.MAX_MOVING, dev)
+    prev = torch.stack([gclouds[s][0] for s in range(n)])
+    prev_m = torch.stack([gclouds[s][1] for s in range(n)])
+    cur = torch.stack([gclouds[s + 1][0] for s in range(n)])
+    cur_m = torch.stack([gclouds[s + 1][1] for s in range(n)])
+    keys = torch.stack([prng.fold_in(prng.PRNGKey(0), 100 + s) for s in range(n)])
+    ref, want = singles([lambda s=s: gpipe.step(cur[s], cur_m[s],
+                                                gpipe.seed_carry(prev[s], prev_m[s]), keys[s])
+                         for s in range(n)])
+
+    def gmfa_step():
+        step = streams.make_multi_stream_gmfa_step(gcfg, grl.MAX_MOVING, dev)
+        carry = streams.seed_gmfa_stream_carry(streams.init_gmfa_stream_carry(gcfg, n, dev),
+                                               prev, prev_m)
+        return step(cur, cur_m, carry, keys)
+
+    carry, outs, metrics = multi("GMFA step", gmfa_step, want, ("nearest_neighbors", *ROUNDING))
+    for s, (c1, o1) in enumerate(ref):
+        _tree_equal(f"GMFA feed {s}", unstack(outs, s), o1)
+        _tree_equal(f"GMFA carry {s}", unstack(carry, s), c1)
+    moving, tracks = int(metrics["total_moving"]), int(metrics["total_tracks"])
+    if (moving != int(outs.moving_count.sum()) or tracks != int(carry.table.alive.sum())
+            or moving <= 0):
+        raise AssertionError(f"GMFA metrics {moving}, {tracks}")
+    log(f"streams GMFA step, 4 feeds x 102,400 points: every feed equals "
+        f"GMFAPipeline.step on the card; total_moving {moving} (per feed "
+        f"{outs.moving_count.tolist()}), total_tracks {tracks}")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           "datmo_using_optical_flow_tpu_torch.benchmarks.multistream_4x1080p"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"benchmarks.multistream_4x1080p exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"benchmarks.multistream_4x1080p ({time.perf_counter() - t0:.1f} s): "
+        f"{json.dumps(rec)} [{name}, {smi}]")
+    log(f"  {proc.stderr.strip().splitlines()[-1]}")
+    if not (np.isfinite(rec["value"]) and rec["value"] > 0):
+        raise AssertionError("benchmarks.multistream_4x1080p: no rate")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1349,8 +1800,8 @@ def main() -> None:
     n_frames = 25
     launches = main_path(dev, name, smi, 1080, 1920, n_frames)
     by_path = {"stream_1080p": dict(launches)}
-    want = {k: PER_STEP.get(k, 0) * n_frames for k in launches}
-    if launches != want:
+    want = {k: PER_STEP.get(k, 0) * n_frames for k in tpu_kernels(launches)}
+    if tpu_kernels(launches) != want:
         raise AssertionError(f"launch counts {launches} != {want}")
 
     gcfg = grl.config()
@@ -1362,7 +1813,11 @@ def main() -> None:
     results["nearest_neighbors"] = nn_phase(dev, name, smi, nn_cases(dev, pair, gcfg.icp))
     gmfa_slice_phase(dev)
     k5_launches, k5_step_ms = gmfa_main_path(dev, name, smi, gpipe, gclouds)
-    launches.update(k5_launches)
+    for k, v in k5_launches.items():
+        launches[k] += v
+    t0 = time.perf_counter()
+    results.update(round_phase(dev, name, smi, round_cases(round_runs(dev, gpipe, gclouds))))
+    log(f"K7 phase: {time.perf_counter() - t0:.1f} s")
     diag = diagnostics_phase(dev, gcfg, (*pair[0], *pair[1]))
     by_path.update(gmfa=k5_launches, diagnostics=diag)
     launches.update({k: diag[k] for k in ("warp_matrices", "tiny")})
@@ -1371,8 +1826,15 @@ def main() -> None:
         gmfa_files_phase(dev, name, smi, root)
         benchmarks_phase()
         compat_launches = compat_phase(dev, name, smi, root, gclouds)
-    by_path.update(from_points=fp_launches, compat=compat_launches)
-    for counts in (fp_launches, compat_launches):
+    t0 = time.perf_counter()
+    icp_launches, icp_ab = icp_options_phase(dev, name, smi, pair, gcfg.icp)
+    log(f"phase 16 (ICP options): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    stream_launches = streams_phase(dev, name, smi, gclouds)
+    log(f"phase 17 (streams): {time.perf_counter() - t0:.1f} s")
+    by_path.update(from_points=fp_launches, compat=compat_launches, icp_options=icp_launches,
+                   streams=stream_launches)
+    for counts in (fp_launches, compat_launches, icp_launches, stream_launches):
         for k, v in counts.items():
             launches[k] += v
     results["poly_exp"]["levels"].update(fp_rows["poly_exp"])
@@ -1387,7 +1849,8 @@ def main() -> None:
             "fused_iteration": roofline.fused_iteration(1080, 1920),
             "warp_matrices": roofline.warp_matrices(1080, 1920),
             "nearest_neighbors": results["nearest_neighbors"]["work"],
-            "tiny": roofline.tiny(8 * 128)}
+            "tiny": roofline.tiny(8 * 128), "fma32": results["fma32"]["work"],
+            "sumsq": results["sumsq"]["work"]}
     kernels = []
     for k in REPLACES:
         res, bound_us = results[k], work[k].bound_us()
@@ -1403,6 +1866,11 @@ def main() -> None:
                         "library_ms": res.get("library_ms"), "lib_ms": res.get("library_ms")})
         if k == "nearest_neighbors":  # its time per GMFA step, by cluster size
             kernels[-1]["device_ms_per_step"] = {str(c): v for c, v in k5_step_ms.items()}
+            kernels[-1]["icp_sweeps"] = {
+                s: {"icp_ms": icp_ab[s]["ms"], "k5_device_ms": icp_ab[s]["k5_device_ms"],
+                    "busiest_round_us": icp_ab[s]["busiest_round"]["k5_us"],
+                    "busiest_block_us": icp_ab[s]["busiest_round"]["busiest_block_us"]}
+                for s in ("compact", "inplace")}
         if k in ("poly_exp", "blur_solve", "fused_iteration"):  # times at each level that runs it
             kernels[-1]["levels"] = res["levels"]
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

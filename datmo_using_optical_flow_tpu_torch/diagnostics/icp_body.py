@@ -34,6 +34,11 @@ each): ``transform_points`` on the clouds, the cached round's algebra without
 K5, and one cached ``registration_icp`` on the probe's pair.
 
     python -m datmo_using_optical_flow_tpu_torch.diagnostics.icp_body [--points N] [--parent DIR]
+
+With ``--sweeps`` it runs only :func:`sweep_ab` on frames 0 -> 1 of GMFA's
+reference load (``diagnostics/icp_sound.reference_clouds``) and prints its
+record: chip_smoke runs it in a process of its own, where the profiler keeps
+its traces.
 """
 
 from __future__ import annotations
@@ -49,8 +54,9 @@ import numpy as np
 import torch
 
 from datmo_using_optical_flow_tpu_torch.diagnostics import roofline
-from datmo_using_optical_flow_tpu_torch.diagnostics.measure import (card_label,
-                                                                     device_us_per_call, fmt, sync)
+from datmo_using_optical_flow_tpu_torch.diagnostics.measure import (LostTrace, card_label,
+                                                                     device_us_per_call, fmt,
+                                                                     ms_per_call, sync)
 from datmo_using_optical_flow_tpu_torch.ops import icp
 from datmo_using_optical_flow_tpu_torch.ops import nn
 from datmo_using_optical_flow_tpu_torch.ops import nn_kernels
@@ -89,26 +95,25 @@ def _loop_row(name: str, body, steps: int, dev: torch.device, card: str, reps: i
     return row
 
 
-def tile_visits(pts: torch.Tensor, active: torch.Tensor, index: nn_kernels.TargetIndex,
-                cap2) -> dict:
-    """Tiles K5 visits per live 256-row block for one active query, as
-    ``ops/nn.nearest_neighbors_active`` gives it to the sweep, and the
-    sweep's work for those visits."""
-    src_c, _, n_active = nn.partition_active(pts.to(torch.float32), active)
-    _, visits = nn_kernels.nearest_neighbors_reference_visits(src_c, index, n_active, cap2)
-    n_act = int(n_active)
-    live = visits[:-(-n_act // nn_kernels.SRC_BLOCK)].to(torch.float64)
+def tile_visits(p: nn_kernels.Prepared) -> dict:
+    """Tiles K5 visits per live 256-row block (one with an active row) for
+    the sweep inputs ``p`` (:func:`round_inputs`), and the sweep's work for
+    those visits.  Blocks are numbered in the swept order."""
+    index = p.index
+    _, visits = nn_kernels._sweep_reference(p)
+    blocks = torch.nonzero(p.block_counts > 0)[:, 0]
+    live = visits[blocks].to(torch.float64)
     total = int(live.sum())
-    work = roofline.nearest_neighbors(pts.shape[0], index.packed.shape[0] * nn_kernels.TGT_TILE,
+    work = roofline.nearest_neighbors(p.src.shape[0], index.packed.shape[0] * nn_kernels.TGT_TILE,
                                       total, live.numel())
     vmax = int(live.max()) if live.numel() else 0
-    return {"active_rows": n_act, "live_blocks": live.numel(),
+    return {"active_rows": int(p.block_counts.sum()), "live_blocks": live.numel(),
             "tiles": index.packed.shape[0], "visits_total": total,
             "visits_mean": float(live.mean()) if live.numel() else 0.0,
             "visits_median": float(live.median()) if live.numel() else 0.0,
             "visits_max": vmax,
-            "busiest_block": int(torch.argmax(live)) if live.numel() else -1,
-            "last_live_block": live.numel() - 1,
+            "busiest_block": int(blocks[torch.argmax(live)]) if live.numel() else -1,
+            "last_live_block": int(blocks[-1]) if live.numel() else -1,
             "bytes": work.bytes, "ops": work.ops, "bound_us": work.bound_us(),
             "bound_by": work.bound_by(),
             "serial_bound_us": roofline.nearest_neighbors_serial_us(vmax)}
@@ -126,23 +131,36 @@ def _probe_pair(src: torch.Tensor):
 
 
 def record_icp_rounds(source, source_mask, target, target_mask, threshold: float,
-                      max_iterations: int):
+                      max_iterations: int, sweep: str = "compact"):
     """Run cached ICP as GMFA does, with a recorder around its active query.
 
     Returns ``(result, rounds, busiest)``: ``rounds`` holds each round's
-    ``(points, active, index, cap2)``, the query's inputs; ``busiest`` is the
-    round after the first with the most active rows (None if no later round
-    swept a row)."""
+    ``(points, active, index, cap2)``, the query's inputs, and with
+    ``sweep="inplace"`` also its ``block_table`` and ``drift``; ``busiest`` is
+    the round after the first with the most active rows (None if no later
+    round swept a row)."""
     rounds = []
-    original = icp.nearest_neighbors_active
+    if sweep == "compact":
+        name = "nearest_neighbors_active"
+        original = icp.nearest_neighbors_active
 
-    def recorder(pts, tgt, tgt_mask, active, index=None, cap2=None):
-        rounds.append((pts.clone(), active.clone(), index, cap2))
-        return original(pts, tgt, tgt_mask, active, index=index, cap2=cap2)
+        def recorder(pts, tgt, tgt_mask, active, index=None, cap2=None):
+            rounds.append((pts.clone(), active.clone(), index, cap2))
+            return original(pts, tgt, tgt_mask, active, index=index, cap2=cap2)
+    else:
+        name = "nearest_neighbors_active_inplace"
+        original = icp.nearest_neighbors_active_inplace
 
-    with mock.patch.object(icp, "nearest_neighbors_active", recorder):
+        def recorder(pts, tgt, tgt_mask, active, index, cap2=None, block_table=None,
+                     drift=None):
+            rounds.append((pts.clone(), active.clone(), index, cap2, block_table,
+                           drift.clone()))
+            return original(pts, tgt, tgt_mask, active, index, cap2=cap2,
+                            block_table=block_table, drift=drift)
+
+    with mock.patch.object(icp, name, recorder):
         res = icp.registration_icp(source, source_mask, target, target_mask, threshold,
-                                   max_iterations, cached=True)
+                                   max_iterations, cached=True, sweep=sweep)
     counts = [int(r[1].sum()) for r in rounds]
     later = [i for i in range(1, len(rounds)) if counts[i] > 0]
     busiest = max(later, key=lambda i: counts[i]) if later else None
@@ -151,10 +169,15 @@ def record_icp_rounds(source, source_mask, target, target_mask, threshold: float
 
 def round_inputs(rnd) -> nn_kernels.Prepared:
     """K5's inputs for a recorded round, as ``ops/nn.nearest_neighbors_active``
+    (or, for an in-place round, ``nearest_neighbors_active_inplace``)
     prepares them."""
-    pts, active, index, cap2 = rnd
-    src_c, _, n_active = nn.partition_active(pts.to(torch.float32), active)
-    return nn_kernels.prepare(src_c, index, n_active, cap2)
+    pts, active, index, cap2 = rnd[:4]
+    if len(rnd) == 4:
+        src_c, _, n_active = nn.partition_active(pts.to(torch.float32), active)
+        return nn_kernels.prepare(src_c, index, n_active, cap2)
+    src_clean, counts = nn.inplace_inputs(pts, active)
+    return nn_kernels.prepare(src_clean, index, cap2=cap2, block_counts=counts,
+                              block_table=rnd[4], drift=rnd[5])
 
 
 def icp_tile_probe(source, source_mask, target, target_mask, threshold: float,
@@ -169,8 +192,8 @@ def icp_tile_probe(source, source_mask, target, target_mask, threshold: float,
     for label, i in (("first", 0), ("active", busiest)):
         if i is None:
             continue
-        pts, active, index, cap2 = rounds[i]
-        v = tile_visits(pts, active, index, cap2)
+        pts = rounds[i][0]
+        v = tile_visits(round_inputs(rounds[i]))
         v["round"] = i
         out["rounds"][label] = v
         print(f"K5 tiles per block, ICP {label} round ({i}): {v['active_rows']} active rows, "
@@ -183,6 +206,101 @@ def icp_tile_probe(source, source_mask, target, target_mask, threshold: float,
               f"[{card}]", flush=True)
     print(f"ICP probe: {out['iterations']} rounds ran, fitness {out['fitness']:.6f}, active "
           f"rows per round {active_counts} [{card}]", flush=True)
+    return out
+
+
+def _k5_calls(fn) -> list:
+    """Run ``fn()`` and return the inputs of every K5 call it made:
+    ``(prepared, active)`` pairs, as ``nn_kernels.nearest_neighbors`` takes
+    them to the sweep."""
+    calls = []
+    original = nn_kernels.nearest_neighbors
+
+    def recorder(src, index, n_active=None, cap2=None, block_counts=None, block_table=None,
+                 drift=None):
+        p = nn_kernels.prepare(src, index, n_active, cap2, block_counts, block_table, drift)
+        calls.append((p, n_active is not None or block_counts is not None))
+        return original(src, index, n_active, cap2, block_counts, block_table, drift)
+
+    with mock.patch.object(nn_kernels, "nearest_neighbors", recorder):
+        fn()
+    return calls
+
+
+def _device_us(fn, dev: torch.device, reps: int, launches: int = 1) -> float | None:
+    """``measure.device_us_per_call``, or None (not measured, and said so)
+    when the profiler loses its traces: these times are a breakdown, not a
+    check."""
+    try:
+        return device_us_per_call(fn, dev, reps=reps, launches=launches)
+    except LostTrace as e:
+        print(f"device time not measured: {e}", flush=True)
+        return None
+
+
+def sweep_ab(source, source_mask, target, target_mask, threshold: float, max_iterations: int,
+             card: str, reps: int = 3) -> dict:
+    """One cached ICP with each sweep, ``"compact"`` and ``"inplace"`` (the
+    port's counterpart of the JAX package's r4 A/B, ``ops/icp.py:298-300``):
+    per sweep the ms of the whole ICP (median of ``reps``), K5's device ms
+    over it (its sweeps recorded, then replayed under the profiler), and for
+    its busiest round (:func:`record_icp_rounds`) K5's device µs, the tiles
+    visited and the busiest block's serial bound and device µs (the kernel
+    launched with that block alone live); and each transform's largest
+    difference from the other sweep's and from the uncached loop's.  Device
+    times are None on the CPU."""
+    dev = source.device
+    args = (source, source_mask, target, target_mask, threshold, max_iterations)
+    plain = icp.registration_icp(*args, cached=False)
+    out = {"card": card}
+    for sweep in ("compact", "inplace"):
+        def run():
+            return icp.registration_icp(*args, cached=True, sweep=sweep)
+
+        res = run()
+        row = {"ms": ms_per_call(run, dev, reps=reps, warmup=1),
+               "iterations": int(res.iterations), "fitness": float(res.fitness),
+               "sweep_stats": [int(x) for x in res.sweep_stats.tolist()],
+               "transform": res.transformation,
+               "vs_uncached": float((res.transformation - plain.transformation).abs().max())}
+        calls = _k5_calls(run)
+        row["k5_launches"] = len(calls)
+        _, rounds, busiest = record_icp_rounds(*args, sweep=sweep)
+        rnd = {"round": busiest, "k5_us": None, "busiest_block_us": None}
+        if busiest is not None:
+            p = round_inputs(rounds[busiest])
+            rnd.update(tile_visits(p))
+            rnd["serial_bound_us_kept"] = roofline.nearest_neighbors_serial_us(
+                rnd["visits_max"], 16)
+            if dev.type == "cuda":
+                one = torch.zeros_like(p.block_counts)
+                b = rnd["busiest_block"]
+                one[b] = p.block_counts[b]
+                alone = p._replace(block_counts=one)
+                rnd["k5_us"] = _device_us(
+                    lambda: nn_kernels._sweep_kernel(p, active=True), dev, reps=3)
+                rnd["busiest_block_us"] = _device_us(
+                    lambda: nn_kernels._sweep_kernel(alone, active=True), dev, reps=3)
+        row["busiest_round"] = rnd
+        us = _device_us(lambda: [nn_kernels._sweep_kernel(q, active=a) for q, a in calls], dev,
+                        reps=1, launches=len(calls))
+        row["k5_device_ms"] = None if us is None else us / 1e3
+        out[sweep] = row
+        print(f"ICP sweep={sweep}: {row['ms']:.3f} ms per ICP, {row['iterations']} rounds, "
+              f"fitness {row['fitness']:.6f}, stats {row['sweep_stats']}, K5 {len(calls)} "
+              f"launches, device {fmt(row['k5_device_ms'])} ms; busiest round {busiest}: "
+              f"{rnd.get('active_rows')} active rows in {rnd.get('live_blocks')} live blocks, K5 "
+              f"{fmt(rnd['k5_us'], '.1f')} us, busiest block {rnd.get('busiest_block')} visits "
+              f"{rnd.get('visits_max')} of {rnd.get('tiles')} tiles, alone "
+              f"{fmt(rnd['busiest_block_us'], '.1f')} us (serial bound "
+              f"{rnd.get('serial_bound_us', 0.0):.1f} us on one SM); |T - T_uncached| "
+              f"{row['vs_uncached']:.3e} [{card}]", flush=True)
+    out["inplace_vs_compact"] = float(
+        (out["inplace"]["transform"] - out["compact"]["transform"]).abs().max())
+    print(f"ICP sweeps: |T_inplace - T_compact| {out['inplace_vs_compact']:.3e} [{card}]",
+          flush=True)
+    for sweep in ("compact", "inplace"):
+        out[sweep]["transform"] = out[sweep]["transform"].cpu().tolist()
     return out
 
 
@@ -312,7 +430,17 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--points", type=int, default=102400)
     ap.add_argument("--parent", help="an older checkout whose ops/icp.py to time beside")
+    ap.add_argument("--sweeps", action="store_true",
+                    help="only sweep_ab at GMFA's reference load (frames 0 -> 1)")
     args = ap.parse_args()
+    if args.sweeps:
+        from datmo_using_optical_flow_tpu_torch.diagnostics.icp_sound import reference_clouds
+
+        pipe, cl = reference_clouds()
+        icp_cfg = pipe.cfg.icp
+        print(json.dumps(sweep_ab(*cl[0], *cl[1], icp_cfg.threshold, icp_cfg.max_iterations,
+                                  card_label(pipe.device))))
+        return
     print(json.dumps(run(*clouds(args.points), threshold=0.2, parent=args.parent)))
 
 

@@ -117,3 +117,17 @@ def nearest_neighbors_serial_us(max_visits: int, cluster: int = 1) -> float:
 def tiny(numel: int) -> Work:
     """K6: ``x + 1``, one float32 in and out per element."""
     return Work(8 * numel, numel)
+
+
+def fma32(numel: int, tensor_inputs: int, root: bool) -> Work:
+    """K7's fma: ``tensor_inputs`` distinct float32 arrays in (an operand given
+    as a number is not read), one out; one fused multiply-add per element,
+    and one more operation for the root."""
+    return Work(4 * (tensor_inputs + 1) * numel, (1 + int(root)) * numel)
+
+
+def sumsq(rows: int, k: int, root: bool) -> Work:
+    """K7's sum of squares: k float32 values in and one out per row; one
+    multiply and k - 1 fused multiply-adds, and one more operation for the root."""
+    return Work(4 * (k + 1) * rows, (k + int(root)) * rows)
+

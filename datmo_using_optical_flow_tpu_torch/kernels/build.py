@@ -57,6 +57,8 @@ _SIGNATURES = {
     "datmo_nn_sweep_sized": ([*_NN_SWEEP, _I, _I, _P], _I),
     "datmo_warp_matrices": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
     "datmo_tiny": ([_P, _P, ctypes.c_int64, _I, _P], _I),
+    "datmo_fma32": ([_P, _P, _P, _P, _F, _F, _I, ctypes.c_int64, _I, _P], _I),
+    "datmo_sumsq": ([_P, _P, _I, _I, ctypes.c_int64, _I, _P], _I),
     "datmo_error_string": ([_I], ctypes.c_char_p),
 }
 

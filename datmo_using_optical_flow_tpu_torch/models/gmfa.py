@@ -53,7 +53,8 @@ from datmo_using_optical_flow_tpu_torch.utils.checkpoint import load_checkpoint,
 from datmo_using_optical_flow_tpu_torch.utils.device import resolve_device
 from datmo_using_optical_flow_tpu_torch.utils.hostpack import HostMirror, HostPacker
 from datmo_using_optical_flow_tpu_torch.utils.tree import select, stack
-from datmo_using_optical_flow_tpu_torch.utils.ordered import inv2, matmul_terms, segment_sum
+from datmo_using_optical_flow_tpu_torch.utils.ordered import (inv2, matmul_terms, norm_rn,
+                                                             segment_sum, sqrt_rn, sumsq_fma)
 from datmo_using_optical_flow_tpu_torch.utils.padding import compact_masked
 
 
@@ -184,6 +185,18 @@ def new_track_ids(key: torch.Tensor, k: int, dev: torch.device) -> torch.Tensor:
     return ids.pin_memory().to(dev, non_blocking=True)
 
 
+def _residual_norm(diff: torch.Tensor, same_size: torch.Tensor) -> torch.Tensor:
+    """``jnp.linalg.norm(points - ref_pts, axis=1)`` as the JAX package's
+    compiled step rounds it (JAX ``models/gmfa.py:553-555``), a correctly
+    rounded root of: on the NN-aligned branch the contracted sum ``fma(z, z,
+    fma(y, y, x * x))``; on the index-wise branch ``(x * x + y * y) + z * z``,
+    which is how XLA's CPU code rounds that branch up to 16,384 rows (above
+    that it contracts some row ranges and not others)."""
+    x, y, z = diff[:, 0], diff[:, 1], diff[:, 2]
+    seq = (x * x + y * y) + z * z
+    return sqrt_rn(torch.where(same_size, seq, sumsq_fma(diff)))
+
+
 def _gmfa_step_impl(points: torch.Tensor, mask: torch.Tensor, carry: GmfaCarry,
                     new_ids: torch.Tensor, cfg: GMFAConfig, max_moving: int,
                     kfm: _KfModel) -> tuple[GmfaCarry, GmfaOutputs]:
@@ -218,9 +231,7 @@ def _gmfa_step_impl(points: torch.Tensor, mask: torch.Tensor, carry: GmfaCarry,
     aligned = prev_t[idx.long()]
     same_size = n_cur == n_prev
     ref_pts = torch.where(same_size, prev_t, aligned)
-    diff = points - ref_pts
-    residuals = torch.sqrt((diff[:, 0] * diff[:, 0] + diff[:, 1] * diff[:, 1])
-                           + diff[:, 2] * diff[:, 2])
+    residuals = _residual_norm(points - ref_pts, same_size)
     residuals = torch.where(same_size | torch.isfinite(d2s), residuals, cls_cap)
     residuals = torch.where(mask, residuals, 0.0)
 
@@ -243,7 +254,8 @@ def _gmfa_step_impl(points: torch.Tensor, mask: torch.Tensor, carry: GmfaCarry,
     # 6. Hungarian association on feature distances (GMFA.py:182-213)
     tb = carry.table
     fd = tb.features[:, None, :] - feats[None, :, :]
-    cost = torch.sqrt(torch.clamp(torch.sum(fd * fd, dim=-1), min=0.0))
+    # JAX models/gmfa.py:587 compiled: the contracted sum, a correct root
+    cost = norm_rn(fd)
     col4row, pair_ok = linear_sum_assignment(cost, row_mask=tb.alive, col_mask=exists)
     ci = torch.clamp(col4row, 0, kmax - 1).long()
     cap = tb.alive.shape[0]

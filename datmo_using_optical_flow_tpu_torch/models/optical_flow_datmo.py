@@ -47,6 +47,7 @@ from datmo_using_optical_flow_tpu_torch.utils import prng
 from datmo_using_optical_flow_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from datmo_using_optical_flow_tpu_torch.utils.device import resolve_device
 from datmo_using_optical_flow_tpu_torch.utils.hostpack import HostMirror, HostPacker
+from datmo_using_optical_flow_tpu_torch.utils.ordered import fma32
 from datmo_using_optical_flow_tpu_torch.utils.padding import compact_masked
 from datmo_using_optical_flow_tpu_torch.utils.tree import select, stack
 
@@ -137,6 +138,13 @@ def _stream_step_impl(bev: torch.Tensor, carry: StreamCarry, cfg: PipelineAConfi
     return new_carry, outputs
 
 
+def velocity_magnitude(vx: torch.Tensor, vy: torch.Tensor) -> torch.Tensor:
+    """``jnp.sqrt(vx * vx + vy * vy)`` as the JAX package's compiled step
+    rounds it (JAX ``models/optical_flow_datmo.py:601``): the contracted
+    ``fma(vx, vx, vy * vy)`` and a correctly rounded root."""
+    return fma32(vx, vx, vy * vy, root=True)
+
+
 def _datmo_tail(flow: torch.Tensor, pair_valid: torch.Tensor, carry: StepCarry,
                 cfg: PipelineAConfig) -> tuple[StepCarry, StepOutputs]:
     """Velocity, continuity mask, DBSCAN over the moving cells, tracking."""
@@ -147,7 +155,7 @@ def _datmo_tail(flow: torch.Tensor, pair_valid: torch.Tensor, carry: StepCarry,
     combined = cont.to(velocity_x.dtype)
     vx_f = velocity_x * combined
     vy_f = velocity_y * combined
-    magnitude = torch.sqrt(vx_f * vx_f + vy_f * vy_f)
+    magnitude = velocity_magnitude(vx_f, vy_f)
     angular = mask_ops.gradient(vy_f, 1) - mask_ops.gradient(vx_f, 0)
 
     valid = magnitude > c.velocity_threshold

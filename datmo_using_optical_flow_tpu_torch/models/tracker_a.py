@@ -18,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from datmo_using_optical_flow_tpu_torch.utils import device as _device  # noqa: F401  (TF32 off)
+from datmo_using_optical_flow_tpu_torch.utils.ordered import fma32, norm_rn, sqrt_rn
 
 
 class TrackTable(NamedTuple):
@@ -94,7 +95,8 @@ def extract_clusters(labels: torch.Tensor, rows: torch.Tensor, cols: torch.Tenso
     b = torch.where(ok2, src / safe_denom, float("nan"))
     half_tr = (a + d) * 0.5
     half_diff = (a - d) * 0.5
-    disc = torch.sqrt(torch.clamp(half_diff * half_diff + b * b, min=0.0))
+    # JAX tracker_a.py:108, compiled: sqrt_rn(max(fma(b, b, hd * hd), 0))
+    disc = sqrt_rn(torch.clamp(fma32(b, b, half_diff * half_diff), min=0.0))
     eig = torch.stack([half_tr + disc, half_tr - disc], dim=1)
 
     return Clusters(exists=cnt > 0, centroid=torch.stack([mr, mc], dim=1),
@@ -162,7 +164,8 @@ def associate_and_update(table: TrackTable, clusters: Clusters, dt: float,
         exists, meas = clusters.exists[j], clusters.measurement[j]
         track_feat = torch.cat([state[:, :2], torch.zeros((cap, 2), device=dev)], dim=1)
         diff = feats[j][None, :] - track_feat
-        dist = torch.sqrt(torch.sum(diff * diff, dim=1))
+        # JAX tracker_a.py:169 compiled: the contracted sum, a correct root
+        dist = norm_rn(diff)
         dist = torch.where(old_alive, dist, float("inf"))
         best = torch.argmin(dist, 0, keepdim=True)  # (1,)
         matched = exists & (dist[best] < gamma)     # (1,)

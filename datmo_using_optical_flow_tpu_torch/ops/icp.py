@@ -20,8 +20,13 @@ card synchronises with the host as well).  One gate flip moves the
 transform by ~1e-5, so reduction order alone would otherwise separate the
 two.
 
-Not ported (not on GMFA's path): ``coarse_stride`` and ``sweep="inplace"``;
-the compacting sweep (``sweep="compact"``, the default) is the only one.
+Two sweeps serve the cached rounds, as in the JAX package: ``"compact"`` (the
+default) moves the rows to sweep to the front
+(:func:`ops.nn.nearest_neighbors_active`); ``"inplace"`` leaves them in
+place and skips whole blocks with none, on a block table built once per ICP
+and shifted by the cloud's drift each round
+(:func:`ops.nn.nearest_neighbors_active_inplace`).  ``coarse_stride`` runs a
+first, uncached phase on every stride-th point.
 """
 
 from __future__ import annotations
@@ -33,8 +38,10 @@ import torch
 
 from datmo_using_optical_flow_tpu_torch.ops import nn_kernels
 from datmo_using_optical_flow_tpu_torch.ops.nn import (nearest_neighbors,
-                                                       nearest_neighbors_active)
-from datmo_using_optical_flow_tpu_torch.utils.ordered import fma32, matmul_terms, tree_sum
+                                                       nearest_neighbors_active,
+                                                       nearest_neighbors_active_inplace)
+from datmo_using_optical_flow_tpu_torch.utils.ordered import (fma32, matmul_terms, norm_rn,
+                                                             sqrt_rn, sumsq_fma, tree_sum)
 
 # safety pad (metres) on the per-iteration displacement of the exclusion shell
 _DELTA_PAD = 1e-4
@@ -50,10 +57,6 @@ class IcpResult(NamedTuple):
     # (3,) totals over the iterations of [swept rows, certificate-kept rows,
     # exclusion-shell-skipped rows] (zeros on the uncached path)
     sweep_stats: torch.Tensor
-
-
-def _sumsq(v: torch.Tensor) -> torch.Tensor:
-    return (v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1]) + v[:, 2] * v[:, 2]
 
 
 def _kabsch_sums(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor
@@ -113,15 +116,17 @@ def _eval_cached(srcf, smask, tgtf, tmask, thr2, transform, cache, live, tgt_ind
     cache, [swept, certified, excluded] counts)."""
     lo_old, qw, qpos, b2_old = cache
     pts = transform_points(srcf, transform)
-    delta = torch.sqrt(_sumsq(pts - qpos)) + _DELTA_PAD
+    # roots correctly rounded and sums contracted, as JAX's compiled ICP
+    # rounds them (its ops/icp.py:109, 118-134)
+    delta = norm_rn(pts - qpos) + _DELTA_PAD
     # the sound bound at the last query position, moved by the reverse
     # triangle inequality: rows provably outside the gate skip the sweep
-    lo_new = torch.sqrt(lo_old) - delta
+    lo_new = sqrt_rn(lo_old) - delta
     excluded = (lo_new > 0.0) & (lo_new * lo_new > thr2)
     # winner certificate: the carried winner is still the unique nearest
-    dw2 = _sumsq(pts - qw)
-    b2_dec = torch.sqrt(b2_old) - delta
-    certified = smask & ~excluded & (torch.sqrt(dw2) + _DELTA_PAD < b2_dec)
+    dw2 = sumsq_fma(pts - qw)
+    b2_dec = sqrt_rn(b2_old) - delta
+    certified = smask & ~excluded & (sqrt_rn(dw2) + _DELTA_PAD < b2_dec)
     # a frozen round's results are discarded: it sweeps no block
     need = smask & ~excluded & ~certified & live
     _, d2_new, lo_q, b2_q, crd_new = sweep(pts, tgtf, tmask, need, index=tgt_index, cap2=cap2)
@@ -140,12 +145,33 @@ def _eval_cached(srcf, smask, tgtf, tmask, thr2, transform, cache, live, tgt_ind
     return pts, dst, d2, corr, cache, counts
 
 
+def _inplace_sweep(srcf, smask, tgt_index):
+    """The in-place sweep for :func:`_eval_cached` (JAX ``_icp_phase``,
+    ``ops/icp.py:79-90, 136-147``): the block table is built once, from the
+    Morton-ordered cloud with its invalid rows filled as the query fills
+    them; each round shifts it by the most any valid row has moved since,
+    plus ``_DELTA_PAD``."""
+    n = srcf.shape[0]
+    src_build = nn_kernels.block_first_fill(srcf, smask, n)[:n]
+    block_table = nn_kernels.build_block_table(src_build, tgt_index, n)
+
+    def sweep(pts, tgtf, tmask, need, index, cap2):
+        moved = norm_rn(pts - srcf)
+        drift = torch.amax(torch.where(smask, moved, 0.0)) + _DELTA_PAD
+        return nearest_neighbors_active_inplace(pts, tgtf, tmask, need, index, cap2=cap2,
+                                                block_table=block_table, drift=drift)
+    return sweep
+
+
 def _icp_loop(srcf, smask, tgtf, tmask, thr2, relative_fitness, relative_rmse,
-              max_iterations, cached, tgt_index, cap2):
-    """The iteration loop from the identity; returns (transform, iterations,
-    eval_full, observables, cache0, stats) like the JAX ``_icp_phase``."""
+              max_iterations, init_transform, cached, tgt_index, cap2, sweep="compact"):
+    """The iteration loop from ``init_transform``; returns (transform,
+    iterations, eval_full, observables, cache0, stats) like the JAX
+    ``_icp_phase``."""
     n = srcf.shape[0]
     dev = srcf.device
+    sweep_fn = (_inplace_sweep(srcf, smask, tgt_index) if cached and sweep == "inplace"
+                else nearest_neighbors_active)
     n_valid = torch.clamp(torch.sum(smask.to(torch.float32)), min=1.0)
     zero = torch.zeros((), device=dev)
 
@@ -155,14 +181,14 @@ def _icp_loop(srcf, smask, tgtf, tmask, thr2, relative_fitness, relative_rmse,
         pts = transform_points(srcf, transform)
         idx, _ = nearest_neighbors(pts, tgtf, tmask)
         dst = tgtf[idx.long()]
-        d2 = _sumsq(pts - dst)
+        d2 = sumsq_fma(pts - dst)
         corr = smask & (d2 <= thr2)
         counts = torch.stack([torch.sum(smask.to(torch.float32)), zero, zero])
         return pts, dst, d2, corr, cache, counts
 
     def eval_cached(transform, cache, live):
         return _eval_cached(srcf, smask, tgtf, tmask, thr2, transform, cache, live, tgt_index,
-                            cap2, nearest_neighbors_active)
+                            cap2, sweep_fn)
 
     eval_state = eval_cached if cached else eval_full
 
@@ -170,7 +196,7 @@ def _icp_loop(srcf, smask, tgtf, tmask, thr2, relative_fitness, relative_rmse,
         w = corr.to(torch.float32)
         cnt = torch.sum(w)
         fitness = cnt / n_valid
-        rmse = torch.sqrt(tree_sum(torch.where(corr, d2, 0.0)) / torch.clamp(cnt, min=1.0))
+        rmse = sqrt_rn(tree_sum(torch.where(corr, d2, 0.0)) / torch.clamp(cnt, min=1.0))
         return w, cnt, fitness, rmse
 
     eye = torch.eye(4, device=dev)
@@ -178,7 +204,7 @@ def _icp_loop(srcf, smask, tgtf, tmask, thr2, relative_fitness, relative_rmse,
               torch.zeros((n, 3), device=dev),            # winner coords at last query
               torch.full((n, 3), 1e9, device=dev),        # last query position
               torch.zeros(n, device=dev))                 # second-NN d2 lower bound
-    transform, cache = eye, cache0
+    transform, cache = init_transform, cache0
     f1, r1 = zero, zero
     f0, r0 = torch.full((), -1.0, device=dev), torch.full((), -1.0, device=dev)
     it = torch.zeros((), dtype=torch.int32, device=dev)
@@ -205,7 +231,8 @@ def registration_icp(source: torch.Tensor, source_mask: torch.Tensor, target: to
                      relative_rmse: float = 1e-6, cached: bool | None = None,
                      search_cap: float | None = None,
                      tgt_index: nn_kernels.TargetIndex | None = None,
-                     src_order: torch.Tensor | None = None) -> IcpResult:
+                     src_order: torch.Tensor | None = None, coarse_stride: int | None = None,
+                     sweep: str = "compact") -> IcpResult:
     """ICP from the identity (the reference always passes I, GMFA.py:302).
 
     ``cached`` (default: on for targets of at least 32,768 points): the
@@ -220,7 +247,18 @@ def registration_icp(source: torch.Tensor, source_mask: torch.Tensor, target: to
 
     ``tgt_index`` / ``src_order``: a prebuilt target index and source Morton
     order for the cached path (GMFA shares one order per cloud per frame).
+
+    ``coarse_stride`` (default off): a first, uncached phase on every
+    ``coarse_stride``-th source and target point (the source strided after
+    its Morton permutation), then the full loop from its transform;
+    ``iterations`` counts both phases.
+
+    ``sweep``: how the cached rounds visit their rows, ``"compact"`` (active
+    rows moved to the front) or ``"inplace"`` (rows in place, whole blocks
+    with no active row skipped; a block table built once per ICP).
     """
+    if sweep not in ("compact", "inplace"):
+        raise ValueError(f"sweep: expected 'compact' or 'inplace', got {sweep!r}")
     srcf = source.to(torch.float32)
     tgtf = target.to(torch.float32)
     smask = source_mask
@@ -249,11 +287,18 @@ def registration_icp(source: torch.Tensor, source_mask: torch.Tensor, target: to
     else:
         tgt_index = None
 
+    t0 = torch.eye(4, device=srcf.device)
+    it_c = torch.zeros((), dtype=torch.int32, device=srcf.device)
+    if coarse_stride is not None and coarse_stride > 1:
+        cs = coarse_stride
+        t0, it_c, _, _, _, _ = _icp_loop(
+            srcf[::cs], smask[::cs], tgtf[::cs], target_mask[::cs], thr2, relative_fitness,
+            relative_rmse, max_iterations, t0, False, None, cap2)
     transform, it, eval_final, observables, cache0, stats = _icp_loop(
         srcf, smask, tgtf, target_mask, thr2, relative_fitness, relative_rmse,
-        max_iterations, cached, tgt_index, cap2)
+        max_iterations, t0, cached, tgt_index, cap2, sweep)
     # Open3D evaluates the final transform once more; the JAX package always
     # does so through the plain full query
     _, _, d2, corr, _, _ = eval_final(transform, cache0, None)
     _, _, fitness, rmse = observables(d2, corr)
-    return IcpResult(transform, fitness, rmse, it, stats)
+    return IcpResult(transform, fitness, rmse, it_c + it, stats)

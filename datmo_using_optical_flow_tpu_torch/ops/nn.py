@@ -30,19 +30,27 @@ from __future__ import annotations
 import torch
 
 from datmo_using_optical_flow_tpu_torch.ops import nn_kernels
+from datmo_using_optical_flow_tpu_torch.utils.ordered import fma32, sumsq_fma
 
 
 _TILE = 512  # targets per tile of the scan
 
 
-def _sumsq(v: torch.Tensor) -> torch.Tensor:
-    return (v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1]) + v[:, 2] * v[:, 2]
-
-
 def _exact_d2(src: torch.Tensor, crd: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     """d2 recomputed by direct subtraction at the returned winner (where one
-    was found): the sweep value carries the recentred expansion's rounding."""
-    return torch.where(torch.isfinite(d2), _sumsq(src - crd), d2)
+    was found): the sweep value carries the recentred expansion's rounding.
+    The sum is JAX's compiled ``jnp.sum(diff * diff, axis=1)`` (JAX
+    ``ops/nn.py:83-84``), contracted: ``ordered.sumsq_fma``."""
+    return torch.where(torch.isfinite(d2), sumsq_fma(src - crd), d2)
+
+
+def _exact_d2_seq(src: torch.Tensor, crd: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
+    """:func:`_exact_d2` as JAX's active queries round it (JAX ``ops/nn.py:
+    275-276, 363-364``: there XLA does not contract the sum):
+    ``(x * x + y * y) + z * z``."""
+    diff = src - crd
+    seq = (diff[:, 0] * diff[:, 0] + diff[:, 1] * diff[:, 1]) + diff[:, 2] * diff[:, 2]
+    return torch.where(torch.isfinite(d2), seq, d2)
 
 
 def nearest_neighbors_with_bound(src: torch.Tensor, tgt: torch.Tensor, tgt_mask: torch.Tensor,
@@ -107,8 +115,43 @@ def nearest_neighbors_active(src: torch.Tensor, tgt: torch.Tensor, tgt_mask: tor
     src_c, pos, n_active = partition_active(srcf, active)
     res = nn_kernels.nearest_neighbors(src_c, index, n_active, cap2)
     idx, d2, lo, b2, crd = unpartition(res, pos, active)
-    d2 = _exact_d2(srcf, crd, d2)
+    d2 = _exact_d2_seq(srcf, crd, d2)
     return idx, d2, torch.minimum(lo, d2), b2, crd
+
+
+def nearest_neighbors_active_inplace(src: torch.Tensor, tgt: torch.Tensor,
+                                     tgt_mask: torch.Tensor, active: torch.Tensor,
+                                     index: nn_kernels.TargetIndex, cap2=None,
+                                     block_table=None, drift=None):
+    """1-NN of the ``active`` source rows with no row movement (ICP's
+    ``sweep="inplace"``, JAX ``ops/nn.py:327-372``): ``src`` should already be
+    in Morton order, and a 256-row block with no active row skips the sweep.
+    Inactive rows of a mixed block are rewritten to the block's first active
+    row (``nn_kernels.block_first_fill``) so its bounding ball stays tight;
+    their results are discarded.  Returns what
+    :func:`nearest_neighbors_active` returns; no gather and no partition.
+    ``block_table`` / ``drift``: a table built once for the cloud and the most
+    any row moved since (see ``nn_kernels.nearest_neighbors``)."""
+    src_clean, counts = inplace_inputs(src, active)
+    idx, d2, lo, d2nd, crd = nn_kernels.nearest_neighbors(
+        src_clean, index, cap2=cap2, block_counts=counts, block_table=block_table, drift=drift)
+    d2 = _exact_d2_seq(src.to(torch.float32), crd, d2)  # JAX :363-365, not contracted
+    lo = torch.minimum(lo, d2)
+    return (torch.where(active, idx, 0), torch.where(active, d2, torch.inf),
+            torch.where(active, lo, torch.inf), torch.where(active, d2nd, 0.0),
+            torch.where(active[:, None], crd, 0.0))
+
+
+def inplace_inputs(src: torch.Tensor, active: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The in-place query's sweep input: the (N, 3) rows with each inactive
+    row rewritten to its block's first active row, and the (n_blocks,) int32
+    active count of each 256-row block."""
+    n = src.shape[0]
+    b = nn_kernels.SRC_BLOCK
+    counts = torch.nn.functional.pad(active, (0, (-n) % b)).to(torch.int32).reshape(-1, b)
+    return (nn_kernels.block_first_fill(src, active, n)[:n],
+            torch.sum(counts, dim=1, dtype=torch.int32))
 
 
 def partition_active(srcf: torch.Tensor, active: torch.Tensor
@@ -153,12 +196,14 @@ def nearest_neighbors_scan(src: torch.Tensor, tgt: torch.Tensor, tgt_mask: torch
                        torch.full((pad, 3), 3e18, dtype=torch.float32, device=dev)])
     mask_p = torch.cat([tgt_mask.to(torch.bool), torch.zeros(pad, dtype=torch.bool, device=dev)])
     srcf = src.to(torch.float32)
-    sn = _sumsq(srcf)
+    sn = sumsq_fma(srcf)
     best_d = torch.full((n,), torch.inf, dtype=torch.float32, device=dev)
     best_i = torch.zeros(n, dtype=torch.int32, device=dev)
     for j in range(0, m + pad, _TILE):
         tile, tm = tgt_p[j:j + _TILE], mask_p[j:j + _TILE]
-        d2 = sn[:, None] + _sumsq(tile)[None, :] - 2.0 * (srcf @ tile.T)
+        # JAX ops/nn.py:112-119: (sn + tn) rounded, then less 2 dot (exact
+        # scaling), one more rounding; both norms contracted, as XLA does
+        d2 = (sn[:, None] + sumsq_fma(tile)[None, :]) - 2.0 * (srcf @ tile.T)
         d2 = torch.where(tm[None, :], torch.clamp(d2, min=0.0), torch.inf)
         td, ti = torch.amin(d2, dim=1), torch.argmin(d2, dim=1)
         take = td < best_d
@@ -170,10 +215,12 @@ def nearest_neighbors_scan(src: torch.Tensor, tgt: torch.Tensor, tgt_mask: torch
 def _scan_lower_bound(src: torch.Tensor, tgt: torch.Tensor, tgt_mask: torch.Tensor,
                       d2: torch.Tensor) -> torch.Tensor:
     """A sound lower bound on the true NN d2 under the scan's d2: the
-    expansion's absolute error is bounded by ~10 ulp of (|s|^2 + max |t|^2)."""
-    sn = _sumsq(src.to(torch.float32))
-    tn = torch.where(tgt_mask, _sumsq(tgt.to(torch.float32)), 0.0)
-    env = 2e-6 * (sn + torch.max(tn)) + 1e-6
+    expansion's absolute error is bounded by ~10 ulp of (|s|^2 + max |t|^2).
+    Rounded as JAX's ``nearest_neighbors_with_bound`` compiles it (JAX
+    ``ops/nn.py:94-96``): contracted norms, ``fma(2e-6, sn + max tn, 1e-6)``."""
+    sn = sumsq_fma(src.to(torch.float32))
+    tn = torch.where(tgt_mask, sumsq_fma(tgt.to(torch.float32)), 0.0)
+    env = fma32(sn + torch.max(tn), 2e-6, 1e-6)
     return torch.clamp(d2 - env, min=0.0)
 
 

@@ -42,6 +42,7 @@ import torch.nn.functional as F
 
 from datmo_using_optical_flow_tpu_torch.kernels import build
 from datmo_using_optical_flow_tpu_torch.ops.flow_kernels import _on_cuda
+from datmo_using_optical_flow_tpu_torch.utils.ordered import norm_rn
 
 SRC_BLOCK = 256
 TGT_TILE = 256
@@ -84,8 +85,11 @@ class TargetIndex(NamedTuple):
 
 
 def _norm3(v: torch.Tensor) -> torch.Tensor:
-    """Euclidean norm over the last axis of length 3, summed left to right."""
-    return torch.sqrt((v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]) + v[..., 2] * v[..., 2])
+    """Euclidean norm over the last axis of length 3, as the JAX package's
+    compiled ``jnp.linalg.norm`` rounds it in the index and the block table
+    (JAX ``ops/nn_pallas.py:152-155, 373-374, 387``): ``sqrt_rn(fma(z, z,
+    fma(y, y, x * x)))``, the correctly rounded root of the contracted sum."""
+    return norm_rn(v)
 
 
 def _morton_keys(p: torch.Tensor) -> torch.Tensor:
@@ -135,6 +139,7 @@ def build_target_index(tgt: torch.Tensor, tgt_mask: torch.Tensor,
     tgt_p = F.pad(tgt_s, (0, 5, 0, mp - m))
     mask_p = F.pad(mask_s, (0, mp - m))
     tidx_p = F.pad(tidx, (0, mp - m))
+    # a validity flag only (the sweep recomputes the recentred norms)
     tn = (tgt_p[:, 0] * tgt_p[:, 0] + tgt_p[:, 1] * tgt_p[:, 1]) + tgt_p[:, 2] * tgt_p[:, 2]
     tn = torch.where(mask_p, tn, torch.inf)
 

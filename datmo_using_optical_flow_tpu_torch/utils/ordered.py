@@ -10,8 +10,12 @@ one elementwise operation at a time, in an order fixed by the shapes.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
+
+# the once-rounded float32 operations (K7 on the card, float64 forms on the
+# CPU; both give the same bits) are the kernels' module's, named here too
+from datmo_using_optical_flow_tpu_torch.ops.round_kernels import (  # noqa: F401
+    fma32, norm_rn, sqrt_rn, sumsq_fma)
 
 
 def tree_sum(x: torch.Tensor) -> torch.Tensor:
@@ -49,32 +53,3 @@ def inv2(m: torch.Tensor) -> torch.Tensor:
     det = a * d - b * c
     adj = torch.stack([torch.stack([d, -b], -1), torch.stack([-c, a], -1)], -2)
     return adj / det[..., None, None]
-
-
-def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
-    """float32 square root rounded to nearest on both devices.  torch's CPU
-    ``sqrt`` of float32 is off by an ulp for some inputs; the float64 root
-    rounded to float32 is the correctly rounded float32 root (53 >= 2 * 24 + 2),
-    as XLA's and the card's are."""
-    return torch.sqrt(x.double()).float()
-
-
-def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
-    """``fma(a, b, c)`` of float32 values, rounded once to float32, as XLA's
-    compiled code contracts ``a * b + c``; ``b`` and ``c`` may be Python
-    constants, taken as float32.
-
-    The float64 product is exact; the float64 sum is rounded to odd (when
-    TwoSum's error is nonzero and the sum's last bit is even, it steps one
-    ulp toward the error), and a sum rounded to odd with 53 bits rounds to
-    the nearest float32 as the exact sum would.  Only elementwise float64
-    operations, so the card and the CPU agree bit for bit."""
-    b = b.double() if isinstance(b, torch.Tensor) else float(np.float32(b))
-    c = c.double() if isinstance(c, torch.Tensor) else float(np.float32(c))
-    p = a.double() * b
-    s = p + c
-    pv = s - c
-    err = (c - (s - pv)) + (p - pv)
-    # ``err * inf`` is NaN only where ``err`` is 0, where it is not taken
-    step = (err != 0) & ((s.view(torch.int64) & 1) == 0)
-    return torch.where(step, torch.nextafter(s, err * torch.inf), s).float()

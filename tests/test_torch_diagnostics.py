@@ -267,3 +267,34 @@ def test_traced_us_refuses_a_trace_left_with_its_closing_sentinels():
     assert measure.traced_us(closing, 5, 1) is None
     assert measure.trace_layout(closing) == "S5"
     assert measure.trace_layout(_trace([2.0], [0.0], head=6)) == "S6 K1 S1 01 S8"
+
+
+def test_sweep_ab_times_both_sweeps_on_the_cpu():
+    """The compact/in-place comparison at a small size: both sweeps reach the
+    uncached loop's transform here, their busiest rounds are read from the
+    plain sweep, and the device times are not measured on the CPU."""
+    rng = np.random.default_rng(11)
+    src = rng.uniform(-10, 10, (3000, 3)).astype(np.float32)
+    c, s = np.cos(0.01), np.sin(0.01)
+    dst = (src @ np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32).T
+           + np.float32([0.05, -0.03, 0.01]) + rng.normal(0, 0.01, src.shape)).astype(np.float32)
+    mask = torch.ones(3000, dtype=torch.bool)
+    res = icp_body.sweep_ab(torch.from_numpy(src), mask, torch.from_numpy(dst), mask, 0.05, 30,
+                            "cpu", reps=1)
+    for sweep in ("compact", "inplace"):
+        row = res[sweep]
+        assert row["ms"] > 0 and row["k5_launches"] >= 1 and row["k5_device_ms"] is None
+        assert row["vs_uncached"] < 1e-5
+        rnd = row["busiest_round"]
+        assert rnd["k5_us"] is None and 1 <= rnd["visits_max"] <= rnd["tiles"]
+    assert res["inplace_vs_compact"] < 1e-5
+
+
+def test_sweep_ab_reports_a_lost_trace_as_not_measured(monkeypatch):
+    """A device time whose profiler traces were lost reads None, and says so,
+    where ``measure.device_us_per_call`` gave up."""
+    def lost(*args, **kwargs):
+        raise icp_body.LostTrace("the profiler lost kernel records in 5 traces on the card")
+
+    monkeypatch.setattr(icp_body, "device_us_per_call", lost)
+    assert icp_body._device_us(lambda: None, torch.device("cuda"), reps=1) is None

@@ -175,7 +175,8 @@ def test_with_bound_and_active_match_jax():
         wi, wd, wl = map(np.asarray, jnn.nearest_neighbors_with_bound(*jargs, **jkw))
         gi, gd, gl = map(_np, tnn.nearest_neighbors_with_bound(*targs, **tkw))
         _assert_idx_near_ties(gi, wi, src, tgt)
-        np.testing.assert_allclose(gd, wd, rtol=RTOL, atol=1e-7)
+        same = gi == wi
+        np.testing.assert_array_equal(gd[same], wd[same])
         order = s_order if kw else np.argsort(_np(tk._morton_keys(torch.as_tensor(src))),
                                               kind="stable")
         env = _query_envelope(src, order, tgt[wi])
@@ -189,18 +190,26 @@ def test_with_bound_and_active_match_jax():
     got = [_np(x) for x in tnn.nearest_neighbors_active(*targs, torch.as_tensor(active),
                                                         cap2=float(cap2))]
     _assert_idx_near_ties(got[0], want[0], src, tgt)
-    np.testing.assert_allclose(got[1], want[1], rtol=RTOL, atol=1e-7)
+    same = got[0] == want[0]
+    np.testing.assert_array_equal(got[1][same], want[1][same])
     part = np.concatenate([np.nonzero(active)[0], np.nonzero(~active)[0]])
     env = _query_envelope(src, part, want[4])
     for g, w in zip(got[2:4], want[2:4]):
         fin = np.isfinite(w)
         np.testing.assert_array_equal(g[~fin], w[~fin])
         assert np.all(np.abs(g[fin].astype(np.float64) - w[fin]) <= env[fin])
-    # the active query equals the full query on active rows (uncapped)
+    # the active query equals the full query on active rows (uncapped): the
+    # same winners; its d2 is the exact d2 at the winner as JAX's active
+    # query rounds it, (x*x + y*y) + z*z, where the full query contracts
     ai, ad, al, ab, ac = map(_np, tnn.nearest_neighbors_active(*targs, torch.as_tensor(active)))
     np.testing.assert_array_equal(ai[active], full_i[active])
-    np.testing.assert_array_equal(ad[active], full_d[active])
     np.testing.assert_array_equal(ac[active], tgt[ai[active]])
+    jad = np.asarray(jnn.nearest_neighbors_active(*jargs, jnp.asarray(active))[1])
+    np.testing.assert_array_equal(ad[active & (ai == full_i)], jad[active & (ai == full_i)])
+    dif = src[active] - ac[active]
+    np.testing.assert_array_equal(
+        ad[active], (dif[:, 0] * dif[:, 0] + dif[:, 1] * dif[:, 1]) + dif[:, 2] * dif[:, 2])
+    np.testing.assert_allclose(ad[active], full_d[active], rtol=2.4e-7)
     assert (ai[~active] == 0).all() and np.isinf(ad[~active]).all()
     assert np.isinf(al[~active]).all() and (ab[~active] == 0).all() and (ac[~active] == 0).all()
 
