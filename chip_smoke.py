@@ -57,8 +57,8 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
     once-rounded fma and sum of squares, ``ops/round_kernels``) bit-equal to
     its plain version on every input that one 1080x1920 stream step and one
     GMFA step give it (recorded through the wrappers) and on infinities,
-    NaNs and subnormals, each kernel timed at its largest such input beside
-    its plain version and one PyTorch call (``torch.addcmul``,
+    NaNs and subnormals, each kernel timed at its largest such input (with
+    its device µs) beside its plain version and one PyTorch call (``torch.addcmul``,
     ``torch.linalg.vecdot`` / ``vector_norm``);
 11. the diagnostics that run K4 and K6, at full size, each with every launch
     count set to 0 just before it and read just after: ``micro_flow`` and
@@ -109,7 +109,24 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
     counted alone after the single-stream steps it is held to (every feed's
     outputs and carry equal, the metrics equal to the sums, the launches
     equal to the single-stream steps' sum); then
-    ``benchmarks/multistream_4x1080p`` in a process of its own.
+    ``benchmarks/multistream_4x1080p`` in a process of its own;
+18. the multi-rank dry run (``python -m datmo_using_optical_flow_tpu_torch.
+    dryrun --ranks 4 --backend gloo --device cuda``, in a process of its own
+    with its own time limit): four ranks on this one card over gloo, the
+    exchange through host memory, at the JAX dry run's sizes and
+    tolerances: stream-parallel A at 200x200, the row-sharded flow at
+    1088x1920 (272 rows per rank, EPE < 1e-3 against the unsharded flow),
+    stream-parallel GMFA at 1024 points per feed, 2 feeds x 2 row ranks;
+    every kernel of each phase held to its plain version on rank 0, on the
+    inputs that phase gives it (the first call at each input signature: K1
+    on the halo-extended 282x1920 block and the replicated 326x576 and
+    98x173 levels, K3 at 326x576, K2 on the 286x1920 extended M and at
+    98x173, the 200x200 pipelines' K1-K3, and K5 and K7 at 1024 points; K1-K3
+    ``torch.equal`` and timed, K5 and K7 bit for bit); each rank's launches
+    of one sharded flow call (counts set to 0 just before, read just after)
+    equal to ``sharded_flow.sharded_flow_launches``; the sharded flow's ms
+    per call on each rank beside the unsharded flow's (four ranks sharing
+    one card: not a four-card speed).
 
 The second-to-last line is a JSON summary of the kernels, each with its
 bound on the H100 for the timed call's work (``diagnostics/roofline.py``);
@@ -121,6 +138,7 @@ from __future__ import annotations
 
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -1438,21 +1456,15 @@ def round_runs(dev, gpipe, gclouds) -> tuple:
                                        prng.PRNGKey(0)))
 
 
-def _bits_equal(got, want) -> bool:
-    """Equal bits, NaN where NaN (a NaN's payload is not compared)."""
-    nan = torch.isnan(want)
-    return torch.equal(torch.isnan(got), nan) and torch.equal(
-        torch.where(nan, 0.0, got).view(torch.int32), torch.where(nan, 0.0, want).view(torch.int32))
-
-
 def round_phase(dev, name: str, smi: str, cases: dict) -> dict:
     """K7 against its plain version, bit for bit, on every recorded input of
     the main paths and on operands with infinities, NaNs, subnormals and
-    float32's extremes; each kernel timed at its largest recorded input,
-    with its bound and the one PyTorch call that computes the same function
+    float32's extremes; each kernel timed at its largest recorded input
+    (CUDA events, and its device µs from the profiler), with its bound and
+    the one PyTorch call that computes the same function
     (``torch.addcmul`` for a fma, ``torch.linalg.vecdot`` or ``vector_norm``
     for a sum of squares; none for a fma's root)."""
-    from datmo_using_optical_flow_tpu_torch.diagnostics import roofline
+    from datmo_using_optical_flow_tpu_torch.diagnostics import measure, roofline
     from datmo_using_optical_flow_tpu_torch.ops import round_kernels as rk
 
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -1472,7 +1484,7 @@ def round_phase(dev, name: str, smi: str, cases: dict) -> dict:
             got, want = rk._fma32(*case), rk.fma32_reference(*case)
         else:
             got, want = rk._sumsq(*case), rk.sumsq_reference(*case)
-        if not _bits_equal(got, want):
+        if not rk.bits_equal(got, want):
             raise AssertionError(f"{kernel} {key[1:]}: the kernel differs from its plain version")
         res = out.setdefault(kernel, {"max_abs_err": 0.0, "cases": 0, "numel": -1})
         res["cases"] += 1
@@ -1496,15 +1508,17 @@ def round_phase(dev, name: str, smi: str, cases: dict) -> dict:
             work = roofline.sumsq(res["numel"], v.shape[-1], root)
             shape = f"{tuple(v.shape)}, root={root}"
         res["ms"], res["plain_ms"] = time_pair(*fns)
+        res["device_us"] = measure.device_us_per_call(fns[1], dev)
         want = fns[0]()
         res["library_ms"] = None if lib is None else library_phase(
             kernel, shape, lib, want, 1e-5 * float(want[torch.isfinite(want)].abs().max()),
             dev, name, smi)
         res["work"] = work
         log(f"{kernel}: bit-equal to its plain version on {res['cases']} inputs (the main "
-            f"paths' and special values); at {shape}: kernel {res['ms']:.4f} ms, plain "
-            f"{res['plain_ms']:.4f} ms, bound {work.bound_us():.3f} us ({work.bound_by()}) "
-            f"[{name}, {smi}]")
+            f"paths' and special values); at {shape}: kernel {res['ms']:.4f} ms, device "
+            f"{res['device_us']:.1f} us, plain {res['plain_ms']:.4f} ms, bound "
+            f"{work.bound_us():.3f} us ({work.bound_by()}), share "
+            f"{work.bound_us() / res['device_us']:.3f} [{name}, {smi}]")
     return out
 
 
@@ -1765,6 +1779,74 @@ def streams_phase(dev, name: str, smi: str, gclouds) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ the multi-rank dry run
+
+def sharded_phase(name: str, smi: str, timeout: float = 600.0) -> tuple[dict, dict]:
+    """Phase 18: ``dryrun.py`` on 4 ranks sharing this card over gloo, in a
+    process group of its own (killed whole at ``timeout``).  Raises unless
+    it passed every check (each kernel it ran held to its plain version
+    among them), and each rank's launches of one sharded flow call are the
+    code's reckoning.  Returns the launches of every rank's counted runs,
+    summed, and the dry run's report."""
+    from datmo_using_optical_flow_tpu_torch.dryrun import KERNELS
+    from datmo_using_optical_flow_tpu_torch.parallel.sharded_flow import sharded_flow_launches
+
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "datmo_using_optical_flow_tpu_torch.dryrun", "--ranks", "4",
+           "--backend", "gloo", "--device", "cuda", "--timeout", str(timeout - 60)]
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"dryrun did not end within {timeout:g} s")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+    if proc.returncode != 0:
+        raise AssertionError(f"dryrun exited {proc.returncode}:\n{err[-4000:]}")
+    lines = out.strip().splitlines()
+    rep = json.loads(lines[-1])
+    for line in lines[:-1]:
+        log(f"  {line}")
+    p2 = rep["phase2"]
+    want = sharded_flow_launches(*p2["shape"])
+    launches: dict = {}
+    for r in rep["per_rank"]:
+        if r["launches"]["sharded_flow"] != want:
+            raise AssertionError(f"rank {r['rank']}: one sharded flow call launched "
+                                 f"{r['launches']['sharded_flow']}, the code gives {want}")
+        for counts in r["launches"].values():
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+    checks = rep.get("kernel_checks", [])
+    missing = set(KERNELS) - {row["kernel"] for row in checks}
+    if missing:
+        raise AssertionError(f"dryrun: {sorted(missing)} not held to their plain versions")
+    for row in checks:  # the dry run raised unless each equals its plain version
+        timed = ""
+        if "ms" in row:
+            us = row["device_us"]
+            timed = (f"; kernel {row['ms']:.4f} ms, device "
+                     f"{'not measured' if us is None else f'{us:.1f} us'}, plain "
+                     f"{row['plain_ms']:.4f} ms, bound {row['bound_us']:.3f} us "
+                     f"({row['bound_by']}) [{name}, {smi}]")
+        log(f"{row['kernel']} at {row['shape']} ({row['phase']}, rank 0): equal to its plain "
+            f"version{timed}")
+    p4 = rep["phase4"]
+    log(f"sharded flow {p2['shape'][0]}x{p2['shape'][1]} over 4 ranks sharing one card over "
+        f"gloo (not a four-card speed): ms per call by rank "
+        f"{[round(r['sharded_ms'], 3) for r in rep['per_rank']]}, the unsharded flow "
+        f"{rep['unsharded_ms']:.3f} ms in the same call; max EPE {p2['max_epe']:.3e}; "
+        f"launches per rank (rank 0) {rep['per_rank'][0]['launches']['sharded_flow']}; phase 4 "
+        f"velocity against the packed-warp step {p4['packed']['velocity_err']:.3e} m/s, the "
+        f"exact-warp step {p4['exact']['velocity_err']:.3e} m/s [{name}, {smi}]")
+    log(f"phase 18 (dry run, {rep['ranks']} ranks): {time.perf_counter() - t0:.1f} s")
+    return launches, rep
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1832,9 +1914,11 @@ def main() -> None:
     t0 = time.perf_counter()
     stream_launches = streams_phase(dev, name, smi, gclouds)
     log(f"phase 17 (streams): {time.perf_counter() - t0:.1f} s")
+    sharded_launches, sharded = sharded_phase(name, smi)
     by_path.update(from_points=fp_launches, compat=compat_launches, icp_options=icp_launches,
-                   streams=stream_launches)
-    for counts in (fp_launches, compat_launches, icp_launches, stream_launches):
+                   streams=stream_launches, sharded_dryrun=sharded_launches)
+    for counts in (fp_launches, compat_launches, icp_launches, stream_launches,
+                   sharded_launches):
         for k, v in counts.items():
             launches[k] += v
     results["poly_exp"]["levels"].update(fp_rows["poly_exp"])
@@ -1873,6 +1957,13 @@ def main() -> None:
                 for s in ("compact", "inplace")}
         if k in ("poly_exp", "blur_solve", "fused_iteration"):  # times at each level that runs it
             kernels[-1]["levels"] = res["levels"]
+            kernels[-1]["sharded_flow_launches_per_rank"] = (
+                sharded["per_rank"][0]["launches"]["sharded_flow"].get(k, 0))
+        dry = [row for row in sharded["kernel_checks"] if row["kernel"] == k]
+        if dry:  # held to its plain version at the dry run's shapes
+            kernels[-1]["dryrun_checks"] = dry
+        if k in ROUNDING:
+            kernels[-1]["device_us"] = res["device_us"]
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -26,7 +26,8 @@
 // Arithmetic order is the plain version's: taps accumulate in ascending order,
 // the vertical pass before the horizontal one, and the 1/win^2 box scale comes
 // after the horizontal pass.  The library is built with -fmad=false (see
-// kernels/build.py) so no multiply-add is contracted.
+// kernels/build.py) so no multiply-add is contracted but where the plain
+// version takes a once-rounded fma (K1's sums, __fmaf_rn).
 //
 // K1 has two kernels: a compile-time instance for poly_n 5 and 7, taken when
 // the taps have their structural zero pattern (register-blocked passes, taps
@@ -83,6 +84,30 @@ struct PolyTaps {
 };
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) { return min(max(v, lo), hi); }
+
+// One of K1's correlation sums, rounded as the plain version's _fma_chain: the
+// first product folds into the add of the second, each later product into the
+// running sum, by a once-rounded fma; a product that two sums of one output
+// share (`shared`) is added separately rounded.
+struct FmaChain {
+  float acc = 0.0f, w0 = 0.0f, x0 = 0.0f;
+  int terms = 0;
+  bool shared0 = false;
+  __device__ __forceinline__ void add(float w, float x, bool shared = false) {
+    if (terms == 0) {
+      w0 = w;
+      x0 = x;
+      shared0 = shared;
+    } else if (terms == 1) {
+      acc = !shared0 ? __fmaf_rn(w0, x0, w * x)
+                     : (!shared ? __fmaf_rn(w, x, w0 * x0) : w0 * x0 + w * x);
+    } else {
+      acc = shared ? acc + w * x : __fmaf_rn(w, x, acc);
+    }
+    ++terms;
+  }
+  __device__ __forceinline__ float value() const { return terms == 1 ? w0 * x0 : acc; }
+};
 
 __device__ __forceinline__ float border_atten(int i, int size) {
   const int near = min(i, size - 1 - i);
@@ -312,14 +337,17 @@ __device__ __forceinline__ void warp_assemble(const float* __restrict__ R0,
 // correlations of FarnebackPolyExp (2n+1 taps of g, xg, xxg).
 //
 // Replaces ops/flow_pallas.py::poly_exp_pallas.  Bound on the H100: it moves
-// 24 bytes per pixel (one image read, five plane writes) for ~190 separately
-// rounded flops, about the card's float32 flop:byte balance, so neither side
-// dominates at 1080p.  Tiling: the block reads its tile plus an n-pixel halo
+// 24 bytes per pixel (one image read, five plane writes) for ~211 flops (an
+// fma counted as two), about the card's float32 flop:byte balance, so neither
+// side dominates at 1080p.  Tiling: the block reads its tile plus an n-pixel halo
 // once into shared memory (edge-clamped, which is the plain version's edge
 // padding of the image and of the row planes), keeps the three vertical
 // correlations there, and writes only the five planes.  Skip rules as the plain
 // version: xg's zero centre tap is skipped in the vertical pass, xxg's is kept;
-// horizontal taps that are zero in float32 are skipped.
+// horizontal taps that are zero in float32 are skipped.  Rounding as the plain
+// version: each sum is a chain of once-rounded fmas (FmaChain), and the x^2
+// plane's g and xxg sums add their shared products (x = +-1, where xxg == g
+// exactly) separately rounded, so it takes a second g sum of row_g.
 //
 // Two kernels.  poly_exp_fixed_kernel<N, kTileH> is the compile-time instance
 // for poly_n N (5 or 7) when the taps have the structural zero pattern (every g
@@ -400,23 +428,26 @@ poly_exp_fixed_kernel(const float* __restrict__ img, float* __restrict__ out, in
     const int run = tid - col * L::kRuns;
     const float* src = s_img + run * L::kRun * L::kImgStride + col;
     float ag[L::kRun], axg[L::kRun], axxg[L::kRun];
+    float vprev = 0.0f;  // the row above v: tap 0 of the outputs that take v as tap 1
 #pragma unroll
     for (int y = 0; y < L::kRun + 2 * N; ++y) {
       const float v = src[y * L::kImgStride];
 #pragma unroll
-      for (int k = 0; k < kTaps; ++k) {
+      for (int k = 1; k < kTaps; ++k) {
         const int i = y - k;  // output row i takes tap k from row y
         if (i >= 0 && i < L::kRun) {
-          const float tg = pt.g[k] * v;
-          ag[i] = k == 0 ? tg : ag[i] + tg;
-          if (k != N) {
-            const float txg = pt.xg[k] * v;
-            axg[i] = k == 0 ? txg : axg[i] + txg;
+          if (k == 1) {  // tap 0's product folds into tap 1's add
+            ag[i] = __fmaf_rn(pt.g[0], vprev, pt.g[1] * v);
+            axg[i] = __fmaf_rn(pt.xg[0], vprev, pt.xg[1] * v);
+            axxg[i] = __fmaf_rn(pt.xxg[0], vprev, pt.xxg[1] * v);
+          } else {
+            ag[i] = __fmaf_rn(pt.g[k], v, ag[i]);
+            if (k != N) axg[i] = __fmaf_rn(pt.xg[k], v, axg[i]);
+            axxg[i] = __fmaf_rn(pt.xxg[k], v, axxg[i]);
           }
-          const float txxg = pt.xxg[k] * v;
-          axxg[i] = k == 0 ? txxg : axxg[i] + txxg;
         }
       }
+      vprev = v;
     }
     const int base = run * L::kRun * L::kRowStride + col;
 #pragma unroll
@@ -429,50 +460,78 @@ poly_exp_fixed_kernel(const float* __restrict__ img, float* __restrict__ out, in
   __syncthreads();
 
   // b1 = g*row_g, b2 = xg*row_g, b3 = g*row_xg, b4 = xxg*row_g,
-  // b5 = g*row_xxg, b6 = xg*row_xg
+  // b5 = g*row_xxg, b6 = xg*row_xg; b1s is b1 as the x^2 plane rounds it.
+  // Taps N -+ 1 (x = -+1) are the ones where xxg == g exactly (x^2 g is g
+  // there, and differs from a nonzero g at every other x), so b1s and b4 add
+  // their products there separately rounded; taps 0 and 1 are never among
+  // them, so each first product folds into the second's add.
+  static_assert(N >= 3, "the shared taps N -+ 1 lie past the first two");
   constexpr int kH = L::kHRun;
   const int lane = tid & 31;
   const int row = (tid >> 5) * (32 / L::kRunsPerRow) + lane / L::kRunsPerRow;
   const int c0 = (lane % L::kRunsPerRow) * kH;
-  float b1[kH], b2[kH], b3[kH], b4[kH], b5[kH], b6[kH];
+  float b1[kH], b1s[kH], b2[kH], b3[kH], b4[kH], b5[kH], b6[kH];
   const float* rg = s_rows[0] + row * L::kRowStride + c0;
+  float vprev = 0.0f;  // the column left of v
 #pragma unroll
   for (int x = 0; x < kH + 2 * N; ++x) {
     const float v = rg[x];
 #pragma unroll
-    for (int k = 0; k < kTaps; ++k) {
+    for (int k = 1; k < kTaps; ++k) {
       const int q = x - k;  // output q takes tap k from column x
       if (q >= 0 && q < kH) {
-        b1[q] = k == 0 ? pt.g[k] * v : b1[q] + pt.g[k] * v;
-        if (k != N) {
-          b2[q] = k == 0 ? pt.xg[k] * v : b2[q] + pt.xg[k] * v;
-          b4[q] = k == 0 ? pt.xxg[k] * v : b4[q] + pt.xxg[k] * v;
+        if (k == 1) {
+          b1[q] = __fmaf_rn(pt.g[0], vprev, pt.g[1] * v);
+          b1s[q] = b1[q];
+          b2[q] = __fmaf_rn(pt.xg[0], vprev, pt.xg[1] * v);
+          b4[q] = __fmaf_rn(pt.xxg[0], vprev, pt.xxg[1] * v);
+        } else {
+          b1[q] = __fmaf_rn(pt.g[k], v, b1[q]);
+          if (k == N - 1 || k == N + 1) {
+            b1s[q] = b1s[q] + pt.g[k] * v;
+            b4[q] = b4[q] + pt.xxg[k] * v;
+          } else {
+            b1s[q] = __fmaf_rn(pt.g[k], v, b1s[q]);
+            if (k != N) b4[q] = __fmaf_rn(pt.xxg[k], v, b4[q]);
+          }
+          if (k != N) b2[q] = __fmaf_rn(pt.xg[k], v, b2[q]);
         }
       }
     }
+    vprev = v;
   }
   const float* rxg = s_rows[1] + row * L::kRowStride + c0;
+  vprev = 0.0f;
 #pragma unroll
   for (int x = 0; x < kH + 2 * N; ++x) {
     const float v = rxg[x];
 #pragma unroll
-    for (int k = 0; k < kTaps; ++k) {
+    for (int k = 1; k < kTaps; ++k) {
       const int q = x - k;
       if (q >= 0 && q < kH) {
-        b3[q] = k == 0 ? pt.g[k] * v : b3[q] + pt.g[k] * v;
-        if (k != N) b6[q] = k == 0 ? pt.xg[k] * v : b6[q] + pt.xg[k] * v;
+        if (k == 1) {
+          b3[q] = __fmaf_rn(pt.g[0], vprev, pt.g[1] * v);
+          b6[q] = __fmaf_rn(pt.xg[0], vprev, pt.xg[1] * v);
+        } else {
+          b3[q] = __fmaf_rn(pt.g[k], v, b3[q]);
+          if (k != N) b6[q] = __fmaf_rn(pt.xg[k], v, b6[q]);
+        }
       }
     }
+    vprev = v;
   }
   const float* rxxg = s_rows[2] + row * L::kRowStride + c0;
+  vprev = 0.0f;
 #pragma unroll
   for (int x = 0; x < kH + 2 * N; ++x) {
     const float v = rxxg[x];
 #pragma unroll
-    for (int k = 0; k < kTaps; ++k) {
+    for (int k = 1; k < kTaps; ++k) {
       const int q = x - k;
-      if (q >= 0 && q < kH) b5[q] = k == 0 ? pt.g[k] * v : b5[q] + pt.g[k] * v;
+      if (q >= 0 && q < kH)
+        b5[q] = k == 1 ? __fmaf_rn(pt.g[0], vprev, pt.g[1] * v) : __fmaf_rn(pt.g[k], v, b5[q]);
     }
+    vprev = v;
   }
 
   const int i = y0 + row;
@@ -483,8 +542,8 @@ poly_exp_fixed_kernel(const float* __restrict__ img, float* __restrict__ out, in
   for (int q = 0; q < kH; ++q) {
     o[0][q] = b3[q] * pt.ig[0];
     o[1][q] = b2[q] * pt.ig[0];
-    o[2][q] = b1[q] * pt.ig[1] + b5[q] * pt.ig[2];
-    o[3][q] = b1[q] * pt.ig[1] + b4[q] * pt.ig[2];
+    o[2][q] = __fmaf_rn(b5[q], pt.ig[2], b1[q] * pt.ig[1]);
+    o[3][q] = __fmaf_rn(b4[q], pt.ig[2], b1s[q] * pt.ig[1]);
     o[4][q] = b6[q] * pt.ig[3];
   }
   const size_t plane = static_cast<size_t>(h) * w;
@@ -532,20 +591,16 @@ poly_exp_kernel(const float* __restrict__ img, float* __restrict__ out, int h, i
   for (int idx = tid; idx < kTile * e; idx += nthreads) {
     const int i = idx / e;
     const int j = idx - i * e;
-    float rg = 0.0f, rxg = 0.0f, rxxg = 0.0f;
-    bool have_xg = false;
+    FmaChain rg, rxg, rxxg;
     for (int k = 0; k < ntaps; ++k) {
       const float v = s_img[(i + k) * e + j];
-      rg = k == 0 ? g[k] * v : rg + g[k] * v;
-      if (xg[k] != 0.0f) {
-        rxg = have_xg ? rxg + xg[k] * v : xg[k] * v;
-        have_xg = true;
-      }
-      rxxg = k == 0 ? xxg[k] * v : rxxg + xxg[k] * v;
+      rg.add(g[k], v);
+      if (xg[k] != 0.0f) rxg.add(xg[k], v);
+      rxxg.add(xxg[k], v);
     }
-    s_rows[0][idx] = rg;
-    s_rows[1][idx] = rxg;
-    s_rows[2][idx] = rxxg;
+    s_rows[0][idx] = rg.value();
+    s_rows[1][idx] = rxg.value();
+    s_rows[2][idx] = rxxg.value();
   }
   __syncthreads();
   const size_t plane = static_cast<size_t>(h) * w;
@@ -559,33 +614,30 @@ poly_exp_kernel(const float* __restrict__ img, float* __restrict__ out, int h, i
     const float* rxg = s_rows[1] + li * e + threadIdx.x;
     const float* rxxg = s_rows[2] + li * e + threadIdx.x;
     // b1 = g*row_g, b2 = xg*row_g, b3 = g*row_xg, b4 = xxg*row_g,
-    // b5 = g*row_xxg, b6 = xg*row_xg; each sum starts at its first kept tap
-    float b1 = 0.0f, b2 = 0.0f, b3 = 0.0f, b4 = 0.0f, b5 = 0.0f, b6 = 0.0f;
-    bool f_g = false, f_xg = false, f_xxg = false;
+    // b5 = g*row_xxg, b6 = xg*row_xg, each over its nonzero taps; b1s is b1
+    // as the x^2 plane rounds it (taps where xxg == g are shared with b4)
+    FmaChain b1, b1s, b2, b3, b4, b5, b6;
     for (int k = 0; k < ntaps; ++k) {
+      const bool shared = g[k] == xxg[k];
       if (g[k] != 0.0f) {
-        b1 = f_g ? b1 + g[k] * rg[k] : g[k] * rg[k];
-        b3 = f_g ? b3 + g[k] * rxg[k] : g[k] * rxg[k];
-        b5 = f_g ? b5 + g[k] * rxxg[k] : g[k] * rxxg[k];
-        f_g = true;
+        b1.add(g[k], rg[k]);
+        b1s.add(g[k], rg[k], shared);
+        b3.add(g[k], rxg[k]);
+        b5.add(g[k], rxxg[k]);
       }
       if (xg[k] != 0.0f) {
-        b2 = f_xg ? b2 + xg[k] * rg[k] : xg[k] * rg[k];
-        b6 = f_xg ? b6 + xg[k] * rxg[k] : xg[k] * rxg[k];
-        f_xg = true;
+        b2.add(xg[k], rg[k]);
+        b6.add(xg[k], rxg[k]);
       }
-      if (xxg[k] != 0.0f) {
-        b4 = f_xxg ? b4 + xxg[k] * rg[k] : xxg[k] * rg[k];
-        f_xxg = true;
-      }
+      if (xxg[k] != 0.0f) b4.add(xxg[k], rg[k], shared);
     }
     const float ig11 = s_pt.ig[0], ig03 = s_pt.ig[1], ig33 = s_pt.ig[2], ig55 = s_pt.ig[3];
     const size_t p = static_cast<size_t>(i) * w + j;
-    out[p] = b3 * ig11;
-    out[plane + p] = b2 * ig11;
-    out[2 * plane + p] = b1 * ig03 + b5 * ig33;
-    out[3 * plane + p] = b1 * ig03 + b4 * ig33;
-    out[4 * plane + p] = b6 * ig55;
+    out[p] = b3.value() * ig11;
+    out[plane + p] = b2.value() * ig11;
+    out[2 * plane + p] = __fmaf_rn(b5.value(), ig33, b1.value() * ig03);
+    out[3 * plane + p] = __fmaf_rn(b4.value(), ig33, b1s.value() * ig03);
+    out[4 * plane + p] = b6.value() * ig55;
   }
 }
 

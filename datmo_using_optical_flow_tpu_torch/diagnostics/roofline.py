@@ -60,13 +60,14 @@ class Work(NamedTuple):
 
 def poly_exp(h: int, w: int, n: int = 5, sigma: float = 5.0) -> Work:
     """K1: the image in, five planes out.  Vertical correlations of g and xxg
-    keep every tap, xg skips its zero ones; the six horizontal correlations
-    skip taps that are zero in float32; then 9 for the inverse-Gram scaling."""
+    keep every tap, xg skips its zero ones; the seven horizontal correlations
+    (the x^2 plane rounds a g sum of its own) skip taps that are zero in
+    float32; then 9 for the inverse-Gram scaling.  An fma counts as two."""
     g, xg, xxg, _ = prepare_gaussian(n, sigma)
     taps = 2 * n + 1
     nz = [int(np.count_nonzero(np.asarray(k, np.float32))) for k in (g, xg, xxg)]
     vertical = (2 * taps - 1) + (2 * nz[1] - 1) + (2 * taps - 1)
-    horizontal = 3 * (2 * nz[0] - 1) + 2 * (2 * nz[1] - 1) + (2 * nz[2] - 1)
+    horizontal = 4 * (2 * nz[0] - 1) + 2 * (2 * nz[1] - 1) + (2 * nz[2] - 1)
     return Work(24 * h * w, (vertical + horizontal + 9) * h * w)
 
 

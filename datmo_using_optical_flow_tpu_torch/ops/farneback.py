@@ -123,17 +123,20 @@ def poly_exp(img: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
 
 # ------------------------------------------------------------------ matrices / solve
 
+def border_axis(idx: torch.Tensor, size: int) -> torch.Tensor:
+    """Certainty attenuation, float32, of positions ``idx`` along an axis of
+    ``size``: BORDER_ATTEN within BORDER=5 positions of either end, else 1."""
+    near = torch.minimum(idx, size - 1 - idx)
+    out = torch.ones(idx.shape, dtype=torch.float32, device=idx.device)
+    for k in range(BORDER):
+        out = torch.where(near == k, float(BORDER_ATTEN[k]), out)
+    return out
+
+
 def _border_scale(h: int, w: int, device) -> torch.Tensor:
     """Certainty attenuation within BORDER=5 pixels of each edge, float32."""
-    def axis_scale(size):
-        idx = torch.arange(size, device=device)
-        near = torch.minimum(idx, size - 1 - idx)
-        out = torch.ones(size, dtype=torch.float32, device=device)
-        for k in range(BORDER):
-            out = torch.where(near == k, float(BORDER_ATTEN[k]), out)
-        return out
-
-    return axis_scale(h)[:, None] * axis_scale(w)[None, :]
+    return (border_axis(torch.arange(h, device=device), h)[:, None]
+            * border_axis(torch.arange(w, device=device), w)[None, :])
 
 
 def pack_corner_pairs(R1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -242,7 +245,16 @@ def update_matrices(R0: torch.Tensor, R1: torch.Tensor, dx: torch.Tensor,
             return flat[:, base + offset].reshape(5, h, w)
 
         r = a00 * take(0) + a01 * take(1) + a10 * take(w) + a11 * take(w + 1)
+    return matrices_from_samples(R0, r, inside, dx, dy, _border_scale(h, w, R0.device))
 
+
+def matrices_from_samples(R0: torch.Tensor, r: torch.Tensor, inside: torch.Tensor,
+                          dx: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor
+                          ) -> torch.Tensor:
+    """M (5, H, W) from the source planes R0, the target's planes ``r``
+    sampled at the flow (used where ``inside``), the flow and the certainty
+    attenuation ``scale`` (H, W): the tail of :func:`update_matrices`, shared
+    with the row-sharded warp."""
     r2 = torch.where(inside, r[0], 0.0)
     r3 = torch.where(inside, r[1], 0.0)
     r4 = torch.where(inside, (R0[2] + r[2]) * 0.5, R0[2])
@@ -252,9 +264,7 @@ def update_matrices(R0: torch.Tensor, R1: torch.Tensor, dx: torch.Tensor,
     r3 = (R0[1] - r3) * 0.5
     r2 = r2 + r4 * dy + r6 * dx
     r3 = r3 + r6 * dy + r5 * dx
-
-    s = _border_scale(h, w, R0.device)
-    r2, r3, r4, r5, r6 = (v * s for v in (r2, r3, r4, r5, r6))
+    r2, r3, r4, r5, r6 = (v * scale for v in (r2, r3, r4, r5, r6))
     return torch.stack([
         r4 * r4 + r6 * r6,
         (r4 + r5) * r6,

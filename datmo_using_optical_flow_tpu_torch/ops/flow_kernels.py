@@ -22,6 +22,7 @@ import torch
 
 from datmo_using_optical_flow_tpu_torch.kernels import build
 from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
+from datmo_using_optical_flow_tpu_torch.ops import round_kernels
 from datmo_using_optical_flow_tpu_torch.oracle.np_farneback import prepare_gaussian
 
 LAUNCHES = {"poly_exp": 0, "blur_solve": 0, "fused_iteration": 0, "warp_matrices": 0}
@@ -91,41 +92,64 @@ def _check_window(winsize: int) -> None:
 
 # ------------------------------------------------------------------ K1
 
+def _fma_chain(terms: list, shared: frozenset = frozenset()) -> torch.Tensor:
+    """``sum(w * x for i, w, x in terms)`` in tap order, rounded as XLA's CPU
+    code rounds such a chain: each product is contracted into the add that
+    takes it (a once-rounded fma), the first product into the add of the
+    second; a product that two sums of the same output share (taps in
+    ``shared``) keeps its own rounding."""
+    def prod(w, x):
+        return float(w) * x
+
+    if len(terms) == 1:
+        return prod(terms[0][1], terms[0][2])
+    (i0, w0, x0), (i1, w1, x1) = terms[0], terms[1]
+    if i0 not in shared:
+        out = round_kernels.fma32_reference(x0, w0, prod(w1, x1))
+    elif i1 not in shared:
+        out = round_kernels.fma32_reference(x1, w1, prod(w0, x0))
+    else:
+        out = prod(w0, x0) + prod(w1, x1)
+    for i, w, x in terms[2:]:
+        out = out + prod(w, x) if i in shared else round_kernels.fma32_reference(x, w, out)
+    return out
+
+
 def poly_exp_reference(img: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
     """Plain version of K1: the polynomial expansion (5, H, W) by separable
-    shift-and-add correlations, in the tap order and with the skip rules of
-    the JAX package's ``ops.farneback.poly_exp``."""
-    g, xg, xxg, invG = prepare_gaussian(n, sigma)
-    ig11, ig03, ig33, ig55 = (float(np.float32(invG[i, j]))
-                              for i, j in ((1, 1), (0, 3), (3, 3), (5, 5)))
+    shift-and-add correlations, in the tap order, with the skip rules and
+    rounded as the JAX package's ``ops.farneback.poly_exp`` compiled for the
+    CPU (bit-equal at the flow's level shapes).
+
+    Each correlation is a chain of once-rounded multiply-adds
+    (:func:`_fma_chain`).  The x^2 plane sums ``g`` and ``xxg`` over the same
+    row plane, and the two share their products where the taps are equal
+    (x = +-1), so there both of its sums add those products separately
+    rounded; the y^2 plane's ``g`` sum is the contracted one."""
+    g, xg, xxg, invG = (np.asarray(k, np.float32) for k in prepare_gaussian(n, sigma))
+    ig11, ig03, ig33, ig55 = (float(invG[i, j]) for i, j in ((1, 1), (0, 3), (3, 3), (5, 5)))
     h, _ = img.shape
     pv = fb._pad_axis(img, n, -2, "edge")
-    row_g = row_xg = row_xxg = None
-    for i in range(2 * n + 1):
-        sl = pv[i:i + h]
-        tg = float(np.float32(g[i])) * sl
-        row_g = tg if row_g is None else row_g + tg
-        if xg[i] != 0.0:  # xg's zero centre tap is skipped, xxg's is kept
-            t = float(np.float32(xg[i])) * sl
-            row_xg = t if row_xg is None else row_xg + t
-        t2 = float(np.float32(xxg[i])) * sl
-        row_xxg = t2 if row_xxg is None else row_xxg + t2
+    rows = [pv[i:i + h] for i in range(2 * n + 1)]
+    # vertical: g and xxg keep every tap, xg skips its zero taps
+    row_g = _fma_chain([(i, g[i], r) for i, r in enumerate(rows)])
+    row_xg = _fma_chain([(i, xg[i], r) for i, r in enumerate(rows) if xg[i] != 0.0])
+    row_xxg = _fma_chain([(i, xxg[i], r) for i, r in enumerate(rows)])
 
-    def corr_x(a, kern):
-        return fb._corr_axis(a, kern.astype(np.float32), -1, "edge")
+    def corr_x(a, kern, shared=frozenset()):  # taps zero in float32 are skipped
+        p = fb._pad_axis(a, n, -1, "edge")
+        return _fma_chain([(i, k, p.narrow(-1, i, a.shape[-1]))
+                           for i, k in enumerate(kern) if k != 0.0], shared)
 
+    both = frozenset(i for i in range(2 * n + 1) if g[i] == xxg[i] and g[i] != 0.0)
     b1 = corr_x(row_g, g)
-    b2 = corr_x(row_g, xg)
-    b3 = corr_x(row_xg, g)
-    b4 = corr_x(row_g, xxg)
-    b5 = corr_x(row_xxg, g)
-    b6 = corr_x(row_xg, xg)
     return torch.stack([
-        b3 * ig11,                 # y-linear
-        b2 * ig11,                 # x-linear
-        b1 * ig03 + b5 * ig33,     # y^2
-        b1 * ig03 + b4 * ig33,     # x^2
-        b6 * ig55,                 # xy
+        corr_x(row_xg, g) * ig11,                                          # y-linear
+        corr_x(row_g, xg) * ig11,                                          # x-linear
+        round_kernels.fma32_reference(corr_x(row_xxg, g), ig33, b1 * ig03),  # y^2
+        round_kernels.fma32_reference(corr_x(row_g, xxg, both), ig33,
+                                      corr_x(row_g, g, both) * ig03),      # x^2
+        corr_x(row_xg, xg) * ig55,                                         # xy
     ])
 
 

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from datmo_using_optical_flow_tpu_torch.kernels import build
-from datmo_using_optical_flow_tpu_torch.ops.flow_kernels import _on_cuda
+from datmo_using_optical_flow_tpu_torch.ops import flow_kernels
 
 LAUNCHES = {"fma32": 0, "sumsq": 0}
 _FMA32 = build.Entry("datmo_fma32", "fma32")
@@ -71,6 +71,14 @@ def fma32_reference(a: torch.Tensor, b, c, root: bool = False) -> torch.Tensor:
     return sqrt_rn(out) if root else out
 
 
+def bits_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal float32 bits, NaN where NaN (a NaN's payload is not compared):
+    how a kernel of this module is held to its plain version."""
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) and torch.equal(
+        torch.where(nan, 0.0, got).view(torch.int32), torch.where(nan, 0.0, want).view(torch.int32))
+
+
 def sumsq_reference(v: torch.Tensor, root: bool = False) -> torch.Tensor:
     """Plain version of :func:`sumsq_fma` (and, with ``root``, of :func:`norm_rn`)."""
     acc = v[..., 0] * v[..., 0]
@@ -93,7 +101,7 @@ def _fma32(a: torch.Tensor, b, c, root: bool) -> torch.Tensor:
     # the wrappers' one entry each (this and _sumsq), so that a recorder
     # patched over it sees every call, whichever name the caller imported
     tensors = [x for x in (a, b, c) if isinstance(x, torch.Tensor)]
-    if not _on_cuda(*tensors):
+    if not flow_kernels._on_cuda(*tensors):
         return fma32_reference(a, b, c, root)
     for x, what in zip((a, b, c), "abc"):
         if isinstance(x, torch.Tensor):
@@ -117,7 +125,7 @@ def _fma32(a: torch.Tensor, b, c, root: bool) -> torch.Tensor:
 
 
 def _sumsq(v: torch.Tensor, root: bool) -> torch.Tensor:
-    if not _on_cuda(v):
+    if not flow_kernels._on_cuda(v):
         return sumsq_reference(v, root)
     _f32(v, "v")
     k = v.shape[-1]

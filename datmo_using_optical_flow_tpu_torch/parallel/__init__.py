@@ -1,4 +1,6 @@
-"""Stream-parallel DATMO on one card (``streams``), the counterpart of
-``datmo_using_optical_flow_tpu.parallel``.  The row-sharded flow (JAX
-``parallel/halo.py``, ``sharded_flow.py``, ``mesh.py``) has no counterpart
-yet."""
+"""Multi-stream and multi-rank DATMO, the counterpart of
+``datmo_using_optical_flow_tpu.parallel``: several feeds on one card
+(``streams``), and the flow grid sharded by rows over the ranks of a
+``torch.distributed`` group (``mesh``: the group and its process set-up;
+``halo``: the halo exchange and the sharded stencils; ``sharded_flow``: the
+sharded pyramid)."""

@@ -6,6 +6,7 @@ mode, as the JAX package's own tests run them).  The CUDA kernels are held to
 the same plain versions on the card by ``chip_smoke.py``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -58,6 +59,27 @@ def test_poly_exp_reference_matches_pallas_kernel(h, w, n, sigma):
     scale = np.abs(want).max()
     assert np.abs(got - want).max() <= 1e-5 * scale
     np.testing.assert_array_equal(got, fb.poly_exp(_t(img), n, sigma).numpy())
+
+
+@pytest.mark.parametrize("h,w,n,sigma", [
+    pytest.param(200, 200, 5, 1.1, id="200-200"),        # pipeline A's level 0
+    pytest.param(128, 160, 5, 5.0, id="128-160"),        # Tier-1's sharded flow
+    pytest.param(98, 173, 5, 5.0, id="98-173"),          # the 1088x1920 pyramid's levels
+    pytest.param(326, 576, 5, 5.0, id="326-576"),
+    pytest.param(200, 200, 7, 1.5, id="200-200-n7"),
+    pytest.param(98, 173, 5, 0.3, id="98-173-s0.3"),     # g's end taps underflow
+])
+def test_poly_exp_reference_bit_equal_to_jitted_jax(h, w, n, sigma):
+    """K1's plain version rounds as the JAX package's ``poly_exp`` compiled
+    for the CPU: each correlation a chain of contracted multiply-adds, the
+    x^2 plane's shared products separately rounded.  (A few ulps here moved
+    the packed warp's int8 corners by a step.)  Below ~10^4 pixels XLA fuses
+    the vertical pass into the planes' fusion and the y^2 plane rounds
+    otherwise there, a few ulps apart (the other cases of this file)."""
+    rng = np.random.default_rng(h + w)
+    img = rng.uniform(0, 255, size=(h, w)).astype(np.float32)
+    want = np.asarray(jax.jit(lambda x: jfb.poly_exp(x, n, sigma))(jnp.asarray(img)))
+    np.testing.assert_array_equal(fk.poly_exp_reference(_t(img), n, sigma).numpy(), want)
 
 
 @pytest.mark.parametrize("n,sigma,compiled", [(5, 5.0, True), (7, 1.5, True), (5, 1.1, True),

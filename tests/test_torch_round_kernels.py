@@ -101,3 +101,13 @@ def test_wrappers_take_the_plain_version_on_the_cpu_only():
                      (rk.norm_rn, (torch.ones(4, 3, device="meta"),))):
         with pytest.raises(ValueError, match="no kernel or plain version"):
             fn(*args)
+
+
+def test_bits_equal_tells_signed_zeros_apart_and_takes_nan_as_nan():
+    want = torch.tensor([0.0, float("nan"), 1.0, -float("inf")])
+    assert rk.bits_equal(want.clone(), want)
+    assert rk.bits_equal(torch.tensor([0.0, -float("nan"), 1.0, -float("inf")]), want)
+    assert not rk.bits_equal(torch.tensor([-0.0, float("nan"), 1.0, -float("inf")]), want)
+    assert not rk.bits_equal(torch.tensor([0.0, 0.0, 1.0, -float("inf")]), want)
+    assert not rk.bits_equal(torch.tensor([0.0, float("nan"), float(np.nextafter(
+        np.float32(1), np.float32(2))), -float("inf")]), want)
