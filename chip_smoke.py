@@ -24,6 +24,12 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
    both of its C paths (a sigma of 0.3 takes the runtime-n kernel), K4 at
    160x384, 130x384 and 160x1920 and K4 into K2 bit-equal to K3 at the
    shapes of ``tests/test_flow_pallas.py``;
+4b. K1's narrow form (``w + n < 128``, where XLA rounds the y^2 plane
+   otherwise): both CUDA instances ``torch.equal`` to the plain version at
+   the pipelines' narrow levels (60x60, 65x115, 59x104) and on both sides of
+   the boundary, at sigma 5.0 and 1.1, at 0.3 across the boundary and at
+   n = 7; K1 at the sharded flow's 282x1920 block timed beside
+   ``F.conv2d``;
 5. the 256x320 slice on the card (kernels) against the CPU (plain versions);
 6. pipeline A's main path: the stream step on 25 ``make_frames`` 1080x1920
    frames (``bench.py``'s workload) with ``bench.py``'s configuration,
@@ -126,7 +132,27 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
     of one sharded flow call (counts set to 0 just before, read just after)
     equal to ``sharded_flow.sharded_flow_launches``; the sharded flow's ms
     per call on each rank beside the unsharded flow's (four ranks sharing
-    one card: not a four-card speed).
+    one card: not a four-card speed);
+19. pipeline A's stream step on the 4K grid (2176x3840, ``benchmarks/
+    stream_4k``): K1-K3 ``torch.equal`` to their plain versions at every
+    level (K1 at 2176x3840, 653x1152, 196x346, 59x104; K3 at the first
+    three, K2 at 59x104) and timed (per call, device µs, bound, K1 beside
+    ``F.conv2d``); the step over 2 frames on the card, counted alone (K1 8,
+    K3 30, K2 10: each stream step runs the flow, the priming one against
+    the zero pyramid), against the same 2 frames on the CPU (every output
+    bit for bit but the track table's state, within 5e-3); then the
+    benchmark shortened in its own process;
+20. the batched flow at 720p (``benchmarks/flow_batched_720p``): K1-K3 at
+    every level (720x1280, 216x384, 65x115) as in phase 19; the 8 pairs'
+    batched flow counted alone (K1 48, K3 80, K2 40), each pair equal to its
+    own flow, pair 0 equal to the CPU's; the benchmark shortened in this
+    process (1 repetition, 2 pairs within 0.1 px EPE of the numpy model of
+    cv2);
+21. the quality benchmark's evaluations (``benchmarks/quality``) on its
+    easy scene over 12 frames, counted alone (K1, K2, K5, K7), pipeline A's
+    velocity grids against the numpy model of cv2, its DBSCAN partitions
+    reported as not run where sklearn does not import; then
+    ``benchmarks/evaluate`` in its own process.
 
 The second-to-last line is a JSON summary of the kernels, each with its
 bound on the H100 for the timed call's work (``diagnostics/roofline.py``);
@@ -995,58 +1021,97 @@ def diagnostics_phase(dev, gmfa_cfg, pair) -> dict:
     return launches
 
 
-# ------------------------------------------------------------------ pipeline A from points
+# ------------------------------------------------------------------ the flow, level by level
 
-def from_points_k1_k2(dev, name: str, smi: str, bevs, c) -> dict:
-    """K1 and K2 at the from-points levels (200x200 and 60x60) against their
-    plain versions, bit for bit, on two consecutive BEVs of the run; each
-    timed (per call, device µs) beside its bound, K1 also beside
-    ``F.conv2d``.  K2's M comes from the two frames' pyramids at zero flow;
-    ``c`` is the Farnebäck configuration."""
+def level_rows(dev, name: str, smi: str, frames, c, tag: str) -> dict:
+    """K1 at every level of two frames' pyramids, K3 at the levels of at
+    least 128x256 and K2 below them, each ``torch.equal`` to its plain
+    version and timed (per call, device µs) beside its bound, K1 also beside
+    ``F.conv2d``.  K3 takes a smooth flow, K2 the M of zero flow (packed)."""
     from datmo_using_optical_flow_tpu_torch.diagnostics import roofline
     from datmo_using_optical_flow_tpu_torch.diagnostics.measure import device_us_per_call
     from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
     from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
+    from datmo_using_optical_flow_tpu_torch.ops import warp
 
-    full = bevs[0].to(torch.float32)
-    pyr = [fb.build_pyramid(b.to(torch.float32), c.pyr_scale, c.levels, c.poly_n, c.poly_sigma)
-           for b in bevs[:2]]
+    full = frames[0].to(torch.float32)
+    pyr = [fb.build_pyramid(f.to(torch.float32), c.pyr_scale, c.levels, c.poly_n, c.poly_sigma)
+           for f in frames[:2]]
     top = len(pyr[0]) - 1
-    rows = {"poly_exp": {}, "blur_solve": {}}
+    rows = {"poly_exp": {}, "blur_solve": {}, "fused_iteration": {}}
+
+    def row(kernel, label, got, want, plain, kern, work, lib=None):
+        err = check(kernel, f"{tag} {label}", got, want)
+        ms, plain_ms = time_pair(plain, kern)
+        us = device_us_per_call(kern, dev)
+        lib_ms = None if lib is None else library_phase(
+            kernel, f"{tag} {label}", lib, want, 1e-3 * float(want.abs().max()), dev, name, smi)
+        bound = work.bound_us()
+        rows[kernel][f"{label} ({tag})"] = {"ms": ms, "plain_ms": plain_ms, "device_us": us,
+                                            "library_ms": lib_ms, "bound_us": bound,
+                                            "max_abs_err": err}
+        log(f"{kernel} {tag} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, device "
+            f"{us:.1f} us, bound {bound:.3f} us ({work.bound_by()}), share {bound / us:.3f}"
+            + ("" if lib_ms is None else f", F.conv2d {lib_ms:.4f} ms") + f" [{name}, {smi}]")
+
     for level in range(top, -1, -1):
         lh, lw = pyr[0][level].shape[1:]
         label = f"{lh}x{lw}"
         img = fb.level_image(full, c.pyr_scale ** (top - level), lh, lw).contiguous()
-        want = fk.poly_exp_reference(img, c.poly_n, c.poly_sigma)
-        err = check("poly_exp", f"from points {label}", fk.poly_exp(img, c.poly_n, c.poly_sigma),
-                    want)
-        ms, plain_ms = time_pair(lambda: fk.poly_exp_reference(img, c.poly_n, c.poly_sigma),
-                                 lambda: fk.poly_exp(img, c.poly_n, c.poly_sigma))
-        us = device_us_per_call(lambda: fk.poly_exp(img, c.poly_n, c.poly_sigma), dev)
-        lib_ms = library_phase("poly_exp", f"from points {label}",
-                               poly_exp_conv(img, c.poly_n, c.poly_sigma), want,
-                               1e-3 * float(want.abs().max()), dev, name, smi)
-        bound = roofline.poly_exp(lh, lw, c.poly_n, c.poly_sigma).bound_us()
-        rows["poly_exp"][label] = {"ms": ms, "plain_ms": plain_ms, "device_us": us,
-                                   "library_ms": lib_ms, "bound_us": bound, "max_abs_err": err}
-        log(f"poly_exp from points {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, device "
-            f"{us:.1f} us, bound {bound:.3f} us, share {bound / us:.3f}, F.conv2d {lib_ms:.4f} "
-            f"ms [{name}, {smi}]")
+        n, s = c.poly_n, c.poly_sigma
+        row("poly_exp", label, fk.poly_exp(img, n, s), fk.poly_exp_reference(img, n, s),
+            lambda: fk.poly_exp_reference(img, n, s), lambda: fk.poly_exp(img, n, s),
+            roofline.poly_exp(lh, lw, n, s), poly_exp_conv(img, n, s))
         R0, R1 = pyr[0][level], pyr[1][level]
-        zero = torch.zeros((lh, lw), dtype=torch.float32, device=dev)
-        M = fb.update_matrices(R0, R1, zero, zero, fb.pack_corner_pairs(R1))
-        want = fk.blur_solve_reference(M, c.winsize, False)
-        err = check("blur_solve", f"from points {label}", fk.blur_solve(M, c.winsize, False), want)
-        ms, plain_ms = time_pair(lambda: fk.blur_solve_reference(M, c.winsize, False),
-                                 lambda: fk.blur_solve(M, c.winsize, False))
-        us = device_us_per_call(lambda: fk.blur_solve(M, c.winsize, False), dev)
-        bound = roofline.blur_solve(lh, lw, c.winsize).bound_us()
-        rows["blur_solve"][label] = {"ms": ms, "plain_ms": plain_ms, "device_us": us,
-                                     "library_ms": None, "bound_us": bound, "max_abs_err": err}
-        log(f"blur_solve from points {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"device {us:.1f} us, bound {bound:.3f} us, share {bound / us:.3f} [{name}, {smi}]")
+        if warp.eligible(lh, lw):
+            dx, dy = smooth_flow(lh, lw, dev, amp=2.0)
+            row("fused_iteration", label, fk.fused_iteration(R0, R1, dx, dy, c.winsize),
+                fk.fused_iteration_reference(R0, R1, dx, dy, c.winsize),
+                lambda: fk.fused_iteration_reference(R0, R1, dx, dy, c.winsize),
+                lambda: fk.fused_iteration(R0, R1, dx, dy, c.winsize),
+                roofline.fused_iteration(lh, lw, c.winsize))
+        else:
+            zero = torch.zeros((lh, lw), dtype=torch.float32, device=dev)
+            M = fb.update_matrices(R0, R1, zero, zero, fb.pack_corner_pairs(R1))
+            row("blur_solve", label, fk.blur_solve(M, c.winsize), fk.blur_solve_reference(
+                M, c.winsize), lambda: fk.blur_solve_reference(M, c.winsize),
+                lambda: fk.blur_solve(M, c.winsize), roofline.blur_solve(lh, lw, c.winsize))
     return rows
 
+
+def _flow_launches(h: int, w: int, pairs: int, frames_expanded: int, c) -> dict:
+    """K1-K3 launches of ``pairs`` flows over ``frames_expanded`` expanded
+    frames at (h, w) with Farnebäck settings ``c``: K1 once per level and
+    frame, K3 ``iterations`` times per level of at least 128x256, K2 on the
+    others."""
+    from datmo_using_optical_flow_tpu_torch.ops import warp
+    from datmo_using_optical_flow_tpu_torch.oracle.np_farneback import level_sizes
+
+    levels = [s[2:] for s in level_sizes(h, w, c.pyr_scale, c.levels)]
+    k3 = sum(warp.eligible(lh, lw) for lh, lw in levels)
+    return {"poly_exp": len(levels) * frames_expanded,
+            "fused_iteration": k3 * c.iterations * pairs,
+            "blur_solve": (len(levels) - k3) * c.iterations * pairs}
+
+
+def _counted(label: str, fn, want: dict):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after, the card synchronised on both sides; raises unless the counts of
+    K1-K6 are ``want`` (kernels not named: 0).  Returns ``fn()``'s result
+    and the counts."""
+    torch.cuda.synchronize()
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = read_launches()
+    expected = {k: want.get(k, 0) for k in tpu_kernels(counts)}
+    log(f"{label}: launches {counts}")
+    if tpu_kernels(counts) != expected:
+        raise AssertionError(f"{label}: launches {counts}, expected {expected}")
+    return out, counts
+
+
+# ------------------------------------------------------------------ pipeline A from points
 
 def from_points_phase(dev, name: str, smi: str, root: str, n_frames: int = 12
                       ) -> tuple[dict, dict]:
@@ -1099,33 +1164,29 @@ def from_points_phase(dev, name: str, smi: str, root: str, n_frames: int = 12
             f"nonzero; CPU preprocess {cpu_s:.2f} s)")
         if not same or int((want > 0).sum()) == 0:
             raise AssertionError(f"from points frame {i}: card BEV differs from the CPU's")
-    rows = from_points_k1_k2(dev, name, smi, bevs, cfg.farneback)
+    rows = level_rows(dev, name, smi, bevs, cfg.farneback, "from points")
 
     launches = {}
+    want = _flow_launches(*cfg.grid_shape, n_frames, n_frames, cfg.farneback)
     for q16 in (False, True):
         label = "q16" if q16 else "float32"
-        reset_launches()
         t0 = time.perf_counter()
-        summary = pipe.process_files(paths, output_dir=os.path.join(root, f"out_{label}"),
-                                     h2d_q16=q16)
+        summary, counts = _counted(
+            f"from points process_files ({label})",
+            lambda: pipe.process_files(paths, output_dir=os.path.join(root, f"out_{label}"),
+                                       h2d_q16=q16), want)
         elapsed = time.perf_counter() - t0
-        counts = read_launches()
         per = {k: v / n_frames * 1e3 for k, v in summary["timings"].items()}
         log(f"from points process_files ({label}): {n_frames} frames, {summary['pairs']} pairs, "
             f"{len(summary['tracks'])} tracks, {n_frames / elapsed:.3f} frames/s "
             f"({elapsed / n_frames * 1e3:.3f} ms/frame; runner stages, ms/frame: "
-            + ", ".join(f"{k} {v:.3f}" for k, v in per.items())
-            + f"), launches {counts} [{name}, {smi}]")
-        want = {"poly_exp": 2 * n_frames, "blur_solve": 10 * n_frames}
+            + ", ".join(f"{k} {v:.3f}" for k, v in per.items()) + f") [{name}, {smi}]")
         finite = all(np.isfinite(st).all() for st in summary["tracks"].values())
         if summary["pairs"] != n_frames - 1 or not summary["tracks"] or not finite:
             raise AssertionError(f"from points ({label}): a frame was skipped, or no finite "
                                  f"track came out ({summary['pairs']} pairs)")
-        if {k: counts[k] for k in want} != want or any(
-                v for k, v in tpu_kernels(counts).items() if k not in want):
-            raise AssertionError(f"from points ({label}): launches {counts}, expected {want}")
-        for k in want:
-            launches[k] = launches.get(k, 0) + counts[k]
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
 
     # the card's run against the CPU's on the first 4 frames (the tests' tolerances)
     t0 = time.perf_counter()
@@ -1157,34 +1218,6 @@ def from_points_phase(dev, name: str, smi: str, root: str, n_frames: int = 12
 
 
 # ------------------------------------------------------------------ the reference-API surface
-
-def flow_launches(h: int, w: int, fb) -> dict:
-    """The kernel launches one ``compute_velocity_vectors`` call should make
-    at (h, w) with Farnebäck settings ``fb``: K1 once per image and level;
-    ``fb.iterations`` K3 launches on each level of at least 128x256, K2
-    launches on each smaller one."""
-    from datmo_using_optical_flow_tpu_torch.oracle.np_farneback import level_sizes
-    from datmo_using_optical_flow_tpu_torch.ops import warp
-
-    out = {"poly_exp": 0, "fused_iteration": 0, "blur_solve": 0}
-    for _, _, lh, lw in level_sizes(h, w, fb.pyr_scale, fb.levels):
-        out["poly_exp"] += 2
-        out["fused_iteration" if warp.eligible(lh, lw) else "blur_solve"] += fb.iterations
-    return out
-
-
-def _counted(label: str, fn, want: dict):
-    """``fn()`` with every launch count set to 0 just before and read just
-    after; raises unless the counts are ``want`` (kernels not named: 0)."""
-    reset_launches()
-    out = fn()
-    counts = read_launches()
-    expected = {k: want.get(k, 0) for k in tpu_kernels(counts)}
-    log(f"compat {label}: launches {counts}")
-    if tpu_kernels(counts) != expected:
-        raise AssertionError(f"compat {label}: launches {counts}, expected {expected}")
-    return out, counts
-
 
 def _host_ms(fn, reps: int = 5) -> float:
     """Median host ms of ``fn()``, which returns numpy (so it waits for the card)."""
@@ -1253,9 +1286,9 @@ def compat_phase(dev, name: str, smi: str, root: str, gclouds) -> dict:
             ("200x200 from-points BEVs", bevs, (cfg.x_range, cfg.y_range)),
             ("1080x1920 make_frames", make_frames(2, 1080, 1920), ((0, 1920), (0, 1080)))):
         h, w = im1.shape
-        want = flow_launches(h, w, fb)
-        got, counts = _counted(f"compute_velocity_vectors {label}", lambda: compat.
-                               compute_velocity_vectors(im1, im2, *ranges), want)
+        got, counts = _counted(f"compat compute_velocity_vectors {label}", lambda: compat.
+                               compute_velocity_vectors(im1, im2, *ranges),
+                               _flow_launches(h, w, 1, 2, fb))
         add(counts)
         cpu = compat.compute_velocity_vectors(im1, im2, *ranges, device="cpu")
         _flow_close(f"compute_velocity_vectors {label}", got, cpu)
@@ -1295,10 +1328,10 @@ def compat_phase(dev, name: str, smi: str, root: str, gclouds) -> dict:
     for seed in (0, 5):
         t0 = time.perf_counter()
         got, counts = _counted(
-            f"process_multiple_frames seed {seed}",
+            f"compat process_multiple_frames seed {seed}",
             lambda: compat.process_multiple_frames(
                 paths, cfg, output_dir=os.path.join(root, f"compat_card_{seed}"), seed=seed),
-            {"poly_exp": 2 * len(paths), "blur_solve": 10 * len(paths)})
+            _flow_launches(*cfg.grid_shape, len(paths), len(paths), cfg.farneback))
         fps = len(paths) / (time.perf_counter() - t0)
         add(counts)
         want = compat.process_multiple_frames(
@@ -1316,7 +1349,7 @@ def compat_phase(dev, name: str, smi: str, root: str, gclouds) -> dict:
                                  "tracks differ from the CPU's")
 
     (p1, _), (p0, m0) = gclouds[1], gclouds[0]
-    aligned, counts = _counted(f"align_by_nearest ({p1.shape[0]} points)",
+    aligned, counts = _counted(f"compat align_by_nearest ({p1.shape[0]} points)",
                                lambda: nn.align_by_nearest(p1, p0, m0), {"nearest_neighbors": 1})
     add(counts)
     if not torch.isfinite(aligned).all():
@@ -1370,6 +1403,22 @@ def compat_phase(dev, name: str, smi: str, root: str, gclouds) -> dict:
     return launches
 
 
+def _bench_process(label: str, args: list, timeout: float = 300.0) -> dict:
+    """One benchmark of the port in its own process (``python -m``), as a
+    user runs it; returns its JSON record, the last line of its output."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"datmo_using_optical_flow_tpu_torch."
+                           f"benchmarks.{label}", *args], cwd=ROOT, capture_output=True,
+                          text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"benchmarks.{label} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"benchmarks.{label} {' '.join(args)} ({time.perf_counter() - t0:.1f} s): "
+        f"{json.dumps(rec)}")
+    return rec
+
+
 def benchmarks_phase() -> dict:
     """The port's three benchmarks once each, shortened (9 frames and 1 sweep
     at 1080x1920, 6 frames from points, 4 GMFA frames and 1 sweep), each run
@@ -1378,19 +1427,10 @@ def benchmarks_phase() -> dict:
     A fresh process also keeps the benchmark's profiler traces out of this
     long one (late in it, traces have lost their first records)."""
     out = {}
-    pkg = "datmo_using_optical_flow_tpu_torch.benchmarks"
     for label, args in (("stream_1080p", ["--frames", "9", "--sweeps", "1"]),
                         ("from_points", ["--frames", "6"]),
                         ("gmfa_reference_load", ["--frames", "4", "--sweeps", "1"])):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", f"{pkg}.{label}", *args], cwd=ROOT,
-                              capture_output=True, text=True, timeout=300)
-        if proc.returncode != 0:
-            raise AssertionError(f"benchmarks.{label} exited {proc.returncode}:\n"
-                                 f"{proc.stderr[-4000:]}")
-        rec = json.loads(proc.stdout.strip().splitlines()[-1])
-        log(f"benchmarks.{label} (shortened, {time.perf_counter() - t0:.1f} s): "
-            f"{json.dumps(rec)}")
+        rec = _bench_process(label, args)
         if not (np.isfinite(rec["value"]) and rec["value"] > 0):
             raise AssertionError(f"benchmarks.{label}: no rate")
         out[label] = rec
@@ -1627,7 +1667,7 @@ def _tree_equal(label: str, got, want) -> None:
         torch.nan_to_num(g, nan=1.5), torch.nan_to_num(w, nan=1.5))))
         for g, w in zip(_leaves(got), _leaves(want), strict=True))
     if bad:
-        raise AssertionError(f"{label}: {bad} leaves differ from the single-stream step")
+        raise AssertionError(f"{label}: {bad} leaves differ")
 
 
 def streams_phase(dev, name: str, smi: str, gclouds) -> dict:
@@ -1779,6 +1819,185 @@ def streams_phase(dev, name: str, smi: str, gclouds) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ the last missing paths
+
+def k1_narrow_phase(dev, name: str, smi: str) -> dict:
+    """K1's narrow form (``ops/flow_kernels.poly_exp_narrow``: w + n < 128,
+    where XLA's compiled ``poly_exp`` rounds the y^2 plane otherwise) on
+    both CUDA instances: ``torch.equal`` to the plain version at the narrow
+    levels of the pipelines (A's 60x60, 720p's 65x115, 4K's 59x104) and on
+    both sides of the boundary, at the sigmas 5.0 and 1.1 (the compile-time
+    n = 5 instance), n = 7 at 1.5 (n = 7) and sigma 0.3 (the runtime-n
+    kernel) at 60x60 and across the boundary.  Then K1 at the sharded flow's 282x1920 block timed beside
+    ``F.conv2d``."""
+    from datmo_using_optical_flow_tpu_torch.diagnostics import roofline
+    from datmo_using_optical_flow_tpu_torch.diagnostics.measure import device_us_per_call
+    from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    narrow = 0
+    shapes = ((60, 60), (65, 115), (59, 104), (64, 122), (64, 123), (64, 124), (100, 100),
+              (128, 79), (79, 128))
+    cases = [(h, w, 5, s) for h, w in shapes for s in (5.0, 1.1)]
+    cases += [(h, w, 5, 0.3) for h, w in ((60, 60), (64, 122), (64, 123), (64, 124))]
+    cases += [(64, 120, 7, 1.5), (64, 121, 7, 1.5), (60, 60, 7, 0.3)]
+    for h, w, n, sigma in cases:
+        img = torch.rand((h, w), device=dev, generator=gen) * 255
+        path = "compile-time" if fk.poly_exp_compiled(n, sigma) else "runtime-n"
+        narrow += fk.poly_exp_narrow(w, n)
+        check("poly_exp", f"{h}x{w} n={n} sigma={sigma} ({path}, narrow "
+              f"{fk.poly_exp_narrow(w, n)})", fk.poly_exp(img, n, sigma),
+              fk.poly_exp_reference(img, n, sigma))
+    log(f"K1 narrow form: {len(cases)} shapes bit-equal, {narrow} of them narrow")
+    img = torch.rand((282, 1920), device=dev, generator=gen) * 255
+    want = fk.poly_exp_reference(img, 5, 5.0)
+    err = check("poly_exp", "282x1920 (the sharded level-0 block)", fk.poly_exp(img, 5, 5.0),
+                want)
+    ms, plain_ms = time_pair(lambda: fk.poly_exp_reference(img, 5, 5.0),
+                             lambda: fk.poly_exp(img, 5, 5.0))
+    us = device_us_per_call(lambda: fk.poly_exp(img, 5, 5.0), dev)
+    lib_ms = library_phase("poly_exp", "282x1920", poly_exp_conv(img, 5, 5.0), want,
+                           1e-3 * float(want.abs().max()), dev, name, smi)
+    bound = roofline.poly_exp(282, 1920).bound_us()
+    log(f"poly_exp 282x1920: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, device {us:.1f} us, "
+        f"bound {bound:.3f} us, F.conv2d {lib_ms:.4f} ms [{name}, {smi}]")
+    return {"282x1920 sharded block": {"ms": ms, "plain_ms": plain_ms, "device_us": us,
+                                       "library_ms": lib_ms, "bound_us": bound,
+                                       "max_abs_err": err}}
+
+
+def stream_4k_phase(dev, name: str, smi: str) -> tuple[dict, dict]:
+    """Pipeline A's stream step on the 4K grid (``benchmarks/stream_4k``'s
+    configuration and frames): K1-K3 at every level (2176x3840, 653x1152,
+    196x346, 59x104) ``torch.equal`` to their plain versions and timed; the
+    step over 2 frames on the card with the launch counts set to 0 just
+    before and read just after (K1 8, K3 30, K2 10: every stream step runs
+    the flow, the priming one against the zero pyramid, as the main path's
+    ``PER_STEP`` counts), against the same 2 frames on the CPU (every output
+    but the track table bit for bit; its ids and flags equal, its state
+    within 5e-3 as from points); then the benchmark shortened in its own
+    process."""
+    from datmo_using_optical_flow_tpu_torch.benchmarks import stream_4k
+    from datmo_using_optical_flow_tpu_torch.benchmarks.stream_1080p import config
+    from datmo_using_optical_flow_tpu_torch.models.optical_flow_datmo import PipelineA
+    from datmo_using_optical_flow_tpu_torch.sim.frames import make_frames
+
+    t0 = time.perf_counter()
+    cfg = config(stream_4k.H, stream_4k.W)
+    frames = make_frames(2, stream_4k.H, stream_4k.W, seed=1, n_objects=8)
+    card = [torch.as_tensor(f, device=dev) for f in frames]
+    rows = level_rows(dev, name, smi, card, cfg.farneback, "4K")
+    gpipe, cpipe = PipelineA(cfg, dev), PipelineA(cfg, "cpu")
+
+    def steps(pipe, inputs):
+        carry = pipe.init_stream_carry()
+        for f in inputs:
+            carry, out = pipe.step_stream(f, carry)
+        return out
+
+    go, launches = _counted("4K step, 2 frames", lambda: steps(gpipe, card),
+                            _flow_launches(stream_4k.H, stream_4k.W, 2, 2, cfg.farneback))
+    t1 = time.perf_counter()
+    co = steps(cpipe, [torch.as_tensor(f) for f in frames])
+    fields = [f for f in go._fields if f != "snapshot"]
+    _tree_equal("4K step, card vs CPU", tuple(getattr(go, f).cpu() for f in fields),
+                tuple(getattr(co, f) for f in fields))
+    gs, cs = go.snapshot, co.snapshot
+    _tree_equal("4K step's track table, card vs CPU",
+                (gs.tid.cpu(), gs.alive.cpu(), gs.lifetime.cpu(), gs.confirmed.cpu()),
+                (cs.tid, cs.alive, cs.lifetime, cs.confirmed))
+    serr = max_abs((gs.state.cpu(), gs.cov.cpu()), (cs.state, cs.cov))
+    log(f"4K step card vs CPU (CPU {time.perf_counter() - t1:.1f} s): every grid, label and "
+        f"count equal bit for bit (cells {int(go.cell_count)}, |v| max "
+        f"{float(go.magnitude.max()):.3f} m/s); track table: ids, lifetimes and flags equal, "
+        f"{int(gs.alive.sum())} alive, state and covariance max_abs_err {serr:.3e} (tol 5e-3)")
+    if not serr <= 5e-3 or not bool(torch.isfinite(go.raw_velocity_x).all()):
+        raise AssertionError(f"4K step: track state {serr} from the CPU's, over 5e-3")
+    rec = _bench_process("stream_4k", ["--frames", "3", "--reps", "1"])
+    if not (rec["value"] > 0 and rec["stream_carry_mb"] > 200):
+        raise AssertionError(f"stream_4k: {rec}")
+    log(f"phase 19 (4K): {time.perf_counter() - t0:.1f} s")
+    return launches, rows
+
+
+def flow_720p_phase(dev, name: str, smi: str) -> tuple[dict, dict]:
+    """The batched flow at 720p (``benchmarks/flow_batched_720p``'s frames):
+    K1-K3 at every level (720x1280, 216x384, 65x115) ``torch.equal`` to
+    their plain versions and timed; the 8 pairs' batched flow with the
+    launch counts set to 0 just before and read just after (K1 48, K3 80, K2
+    40), each pair ``torch.equal`` to its own flow, pair 0 to the CPU's; then
+    the benchmark shortened (1 repetition, its EPE against the numpy model of
+    cv2 over the first 2 pairs, within 0.1 px)."""
+    from datmo_using_optical_flow_tpu_torch.benchmarks import flow_batched_720p as fbm
+    from datmo_using_optical_flow_tpu_torch.config import FarnebackConfig
+    from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
+    from datmo_using_optical_flow_tpu_torch.sim.frames import make_frames
+
+    t0 = time.perf_counter()
+    cfg = FarnebackConfig()
+    frames = make_frames(fbm.BATCH + 1, fbm.H, fbm.W, seed=3)
+    card = torch.as_tensor(frames.astype(np.float32), device=dev)
+    rows = level_rows(dev, name, smi, [card[0], card[1]], cfg, "720p")
+    im1, im2 = card[:fbm.BATCH].contiguous(), card[1:].contiguous()
+    flows, launches = _counted("720p batched flow, 8 pairs",
+                               lambda: fb.farneback_flow_batched(im1, im2, cfg),
+                               _flow_launches(fbm.H, fbm.W, fbm.BATCH, 2 * fbm.BATCH, cfg))
+    for i in range(fbm.BATCH):
+        if not torch.equal(flows[i], fb.farneback_flow(im1[i], im2[i], cfg)):
+            raise AssertionError(f"720p batched flow: pair {i} differs from its own flow")
+    t1 = time.perf_counter()
+    if not torch.equal(flows[0].cpu(), fb.farneback_flow(im1[0].cpu(), im2[0].cpu(), cfg)):
+        raise AssertionError("720p batched flow: pair 0 differs from the CPU's flow")
+    log(f"720p batched flow: 8 pairs equal to their own flows, pair 0 to the CPU's "
+        f"({time.perf_counter() - t1:.1f} s; the CPU's flow is within 0.1 px of cv2 on all 8: "
+        f"tests/test_torch_flow_batched_720p.py)")
+    rec = fbm.run(dev, reps=1, epe_pairs=2)
+    log(f"benchmarks.flow_batched_720p shortened (1 rep, EPE over 2 pairs): {json.dumps(rec)}")
+    if not (rec["value"] > 0 and rec["epe_within_budget"]):
+        raise AssertionError(f"flow_batched_720p: {rec}")
+    log(f"phase 20 (720p): {time.perf_counter() - t0:.1f} s")
+    return launches, rows
+
+
+def quality_phase(dev, name: str, smi: str, n_frames: int = 12) -> dict:
+    """The quality benchmark's two evaluations on the easy scene over
+    ``n_frames`` frames, in this process with the launch counts set to 0
+    just before and read just after (K1, K2 at A's 200x200 and 60x60 levels,
+    K5 under GMFA's ICP, K7 on both); the report's numbers finite, A's
+    velocity grids within 1e-5 m/s of the numpy model of cv2 and the DBSCAN
+    partitions reported as not run (no sklearn here) or compared; then
+    ``benchmarks.evaluate`` in its own process."""
+    from datmo_using_optical_flow_tpu_torch.benchmarks import quality
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize(dev)
+    reset_launches()
+    rep = quality.run(dev, n_frames, ["easy"])
+    torch.cuda.synchronize(dev)
+    launches = read_launches()
+    log(f"quality, easy scene, {n_frames} frames: launches {launches}")
+    if any(launches[k] <= 0 for k in ("poly_exp", "blur_solve", "nearest_neighbors")) \
+            or launches["fused_iteration"]:
+        raise AssertionError(f"quality: launches {launches}")
+    need_rounding("quality", launches)
+    entry = rep["scenes"]["easy"]
+    a, g = entry["optical_flow"], entry["gmfa"]
+    log(f"quality report: {json.dumps(rep)}")
+    oracle = a["oracle_agreement"]
+    if a["pairs"] != n_frames - 1 or oracle["velocity_grid_max_abs_diff_mps"] > 1e-5:
+        raise AssertionError(f"quality: pipeline A {a}")
+    if oracle["dbscan_label_partitions_equal"] != "not run: no sklearn" and \
+            oracle["dbscan_label_partitions_equal"] != f"{n_frames - 1}/{n_frames - 1}":
+        raise AssertionError(f"quality: DBSCAN partitions {oracle}")
+    if not (a["tp"] > 0 and g["frames"] == n_frames and np.isfinite(g["fps"])):
+        raise AssertionError(f"quality: {entry}")
+    rec = _bench_process("evaluate", ["4"])
+    if rec["optical_flow"]["pairs"] != 3 or not rec["gmfa"]["fps"] > 0:
+        raise AssertionError(f"evaluate: {rec}")
+    log(f"phase 21 (quality): {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 # ------------------------------------------------------------------ the multi-rank dry run
 
 def sharded_phase(name: str, smi: str, timeout: float = 600.0) -> tuple[dict, dict]:
@@ -1878,6 +2097,9 @@ def main() -> None:
     results = kernel_phases(dev, name, smi, 1080, 1920)
     results["tiny"] = probe_phase(dev, name, smi)
     other_shapes_phase(dev)
+    t0 = time.perf_counter()
+    narrow_rows = k1_narrow_phase(dev, name, smi)
+    log(f"phase 4b (K1's narrow form): {time.perf_counter() - t0:.1f} s")
     slice_phase(dev, 256, 320)
     n_frames = 25
     launches = main_path(dev, name, smi, 1080, 1920, n_frames)
@@ -1915,17 +2137,22 @@ def main() -> None:
     stream_launches = streams_phase(dev, name, smi, gclouds)
     log(f"phase 17 (streams): {time.perf_counter() - t0:.1f} s")
     sharded_launches, sharded = sharded_phase(name, smi)
+    k4_launches, k4_rows = stream_4k_phase(dev, name, smi)
+    p720_launches, p720_rows = flow_720p_phase(dev, name, smi)
+    quality_launches = quality_phase(dev, name, smi)
     by_path.update(from_points=fp_launches, compat=compat_launches, icp_options=icp_launches,
-                   streams=stream_launches, sharded_dryrun=sharded_launches)
+                   streams=stream_launches, sharded_dryrun=sharded_launches,
+                   stream_4k=k4_launches, flow_batched_720p=p720_launches,
+                   quality=quality_launches)
     for counts in (fp_launches, compat_launches, icp_launches, stream_launches,
-                   sharded_launches):
+                   sharded_launches, k4_launches, p720_launches, quality_launches):
         for k, v in counts.items():
             launches[k] += v
-    results["poly_exp"]["levels"].update(fp_rows["poly_exp"])
-    results["blur_solve"]["levels"] = fp_rows["blur_solve"]
-    for k, rows in fp_rows.items():
-        results[k]["max_abs_err"] = max([results[k]["max_abs_err"]]
-                                        + [r["max_abs_err"] for r in rows.values()])
+    for rows in (fp_rows, {"poly_exp": narrow_rows}, k4_rows, p720_rows):
+        for k, by_shape in rows.items():
+            results[k].setdefault("levels", {}).update(by_shape)
+            results[k]["max_abs_err"] = max([results[k]["max_abs_err"]]
+                                            + [r["max_abs_err"] for r in by_shape.values()])
 
     from datmo_using_optical_flow_tpu_torch.diagnostics import roofline
 

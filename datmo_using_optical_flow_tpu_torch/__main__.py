@@ -3,8 +3,8 @@
 Commands:
   run-a      optical-flow DATMO over PCDs (the reference's Optical_flow/main.py)
   run-b      GMFA over PCDs (the reference's GMFA/GMFA.py), writing the track log
+  simulate   CARLA capture harness (the reference's single_target_simultion.py)
   synth      write a deterministic synthetic PCD sequence
-  simulate   CARLA capture harness (not ported yet)
 
 ``run-a`` and ``run-b`` run on the card unless ``--device cpu`` is given.
 Their input is a folder of ``.pcd`` files or a YAML config (the reference's
@@ -12,7 +12,9 @@ schema; a YAML input needs pyyaml, a folder does not).  ``run-b`` writes the
 track log as ``<output name>.csv`` (``-o track_data.xlsx`` gives
 ``track_data.csv``), as the JAX package does without openpyxl, and with
 ``--plot-dir DIR`` the reference's per-frame plots as PNGs (needs
-matplotlib).
+matplotlib).  ``simulate`` drives a CARLA server (``--host``, ``-p/--port``)
+and needs the ``carla`` package, and ``cv2`` for the camera frames; without
+``carla`` it raises ImportError.
 """
 
 from __future__ import annotations
@@ -61,8 +63,12 @@ def main(argv: list[str] | None = None) -> int:
                          "non-blocking PNGs; needs matplotlib)")
     pb.add_argument("--device", default="cuda", help="torch device (default: cuda)")
 
-    ps = sub.add_parser("simulate", help="not ported yet")
-    ps.add_argument("args", nargs=argparse.REMAINDER)
+    ps = sub.add_parser("simulate", help="CARLA capture harness")
+    ps.add_argument("--host", default="127.0.0.1")
+    ps.add_argument("-p", "--port", type=int, default=2000)
+    ps.add_argument("--no-rendering", action="store_true")
+    ps.add_argument("--filter", default="model3")
+    ps.add_argument("--output", default="carla_capture")
 
     pg = sub.add_parser("synth", help="write synthetic PCD frames")
     pg.add_argument("output_dir")
@@ -92,6 +98,12 @@ def main(argv: list[str] | None = None) -> int:
             files, output_xlsx=args.output, plot_dir=args.plot_dir, progress=True)
         print(f"{len(summary['rows'])} track-log rows")
         return 0
+    if args.cmd == "simulate":
+        from datmo_using_optical_flow_tpu_torch.sim.carla_harness import run_simulation
+
+        run_simulation(host=args.host, port=args.port, no_rendering=args.no_rendering,
+                       vehicle_filter=args.filter, output_dir=args.output)
+        return 0
     if args.cmd == "synth":
         from datmo_using_optical_flow_tpu_torch.sim.synthetic import (SyntheticScene,
                                                                       write_synthetic_sequence)
@@ -100,8 +112,6 @@ def main(argv: list[str] | None = None) -> int:
                                          args.frames)
         print("\n".join(paths))
         return 0
-    print(f"{args.cmd}: not ported to the PyTorch package yet "
-          f"(use python -m datmo_using_optical_flow_tpu {args.cmd})")
     return 2
 
 

@@ -71,6 +71,8 @@ constexpr int kWindowMinBlocks = 4;
 // 32-row tiles (256 threads), which beat 40 and 44 at 1080x1920 on the H100;
 // 16-row tiles (128 threads) take the 44 they need (PERF.md).
 constexpr int kPolyMinBlocks = 8;
+// K1's narrow form below w + n of 128 columns (ops/flow_kernels.poly_exp_narrow).
+constexpr int kPolyNarrow = 128;
 
 struct Window {
   float w[kMaxTaps];
@@ -347,7 +349,13 @@ __device__ __forceinline__ void warp_assemble(const float* __restrict__ R0,
 // horizontal taps that are zero in float32 are skipped.  Rounding as the plain
 // version: each sum is a chain of once-rounded fmas (FmaChain), and the x^2
 // plane's g and xxg sums add their shared products (x = +-1, where xxg == g
-// exactly) separately rounded, so it takes a second g sum of row_g.
+// exactly) separately rounded, so it takes a second g sum of row_g.  At a
+// narrow width (w + n < 128, ops/flow_kernels.poly_exp_narrow) XLA fuses the
+// vertical pass into the planes' fusion, and the y^2 plane's b1 and b5 take
+// their centre tap from row planes recomputed with those shared products
+// separately rounded (centre_sum).  The launch decides it from w: the
+// compile-time instance has a narrow variant (kNarrow, 16-row tiles), so the
+// wide instances carry no code for it; the runtime-n kernel takes a flag.
 //
 // Two kernels.  poly_exp_fixed_kernel<N, kTileH> is the compile-time instance
 // for poly_n N (5 or 7) when the taps have the structural zero pattern (every g
@@ -380,6 +388,20 @@ struct PolyFixed {
   static_assert(kRuns * kE <= kThreads, "one thread per (column, run)");
 };
 
+// One vertical g or xxg sum of the staged column `col` (2N + 1 rows `stride`
+// apart) with the products of taps N -+ 1 separately rounded: the row planes
+// XLA recomputes for the centre tap at a narrow width.
+template <int N>
+__device__ __forceinline__ float centre_sum(const float* k, const float* col, int stride) {
+  float a = __fmaf_rn(k[0], col[0], k[1] * col[stride]);
+#pragma unroll
+  for (int t = 2; t < 2 * N + 1; ++t) {
+    const float v = col[t * stride];
+    a = (t == N - 1 || t == N + 1) ? a + k[t] * v : __fmaf_rn(k[t], v, a);
+  }
+  return a;
+}
+
 // The compile-time instance: the vertical pass has each of kRuns * kE threads
 // read one staged column's kRun + 2N values once, top to bottom, each into the
 // open g, xg and xxg sums of the kRun outputs whose window covers it ((kRun +
@@ -394,7 +416,7 @@ struct PolyFixed {
 // in between, under one wait: faster than loads through registers at every
 // level on the H100 (PERF.md).  `vec`: the five planes are stored as float4
 // (w % 4 == 0, out 16-byte aligned).
-template <int N, int kTileH>
+template <int N, int kTileH, bool kNarrow>
 __global__ void __launch_bounds__(PolyFixed<N, kTileH>::kThreads, kPolyMinBlocks)
 poly_exp_fixed_kernel(const float* __restrict__ img, float* __restrict__ out, int h, int w,
                       bool vec, PolyTaps pt) {
@@ -471,6 +493,8 @@ poly_exp_fixed_kernel(const float* __restrict__ img, float* __restrict__ out, in
   const int row = (tid >> 5) * (32 / L::kRunsPerRow) + lane / L::kRunsPerRow;
   const int c0 = (lane % L::kRunsPerRow) * kH;
   float b1[kH], b1s[kH], b2[kH], b3[kH], b4[kH], b5[kH], b6[kH];
+  // at a narrow width, the y^2 plane's centre taps, computed where they are added
+  const float* col = s_img + row * L::kImgStride + c0 + N;  // output q's column at col[q]
   const float* rg = s_rows[0] + row * L::kRowStride + c0;
   float vprev = 0.0f;  // the column left of v
 #pragma unroll
@@ -486,7 +510,8 @@ poly_exp_fixed_kernel(const float* __restrict__ img, float* __restrict__ out, in
           b2[q] = __fmaf_rn(pt.xg[0], vprev, pt.xg[1] * v);
           b4[q] = __fmaf_rn(pt.xxg[0], vprev, pt.xxg[1] * v);
         } else {
-          b1[q] = __fmaf_rn(pt.g[k], v, b1[q]);
+          const float c = k == N && kNarrow ? centre_sum<N>(pt.g, col + q, L::kImgStride) : v;
+          b1[q] = __fmaf_rn(pt.g[k], c, b1[q]);
           if (k == N - 1 || k == N + 1) {
             b1s[q] = b1s[q] + pt.g[k] * v;
             b4[q] = b4[q] + pt.xxg[k] * v;
@@ -528,8 +553,10 @@ poly_exp_fixed_kernel(const float* __restrict__ img, float* __restrict__ out, in
 #pragma unroll
     for (int k = 1; k < kTaps; ++k) {
       const int q = x - k;
-      if (q >= 0 && q < kH)
-        b5[q] = k == 1 ? __fmaf_rn(pt.g[0], vprev, pt.g[1] * v) : __fmaf_rn(pt.g[k], v, b5[q]);
+      if (q >= 0 && q < kH) {
+        const float c = k == N && kNarrow ? centre_sum<N>(pt.xxg, col + q, L::kImgStride) : v;
+        b5[q] = k == 1 ? __fmaf_rn(pt.g[0], vprev, pt.g[1] * v) : __fmaf_rn(pt.g[k], c, b5[q]);
+      }
     }
     vprev = v;
   }
@@ -565,7 +592,7 @@ poly_exp_fixed_kernel(const float* __restrict__ img, float* __restrict__ out, in
 // the taps, which it tests one by one.
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 poly_exp_kernel(const float* __restrict__ img, float* __restrict__ out, int h, int w,
-                int n, PolyTaps pt) {
+                int n, bool narrow, PolyTaps pt) {
   constexpr int kMaxE = kTile + 2 * kMaxPolyN;
   __shared__ float s_img[kMaxE * kMaxE];
   __shared__ float s_rows[3][kTile * kMaxE];
@@ -615,15 +642,30 @@ poly_exp_kernel(const float* __restrict__ img, float* __restrict__ out, int h, i
     const float* rxxg = s_rows[2] + li * e + threadIdx.x;
     // b1 = g*row_g, b2 = xg*row_g, b3 = g*row_xg, b4 = xxg*row_g,
     // b5 = g*row_xxg, b6 = xg*row_xg, each over its nonzero taps; b1s is b1
-    // as the x^2 plane rounds it (taps where xxg == g are shared with b4)
+    // as the x^2 plane rounds it (taps where xxg == g are shared with b4).
+    // At a narrow width b1 and b5 take their centre tap from row planes with
+    // those shared products separately rounded (cg, cxxg).
+    float cg = 0.0f, cxxg = 0.0f;
+    if (narrow) {
+      FmaChain vg, vxxg;
+      for (int k = 0; k < ntaps; ++k) {
+        const float v = s_img[(li + k) * e + threadIdx.x + n];
+        const bool shared = g[k] == xxg[k] && g[k] != 0.0f;
+        vg.add(g[k], v, shared);
+        vxxg.add(xxg[k], v, shared);
+      }
+      cg = vg.value();
+      cxxg = vxxg.value();
+    }
     FmaChain b1, b1s, b2, b3, b4, b5, b6;
     for (int k = 0; k < ntaps; ++k) {
       const bool shared = g[k] == xxg[k];
+      const bool centre = narrow && k == n;
       if (g[k] != 0.0f) {
-        b1.add(g[k], rg[k]);
+        b1.add(g[k], centre ? cg : rg[k]);
         b1s.add(g[k], rg[k], shared);
         b3.add(g[k], rxg[k]);
-        b5.add(g[k], rxxg[k]);
+        b5.add(g[k], centre ? cxxg : rxxg[k]);
       }
       if (xg[k] != 0.0f) {
         b2.add(xg[k], rg[k]);
@@ -811,7 +853,8 @@ bool poly_taps_structural(const PolyTaps& pt, int n) {
 }
 
 // K1's compile-time instance for poly_n N: 16-row tiles when their grid fits
-// in one wave of kPolyMinBlocks blocks per SM, else 32-row tiles.
+// in one wave of kPolyMinBlocks blocks per SM, else 32-row tiles; at a
+// narrow width (w + N < kPolyNarrow) the narrow variant, with 16-row tiles.
 template <int N>
 cudaError_t launch_poly_fixed(float* out, const float* img, int h, int w, const PolyTaps& pt,
                               int device, cudaStream_t stream) {
@@ -821,12 +864,15 @@ cudaError_t launch_poly_fixed(float* out, const float* img, int h, int w, const 
   const bool vec = w % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   constexpr int kShort = kTile / 2;
   const dim3 short_grid = tile_grid(h, w, kShort);
-  if (static_cast<int>(short_grid.x * short_grid.y) <= kPolyMinBlocks * sms) {
-    poly_exp_fixed_kernel<N, kShort><<<short_grid, PolyFixed<N, kShort>::kThreads, 0, stream>>>(
-        img, out, h, w, vec, pt);
+  if (w + N < kPolyNarrow) {
+    poly_exp_fixed_kernel<N, kShort, true><<<short_grid, PolyFixed<N, kShort>::kThreads, 0,
+                                             stream>>>(img, out, h, w, vec, pt);
+  } else if (static_cast<int>(short_grid.x * short_grid.y) <= kPolyMinBlocks * sms) {
+    poly_exp_fixed_kernel<N, kShort, false><<<short_grid, PolyFixed<N, kShort>::kThreads, 0,
+                                              stream>>>(img, out, h, w, vec, pt);
   } else {
-    poly_exp_fixed_kernel<N, kTile><<<tile_grid(h, w), PolyFixed<N, kTile>::kThreads, 0,
-                                      stream>>>(img, out, h, w, vec, pt);
+    poly_exp_fixed_kernel<N, kTile, false><<<tile_grid(h, w), PolyFixed<N, kTile>::kThreads, 0,
+                                             stream>>>(img, out, h, w, vec, pt);
   }
   return cudaGetLastError();
 }
@@ -854,7 +900,8 @@ int datmo_poly_exp(float* out, const float* img, int h, int w, int n, const floa
     if (n == 5) return launch_poly_fixed<5>(out, img, h, w, pt, device, s);
     if (n == 7) return launch_poly_fixed<7>(out, img, h, w, pt, device, s);
   }
-  poly_exp_kernel<<<tile_grid(h, w), dim3(kBlockX, kBlockY), 0, s>>>(img, out, h, w, n, pt);
+  poly_exp_kernel<<<tile_grid(h, w), dim3(kBlockX, kBlockY), 0, s>>>(img, out, h, w, n,
+                                                                      w + n < kPolyNarrow, pt);
   return cudaGetLastError();
 }
 

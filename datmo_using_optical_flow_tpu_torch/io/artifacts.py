@@ -12,7 +12,8 @@ them byte-equal):
 * ``print_final_track_velocities``
 
 The GPU deployment has no pyyaml, so :func:`yaml_tracks` writes the YAML text
-that ``yaml.dump`` writes for a ``{track id: [floats]}`` mapping.  PNGs
+that ``yaml.dump`` writes for a ``{track id: [floats]}`` mapping, and
+:func:`read_yaml_tracks` reads it back as ``yaml.safe_load`` does.  PNGs
 (matplotlib, imported when first drawn) are optional (``save_png``).
 """
 
@@ -46,6 +47,30 @@ def yaml_tracks(track_data: dict[int, list[float]]) -> str:
         lines.append(f"{tid}:")
         lines.extend(f"- {_yaml_float(v)}" for v in track_data[tid])
     return "\n".join(lines) + "\n"
+
+
+_YAML_SPECIAL = {".nan": float("nan"), ".inf": float("inf"), "-.inf": float("-inf")}
+
+
+def read_yaml_tracks(text: str) -> dict[int, list[float]]:
+    """The inverse of :func:`yaml_tracks`: ``yaml.safe_load`` of an
+    ``ekf_tracks_frame_<i>.yaml`` (int keys, block lists of floats).  Raises
+    ValueError on any other YAML."""
+    if text.strip() in ("{}", ""):
+        return {}
+    out: dict[int, list[float]] = {}
+    values = None
+    for line in text.splitlines():
+        if not line.strip():
+            continue
+        if line.startswith("- ") and values is not None:
+            item = line[2:].strip()
+            values.append(_YAML_SPECIAL[item] if item in _YAML_SPECIAL else float(item))
+        elif line.endswith(":") and not line.startswith((" ", "-")):
+            values = out.setdefault(int(line[:-1]), [])
+        else:
+            raise ValueError(f"not a track mapping line: {line!r}")
+    return out
 
 
 class ArtifactSink:

@@ -205,3 +205,11 @@ def lifecycle(table: TrackTable, m1: int, n1: int, m2: int, n2: int) -> TrackTab
     confirm = alive & ~confirmed & (lifetime >= n1) & (lifetime - m1 <= n1)
     return table._replace(alive=alive & ~delete, lifetime=lifetime,
                           confirmed=confirmed | confirm)
+
+
+def track_step(table: TrackTable, clusters: Clusters, dt: float, q_scale: float,
+               r_scale: float, gamma: float, m1: int, n1: int, m2: int,
+               n2: int) -> TrackTable:
+    """One full tracking step: association + EKF + lifecycle (``main.py:618-634``)."""
+    table = associate_and_update(table, clusters, dt, q_scale, r_scale, gamma)
+    return lifecycle(table, m1, n1, m2, n2)

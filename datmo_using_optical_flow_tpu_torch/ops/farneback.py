@@ -397,3 +397,22 @@ def farneback_flow(im1: torch.Tensor, im2: torch.Tensor,
     return _farneback_impl(im1, im2, cfg.pyr_scale, cfg.levels, cfg.winsize,
                            cfg.iterations, cfg.poly_n, cfg.poly_sigma, fast_warp,
                            gaussian, init)
+
+
+def farneback_flow_batched(im1: torch.Tensor, im2: torch.Tensor,
+                           cfg: FarnebackConfig = FarnebackConfig(),
+                           fast_warp: bool = True) -> torch.Tensor:
+    """Flow over a leading batch of frame pairs: (B, H, W) -> (B, H, W, 2).
+
+    The counterpart of the JAX package's ``farneback_flow_batched``, which
+    runs the pairs one after another in one program rather than vmapped.
+    Here each pair's flow is launched in turn on the pairs' device, its
+    kernels queued behind the previous pair's with no synchronisation, and
+    the flows are stacked.  As in the JAX package, ``cfg.flags`` is not
+    read: box windows, no initial flow."""
+    if im1.ndim != 3 or im1.shape != im2.shape:
+        raise ValueError(f"expected two (B, H, W) batches, got {tuple(im1.shape)} "
+                         f"and {tuple(im2.shape)}")
+    return torch.stack([_farneback_impl(a, b, cfg.pyr_scale, cfg.levels, cfg.winsize,
+                                        cfg.iterations, cfg.poly_n, cfg.poly_sigma, fast_warp)
+                        for a, b in zip(im1, im2)])

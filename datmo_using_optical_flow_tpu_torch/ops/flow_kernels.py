@@ -115,38 +115,56 @@ def _fma_chain(terms: list, shared: frozenset = frozenset()) -> torch.Tensor:
     return out
 
 
+def poly_exp_narrow(w: int, n: int) -> bool:
+    """Whether XLA's compiled ``poly_exp`` takes its narrow form at width
+    ``w``: when a row plane edge-padded on one side (``w + n`` columns) is
+    narrower than 128, XLA fuses the vertical pass into the planes' fusion,
+    and the y^2 plane's ``g`` sums of ``row_g`` and ``row_xxg`` take their
+    centre tap from row planes recomputed there, with the products ``g`` and
+    ``xxg`` share (x = +-1) separately rounded.  Measured on both sides of the
+    boundary: widths up to 122 at n = 5 and 120 at n = 7."""
+    return w + n < 128
+
+
 def poly_exp_reference(img: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
     """Plain version of K1: the polynomial expansion (5, H, W) by separable
     shift-and-add correlations, in the tap order, with the skip rules and
     rounded as the JAX package's ``ops.farneback.poly_exp`` compiled for the
-    CPU (bit-equal at the flow's level shapes).
+    CPU (bit-equal at the flow's level shapes, narrow ones included).
 
     Each correlation is a chain of once-rounded multiply-adds
     (:func:`_fma_chain`).  The x^2 plane sums ``g`` and ``xxg`` over the same
     row plane, and the two share their products where the taps are equal
     (x = +-1), so there both of its sums add those products separately
-    rounded; the y^2 plane's ``g`` sum is the contracted one."""
+    rounded; the y^2 plane's ``g`` sum is the contracted one, and at a
+    narrow width (:func:`poly_exp_narrow`) its two ``g`` sums take their
+    centre tap from row planes rounded the same way."""
     g, xg, xxg, invG = (np.asarray(k, np.float32) for k in prepare_gaussian(n, sigma))
     ig11, ig03, ig33, ig55 = (float(invG[i, j]) for i, j in ((1, 1), (0, 3), (3, 3), (5, 5)))
-    h, _ = img.shape
+    h, w = img.shape
     pv = fb._pad_axis(img, n, -2, "edge")
     rows = [pv[i:i + h] for i in range(2 * n + 1)]
+    both = frozenset(i for i in range(2 * n + 1) if g[i] == xxg[i] and g[i] != 0.0)
     # vertical: g and xxg keep every tap, xg skips its zero taps
     row_g = _fma_chain([(i, g[i], r) for i, r in enumerate(rows)])
     row_xg = _fma_chain([(i, xg[i], r) for i, r in enumerate(rows) if xg[i] != 0.0])
     row_xxg = _fma_chain([(i, xxg[i], r) for i, r in enumerate(rows)])
 
-    def corr_x(a, kern, shared=frozenset()):  # taps zero in float32 are skipped
+    def corr_x(a, kern, shared=frozenset(), centre=None):  # taps zero in float32 are skipped
         p = fb._pad_axis(a, n, -1, "edge")
-        return _fma_chain([(i, k, p.narrow(-1, i, a.shape[-1]))
+        return _fma_chain([(i, k, centre if i == n and centre is not None
+                            else p.narrow(-1, i, w))
                            for i, k in enumerate(kern) if k != 0.0], shared)
 
-    both = frozenset(i for i in range(2 * n + 1) if g[i] == xxg[i] and g[i] != 0.0)
-    b1 = corr_x(row_g, g)
+    centre_g = centre_xxg = None
+    if poly_exp_narrow(w, n):
+        centre_g = _fma_chain([(i, g[i], r) for i, r in enumerate(rows)], both)
+        centre_xxg = _fma_chain([(i, xxg[i], r) for i, r in enumerate(rows)], both)
     return torch.stack([
         corr_x(row_xg, g) * ig11,                                          # y-linear
         corr_x(row_g, xg) * ig11,                                          # x-linear
-        round_kernels.fma32_reference(corr_x(row_xxg, g), ig33, b1 * ig03),  # y^2
+        round_kernels.fma32_reference(corr_x(row_xxg, g, centre=centre_xxg), ig33,
+                                      corr_x(row_g, g, centre=centre_g) * ig03),  # y^2
         round_kernels.fma32_reference(corr_x(row_g, xxg, both), ig33,
                                       corr_x(row_g, g, both) * ig03),      # x^2
         corr_x(row_xg, xg) * ig55,                                         # xy

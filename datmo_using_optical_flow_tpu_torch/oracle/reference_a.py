@@ -1,13 +1,74 @@
-"""The reference's pipeline-A tracking surface in numpy: a copy of the parts
-of ``datmo_using_optical_flow_tpu.oracle.reference_a`` that ``compat``
-re-exports (``extract_cluster_data``, ``RefEKF``, ``track_clusters``,
-``manage_tracks``; ``Optical_flow/main.py:402-515``), so that the port
-imports nothing of the JAX package.  Small host-side dicts, quirks kept.
+"""The reference's pipeline-A CPU oracle in numpy (``Optical_flow/main.py``).
+
+A copy of the parts of ``datmo_using_optical_flow_tpu.oracle.reference_a``
+that ``compat`` re-exports (``extract_cluster_data``, ``RefEKF``,
+``track_clusters``, ``manage_tracks``; ``main.py:402-515``) and that the
+quality benchmark's oracle loop runs (``velocity_from_flow``,
+``continuity_mask``, ``dbscan_clustering``, ``farneback_flow``), so that the
+port imports nothing of the JAX package.  Every function is verbatim but
+``farneback_flow``, which runs the numpy model of cv2
+(``np_farneback.calc_flow``) where the JAX oracle calls cv2: the card's
+machine has no cv2.  Small host-side dicts, quirks kept.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from datmo_using_optical_flow_tpu_torch.oracle.np_farneback import calc_flow
+
+
+def farneback_flow(bev1: np.ndarray, bev2: np.ndarray, params: dict | None = None) -> np.ndarray:
+    """The reference's flow with the hard-coded params of ``main.py:132-142``,
+    as ``cv2.calcOpticalFlowFarneback`` computes it, through the numpy model
+    of cv2 (``np_farneback.calc_flow``, which the JAX package's tests pin to
+    cv2 at < 1e-3 px EPE).  ``flags`` may hold cv2's
+    ``OPTFLOW_FARNEBACK_GAUSSIAN`` (256) and nothing else."""
+    p = dict(pyr_scale=0.3, levels=5, winsize=15, iterations=5, poly_n=5,
+             poly_sigma=5, flags=0)
+    if params:
+        p.update(params)
+    flags = p.pop("flags")
+    if flags & ~256:
+        raise ValueError(f"flags {flags}: only OPTFLOW_FARNEBACK_GAUSSIAN (256) is modelled")
+    return calc_flow(bev1.astype(np.float32), bev2.astype(np.float32),
+                     gaussian=bool(flags & 256), **p)
+
+
+def velocity_from_flow(flow: np.ndarray, x_range, y_range) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Flow px/frame → m/s scaling + curl angular velocity (``main.py:143-164``).
+    Note the reference's pixel_size uses shape[1] for x and shape[0] for y and
+    ignores dt in the scaling — replicated as-is."""
+    vx_px, vy_px = flow[..., 0], flow[..., 1]
+    pixel_size_x = (x_range[1] - x_range[0]) / flow.shape[1]
+    pixel_size_y = (y_range[1] - y_range[0]) / flow.shape[0]
+    velocity_x = vx_px * pixel_size_x
+    velocity_y = vy_px * pixel_size_y
+    dvx_dy, dvx_dx = np.gradient(velocity_x)
+    dvy_dy, dvy_dx = np.gradient(velocity_y)
+    angular_velocity = dvy_dx - dvx_dy
+    return velocity_x, velocity_y, angular_velocity
+
+
+def continuity_mask(vx: np.ndarray, vy: np.ndarray, alpha_cont: float) -> np.ndarray:
+    """|div| and |curl| gate via np.gradient stencils (``main.py:224-228``)."""
+    div_v = np.gradient(vx, axis=1) + np.gradient(vy, axis=0)
+    curl_v = np.gradient(vy, axis=1) - np.gradient(vx, axis=0)
+    return ((np.abs(div_v) <= alpha_cont) & (np.abs(curl_v) <= alpha_cont)).astype(int)
+
+
+def dbscan_clustering(vx_f: np.ndarray, vy_f: np.ndarray, valid_mask: np.ndarray,
+                      eps: float = 5.0, min_samples: int = 3):
+    """sklearn DBSCAN on [row, col, vx, vy] features (``main.py:231-259``)."""
+    from sklearn.cluster import DBSCAN
+
+    valid_indices = np.array(np.nonzero(valid_mask)).T
+    features = np.column_stack((valid_indices, vx_f[valid_mask.astype(bool)],
+                                vy_f[valid_mask.astype(bool)]))
+    if features.shape[0] == 0:
+        return np.empty((0,), dtype=np.int64), valid_indices
+    labels = DBSCAN(eps=eps, min_samples=min_samples).fit(features).labels_
+    return labels, valid_indices
 
 
 def extract_cluster_data(labels, indices, vx, vy):

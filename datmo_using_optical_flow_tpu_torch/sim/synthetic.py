@@ -2,7 +2,8 @@
 
 A copy of the scene generator of ``datmo_using_optical_flow_tpu.sim.synthetic``
 (``BoxTarget``, ``SyntheticScene``, ``synthetic_frame`` and the helpers they
-call, and ``write_synthetic_sequence`` through the port's PCD writer), kept
+call, the ground truth ``target_velocity`` and ``ground_truth``, and
+``write_synthetic_sequence`` through the port's PCD writer), kept
 here so that the port and its smoke run need nothing of the JAX package;
 ``tests/test_torch_sim.py`` holds the copy equal to the original, bit for
 bit.  A frame is a ground plane at z = 0, static boxes and moving box
@@ -99,10 +100,32 @@ def target_center(box: BoxTarget, frame_index: int, dt: float = 1.0) -> np.ndarr
             + 0.5 * np.array([box.accel[0], box.accel[1], 0.0]) * t * t)
 
 
+def target_velocity(box: BoxTarget, frame_index: int, dt: float = 1.0) -> np.ndarray:
+    """Ground-truth (2,) velocity of a target at a frame: v + a t (or the
+    rotated constant-speed heading under ``turn_rate``)."""
+    t = dt * frame_index
+    if box.turn_rate:
+        s = float(np.hypot(*box.velocity))
+        th = float(np.arctan2(box.velocity[1], box.velocity[0])) + box.turn_rate * t
+        return np.array([s * np.cos(th), s * np.sin(th)])
+    return np.array(box.velocity) + np.array(box.accel) * t
+
+
 def target_active(box: BoxTarget, frame_index: int) -> bool:
     """Whether a target exists at the frame (spawn inclusive, despawn exclusive)."""
     return frame_index >= box.spawn_frame and (
         box.despawn_frame is None or frame_index < box.despawn_frame)
+
+
+def ground_truth(scene: SyntheticScene, frame_index: int, dt: float = 1.0
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """(K, 2) positions and (K, 2) velocities of the ACTIVE moving targets."""
+    pos, vel = [], []
+    for box in scene.targets:
+        if target_active(box, frame_index):
+            pos.append(target_center(box, frame_index, dt)[:2])
+            vel.append(target_velocity(box, frame_index, dt))
+    return (np.asarray(pos).reshape(-1, 2), np.asarray(vel).reshape(-1, 2))
 
 
 def _occlude(pts: np.ndarray, occluders: list[tuple[np.ndarray, np.ndarray]]) -> np.ndarray:

@@ -2,13 +2,16 @@
 
 The port must import neither jax nor yaml (the GPU deployment carries
 neither), so it keeps its own copies of both pipelines' config dataclasses and
-of the numpy Farnebäck helpers; these tests hold the copies equal to the
-originals (the scene and frame generators' copies: ``test_torch_sim.py``).
+of the numpy modules it needs (the Farnebäck model, the pipeline-A oracle,
+the metrics, the CARLA harness); these tests hold the copies equal to the
+originals, the verbatim ones line for line (the scene and frame generators'
+copies: ``test_torch_sim.py``).
 ``chip_smoke.py`` imports nothing of the JAX side either.
 """
 
 import ast
 import dataclasses
+import inspect
 import os
 import subprocess
 import sys
@@ -18,8 +21,14 @@ import pytest
 
 from datmo_using_optical_flow_tpu import config as jcfg
 from datmo_using_optical_flow_tpu.oracle import np_farneback as jnp_fb
+from datmo_using_optical_flow_tpu.oracle import reference_a as jref
+from datmo_using_optical_flow_tpu.sim import carla_harness as jharness
+from datmo_using_optical_flow_tpu.utils import metrics as jmetrics
 from datmo_using_optical_flow_tpu_torch import config as tcfg
 from datmo_using_optical_flow_tpu_torch.oracle import np_farneback as tnp_fb
+from datmo_using_optical_flow_tpu_torch.oracle import reference_a as tref
+from datmo_using_optical_flow_tpu_torch.sim import carla_harness as tharness
+from datmo_using_optical_flow_tpu_torch.utils import metrics as tmetrics
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -31,6 +40,11 @@ _GMFA_MODULES = ("ops.points", "ops.nn_kernels", "ops.nn", "ops.icp", "ops.hunga
 _DIAGNOSTIC_MODULES = ("ops.probe_kernels", "diagnostics.roofline", "diagnostics.measure",
                        "diagnostics.micro_flow", "diagnostics.profile_1080p",
                        "diagnostics.icp_body")
+# the last missing paths: the quality, 4K and batched-flow benchmarks and the
+# verbatim copies they and ``simulate`` run
+_QUALITY_MODULES = ("benchmarks.quality", "benchmarks.evaluate", "benchmarks.stream_4k",
+                    "benchmarks.flow_batched_720p", "sim.carla_harness", "utils.metrics",
+                    "oracle.reference_a", "oracle.np_farneback")
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -42,7 +56,7 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "yaml", "datmo_using_optical_flow_tpu"))
 print(len(set(names)), bad)
-""" % (_GMFA_MODULES + _DIAGNOSTIC_MODULES,)
+""" % (_GMFA_MODULES + _DIAGNOSTIC_MODULES + _QUALITY_MODULES,)
 
 
 def test_port_imports_no_jax_and_no_yaml():
@@ -50,7 +64,7 @@ def test_port_imports_no_jax_and_no_yaml():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.strip().split(" ", 1)
-    assert int(count) >= 37, proc.stdout  # every module of the port was imported
+    assert int(count) >= 43, proc.stdout  # every module of the port was imported
     assert bad == "[]", bad
 
 
@@ -134,3 +148,55 @@ def test_np_farneback_copies_are_identical():
     for ksize, sigma in ((1, 0.0), (3, 0.0), (5, 0.0), (7, 0.0), (9, 0.0), (25, 5.06), (7, 1.1)):
         np.testing.assert_array_equal(tnp_fb.gaussian_kernel(ksize, sigma),
                                       jnp_fb.gaussian_kernel(ksize, sigma))
+
+
+def _defined(mod) -> dict:
+    """The functions and classes ``mod`` defines, by name."""
+    return {n: o for n, o in vars(mod).items()
+            if (inspect.isfunction(o) or inspect.isclass(o)) and o.__module__ == mod.__name__}
+
+
+# the port's import of its own PCD writer, the harness's one changed line
+_HARNESS_IMPORT = ("    from datmo_using_optical_flow_tpu.io.pcd import write_pcd\n",
+                   "    from datmo_using_optical_flow_tpu_torch.io.pcd import write_pcd\n")
+
+
+@pytest.mark.parametrize("original,copy,names", [
+    pytest.param(jnp_fb, tnp_fb, None, id="np_farneback"),
+    pytest.param(jmetrics, tmetrics, None, id="metrics"),
+    pytest.param(jharness, tharness, None, id="carla_harness"),
+    pytest.param(jref, tref, ("velocity_from_flow", "continuity_mask", "dbscan_clustering",
+                              "extract_cluster_data", "RefEKF", "track_clusters",
+                              "manage_tracks"), id="reference_a"),
+])
+def test_verbatim_copies_line_for_line(original, copy, names):
+    """Every function and class of the verbatim copies is the original's
+    source line for line (all of them where ``names`` is None); the CARLA
+    harness differs in its PCD writer's import alone."""
+    want = _defined(original)
+    if names is None:
+        assert set(_defined(copy)) == set(want)
+        names = sorted(want)
+    for name in names:
+        got = inspect.getsource(getattr(copy, name))
+        if copy is tharness:
+            got = got.replace(_HARNESS_IMPORT[1], _HARNESS_IMPORT[0])
+        assert got.splitlines() == inspect.getsource(want[name]).splitlines(), name
+    for name, value in vars(original).items():  # module constants
+        if name.isupper() or (name.startswith("_") and isinstance(value, dict)):
+            assert repr(getattr(copy, name)) == repr(value), name
+
+
+def test_oracle_flow_is_the_numpy_model():
+    """The port's ``reference_a.farneback_flow`` is ``calc_flow`` with the
+    reference's parameters (the JAX oracle calls cv2 there)."""
+    rng = np.random.default_rng(2)
+    a, b = (rng.uniform(0, 255, (64, 72)).astype(np.uint8) for _ in range(2))
+    np.testing.assert_array_equal(tref.farneback_flow(a, b),
+                                  jnp_fb.calc_flow(a.astype(np.float32), b.astype(np.float32),
+                                                   0.3, 5, 15, 5, 5, 5.0))
+    np.testing.assert_array_equal(tref.farneback_flow(a, b, {"flags": 256, "winsize": 7}),
+                                  jnp_fb.calc_flow(a.astype(np.float32), b.astype(np.float32),
+                                                   0.3, 5, 7, 5, 5, 5.0, gaussian=True))
+    with pytest.raises(ValueError, match="flags"):
+        tref.farneback_flow(a, b, {"flags": 4})

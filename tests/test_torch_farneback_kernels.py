@@ -68,14 +68,25 @@ def test_poly_exp_reference_matches_pallas_kernel(h, w, n, sigma):
     pytest.param(326, 576, 5, 5.0, id="326-576"),
     pytest.param(200, 200, 7, 1.5, id="200-200-n7"),
     pytest.param(98, 173, 5, 0.3, id="98-173-s0.3"),     # g's end taps underflow
+    # narrow levels (w + n < 128): A's 60x60, 720p's 65x115, 4K's 59x104, and
+    # both sides of the boundary, at the pipelines' sigma 5.0 and 1.1; the
+    # rule is the width alone, at any height (200x50 to a tall 1088x120)
+    *(pytest.param(h, w, 5, s, id=f"{h}-{w}-s{s}")
+      for h, w in ((60, 60), (65, 115), (59, 104), (64, 122), (64, 123), (64, 124),
+                   (100, 100), (128, 79), (79, 128), (200, 50), (125, 80), (99, 101),
+                   (101, 99), (1088, 120))
+      for s in (5.0, 1.1)),
+    pytest.param(64, 120, 7, 1.5, id="64-120-n7"),       # n = 7: narrow up to w = 120
+    pytest.param(64, 121, 7, 1.5, id="64-121-n7"),
+    pytest.param(60, 60, 5, 0.3, id="60-60-s0.3"),       # the runtime-n kernel's taps
 ])
 def test_poly_exp_reference_bit_equal_to_jitted_jax(h, w, n, sigma):
     """K1's plain version rounds as the JAX package's ``poly_exp`` compiled
     for the CPU: each correlation a chain of contracted multiply-adds, the
     x^2 plane's shared products separately rounded.  (A few ulps here moved
-    the packed warp's int8 corners by a step.)  Below ~10^4 pixels XLA fuses
-    the vertical pass into the planes' fusion and the y^2 plane rounds
-    otherwise there, a few ulps apart (the other cases of this file)."""
+    the packed warp's int8 corners by a step.)  Where ``w + n < 128`` XLA
+    fuses the vertical pass into the planes' fusion and the y^2 plane takes
+    its narrow form (``poly_exp_narrow``)."""
     rng = np.random.default_rng(h + w)
     img = rng.uniform(0, 255, size=(h, w)).astype(np.float32)
     want = np.asarray(jax.jit(lambda x: jfb.poly_exp(x, n, sigma))(jnp.asarray(img)))

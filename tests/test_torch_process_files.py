@@ -15,6 +15,7 @@ Tracks are held to ``test_torch_pipeline_a``'s 5e-3.
 
 import filecmp
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -170,15 +171,16 @@ def test_cli_run_a(seq, jax_run, tmp_path, capsys):
     assert sorted(os.listdir(out)) == sorted(os.listdir(jdir))
 
 
-def test_cli_argument_errors(tmp_path, capsys):
+def test_cli_argument_errors(tmp_path, capsys, monkeypatch):
     one = tmp_path / "one"
     write_synthetic_sequence(SyntheticScene(ground_points=100, seed=1), str(one), 1)
     assert cli(["run-a", str(one), "--device", "cpu"]) == 1
     assert "need >= 2 PCD files" in capsys.readouterr().out
     with pytest.raises(FileNotFoundError):
         cli(["run-a", str(tmp_path / "missing"), "--device", "cpu"])
-    assert cli(["simulate", "x"]) == 2
-    assert "not ported" in capsys.readouterr().out
+    monkeypatch.setitem(sys.modules, "carla", None)  # simulate without carla: ImportError
+    with pytest.raises(ImportError, match="CARLA"):
+        cli(["simulate", "--output", str(tmp_path / "capture")])
     with pytest.raises(FileNotFoundError):  # run-b is ported: a missing input raises
         cli(["run-b", str(tmp_path / "missing"), "--device", "cpu"])
     with pytest.raises(SystemExit):
