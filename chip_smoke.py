@@ -28,7 +28,10 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
    otherwise): both CUDA instances ``torch.equal`` to the plain version at
    the pipelines' narrow levels (60x60, 65x115, 59x104) and on both sides of
    the boundary, at sigma 5.0 and 1.1, at 0.3 across the boundary and at
-   n = 7; K1 at the sharded flow's 282x1920 block timed beside
+   n = 7; K1's tiny form (at most n rows or columns, ``ops/poly_tiny``)
+   ``torch.equal`` to the plain version in 47 tiny cases (5x122 ... 1x1,
+   122x5, 1088x5, 200x3, 5x5; n = 5 and 7; the compile-time and the runtime-n
+   taps); K1 at the sharded flow's 282x1920 block timed beside
    ``F.conv2d``;
 5. the 256x320 slice on the card (kernels) against the CPU (plain versions);
 6. pipeline A's main path: the stream step on 25 ``make_frames`` 1080x1920
@@ -394,25 +397,11 @@ def check_k4_into_k2(R0, R1, dx, dy, win: int, gaussian: bool, label: str) -> No
 
 
 def poly_exp_conv(img, n: int, sigma: float):
-    """One ``F.conv2d`` that computes K1's function: a (5, 1, 2n+1, 2n+1)
-    weight of the outer products of g, xg and xxg scaled by the inverse-Gram
-    entries, on the replicate-padded image, with TF32 off.  Timed beside K1;
-    the port does not use it."""
-    import torch.nn.functional as F
+    """One ``F.conv2d`` that computes K1's function, timed beside K1
+    (``diagnostics/micro_flow.conv_yardstick``); the port does not use it."""
+    from datmo_using_optical_flow_tpu_torch.diagnostics.micro_flow import conv_yardstick
 
-    from datmo_using_optical_flow_tpu_torch.oracle.np_farneback import prepare_gaussian
-    from datmo_using_optical_flow_tpu_torch.utils import device as _device  # noqa: F401
-
-    if torch.backends.cudnn.allow_tf32:
-        raise AssertionError("cuDNN TF32 is on")
-    g, xg, xxg, ig = (np.asarray(a, np.float64) for a in prepare_gaussian(n, sigma))
-    w = np.stack([np.outer(xg, g) * ig[1, 1], np.outer(g, xg) * ig[1, 1],
-                  np.outer(g, g) * ig[0, 3] + np.outer(xxg, g) * ig[3, 3],
-                  np.outer(g, g) * ig[0, 3] + np.outer(g, xxg) * ig[3, 3],
-                  np.outer(xg, xg) * ig[5, 5]])
-    weight = torch.as_tensor(w[:, None].astype(np.float32), device=img.device)
-    padded = F.pad(img[None, None], (n, n, n, n), mode="replicate")
-    return lambda: F.conv2d(padded, weight)[0]
+    return conv_yardstick(img, n, sigma)
 
 
 def library_phase(kernel: str, label: str, lib, want, tol: float, dev, name: str,
@@ -1828,8 +1817,13 @@ def k1_narrow_phase(dev, name: str, smi: str) -> dict:
     levels of the pipelines (A's 60x60, 720p's 65x115, 4K's 59x104) and on
     both sides of the boundary, at the sigmas 5.0 and 1.1 (the compile-time
     n = 5 instance), n = 7 at 1.5 (n = 7) and sigma 0.3 (the runtime-n
-    kernel) at 60x60 and across the boundary.  Then K1 at the sharded flow's 282x1920 block timed beside
-    ``F.conv2d``."""
+    kernel) at 60x60 and across the boundary.  Then K1's tiny form
+    (``ops/poly_tiny``: at most n rows or columns, one kernel for any taps)
+    ``torch.equal`` to the plain version at tiny shapes of every rule of its
+    plan (rows, one row, one column, one pixel, w = n, and the shapes still
+    on the wide rule), with the compile-time instance's taps and with the
+    runtime-n kernel's (sigma 0.3).  Then K1 at the sharded flow's 282x1920
+    block timed beside ``F.conv2d``."""
     from datmo_using_optical_flow_tpu_torch.diagnostics import roofline
     from datmo_using_optical_flow_tpu_torch.diagnostics.measure import device_us_per_call
     from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
@@ -1849,6 +1843,18 @@ def k1_narrow_phase(dev, name: str, smi: str) -> dict:
               f"{fk.poly_exp_narrow(w, n)})", fk.poly_exp(img, n, sigma),
               fk.poly_exp_reference(img, n, sigma))
     log(f"K1 narrow form: {len(cases)} shapes bit-equal, {narrow} of them narrow")
+    tiny = ((5, 122), (5, 124), (4, 200), (7, 300), (2, 1920), (1, 200), (200, 1), (1, 1),
+            (122, 5), (1088, 5), (200, 3), (5, 5), (3, 17))
+    tiny_cases = [(h, w, 5, s) for h, w in tiny for s in (5.0, 1.1, 0.3)]
+    tiny_cases += [(h, w, 7, s) for h, w in ((7, 300), (3, 130), (300, 7), (1, 1))
+                   for s in (1.5, 0.3)]
+    for h, w, n, sigma in tiny_cases:
+        img = torch.rand((h, w), device=dev, generator=gen) * 255
+        path = "compile-time taps" if fk.poly_exp_compiled(n, sigma) else "runtime-n taps"
+        check("poly_exp", f"{h}x{w} n={n} sigma={sigma} (tiny form, {path})",
+              fk.poly_exp(img, n, sigma), fk.poly_exp_reference(img, n, sigma))
+    log(f"K1 tiny form: {len(tiny_cases)} shapes bit-equal: "
+        + ", ".join(f"{h}x{w} n={n} s={s}" for h, w, n, s in tiny_cases))
     img = torch.rand((282, 1920), device=dev, generator=gen) * 255
     want = fk.poly_exp_reference(img, 5, 5.0)
     err = check("poly_exp", "282x1920 (the sharded level-0 block)", fk.poly_exp(img, 5, 5.0),

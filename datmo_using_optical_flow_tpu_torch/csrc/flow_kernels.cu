@@ -29,9 +29,11 @@
 // kernels/build.py) so no multiply-add is contracted but where the plain
 // version takes a once-rounded fma (K1's sums, __fmaf_rn).
 //
-// K1 has two kernels: a compile-time instance for poly_n 5 and 7, taken when
+// K1 has three kernels: a compile-time instance for poly_n 5 and 7, taken when
 // the taps have their structural zero pattern (register-blocked passes, taps
-// out of shared memory), and the runtime-n kernel for any other taps.
+// out of shared memory), the runtime-n kernel for any other taps, and the
+// tiny form for images of at most poly_n rows or columns, which interprets a
+// rounding plan (ops/poly_tiny.py) with its own entry, datmo_poly_exp_tiny.
 //
 // K2 and K3 have two window stages.  The main path's window (winsize 15) runs
 // a compile-time instance, box or Gaussian (window_solve_fixed: register-
@@ -683,6 +685,112 @@ poly_exp_kernel(const float* __restrict__ img, float* __restrict__ out, int h, i
   }
 }
 
+// K1's tiny form, at most n rows or columns (ops/poly_tiny.py): XLA rounds
+// such shapes by rules of their own (broadcast taps, sums recomputed in the
+// planes' fusion), which ops/poly_tiny.tiny_plan writes down as a rounding
+// plan: vertical-sum variants and the seven horizontal sums that read them.
+// This kernel interprets the plan, one thread per pixel, recomputing every
+// vertical sum it reads; at most 7 rows or columns, the work is small and
+// latency-bound, so it is kept plain.  Any taps, structural or not.
+constexpr int kTinyVariants = 12;
+constexpr int kTinyThreads = 128;
+
+struct TinyPlan {
+  int nv;
+  int var[kTinyVariants][5];  // kind (0 g, 1 xg, 2 xxg), sep mask, swap, lead, trail
+  int sum[7][10];             // kind, sep, lead, trail, v_int, v_pad, v_rem, rem_start,
+                              // v_centre, v_bcast
+};
+
+// poly_tiny._chain: sum of c[q] * x[q] over the terms (taps k[q]) in order.
+// The head (the leading broadcast terms with `lead`, else all but the
+// trailing ones) is a chain of fmas whose first product folds into the add
+// of the second (the second into the first with `swap` or where the first is
+// in `sep`); products of taps in `sep` are added rounded, as are the trailing
+// broadcast terms with `trail`.  A tap is broadcast when k <= lo or k >= hi.
+__device__ float tiny_chain(const int* k, const float* c, const float* x, int t, int sep,
+                            bool swap, bool lead, bool trail, int lo, int hi) {
+  int n_lead = 0;
+  while (lead && n_lead < t && (k[n_lead] <= lo || k[n_lead] >= hi)) ++n_lead;
+  int end = t;
+  while (trail && end > n_lead && (k[end - 1] <= lo || k[end - 1] >= hi)) --end;
+  const int head = n_lead ? n_lead : end;
+  float out;
+  if (head == 1) {
+    out = c[0] * x[0];
+  } else {
+    const bool s0 = (sep >> k[0]) & 1, s1 = (sep >> k[1]) & 1;
+    if ((swap || s0) && !s1) {
+      out = __fmaf_rn(x[1], c[1], c[0] * x[0]);
+    } else if (!s0) {
+      out = __fmaf_rn(x[0], c[0], c[1] * x[1]);
+    } else {
+      out = c[0] * x[0] + c[1] * x[1];
+    }
+  }
+  for (int q = head == 1 ? 1 : 2; q < end; ++q)
+    out = ((sep >> k[q]) & 1) ? out + c[q] * x[q] : __fmaf_rn(x[q], c[q], out);
+  for (int q = end; q < t; ++q) out = out + c[q] * x[q];
+  return out;
+}
+
+// Vertical sum `v` of the plan at (i, col).
+__device__ float tiny_vertical(const float* __restrict__ img, int h, int w, int n,
+                               const float* const* kern, const int* v, int i, int col) {
+  const float* c = kern[v[0]];
+  int ks[kMaxPolyTaps];
+  float cs[kMaxPolyTaps], xs[kMaxPolyTaps];
+  int t = 0;
+  for (int k = 0; k < 2 * n + 1; ++k) {
+    if (v[0] == 1 && c[k] == 0.0f) continue;  // xg skips its zero taps vertically
+    ks[t] = k;
+    cs[t] = c[k];
+    xs[t] = img[static_cast<size_t>(clampi(i + k - n, 0, h - 1)) * w + col];
+    ++t;
+  }
+  return tiny_chain(ks, cs, xs, t, v[1], v[2], v[3], v[4], n - h, n + h);
+}
+
+__global__ void __launch_bounds__(kTinyThreads)
+poly_exp_tiny_kernel(const float* __restrict__ img, float* __restrict__ out, int h, int w,
+                     int n, PolyTaps pt, TinyPlan plan) {
+  const int p = blockIdx.x * kTinyThreads + threadIdx.x;
+  if (p >= h * w) return;
+  const int i = p / w;
+  const int j = p - i * w;
+  const float* const kern[3] = {pt.g, pt.xg, pt.xxg};
+  float s[7];
+  for (int q = 0; q < 7; ++q) {
+    const int* sm = plan.sum[q];
+    const float* c = kern[sm[0]];
+    int ks[kMaxPolyTaps];
+    float cs[kMaxPolyTaps], xs[kMaxPolyTaps];
+    int t = 0;
+    for (int k = 0; k < 2 * n + 1; ++k) {
+      if (c[k] == 0.0f) continue;
+      int col = j + k - n;
+      int v = (col >= 0 && col < w) ? (col >= sm[7] ? sm[6] : sm[4]) : sm[5];
+      col = clampi(col, 0, w - 1);
+      if ((k <= n - w || k >= n + w) && sm[9] >= 0) v = sm[9];
+      if (k == n && sm[8] >= 0) {
+        v = sm[8];
+        col = j;
+      }
+      ks[t] = k;
+      cs[t] = c[k];
+      xs[t] = tiny_vertical(img, h, w, n, kern, plan.var[v], i, col);
+      ++t;
+    }
+    s[q] = tiny_chain(ks, cs, xs, t, sm[1], false, sm[2], sm[3], n - w, n + w);
+  }
+  const size_t plane = static_cast<size_t>(h) * w;
+  out[p] = s[0] * pt.ig[0];
+  out[plane + p] = s[1] * pt.ig[0];
+  out[2 * plane + p] = __fmaf_rn(s[2], pt.ig[2], s[3] * pt.ig[1]);
+  out[3 * plane + p] = __fmaf_rn(s[4], pt.ig[2], s[5] * pt.ig[1]);
+  out[4 * plane + p] = s[6] * pt.ig[3];
+}
+
 // ---------------------------------------------------------------- K2
 // Window aggregation of M (5, H, W) (box, or Gaussian with
 // sigma = (win//2)*0.3) with BORDER_REPLICATE, then the 2x2 solve -> (dx, dy).
@@ -877,24 +985,33 @@ cudaError_t launch_poly_fixed(float* out, const float* img, int h, int w, const 
   return cudaGetLastError();
 }
 
+// K1's taps from the host; false for a poly_n out of range.
+bool poly_taps_from_host(PolyTaps* pt, int n, const float* g, const float* xg,
+                         const float* xxg, const float* ig) {
+  if (n < 1 || n > kMaxPolyN) return false;
+  for (int k = 0; k < 2 * n + 1; ++k) {
+    pt->g[k] = g[k];
+    pt->xg[k] = xg[k];
+    pt->xxg[k] = xxg[k];
+  }
+  for (int k = 0; k < 4; ++k) pt->ig[k] = ig[k];
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
 
 // g, xg, xxg (2n+1 each) and ig (ig11, ig03, ig33, ig55) are HOST pointers.
+// Images of at most n rows or columns take the tiny form, datmo_poly_exp_tiny.
 int datmo_poly_exp(float* out, const float* img, int h, int w, int n, const float* g,
                    const float* xg, const float* xxg, const float* ig, int device,
                    void* stream) {
-  if (h < 1 || w < 1 || n < 1 || n > kMaxPolyN) return cudaErrorInvalidValue;
+  PolyTaps pt{};
+  if (h <= n || w <= n || !poly_taps_from_host(&pt, n, g, xg, xxg, ig))
+    return cudaErrorInvalidValue;
   datmo::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
-  PolyTaps pt{};
-  for (int k = 0; k < 2 * n + 1; ++k) {
-    pt.g[k] = g[k];
-    pt.xg[k] = xg[k];
-    pt.xxg[k] = xxg[k];
-  }
-  for (int k = 0; k < 4; ++k) pt.ig[k] = ig[k];
   const auto s = static_cast<cudaStream_t>(stream);
   if (poly_taps_structural(pt, n)) {
     if (n == 5) return launch_poly_fixed<5>(out, img, h, w, pt, device, s);
@@ -902,6 +1019,35 @@ int datmo_poly_exp(float* out, const float* img, int h, int w, int n, const floa
   }
   poly_exp_kernel<<<tile_grid(h, w), dim3(kBlockX, kBlockY), 0, s>>>(img, out, h, w, n,
                                                                       w + n < kPolyNarrow, pt);
+  return cudaGetLastError();
+}
+
+// K1's tiny form (h <= n or w <= n).  g, xg, xxg, ig as datmo_poly_exp's; plan
+// (HOST) is ops/poly_tiny.plan_array: the variant count, kTinyVariants rows of
+// 5 ints, then 7 rows of 10.
+int datmo_poly_exp_tiny(float* out, const float* img, int h, int w, int n, const float* g,
+                        const float* xg, const float* xxg, const float* ig, const int* plan,
+                        int device, void* stream) {
+  PolyTaps pt{};
+  if (h < 1 || w < 1 || (h > n && w > n) || !poly_taps_from_host(&pt, n, g, xg, xxg, ig))
+    return cudaErrorInvalidValue;
+  TinyPlan tp{};
+  tp.nv = plan[0];
+  if (tp.nv < 1 || tp.nv > kTinyVariants) return cudaErrorInvalidValue;
+  for (int v = 0; v < kTinyVariants; ++v)
+    for (int f = 0; f < 5; ++f) tp.var[v][f] = plan[1 + 5 * v + f];
+  for (int q = 0; q < 7; ++q) {
+    for (int f = 0; f < 10; ++f) tp.sum[q][f] = plan[1 + 5 * kTinyVariants + 10 * q + f];
+    for (int f = 4; f < 10; ++f) {  // v_int, v_pad, v_rem, (rem_start), v_centre, v_bcast
+      const int v = tp.sum[q][f];
+      if (f != 7 && (v >= tp.nv || v < (f >= 8 ? -1 : 0))) return cudaErrorInvalidValue;
+    }
+  }
+  datmo::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return guard.err;
+  const int pixels = h * w;
+  poly_exp_tiny_kernel<<<(pixels + kTinyThreads - 1) / kTinyThreads, kTinyThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(img, out, h, w, n, pt, tp);
   return cudaGetLastError();
 }
 

@@ -21,8 +21,13 @@ by hand beside the package's, and every K1, K2 and K3 row also holds both
 builds bit-equal to the plain version and takes their device µs in turns on
 the same inputs (the parent, this build twice, the parent; three times).
 
+With ``--small``, K1 alone at the pipelines' small levels and two tiny
+images instead (:func:`small_levels`): each beside one ``F.conv2d`` that
+computes the same planes, per call and split into the host's enqueue and the
+device's time.
+
     python -m datmo_using_optical_flow_tpu_torch.diagnostics.micro_flow [--height H --width W]
-        [--parent DIR]
+        [--parent DIR] [--small]
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ from datmo_using_optical_flow_tpu_torch.config import FarnebackConfig
 from datmo_using_optical_flow_tpu_torch.diagnostics import roofline
 from datmo_using_optical_flow_tpu_torch.diagnostics.measure import (card_label,
                                                                      device_us_per_call,
-                                                                     kernel_row)
+                                                                     kernel_row, ms_per_call)
 from datmo_using_optical_flow_tpu_torch.kernels import build
 from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
 from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
@@ -140,9 +145,10 @@ def parent_poly_exp(lib: ctypes.CDLL, img: torch.Tensor, n: int, sigma: float) -
 def against_parent(call: Callable, parent: Callable, plain: Callable, work: roofline.Work,
                    dev: torch.device, card: str, rounds: int = 3, reps: int = 5) -> dict:
     """Hold this build's ``call`` and the parent's to ``plain`` bit for bit,
-    then take both device µs in turns (the parent, this build twice, the
-    parent), ``rounds`` times; medians."""
+    time ``plain`` per call, then take both device µs in turns (the parent,
+    this build twice, the parent), ``rounds`` times; medians."""
     want = plain()
+    plain_ms = ms_per_call(plain, dev, reps=3, warmup=1)
     for name, fn in (("this build", call), ("the parent", parent)):
         if not all(torch.equal(g, x) for g, x in zip(fn(), want)):
             raise AssertionError(f"{name} differs from the plain version")
@@ -155,9 +161,9 @@ def against_parent(call: Callable, parent: Callable, plain: Callable, work: roof
     bound = work.bound_us()
     print(f"{'':44s} in turns: device {med['package']:.1f} us (share "
           f"{bound / med['package']:.3f}), parent {med['parent']:.1f} us (share "
-          f"{bound / med['parent']:.3f}), both bit-equal to the plain version [{card}]",
-          flush=True)
-    return {"turns_device_us": us, "turns_median_us": med["package"],
+          f"{bound / med['parent']:.3f}), both bit-equal to the plain version "
+          f"({plain_ms:.3f} ms/call) [{card}]", flush=True)
+    return {"plain_ms": plain_ms, "turns_device_us": us, "turns_median_us": med["package"],
             "parent_device_us": med["parent"], "parent_share_of_bound": bound / med["parent"]}
 
 
@@ -232,13 +238,102 @@ def run(frames: np.ndarray, device: str | torch.device = "cuda", reps: int = 20,
             "parent": None if parent is None else str(parent), "rows": rows}
 
 
+# K1's small shapes: the coarse levels of the pipelines (A's 200x200 and
+# 60x60, 1080p's 97x173, 4K's 196x346 and 59x104, 720p's 216x384 and
+# 65x115) and two tiny images (K1's tiny form)
+SMALL_SHAPES = ((97, 173), (200, 200), (60, 60), (196, 346), (59, 104), (216, 384), (65, 115),
+                (5, 122), (122, 5))
+
+
+def conv_yardstick(img: torch.Tensor, n: int, sigma: float) -> Callable:
+    """One ``F.conv2d`` that computes K1's planes: a (5, 1, 2n+1, 2n+1) weight
+    of the outer products of g, xg and xxg scaled by the inverse-Gram
+    entries, on the replicate-padded image, with cuDNN's TF32 off.  Timed
+    beside K1; the port does not use it."""
+    import torch.nn.functional as F
+
+    from datmo_using_optical_flow_tpu_torch.oracle.np_farneback import prepare_gaussian
+
+    g, xg, xxg, ig = (np.asarray(a, np.float64) for a in prepare_gaussian(n, sigma))
+    w = np.stack([np.outer(xg, g) * ig[1, 1], np.outer(g, xg) * ig[1, 1],
+                  np.outer(g, g) * ig[0, 3] + np.outer(xxg, g) * ig[3, 3],
+                  np.outer(g, g) * ig[0, 3] + np.outer(g, xxg) * ig[3, 3],
+                  np.outer(xg, xg) * ig[5, 5]])
+    weight = torch.as_tensor(w[:, None].astype(np.float32), device=img.device)
+    padded = F.pad(img[None, None], (n, n, n, n), mode="replicate")
+
+    def call():
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            return F.conv2d(padded, weight)[0]
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+
+    return call
+
+
+def enqueue_us(fn: Callable, dev: torch.device, calls: int = 200) -> float:
+    """Host µs per call of ``fn`` issued back to back, unsynchronized (the
+    launch path's cost while the card keeps up)."""
+    import time
+
+    fn()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize(dev)
+    return (t1 - t0) * 1e6 / calls
+
+
+def small_levels(device: str | torch.device = "cuda", reps: int = 20, seed: int = 0) -> dict:
+    """K1 and its ``F.conv2d`` yardstick in turns at :data:`SMALL_SHAPES`
+    (uniform random images from ``seed``, poly_n 5, sigma 5.0): per call (CUDA
+    events around each synchronized call), the host's enqueue µs per call and
+    the device µs per call (profiler), and K1's plain version per call, each
+    row with the card."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("small_levels times the card")
+    card = card_label(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, sigma = 5, 5.0
+    rows = []
+    for h, w in SMALL_SHAPES:
+        img = torch.rand((h, w), device=dev, generator=gen) * 255
+        k1, conv = (lambda: fk.poly_exp(img, n, sigma)), conv_yardstick(img, n, sigma)
+        row = {"shape": [h, w], "tiny": h <= n or w <= n,
+               "bound_us": roofline.poly_exp(h, w, n, sigma).bound_us()}
+        for name, fn in (("conv", conv), ("k1", k1), ("k1", k1), ("conv", conv)):
+            row.setdefault(f"{name}_ms", []).append(ms_per_call(fn, dev, reps))
+            row.setdefault(f"{name}_enqueue_us", []).append(enqueue_us(fn, dev))
+            row.setdefault(f"{name}_device_us", []).append(device_us_per_call(fn, dev))
+        for key in [k for k in row if isinstance(row[k], list) and k != "shape"]:
+            row[key] = statistics.median(row[key])
+        row["plain_ms"] = ms_per_call(lambda: fk.poly_exp_reference(img, n, sigma), dev, 3, 1)
+        print(f"K1 {h}x{w}{' (tiny form)' if row['tiny'] else ''}: {row['k1_ms'] * 1e3:.1f} "
+              f"us/call = enqueue {row['k1_enqueue_us']:.1f} us, device "
+              f"{row['k1_device_us']:.1f} us; F.conv2d {row['conv_ms'] * 1e3:.1f} us/call = "
+              f"enqueue {row['conv_enqueue_us']:.1f} us, device {row['conv_device_us']:.1f} us; "
+              f"plain {row['plain_ms']:.3f} ms; bound {row['bound_us']:.3f} us [{card}]",
+              flush=True)
+        rows.append(row)
+    return {"card": card, "device": str(dev), "rows": rows}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--parent", help="an older checkout whose flow_kernels.cu to time beside")
+    ap.add_argument("--small", action="store_true", help="K1 at the small shapes beside F.conv2d")
     args = ap.parse_args()
-    print(json.dumps(run(make_frames(2, args.height, args.width), parent=args.parent)))
+    if args.small:
+        print(json.dumps(small_levels()))
+    else:
+        print(json.dumps(run(make_frames(2, args.height, args.width), parent=args.parent)))
 
 
 if __name__ == "__main__":

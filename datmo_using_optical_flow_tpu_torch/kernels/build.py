@@ -50,6 +50,7 @@ _F = ctypes.c_float
 _NN_SWEEP = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _F, _F]
 _SIGNATURES = {
     "datmo_poly_exp": ([_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P], _I),
+    "datmo_poly_exp_tiny": ([_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P], _I),
     "datmo_blur_solve": ([_P, _P, _P, _I, _I, _P, _I, _F, _I, _P], _I),
     "datmo_fused_iteration": ([_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _F, _I, _P], _I),
     "datmo_nn_sweep": ([*_NN_SWEEP, _I, _P], _I),

@@ -22,11 +22,12 @@ import torch
 
 from datmo_using_optical_flow_tpu_torch.kernels import build
 from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
-from datmo_using_optical_flow_tpu_torch.ops import round_kernels
+from datmo_using_optical_flow_tpu_torch.ops import poly_tiny, round_kernels
 from datmo_using_optical_flow_tpu_torch.oracle.np_farneback import prepare_gaussian
 
 LAUNCHES = {"poly_exp": 0, "blur_solve": 0, "fused_iteration": 0, "warp_matrices": 0}
 _POLY_EXP = build.Entry("datmo_poly_exp", "poly_exp")
+_POLY_EXP_TINY = build.Entry("datmo_poly_exp_tiny", "poly_exp")
 _BLUR_SOLVE = build.Entry("datmo_blur_solve", "blur_solve")
 _FUSED_ITERATION = build.Entry("datmo_fused_iteration", "fused_iteration")
 _WARP_MATRICES = build.Entry("datmo_warp_matrices", "warp_matrices")
@@ -63,6 +64,11 @@ def _poly_taps(n: int, sigma: float) -> tuple[np.ndarray, ...]:
     g, xg, xxg, invG = prepare_gaussian(n, sigma)
     igs = [invG[1, 1], invG[0, 3], invG[3, 3], invG[5, 5]]
     return tuple(np.ascontiguousarray(a, dtype=np.float32) for a in (g, xg, xxg, igs))
+
+
+@functools.lru_cache(maxsize=64)
+def _tiny_plan_array(h: int, w: int, n: int, sigma: float) -> np.ndarray:
+    return poly_tiny.plan_array(poly_tiny.tiny_plan(h, w, n, sigma))
 
 
 def poly_exp_compiled(n: int, sigma: float) -> bool:
@@ -138,10 +144,13 @@ def poly_exp_reference(img: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
     (x = +-1), so there both of its sums add those products separately
     rounded; the y^2 plane's ``g`` sum is the contracted one, and at a
     narrow width (:func:`poly_exp_narrow`) its two ``g`` sums take their
-    centre tap from row planes rounded the same way."""
+    centre tap from row planes rounded the same way.  Images of at most ``n``
+    rows or columns take the tiny form (:mod:`.poly_tiny`)."""
+    h, w = img.shape
+    if poly_tiny.is_tiny(h, w, n):
+        return poly_tiny.poly_exp_tiny_reference(img, n, sigma)
     g, xg, xxg, invG = (np.asarray(k, np.float32) for k in prepare_gaussian(n, sigma))
     ig11, ig03, ig33, ig55 = (float(invG[i, j]) for i, j in ((1, 1), (0, 3), (3, 3), (5, 5)))
-    h, w = img.shape
     pv = fb._pad_axis(img, n, -2, "edge")
     rows = [pv[i:i + h] for i in range(2 * n + 1)]
     both = frozenset(i for i in range(2 * n + 1) if g[i] == xxg[i] and g[i] != 0.0)
@@ -172,7 +181,9 @@ def poly_exp_reference(img: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
 
 
 def poly_exp(img: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
-    """K1: polynomial expansion of a float32 (H, W) image -> (5, H, W)."""
+    """K1: polynomial expansion of a float32 (H, W) image -> (5, H, W).  On
+    the card, an image of at most ``n`` rows or columns runs the tiny form's
+    kernel on its rounding plan (:mod:`.poly_tiny`)."""
     if img.ndim != 2:
         raise ValueError(f"img: expected (H, W), got {tuple(img.shape)}")
     h, w = img.shape
@@ -181,8 +192,13 @@ def poly_exp(img: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
         return poly_exp_reference(img, n, sigma)
     g, xg, xxg, igs = _poly_taps(n, float(sigma))
     out = torch.empty((5, h, w), dtype=torch.float32, device=img.device)
-    _POLY_EXP(img.device.index, out.data_ptr(), img.data_ptr(), h, w, n, g.ctypes.data,
-              xg.ctypes.data, xxg.ctypes.data, igs.ctypes.data)
+    if poly_tiny.is_tiny(h, w, n):
+        _POLY_EXP_TINY(img.device.index, out.data_ptr(), img.data_ptr(), h, w, n, g.ctypes.data,
+                       xg.ctypes.data, xxg.ctypes.data, igs.ctypes.data,
+                       _tiny_plan_array(h, w, n, float(sigma)).ctypes.data)
+    else:
+        _POLY_EXP(img.device.index, out.data_ptr(), img.data_ptr(), h, w, n, g.ctypes.data,
+                  xg.ctypes.data, xxg.ctypes.data, igs.ctypes.data)
     LAUNCHES["poly_exp"] += 1
     return out
 

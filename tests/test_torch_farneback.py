@@ -124,3 +124,16 @@ def test_initial_flow_and_gaussian_flags_match_jax(flags, atol):
     np.testing.assert_allclose(got.numpy(), want, atol=atol)
     with pytest.raises(ValueError, match="flow0"):
         fb.farneback_flow(torch.as_tensor(a), torch.as_tensor(b), FarnebackConfig(flags=flags))
+
+
+@pytest.mark.parametrize("h,w", [(5, 122), (122, 5)])
+def test_tiny_image_flow_matches_jax_exact_path(h, w):
+    """At most poly_n rows or columns (one pyramid level) K1 takes its tiny
+    form: the port's flow against the JAX package's exact jnp path on a pair
+    cut from two frames, flow atol 1e-4 px as the exact-warp test above."""
+    a, b = make_frames(2, 160, 160, seed=h)[:, 20:20 + h, 20:20 + w].astype(np.float32)
+    want = np.asarray(jfb.farneback_flow(jnp.asarray(a), jnp.asarray(b)))
+    got = fb.farneback_flow(torch.as_tensor(a), torch.as_tensor(b), fast_warp=False)
+    assert got.shape == (h, w, 2)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
+    assert np.abs(want).max() > 0.01  # the pair moves

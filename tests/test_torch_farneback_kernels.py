@@ -61,6 +61,47 @@ def test_poly_exp_reference_matches_pallas_kernel(h, w, n, sigma):
     np.testing.assert_array_equal(got, fb.poly_exp(_t(img), n, sigma).numpy())
 
 
+# K1's tiny form (at most n rows or columns): shapes where XLA's compiled
+# poly_exp used to round otherwise than the plain version (5x122 ... 5x5), at
+# four sigmas; one row, one column, one pixel and both sides of h = n and
+# w = n; and 30 seeded (h, w) with one axis in 1..n+1, the other in 1..300.
+_TINY_TABLE = ((5, 122, 5), (5, 124, 5), (4, 200, 5), (122, 5, 5), (200, 3, 5), (7, 300, 7),
+               (5, 5, 5))
+_TINY_EDGES = ((1, 150, 5), (150, 1, 5), (1, 1, 5), (1, 200, 7), (200, 1, 7), (1, 1, 7),
+               (5, 150, 5), (6, 150, 5), (150, 5, 5), (150, 6, 5),
+               (7, 150, 7), (8, 150, 7), (150, 7, 7), (150, 8, 7))
+
+
+def _tiny_sweep(count=30, seed=14):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(count):
+        n = int(rng.choice([5, 7]))
+        s = float(rng.choice([0.3, 1.1, 1.5, 5.0]))
+        small, large = int(rng.integers(1, n + 2)), int(rng.integers(1, 301))
+        out.append((small, large, n, s) if rng.random() < 0.5 else (large, small, n, s))
+    return out
+
+
+# Where the tiny form does not yet round as XLA does (ROADMAP Queue 3 item 8,
+# measured): 2 <= w < n below more than n rows, both axes at most n (but one
+# pixel), w = n at sigma 0.3, and 7 rows at n = 7 with 6 columns past the
+# last vector of 8.
+_TINY_OPEN = {(122, 5, 5, 0.3), (200, 3, 5, 0.3), (200, 3, 5, 1.1), (200, 3, 5, 1.5),
+              (200, 3, 5, 5.0), (5, 5, 5, 1.1), (5, 5, 5, 1.5), (5, 5, 5, 5.0), (7, 150, 7, 5.0),
+              (109, 4, 5, 5.0), (193, 3, 5, 5.0), (69, 2, 7, 1.5), (50, 5, 7, 5.0),
+              (246, 2, 7, 0.3), (197, 2, 7, 1.1), (299, 3, 7, 1.5), (175, 6, 7, 1.1),
+              (241, 4, 7, 0.3), (17, 3, 5, 0.3), (217, 2, 5, 1.1)}
+_TINY_CASES = [
+    pytest.param(h, w, n, s, id=f"tiny-{h}-{w}-n{n}-s{s}", marks=[pytest.mark.xfail(
+        strict=True, reason="tiny form not yet XLA's here (ROADMAP Queue 3 item 8)")]
+        if (h, w, n, s) in _TINY_OPEN else [])
+    for h, w, n, s in ([(h, w, n, s) for h, w, n in _TINY_TABLE for s in (0.3, 1.1, 1.5, 5.0)]
+                       + [(h, w, n, s) for h, w, n in _TINY_EDGES
+                          for s in ((5.0, 1.1) if n == 5 else (1.5, 5.0))]
+                       + _tiny_sweep())]
+
+
 @pytest.mark.parametrize("h,w,n,sigma", [
     pytest.param(200, 200, 5, 1.1, id="200-200"),        # pipeline A's level 0
     pytest.param(128, 160, 5, 5.0, id="128-160"),        # Tier-1's sharded flow
@@ -79,6 +120,7 @@ def test_poly_exp_reference_matches_pallas_kernel(h, w, n, sigma):
     pytest.param(64, 120, 7, 1.5, id="64-120-n7"),       # n = 7: narrow up to w = 120
     pytest.param(64, 121, 7, 1.5, id="64-121-n7"),
     pytest.param(60, 60, 5, 0.3, id="60-60-s0.3"),       # the runtime-n kernel's taps
+    *_TINY_CASES,
 ])
 def test_poly_exp_reference_bit_equal_to_jitted_jax(h, w, n, sigma):
     """K1's plain version rounds as the JAX package's ``poly_exp`` compiled
@@ -86,7 +128,10 @@ def test_poly_exp_reference_bit_equal_to_jitted_jax(h, w, n, sigma):
     x^2 plane's shared products separately rounded.  (A few ulps here moved
     the packed warp's int8 corners by a step.)  Where ``w + n < 128`` XLA
     fuses the vertical pass into the planes' fusion and the y^2 plane takes
-    its narrow form (``poly_exp_narrow``)."""
+    its narrow form (``poly_exp_narrow``).  At most ``n`` rows or columns K1
+    takes its tiny form (``ops/poly_tiny``): the Motivation shapes of the
+    repair at four sigmas, one row, one column, one pixel, both sides of
+    ``h = n`` and ``w = n``, and a seeded sweep of such shapes."""
     rng = np.random.default_rng(h + w)
     img = rng.uniform(0, 255, size=(h, w)).astype(np.float32)
     want = np.asarray(jax.jit(lambda x: jfb.poly_exp(x, n, sigma))(jnp.asarray(img)))
