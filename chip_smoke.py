@@ -19,6 +19,15 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
    call of the same function (``F.conv2d``, ``torch.add``), timed and not
    used by the port; K6's launch path split into its parts, each timed over
    1,000 calls;
+3b. K8 (the level image and the flow's upsample, ``ops/level_kernels``)
+   ``torch.equal`` to its plain version at every level image of the 1080p,
+   from-points, 4K and 720p flows (level 0's blur alone included, 3 to 91
+   taps) and at the 2-plane upsample of each of their level transitions,
+   times 1 / pyr_scale, each timed (per call, device µs, bound) beside its
+   plain version and one PyTorch composition of the same function (a
+   separable ``F.conv2d`` and ``F.interpolate``, within 1e-3 of the scale);
+   every counted path below checks K8's launches exactly (two per level
+   image, one per upsample);
 4. the same at the CPU tests' other shapes and options (untimed): K1 at
    ragged shapes with poly_n 5 and 7, through both of its tile heights and
    both of its C paths (a sigma of 0.3 takes the runtime-n kernel), K4 at
@@ -157,8 +166,11 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
     reported as not run where sklearn does not import; then
     ``benchmarks/evaluate`` in its own process.
 
-The second-to-last line is a JSON summary of the kernels, each with its
-bound on the H100 for the timed call's work (``diagnostics/roofline.py``);
+A flow kernel's device µs is reported as not measured where the profiler
+keeps losing its trace's records late in this long process (a timing, not a
+check; ``kernel_us``).  The second-to-last line is a JSON summary of the
+kernels, each with its bound on the H100 for the timed call's work
+(``diagnostics/roofline.py``);
 the line before it is ``nvidia-smi``'s name and power limit of the card; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -189,16 +201,21 @@ REPLACES = {
     # K7: no Pallas kernel; XLA fuses these multiply-adds at sites such as
     "fma32": "datmo_using_optical_flow_tpu/models/optical_flow_datmo.py:601",
     "sumsq": "datmo_using_optical_flow_tpu/models/tracker_a.py:169",
+    # K8: no Pallas kernel either; XLA fuses the level image's blur and resize
+    "level_image": "none: XLA's fused gaussian_blur/resize_bilinear, "
+                   "datmo_using_optical_flow_tpu/ops/farneback.py:68,76",
 }
 SOURCES = {"poly_exp": "flow_kernels.cu", "blur_solve": "flow_kernels.cu",
            "fused_iteration": "flow_kernels.cu", "warp_matrices": "flow_kernels.cu",
            "nearest_neighbors": "nn_kernels.cu", "tiny": "probe_kernels.cu",
-           "fma32": "round_kernels.cu", "sumsq": "round_kernels.cu"}
-PER_STEP = {"poly_exp": 3, "fused_iteration": 10, "blur_solve": 5}  # 1080p, 3 levels
+           "fma32": "round_kernels.cu", "sumsq": "round_kernels.cu",
+           "level_image": "level_kernels.cu"}
+# 1080p, 3 levels; K8: two launches per level image, one per upsample
+PER_STEP = {"poly_exp": 3, "fused_iteration": 10, "blur_solve": 5, "level_image": 8}
 TOL = {"warp_matrices": 2e-4}
-EXACT = ("poly_exp", "blur_solve", "fused_iteration")  # held to torch.equal
+EXACT = ("poly_exp", "blur_solve", "fused_iteration", "level_image")  # held to torch.equal
 # K7's launches follow the data (tracker A's association runs once per
-# cluster slot), so the exact per-path counts below are of K1-K6 alone
+# cluster slot), so the exact per-path counts below are of K1-K6 and K8
 ROUNDING = ("fma32", "sumsq")
 
 
@@ -207,10 +224,10 @@ def log(msg: str) -> None:
 
 
 def _counted_modules():
-    from datmo_using_optical_flow_tpu_torch.ops import (flow_kernels, nn_kernels, probe_kernels,
-                                                        round_kernels)
+    from datmo_using_optical_flow_tpu_torch.ops import (flow_kernels, level_kernels, nn_kernels,
+                                                        probe_kernels, round_kernels)
 
-    return flow_kernels, nn_kernels, probe_kernels, round_kernels
+    return flow_kernels, level_kernels, nn_kernels, probe_kernels, round_kernels
 
 
 def reset_launches() -> None:
@@ -226,7 +243,7 @@ def read_launches() -> dict:
 
 
 def tpu_kernels(counts: dict) -> dict:
-    """The counts of K1-K6, the kernels with a count fixed by the shapes."""
+    """The counts of K1-K6 and K8, the kernels with a count fixed by the shapes."""
     return {k: v for k, v in counts.items() if k not in ROUNDING}
 
 
@@ -271,8 +288,8 @@ def equal(a, b) -> bool:
 
 
 def check(kernel: str, label: str, got, want) -> float:
-    """Raise unless ``got`` agrees with ``want``: bit for bit for K1, K2 and
-    K3 (``EXACT``), else within ``TOL``.  Logs and returns the max
+    """Raise unless ``got`` agrees with ``want``: bit for bit for K1, K2, K3
+    and K8 (``EXACT``), else within ``TOL``.  Logs and returns the max
     abs error."""
     err = max_abs(got, want)
     if kernel in EXACT:
@@ -294,10 +311,33 @@ def smooth_flow(h: int, w: int, dev, amp: float = 4.0):
     return dx.contiguous(), dy.contiguous()
 
 
+def kernel_us(fn, dev, label: str) -> float | None:
+    """Device µs per call of a kernel (``measure.device_us_per_call``), or
+    None, logged as not measured, when the profiler keeps losing the trace's
+    kernel records: late in this long process the card's traces at times come
+    back empty.  A timing, not a check (``dryrun._kernel_row`` and the stage
+    rows treat it the same way); the ms per call stands."""
+    from datmo_using_optical_flow_tpu_torch.diagnostics import measure
+
+    try:
+        return measure.device_us_per_call(fn, dev)
+    except measure.LostTrace as e:
+        log(f"{label}: device time not measured ({e})")
+        return None
+
+
+def share(bound: float, us: float | None) -> str:
+    """``bound / us`` formatted, or "not measured"."""
+    return "not measured" if us is None else f"{bound / us:.3f}"
+
+
+def us_text(us: float | None) -> str:
+    return "not measured" if us is None else f"{us:.1f} us"
+
+
 def kernel_phases(dev, name: str, smi: str, h: int, w: int) -> dict:
     """Each kernel against its plain version at the main path's shapes, timed."""
     from datmo_using_optical_flow_tpu_torch.diagnostics import roofline
-    from datmo_using_optical_flow_tpu_torch.diagnostics.measure import device_us_per_call
     from datmo_using_optical_flow_tpu_torch.sim.frames import make_frames
     from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
     from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
@@ -328,14 +368,14 @@ def kernel_phases(dev, name: str, smi: str, h: int, w: int) -> dict:
         ms, plain_ms = time_pair(lambda: fk.poly_exp_reference(img, 5, 5.0),
                                  lambda: fk.poly_exp(img, 5, 5.0))
         record("poly_exp", label, got, want, ms, plain_ms, timed=level == top)
-        us = device_us_per_call(lambda: fk.poly_exp(img, 5, 5.0), dev)
+        us = kernel_us(lambda: fk.poly_exp(img, 5, 5.0), dev, f"poly_exp {label}")
         lib_ms = library_phase("poly_exp", label, poly_exp_conv(img, 5, 5.0), want,
                                1e-3 * float(want.abs().max()), dev, name, smi)
         bound = roofline.poly_exp(lh, lw).bound_us()
         k1_levels[label] = {"ms": ms, "plain_ms": plain_ms, "device_us": us,
                             "library_ms": lib_ms, "bound_us": bound}
-        log(f"poly_exp {label}: device {us:.1f} us per call, bound {bound:.3f} us, share "
-            f"{bound / us:.3f} [{name}, {smi}]")
+        log(f"poly_exp {label}: device {us_text(us)} per call, bound {bound:.3f} us, share "
+            f"{share(bound, us)} [{name}, {smi}]")
         if level == top:
             results["poly_exp"]["library_ms"] = lib_ms
 
@@ -363,9 +403,10 @@ def kernel_phases(dev, name: str, smi: str, h: int, w: int) -> dict:
         label = f"{R0.shape[1]}x{R0.shape[2]}"
         record("fused_iteration", label, got, want, ms, plain_ms, timed=i == 0)
         if i < 2:  # the two levels that run K3 on the main path
-            us = device_us_per_call(lambda: fk.fused_iteration(R0, R1, dx, dy, 15), dev)
+            us = kernel_us(lambda: fk.fused_iteration(R0, R1, dx, dy, 15), dev,
+                           f"fused_iteration {label}")
             levels[label] = {"ms": ms, "plain_ms": plain_ms, "device_us": us}
-            log(f"fused_iteration {label}: device {us:.1f} us per call [{name}, {smi}]")
+            log(f"fused_iteration {label}: device {us_text(us)} per call [{name}, {smi}]")
 
     # K4 with the two frames' converged flow, as the diagnostics run it
     flow = fb.flow_from_pyramids(pyr[0], pyr[1], 0.3, 15, 5, True, False)
@@ -433,6 +474,119 @@ def probe_phase(dev, name: str, smi: str) -> dict:
     lib_ms = library_phase("tiny", "8x128", lambda: torch.add(x, 1.0), want, 0.0, dev, name, smi)
     launch_path_breakdown(x, name, smi)
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms}
+
+
+# ------------------------------------------------------------------ K8: level images and upsamples
+
+def _k8_paths():
+    """The flows whose level images and upsamples K8 runs: (path, (h, w),
+    Farnebäck settings)."""
+    from datmo_using_optical_flow_tpu_torch.benchmarks import flow_batched_720p as fbm
+    from datmo_using_optical_flow_tpu_torch.benchmarks import from_points as fpb
+    from datmo_using_optical_flow_tpu_torch.benchmarks import stream_4k
+    from datmo_using_optical_flow_tpu_torch.benchmarks.stream_1080p import config
+    from datmo_using_optical_flow_tpu_torch.config import FarnebackConfig
+
+    fp = fpb.config()
+    return (("1080p", (1080, 1920), config(1080, 1920).farneback),
+            ("from points", fp.grid_shape, fp.farneback),
+            ("4K", (stream_4k.H, stream_4k.W), config(stream_4k.H, stream_4k.W).farneback),
+            ("720p", (fbm.H, fbm.W), FarnebackConfig()))
+
+
+def _no_tf32(fn):
+    """``fn`` with cuDNN's TF32 off for the call."""
+    def call():
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            return fn()
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+
+    return call
+
+
+def level_image_conv(img, ksize: int, sigma: float, lh: int, lw: int):
+    """One PyTorch composition that computes K8's level image: the
+    reflect-padded image through a separable ``F.conv2d`` (cuDNN's TF32 off),
+    then ``F.interpolate`` (bilinear, ``align_corners=False``) unless the
+    level is full size.  Timed beside K8; the port does not use it."""
+    import torch.nn.functional as F
+
+    from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
+
+    taps = torch.as_tensor(fb.blur_taps(ksize, sigma), device=img.device)
+    n = len(taps) // 2
+
+    def call():
+        x = F.pad(img[None, None], (n, n, n, n), mode="reflect")
+        x = F.conv2d(F.conv2d(x, taps.view(1, 1, -1, 1)), taps.view(1, 1, 1, -1))
+        if tuple(x.shape[-2:]) != (lh, lw):
+            x = F.interpolate(x, size=(lh, lw), mode="bilinear", align_corners=False)
+        return x[0, 0]
+
+    return _no_tf32(call)
+
+
+def level_image_phase(dev, name: str, smi: str) -> dict:
+    """K8 ``torch.equal`` to its plain version at every level image of every
+    path (1080p, from points, 4K, 720p; level 0, the blur alone, included) and
+    at the 2-plane upsample of each level transition (times 1 / pyr_scale),
+    each timed: per call (CUDA events, in turns with the plain version),
+    device µs, bound (``diagnostics/roofline``) and the library call
+    (:func:`level_image_conv`; ``F.interpolate`` times the scale for an
+    upsample), held to 1e-3 of the level's scale.  The 1080p level image
+    1080x1920 -> 324x576 is the kernels line's timed call."""
+    import torch.nn.functional as F
+
+    from datmo_using_optical_flow_tpu_torch.diagnostics import roofline
+    from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
+    from datmo_using_optical_flow_tpu_torch.ops import level_kernels as lk
+    from datmo_using_optical_flow_tpu_torch.oracle.np_farneback import level_sizes
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(8)
+    rows = {}
+
+    def row(label, kern, plain, work, lib):
+        want = plain()
+        err = check("level_image", label, kern(), want)
+        ms, plain_ms = time_pair(plain, kern)
+        us = kernel_us(kern, dev, f"level_image {label}")
+        lib_ms = library_phase("level_image", label, lib, want,
+                               1e-3 * float(want.abs().max()), dev, name, smi)
+        bound = work.bound_us()
+        rows[label] = {"ms": ms, "plain_ms": plain_ms, "device_us": us, "library_ms": lib_ms,
+                       "bound_us": bound, "max_abs_err": err}
+        log(f"level_image {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, device "
+            f"{us_text(us)}, bound {bound:.3f} us ({work.bound_by()}), share "
+            f"{share(bound, us)}, library {lib_ms:.4f} ms [{name}, {smi}]")
+
+    for tag, (h, w), c in _k8_paths():
+        img = torch.rand((h, w), device=dev, generator=gen) * 255
+        sizes = level_sizes(h, w, c.pyr_scale, c.levels)  # coarsest first
+        for _, scale, lh, lw in sizes:
+            ksize, sigma = fb.level_blur(scale)
+            taps = len(lk._taps(ksize, sigma)[1])
+            row(f"{h}x{w} -> {lh}x{lw}, {ksize} taps ({tag})",
+                lambda scale=scale, lh=lh, lw=lw: fb.level_image(img, scale, lh, lw),
+                lambda scale=scale, lh=lh, lw=lw: fb.level_image_reference(img, scale, lh, lw),
+                roofline.level_image(h, w, lh, lw, taps),
+                level_image_conv(img, ksize, sigma, lh, lw))
+        inv = float(np.float32(1.0 / c.pyr_scale))
+        for (_, _, ph, pw), (_, _, lh, lw) in zip(sizes, sizes[1:]):
+            flow = torch.randn((2, ph, pw), device=dev, generator=gen).mul_(3.0)
+            row(f"upsample 2x{ph}x{pw} -> {lh}x{lw} ({tag})",
+                lambda flow=flow, lh=lh, lw=lw: fb.resize_bilinear(flow, lh, lw, inv),
+                lambda flow=flow, lh=lh, lw=lw: fb.resize_bilinear_reference(flow, lh, lw, inv),
+                roofline.resize(2, ph, pw, lh, lw, True),
+                lambda flow=flow, lh=lh, lw=lw: F.interpolate(
+                    flow[None], size=(lh, lw), mode="bilinear", align_corners=False)[0] * inv)
+    top = rows["1080x1920 -> 324x576, 7 taps (1080p)"]
+    log(f"phase 3b (K8, {len(rows)} shapes bit-equal): {time.perf_counter() - t0:.1f} s")
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows.values()), "ms": top["ms"],
+            "plain_ms": top["plain_ms"], "library_ms": top["library_ms"], "levels": rows}
 
 
 def launch_path_breakdown(x, name: str, smi: str, n: int = 1000) -> dict:
@@ -984,7 +1138,7 @@ def diagnostics_phase(dev, gmfa_cfg, pair) -> dict:
     from datmo_using_optical_flow_tpu_torch.sim.frames import make_frames
 
     frames = make_frames(2, 1080, 1920, seed=0)
-    flow = ("poly_exp", "blur_solve", "fused_iteration", "warp_matrices")
+    flow = ("poly_exp", "blur_solve", "fused_iteration", "warp_matrices", "level_image")
     runs = (("micro_flow", lambda: micro_flow.run(frames, dev), flow),
             ("profile_1080p", lambda: profile_1080p.run(frames, dev), flow),
             ("icp_body", lambda: icp_body.run(
@@ -1018,7 +1172,6 @@ def level_rows(dev, name: str, smi: str, frames, c, tag: str) -> dict:
     version and timed (per call, device µs) beside its bound, K1 also beside
     ``F.conv2d``.  K3 takes a smooth flow, K2 the M of zero flow (packed)."""
     from datmo_using_optical_flow_tpu_torch.diagnostics import roofline
-    from datmo_using_optical_flow_tpu_torch.diagnostics.measure import device_us_per_call
     from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
     from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
     from datmo_using_optical_flow_tpu_torch.ops import warp
@@ -1032,7 +1185,7 @@ def level_rows(dev, name: str, smi: str, frames, c, tag: str) -> dict:
     def row(kernel, label, got, want, plain, kern, work, lib=None):
         err = check(kernel, f"{tag} {label}", got, want)
         ms, plain_ms = time_pair(plain, kern)
-        us = device_us_per_call(kern, dev)
+        us = kernel_us(kern, dev, f"{kernel} {tag} {label}")
         lib_ms = None if lib is None else library_phase(
             kernel, f"{tag} {label}", lib, want, 1e-3 * float(want.abs().max()), dev, name, smi)
         bound = work.bound_us()
@@ -1040,7 +1193,7 @@ def level_rows(dev, name: str, smi: str, frames, c, tag: str) -> dict:
                                             "library_ms": lib_ms, "bound_us": bound,
                                             "max_abs_err": err}
         log(f"{kernel} {tag} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, device "
-            f"{us:.1f} us, bound {bound:.3f} us ({work.bound_by()}), share {bound / us:.3f}"
+            f"{us_text(us)}, bound {bound:.3f} us ({work.bound_by()}), share {share(bound, us)}"
             + ("" if lib_ms is None else f", F.conv2d {lib_ms:.4f} ms") + f" [{name}, {smi}]")
 
     for level in range(top, -1, -1):
@@ -1069,10 +1222,11 @@ def level_rows(dev, name: str, smi: str, frames, c, tag: str) -> dict:
 
 
 def _flow_launches(h: int, w: int, pairs: int, frames_expanded: int, c) -> dict:
-    """K1-K3 launches of ``pairs`` flows over ``frames_expanded`` expanded
-    frames at (h, w) with Farnebäck settings ``c``: K1 once per level and
-    frame, K3 ``iterations`` times per level of at least 128x256, K2 on the
-    others."""
+    """K1-K3 and K8 launches of ``pairs`` flows over ``frames_expanded``
+    expanded frames at (h, w) with Farnebäck settings ``c``: K1 once per level
+    and frame, K3 ``iterations`` times per level of at least 128x256, K2 on the
+    others, K8 twice per level and frame (the level image) and once per pair
+    and level transition (the 2-plane upsample)."""
     from datmo_using_optical_flow_tpu_torch.ops import warp
     from datmo_using_optical_flow_tpu_torch.oracle.np_farneback import level_sizes
 
@@ -1080,13 +1234,14 @@ def _flow_launches(h: int, w: int, pairs: int, frames_expanded: int, c) -> dict:
     k3 = sum(warp.eligible(lh, lw) for lh, lw in levels)
     return {"poly_exp": len(levels) * frames_expanded,
             "fused_iteration": k3 * c.iterations * pairs,
-            "blur_solve": (len(levels) - k3) * c.iterations * pairs}
+            "blur_solve": (len(levels) - k3) * c.iterations * pairs,
+            "level_image": 2 * len(levels) * frames_expanded + (len(levels) - 1) * pairs}
 
 
 def _counted(label: str, fn, want: dict):
     """``fn()`` with every launch count set to 0 just before and read just
     after, the card synchronised on both sides; raises unless the counts of
-    K1-K6 are ``want`` (kernels not named: 0).  Returns ``fn()``'s result
+    K1-K6 and K8 are ``want`` (kernels not named: 0).  Returns ``fn()``'s result
     and the counts."""
     torch.cuda.synchronize()
     reset_launches()
@@ -1718,7 +1873,7 @@ def streams_phase(dev, name: str, smi: str, gclouds) -> dict:
     frames = np.stack([make_frames(3, 1080, 1920, seed=s) for s in range(n)])
     bevs = [torch.as_tensor(frames[:, t], device=dev) for t in range(3)]
     single = PipelineA(cfg, dev, fast_warp=True)
-    flow = ("poly_exp", "blur_solve", "fused_iteration", *ROUNDING)
+    flow = ("poly_exp", "blur_solve", "fused_iteration", "level_image", *ROUNDING)
 
     # A's frame-pair step
     ref, want = singles([lambda s=s: single.step(bevs[0][s], bevs[1][s], single.init_carry())
@@ -1825,7 +1980,6 @@ def k1_narrow_phase(dev, name: str, smi: str) -> dict:
     runtime-n kernel's (sigma 0.3).  Then K1 at the sharded flow's 282x1920
     block timed beside ``F.conv2d``."""
     from datmo_using_optical_flow_tpu_torch.diagnostics import roofline
-    from datmo_using_optical_flow_tpu_torch.diagnostics.measure import device_us_per_call
     from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
 
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -1861,11 +2015,11 @@ def k1_narrow_phase(dev, name: str, smi: str) -> dict:
                 want)
     ms, plain_ms = time_pair(lambda: fk.poly_exp_reference(img, 5, 5.0),
                              lambda: fk.poly_exp(img, 5, 5.0))
-    us = device_us_per_call(lambda: fk.poly_exp(img, 5, 5.0), dev)
+    us = kernel_us(lambda: fk.poly_exp(img, 5, 5.0), dev, "poly_exp 282x1920")
     lib_ms = library_phase("poly_exp", "282x1920", poly_exp_conv(img, 5, 5.0), want,
                            1e-3 * float(want.abs().max()), dev, name, smi)
     bound = roofline.poly_exp(282, 1920).bound_us()
-    log(f"poly_exp 282x1920: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, device {us:.1f} us, "
+    log(f"poly_exp 282x1920: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, device {us_text(us)}, "
         f"bound {bound:.3f} us, F.conv2d {lib_ms:.4f} ms [{name}, {smi}]")
     return {"282x1920 sharded block": {"ms": ms, "plain_ms": plain_ms, "device_us": us,
                                        "library_ms": lib_ms, "bound_us": bound,
@@ -1982,7 +2136,8 @@ def quality_phase(dev, name: str, smi: str, n_frames: int = 12) -> dict:
     torch.cuda.synchronize(dev)
     launches = read_launches()
     log(f"quality, easy scene, {n_frames} frames: launches {launches}")
-    if any(launches[k] <= 0 for k in ("poly_exp", "blur_solve", "nearest_neighbors")) \
+    if any(launches[k] <= 0 for k in ("poly_exp", "blur_solve", "level_image",
+                                      "nearest_neighbors")) \
             or launches["fused_iteration"]:
         raise AssertionError(f"quality: launches {launches}")
     need_rounding("quality", launches)
@@ -2102,6 +2257,7 @@ def main() -> None:
 
     results = kernel_phases(dev, name, smi, 1080, 1920)
     results["tiny"] = probe_phase(dev, name, smi)
+    results["level_image"] = level_image_phase(dev, name, smi)
     other_shapes_phase(dev)
     t0 = time.perf_counter()
     narrow_rows = k1_narrow_phase(dev, name, smi)
@@ -2167,7 +2323,8 @@ def main() -> None:
             "warp_matrices": roofline.warp_matrices(1080, 1920),
             "nearest_neighbors": results["nearest_neighbors"]["work"],
             "tiny": roofline.tiny(8 * 128), "fma32": results["fma32"]["work"],
-            "sumsq": results["sumsq"]["work"]}
+            "sumsq": results["sumsq"]["work"],
+            "level_image": roofline.level_image(1080, 1920, 324, 576, 7)}
     kernels = []
     for k in REPLACES:
         res, bound_us = results[k], work[k].bound_us()
@@ -2188,7 +2345,7 @@ def main() -> None:
                     "busiest_round_us": icp_ab[s]["busiest_round"]["k5_us"],
                     "busiest_block_us": icp_ab[s]["busiest_round"]["busiest_block_us"]}
                 for s in ("compact", "inplace")}
-        if k in ("poly_exp", "blur_solve", "fused_iteration"):  # times at each level that runs it
+        if k in ("poly_exp", "blur_solve", "fused_iteration", "level_image"):  # at each level
             kernels[-1]["levels"] = res["levels"]
             kernels[-1]["sharded_flow_launches_per_rank"] = (
                 sharded["per_rank"][0]["launches"]["sharded_flow"].get(k, 0))

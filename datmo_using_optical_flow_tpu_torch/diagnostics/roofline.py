@@ -132,3 +132,36 @@ def sumsq(rows: int, k: int, root: bool) -> Work:
     multiply and k - 1 fused multiply-adds, and one more operation for the root."""
     return Work(4 * (k + 1) * rows, (k + int(root)) * rows)
 
+
+
+def _read_positions(size: int, out: int) -> int:
+    """The distinct source positions cv2's INTER_LINEAR resize of an axis of
+    ``size`` to ``out`` reads (its i0 and i1, ``ops/farneback.resize_table``)."""
+    f = (np.arange(out, dtype=np.float64) + 0.5) * (size / out) - 0.5
+    i0 = np.clip(np.floor(f), 0, max(size - 2, 0)).astype(np.int64)
+    return len(np.union1d(i0, np.minimum(i0 + 1, size - 1)))
+
+
+def level_image(h: int, w: int, lh: int, lw: int, taps: int) -> Work:
+    """K8's level image: the (h, w) image in, the (lh, lw) level out.  The
+    blur is needed only where the resize reads it: the vertical chain (one
+    multiply and ``taps`` - 1 fmas for the nonzero taps) at the distinct
+    rows the resize reads, over every column; the horizontal chain at those
+    rows and the distinct columns it reads; the rows' lerp (a multiply and an
+    fma) there; the columns' lerp at every output.  Each fma is one
+    instruction here (the rate counts instructions).  At ``(lh, lw) == (h,
+    w)`` it is the blur alone: both chains at every pixel."""
+    if (lh, lw) == (h, w):
+        return Work(8 * h * w, 2 * taps * h * w)
+    rows, cols = _read_positions(h, lh), _read_positions(w, lw)
+    ops = taps * rows * w + taps * rows * cols + 2 * lh * cols + 2 * lh * lw
+    return Work(4 * (h * w + lh * lw), ops)
+
+
+def resize(planes: int, h: int, w: int, oh: int, ow: int, scaled: bool) -> Work:
+    """K8's resize of ``planes`` (h, w) planes to (oh, ow): each plane in and
+    out once; the rows' lerp at the distinct columns read, the columns' lerp
+    at every output, and the multiply by the scale when there is one."""
+    cols = _read_positions(w, ow)
+    return Work(4 * planes * (h * w + oh * ow),
+                planes * (2 * oh * cols + (2 + int(scaled)) * oh * ow))

@@ -34,8 +34,8 @@ The launches of each path's run are counted on each rank (every count set to
 card, rank 0 also holds every kernel of each phase to its plain version on
 the inputs that phase gives it: the first call at each input signature, in
 the single-feed references of phases 1 and 3 and in one more sharded run of
-phases 2 and 4 (``kernel_checks``: K1-K3 ``torch.equal`` and timed, K5 and
-K7 bit for bit).
+phases 2 and 4 (``kernel_checks``: K1-K3 and K8 ``torch.equal`` and timed,
+K5 and K7 bit for bit).
 
     python -m datmo_using_optical_flow_tpu_torch.dryrun --ranks 4 \
         [--backend gloo|nccl] [--device cuda|cpu] [--flow 1088x1920] \
@@ -66,7 +66,8 @@ from datmo_using_optical_flow_tpu_torch.models.optical_flow_datmo import (Pipeli
                                                                           _datmo_tail,
                                                                           _stream_step_impl)
 from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
-from datmo_using_optical_flow_tpu_torch.ops import flow_kernels, nn_kernels, round_kernels
+from datmo_using_optical_flow_tpu_torch.ops import (flow_kernels, level_kernels, nn_kernels,
+                                                    round_kernels)
 from datmo_using_optical_flow_tpu_torch.parallel import mesh, streams
 from datmo_using_optical_flow_tpu_torch.parallel.mesh import RowGroup, shard_rows
 from datmo_using_optical_flow_tpu_torch.parallel.sharded_flow import (sharded_farneback_flow,
@@ -80,10 +81,11 @@ FLOW = (1088, 1920)   # the sharded flow's frame
 POINTS = 1024         # GMFA points per feed
 # the sharded flow's options: sharded_farneback_flow's defaults
 POLY_N, POLY_SIGMA, WINSIZE, WARP_HALO = 5, 5.0, 15, 16
-_COUNTED = (flow_kernels, nn_kernels, round_kernels)
-# the kernels the dry run launches on the card (K1-K3 in the flows, K5 in
-# GMFA's step, K7 in both pipelines), each held to its plain version by rank 0
-KERNELS = ("poly_exp", "blur_solve", "fused_iteration", "nearest_neighbors", "fma32", "sumsq")
+_COUNTED = (flow_kernels, level_kernels, nn_kernels, round_kernels)
+# the kernels the dry run launches on the card (K1-K3 and K8 in the flows, K5
+# in GMFA's step, K7 in both pipelines), each held to its plain version by rank 0
+KERNELS = ("poly_exp", "blur_solve", "fused_iteration", "level_image", "nearest_neighbors",
+           "fma32", "sumsq")
 
 
 def prod_cfg(h: int = GRID[0], w: int = GRID[1]) -> PipelineAConfig:
@@ -232,17 +234,18 @@ def _sig(x) -> tuple | str:
 def _held_to_plain(rows: dict, phase: str, dev: torch.device, on: bool = True):
     """Within, on the card and when ``on``: the first call of each kernel
     wrapper at each input signature is also held to its plain version on the
-    same inputs, raising unless equal (K1-K3 ``torch.equal`` and timed by
-    :func:`_kernel_row`; K5's five outputs ``torch.equal``; K7 bit for bit),
-    and its row goes to ``rows``.  The checks' launches are made outside the
-    counted runs."""
+    same inputs, raising unless equal (K1-K3 and K8's three entry points
+    ``torch.equal`` and timed by :func:`_kernel_row`; K5's five outputs
+    ``torch.equal``; K7 bit for bit), and its row goes to ``rows``.  The
+    checks' launches are made outside the counted runs."""
     if not on or dev.type != "cuda":
         yield
         return
-    fk, k5, rk = flow_kernels, nn_kernels, round_kernels
+    fk, k5, k8, rk = flow_kernels, nn_kernels, level_kernels, round_kernels
     orig = {"poly_exp": fk.poly_exp, "blur_solve": fk.blur_solve,
             "fused_iteration": fk.fused_iteration, "nearest_neighbors": k5.nearest_neighbors,
-            "fma32": rk._fma32, "sumsq": rk._sumsq}
+            "fma32": rk._fma32, "sumsq": rk._sumsq, "level_image": k8.level_image,
+            "blur": k8.blur, "resize": k8.resize}
 
     def once(key: tuple, check) -> None:
         if key not in rows:
@@ -277,6 +280,32 @@ def _held_to_plain(rows: dict, phase: str, dev: torch.device, on: bool = True):
             roofline.fused_iteration(*shape[1:], winsize), shape, dev))
         return orig["fused_iteration"](R0, R1, dx, dy, winsize, gaussian)
 
+    def level_image(im, scale, lh, lw):
+        shape = (*im.shape, lh, lw)
+        once(("level_image", shape), lambda: _kernel_row(
+            "level_image", lambda: orig["level_image"](im, scale, lh, lw),
+            lambda: fb.level_image_reference(im, scale, lh, lw),
+            roofline.level_image(*shape, len(k8._taps(*fb.level_blur(scale))[1])), shape, dev))
+        return orig["level_image"](im, scale, lh, lw)
+
+    def blur(img, ksize, sigma):
+        shape = (*img.shape, ksize)
+        once(("level_image", "blur", shape), lambda: _kernel_row(
+            "level_image", lambda: orig["blur"](img, ksize, sigma),
+            lambda: fb.gaussian_blur_reference(img, ksize, sigma),
+            roofline.level_image(*img.shape, *img.shape, len(k8._taps(ksize, sigma)[1])),
+            shape, dev))
+        return orig["blur"](img, ksize, sigma)
+
+    def resize(img, out_h, out_w, scale=1.0):
+        shape = (*img.shape, out_h, out_w)
+        once(("level_image", "resize", shape, scale), lambda: _kernel_row(
+            "level_image", lambda: orig["resize"](img, out_h, out_w, scale),
+            lambda: fb.resize_bilinear_reference(img, out_h, out_w, scale),
+            roofline.resize(img.numel() // (img.shape[-2] * img.shape[-1]), *img.shape[-2:],
+                            out_h, out_w, scale != 1.0), shape, dev))
+        return orig["resize"](img, out_h, out_w, scale)
+
     def nearest_neighbors(src, index, n_active=None, cap2=None, block_counts=None,
                           block_table=None, drift=None):
         args = (n_active, cap2, block_counts, block_table, drift)
@@ -304,6 +333,8 @@ def _held_to_plain(rows: dict, phase: str, dev: torch.device, on: bool = True):
         for mod, name, fn in ((fk, "poly_exp", poly_exp), (fk, "blur_solve", blur_solve),
                               (fk, "fused_iteration", fused_iteration),
                               (k5, "nearest_neighbors", nearest_neighbors),
+                              (k8, "level_image", level_image), (k8, "blur", blur),
+                              (k8, "resize", resize),
                               (rk, "_fma32", fma32), (rk, "_sumsq", sumsq)):
             stack.enter_context(mock.patch.object(mod, name, fn))
         yield
@@ -328,7 +359,7 @@ def _dryrun_rank(group: RowGroup, grid: tuple, flow_hw: tuple, points: int,
     (_, outs, metrics), out["launches"]["stream_a"] = _counted(
         lambda: step(bev1[mine].to(dev), bev2[mine].to(dev),
                      streams.init_stream_carry(cfg, len(feeds), dev)), dev)
-    _need("phase 1", out["launches"]["stream_a"], ("poly_exp", "blur_solve"), dev)
+    _need("phase 1", out["launches"]["stream_a"], ("poly_exp", "blur_solve", "level_image"), dev)
     tracks = int(group.all_reduce_sum(metrics["total_tracks"]))
     cells = int(group.all_reduce_sum(metrics["total_cells"]))
     checks: dict = {}  # rank 0's kernels held to their plain versions, by signature
@@ -412,7 +443,8 @@ def _dryrun_rank(group: RowGroup, grid: tuple, flow_hw: tuple, points: int,
 
     results, out["launches"]["stream_space"] = _counted(
         lambda: [combined(s) for s in feeds4], dev)
-    _need("phase 4", out["launches"]["stream_space"], ("poly_exp", "blur_solve"), dev)
+    _need("phase 4", out["launches"]["stream_space"], ("poly_exp", "blur_solve", "level_image"),
+          dev)
     with _held_to_plain(checks, "phase 4", dev, feeds4.start == 0 and space.rank == 0):
         for s in feeds4:
             combined(s)

@@ -60,6 +60,9 @@ _SIGNATURES = {
     "datmo_tiny": ([_P, _P, ctypes.c_int64, _I, _P], _I),
     "datmo_fma32": ([_P, _P, _P, _P, _F, _F, _I, ctypes.c_int64, _I, _P], _I),
     "datmo_sumsq": ([_P, _P, _I, _I, ctypes.c_int64, _I, _P], _I),
+    "datmo_level_image": ([_P, _P, _P, _I, _I, _I, _I, *[_P] * 8, _I, _I, _P], _I),
+    "datmo_blur": ([_P, _P, _P, _I, _I, _P, _P, _I, _I, _P], _I),
+    "datmo_resize": ([_P, _P, ctypes.c_int64, _I, _I, _I, _I, *[_P] * 6, _F, _I, _P], _I),
     "datmo_error_string": ([_I], ctypes.c_char_p),
 }
 

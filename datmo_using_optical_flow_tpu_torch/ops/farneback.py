@@ -5,14 +5,21 @@ The counterpart of ``datmo_using_optical_flow_tpu.ops.farneback`` (cv2
 plane layouts, the same tap order and float32 casts, the same level schedule.
 The three hot stages go through the CUDA kernels of
 :mod:`~datmo_using_optical_flow_tpu_torch.ops.flow_kernels` (polynomial
-expansion; the fused warp + window + solve iteration; window + solve), whose
-plain versions run for CPU tensors.
+expansion; the fused warp + window + solve iteration; window + solve), and the
+pyramid's level images and the flow's upsample through K8
+(:mod:`~datmo_using_optical_flow_tpu_torch.ops.level_kernels`), whose plain
+versions run for CPU tensors.  The level images and the resize round as the
+JAX package's jitted step rounds them (each product contracted into the add
+that takes it), so the pyramid equals its jitted ``build_pyramid(...,
+use_pallas=False)`` bit for bit.
 
 No host synchronisation on the step's path: index and weight tables are built
 on the tensor's device from Python scalars, never copied from the host.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -53,7 +60,10 @@ def _pad_axis(x: torch.Tensor, n: int, axis: int, mode: str) -> torch.Tensor:
 def _corr_axis(img: torch.Tensor, kernel: np.ndarray, axis: int,
                pad_mode: str = "edge") -> torch.Tensor:
     """1-D correlation along ``axis`` by shift-and-add, taps in ascending order;
-    taps that are zero in float32 are skipped."""
+    taps that are zero in float32 are skipped.  Each product and each add is
+    rounded on its own: the form of the window sums, which K2 and K3 equal
+    bit for bit (the level images' blur takes the contracted form,
+    :func:`_corr_at`)."""
     k = np.asarray(kernel, dtype=np.float32)
     n = len(k) // 2
     size = img.shape[axis]
@@ -73,37 +83,144 @@ def sep_filter(img: torch.Tensor, ky: np.ndarray, kx: np.ndarray, pad_mode: str)
 
 
 def gaussian_blur(img: torch.Tensor, ksize: int, sigma: float) -> torch.Tensor:
-    """cv2.GaussianBlur (BORDER_REFLECT_101), used in pyramid level prep."""
-    k = gaussian_kernel(ksize, sigma).astype(np.float32)
-    if len(k) == 1:
-        return img
-    return sep_filter(img, k, k, "reflect")
+    """cv2.GaussianBlur (BORDER_REFLECT_101) of a float32 (H, W) image, as
+    the JAX package's jitted ``gaussian_blur`` rounds it: the K8 kernel on
+    the card (:mod:`.level_kernels`), :func:`gaussian_blur_reference` on the
+    CPU."""
+    from datmo_using_optical_flow_tpu_torch.ops import level_kernels
+
+    return level_kernels.blur(img, ksize, sigma)
 
 
-def _resize_axis(size: int, out: int, device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """cv2 INTER_LINEAR sampling of one axis: (i0, i1, weight of i1).
+def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int,
+                    scale: float = 1.0) -> torch.Tensor:
+    """cv2.resize INTER_LINEAR (pixel-centre convention) of a float32
+    (..., H, W) over its last two axes, times the float32 ``scale`` (1.0:
+    no multiply), as the JAX package's jitted ``resize_bilinear(...) *
+    scale`` rounds it: the K8 kernel on the card, :func:`resize_bilinear_reference`
+    on the CPU."""
+    from datmo_using_optical_flow_tpu_torch.ops import level_kernels
+
+    return level_kernels.resize(img, out_h, out_w, scale)
+
+
+# ------------------------------------------------------------------ K8's plain versions
+
+def reflect101(idx: torch.Tensor, size: int) -> torch.Tensor:
+    """Positions ``idx`` mapped into ``[0, size)`` as ``jnp.pad(mode="reflect")``
+    pads (reflect-101, repeated where the pad reaches past the axis, as
+    numpy repeats it); an axis of length 1 pads with its one value."""
+    if size == 1:
+        return torch.zeros_like(idx)
+    period = 2 * (size - 1)
+    m = torch.remainder(idx, period)
+    return torch.where(m >= size, period - m, m)
+
+
+@functools.lru_cache(maxsize=64)
+def resize_table(size: int, out: int, device: torch.device
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """cv2 INTER_LINEAR sampling of one axis, built once per ``(size, out,
+    device)``: ``(i0, i1, w, 1 - w)``, the two source positions (int64) and
+    the float32 weights of ``i1`` and ``i0``; shared by every caller, and
+    read, never written.
 
     The positions are computed in float64 on ``device`` with the same
-    operations as the numpy original, so they are bit-identical to it."""
+    operations as the JAX package's numpy tables, so they are bit-identical
+    to them; ``1 - w`` is the float32 subtraction XLA folds."""
     f = (torch.arange(out, dtype=torch.float64, device=device) + 0.5) * (size / out) - 0.5
     i0 = torch.clamp(torch.floor(f), 0, max(size - 2, 0))
     wgt = torch.clamp(f - i0, 0.0, 1.0).to(torch.float32)
     if size <= 1:
         wgt = torch.zeros_like(wgt)
     i0 = i0.to(torch.int64)
-    return i0, torch.clamp(i0 + 1, max=size - 1), wgt
+    return i0, torch.clamp(i0 + 1, max=size - 1), wgt, 1 - wgt
 
 
-def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """cv2.resize INTER_LINEAR (pixel-centre convention) over the last two axes."""
-    h, w = img.shape[-2], img.shape[-1]
-    if (out_h, out_w) == (h, w):
+def _lerp(a: torch.Tensor, b: torch.Tensor, w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``a * (1 - w) + b * w`` contracted as XLA's CPU code does it:
+    ``fma(a, 1 - w, b * w)``, the product ``b * w`` rounded on its own."""
+    from datmo_using_optical_flow_tpu_torch.ops import round_kernels
+
+    return round_kernels.fma32_reference(a, v, b * w)
+
+
+def blur_taps(ksize: int, sigma: float) -> np.ndarray:
+    """cv2's float32 Gaussian taps of the pre-blur."""
+    return gaussian_kernel(ksize, sigma).astype(np.float32)
+
+
+def _corr_at(img: torch.Tensor, taps: np.ndarray, axis: int,
+             at: torch.Tensor | None = None) -> torch.Tensor:
+    """The 1-D correlation along ``axis`` (-2 or -1) with reflect-101
+    padding, at the positions ``at`` of that axis (every position when
+    None): a chain of once-rounded fmas in ascending tap order, zero taps
+    skipped (:func:`.round_kernels.fma_chain_reference`), as XLA's compiled
+    ``_corr_axis`` rounds the blur.  On an axis of length 1 every tap reads
+    the one value, and XLA computes the product of taps of equal weight
+    once: such products are rounded on their own and added."""
+    from datmo_using_optical_flow_tpu_torch.ops import round_kernels
+
+    n, size = len(taps) // 2, img.shape[axis]
+    pos = torch.arange(size, device=img.device) if at is None else at
+    if size == 1:
+        ws = [float(w) for w in taps if w != 0.0]
+        x = img.index_select(axis, torch.zeros_like(pos))
+        return round_kernels.fma_chain_reference(
+            [(i, w, x) for i, w in enumerate(ws)],
+            frozenset(i for i, w in enumerate(ws) if ws.count(w) > 1))
+    return round_kernels.fma_chain_reference(
+        [(i, w, img.index_select(axis, reflect101(pos + (i - n), size)))
+         for i, w in enumerate(taps) if w != 0.0])
+
+
+def gaussian_blur_reference(img: torch.Tensor, ksize: int, sigma: float) -> torch.Tensor:
+    """Plain version of K8's blur: the vertical pass, then the horizontal one,
+    over the last two axes."""
+    taps = blur_taps(ksize, sigma)
+    if len(taps) == 1:
         return img
-    y0, y1, wy = _resize_axis(h, out_h, img.device)
-    x0, x1, wx = _resize_axis(w, out_w, img.device)
-    wy = wy[:, None]
-    v = img.index_select(-2, y0) * (1 - wy) + img.index_select(-2, y1) * wy
-    return v.index_select(-1, x0) * (1 - wx) + v.index_select(-1, x1) * wx
+    return _corr_at(_corr_at(img, taps, -2), taps, -1)
+
+
+def resize_bilinear_reference(img: torch.Tensor, out_h: int, out_w: int,
+                              scale: float = 1.0) -> torch.Tensor:
+    """Plain version of K8's resize: the rows' lerp, then the columns', each
+    ``fma(a, 1 - w, b * w)``, then the multiply by ``scale`` unless it is 1."""
+    h, w = img.shape[-2], img.shape[-1]
+    if (out_h, out_w) != (h, w):
+        y0, y1, wy, vy = resize_table(h, out_h, img.device)
+        x0, x1, wx, vx = resize_table(w, out_w, img.device)
+        v = _lerp(img.index_select(-2, y0), img.index_select(-2, y1), wy[:, None], vy[:, None])
+        img = _lerp(v.index_select(-1, x0), v.index_select(-1, x1), wx, vx)
+    scale = float(np.float32(scale))
+    return img if scale == 1.0 else img * scale
+
+
+def level_blur(scale: float) -> tuple[int, float]:
+    """cv2's pre-blur of the pyramid level at ``scale``: (ksize, sigma)."""
+    sigma = (1.0 / scale - 1.0) * 0.5
+    return max(int(round(sigma * 5)) | 1, 3), sigma
+
+
+def level_image_reference(im: torch.Tensor, scale: float, lh: int, lw: int) -> torch.Tensor:
+    """Plain version of K8's level image: :func:`gaussian_blur_reference`
+    then :func:`resize_bilinear_reference` of a float32 (H, W) image,
+    evaluating the blur only where the resize reads it: the vertical pass at
+    the rows each output row's ``i0`` and ``i1`` name, the horizontal pass at
+    the columns each output column's ``i0`` and ``i1`` name.  Each value is
+    the same chain as in the full blur, so the bits are the same."""
+    ksize, sigma = level_blur(scale)
+    h, w = im.shape
+    if (lh, lw) == (h, w):
+        return gaussian_blur_reference(im, ksize, sigma)
+    taps = blur_taps(ksize, sigma)
+    y0, y1, wy, vy = resize_table(h, lh, im.device)
+    x0, x1, wx, vx = resize_table(w, lw, im.device)
+    rows = [_corr_at(im, taps, -2, y) for y in (y0, y1)]              # (lh, W) each
+    (a0, a1), (b0, b1) = ([_corr_at(r, taps, -1, x) for x in (x0, x1)] for r in rows)
+    wy, vy = wy[:, None], vy[:, None]
+    return _lerp(_lerp(a0, b0, wy, vy), _lerp(a1, b1, wy, vy), wx, vx)
 
 
 # ------------------------------------------------------------------ poly expansion
@@ -241,8 +358,10 @@ def update_matrices(R0: torch.Tensor, R1: torch.Tensor, dx: torch.Tensor,
     else:
         flat = R1.reshape(5, h * w)
 
+        # an index past the end (a pixel outside, on a level of one row or
+        # column) is clamped, as JAX's gather clamps it
         def take(offset):
-            return flat[:, base + offset].reshape(5, h, w)
+            return flat[:, torch.clamp(base + offset, max=h * w - 1)].reshape(5, h, w)
 
         r = a00 * take(0) + a01 * take(1) + a10 * take(w) + a11 * take(w + 1)
     return matrices_from_samples(R0, r, inside, dx, dy, _border_scale(h, w, R0.device))
@@ -345,10 +464,12 @@ def build_pyramid(im: torch.Tensor, pyr_scale: float, levels: int, poly_n: int,
 
 def level_image(im: torch.Tensor, scale: float, lh: int, lw: int) -> torch.Tensor:
     """The (lh, lw) image of the pyramid level at ``scale``: cv2's pre-blur
-    (sigma = (1/scale - 1) / 2) then the bilinear resize."""
-    sigma = (1.0 / scale - 1.0) * 0.5
-    smooth_sz = max(int(round(sigma * 5)) | 1, 3)
-    return resize_bilinear(gaussian_blur(im.to(torch.float32), smooth_sz, sigma), lh, lw)
+    (sigma = (1/scale - 1) / 2) then the bilinear resize, rounded as the JAX
+    package's jitted ``build_pyramid`` rounds them: the K8 kernel on the card
+    (:mod:`.level_kernels`), :func:`level_image_reference` on the CPU."""
+    from datmo_using_optical_flow_tpu_torch.ops import level_kernels
+
+    return level_kernels.level_image(im.to(torch.float32), scale, lh, lw)
 
 
 def flow_from_pyramids(pyr1, pyr2, pyr_scale: float, winsize: int, iterations: int,
@@ -361,16 +482,15 @@ def flow_from_pyramids(pyr1, pyr2, pyr_scale: float, winsize: int, iterations: i
         if dx is None:
             if flow0 is not None:  # OPTFLOW_USE_INITIAL_FLOW
                 scale = float(np.float32(pyr_scale ** (len(pyr1) - 1)))
-                f0 = torch.movedim(flow0.to(torch.float32), -1, 0)  # (2, H, W)
-                f0 = resize_bilinear(f0, lh, lw) * scale
-                dx, dy = f0[0].contiguous(), f0[1].contiguous()
+                f0 = torch.movedim(flow0.to(torch.float32), -1, 0).contiguous()  # (2, H, W)
+                f0 = resize_bilinear(f0, lh, lw, scale)
+                dx, dy = f0[0], f0[1]
             else:
                 dx = torch.zeros((lh, lw), dtype=torch.float32, device=R0.device)
                 dy = torch.zeros((lh, lw), dtype=torch.float32, device=R0.device)
         else:
-            inv = float(np.float32(1.0 / pyr_scale))
-            dx = resize_bilinear(dx, lh, lw) * inv
-            dy = resize_bilinear(dy, lh, lw) * inv
+            f = resize_bilinear(torch.stack([dx, dy]), lh, lw, 1.0 / pyr_scale)
+            dx, dy = f[0], f[1]
         dx, dy = farneback_level(R0, R1, dx, dy, winsize, iterations, fast_warp, gaussian)
     return torch.stack([dx, dy], dim=-1)
 

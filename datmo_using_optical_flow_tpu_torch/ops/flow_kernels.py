@@ -98,29 +98,6 @@ def _check_window(winsize: int) -> None:
 
 # ------------------------------------------------------------------ K1
 
-def _fma_chain(terms: list, shared: frozenset = frozenset()) -> torch.Tensor:
-    """``sum(w * x for i, w, x in terms)`` in tap order, rounded as XLA's CPU
-    code rounds such a chain: each product is contracted into the add that
-    takes it (a once-rounded fma), the first product into the add of the
-    second; a product that two sums of the same output share (taps in
-    ``shared``) keeps its own rounding."""
-    def prod(w, x):
-        return float(w) * x
-
-    if len(terms) == 1:
-        return prod(terms[0][1], terms[0][2])
-    (i0, w0, x0), (i1, w1, x1) = terms[0], terms[1]
-    if i0 not in shared:
-        out = round_kernels.fma32_reference(x0, w0, prod(w1, x1))
-    elif i1 not in shared:
-        out = round_kernels.fma32_reference(x1, w1, prod(w0, x0))
-    else:
-        out = prod(w0, x0) + prod(w1, x1)
-    for i, w, x in terms[2:]:
-        out = out + prod(w, x) if i in shared else round_kernels.fma32_reference(x, w, out)
-    return out
-
-
 def poly_exp_narrow(w: int, n: int) -> bool:
     """Whether XLA's compiled ``poly_exp`` takes its narrow form at width
     ``w``: when a row plane edge-padded on one side (``w + n`` columns) is
@@ -139,10 +116,10 @@ def poly_exp_reference(img: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
     CPU (bit-equal at the flow's level shapes, narrow ones included).
 
     Each correlation is a chain of once-rounded multiply-adds
-    (:func:`_fma_chain`).  The x^2 plane sums ``g`` and ``xxg`` over the same
-    row plane, and the two share their products where the taps are equal
-    (x = +-1), so there both of its sums add those products separately
-    rounded; the y^2 plane's ``g`` sum is the contracted one, and at a
+    (:func:`.round_kernels.fma_chain_reference`).  The x^2 plane sums ``g``
+    and ``xxg`` over the same row plane, and the two share their products
+    where the taps are equal (x = +-1), so there both of its sums add those
+    products separately rounded; the y^2 plane's ``g`` sum is the contracted one, and at a
     narrow width (:func:`poly_exp_narrow`) its two ``g`` sums take their
     centre tap from row planes rounded the same way.  Images of at most ``n``
     rows or columns take the tiny form (:mod:`.poly_tiny`)."""
@@ -151,24 +128,25 @@ def poly_exp_reference(img: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
         return poly_tiny.poly_exp_tiny_reference(img, n, sigma)
     g, xg, xxg, invG = (np.asarray(k, np.float32) for k in prepare_gaussian(n, sigma))
     ig11, ig03, ig33, ig55 = (float(invG[i, j]) for i, j in ((1, 1), (0, 3), (3, 3), (5, 5)))
+    chain = round_kernels.fma_chain_reference
     pv = fb._pad_axis(img, n, -2, "edge")
     rows = [pv[i:i + h] for i in range(2 * n + 1)]
     both = frozenset(i for i in range(2 * n + 1) if g[i] == xxg[i] and g[i] != 0.0)
     # vertical: g and xxg keep every tap, xg skips its zero taps
-    row_g = _fma_chain([(i, g[i], r) for i, r in enumerate(rows)])
-    row_xg = _fma_chain([(i, xg[i], r) for i, r in enumerate(rows) if xg[i] != 0.0])
-    row_xxg = _fma_chain([(i, xxg[i], r) for i, r in enumerate(rows)])
+    row_g = chain([(i, g[i], r) for i, r in enumerate(rows)])
+    row_xg = chain([(i, xg[i], r) for i, r in enumerate(rows) if xg[i] != 0.0])
+    row_xxg = chain([(i, xxg[i], r) for i, r in enumerate(rows)])
 
     def corr_x(a, kern, shared=frozenset(), centre=None):  # taps zero in float32 are skipped
         p = fb._pad_axis(a, n, -1, "edge")
-        return _fma_chain([(i, k, centre if i == n and centre is not None
-                            else p.narrow(-1, i, w))
-                           for i, k in enumerate(kern) if k != 0.0], shared)
+        return chain([(i, k, centre if i == n and centre is not None
+                       else p.narrow(-1, i, w))
+                      for i, k in enumerate(kern) if k != 0.0], shared)
 
     centre_g = centre_xxg = None
     if poly_exp_narrow(w, n):
-        centre_g = _fma_chain([(i, g[i], r) for i, r in enumerate(rows)], both)
-        centre_xxg = _fma_chain([(i, xxg[i], r) for i, r in enumerate(rows)], both)
+        centre_g = chain([(i, g[i], r) for i, r in enumerate(rows)], both)
+        centre_xxg = chain([(i, xxg[i], r) for i, r in enumerate(rows)], both)
     return torch.stack([
         corr_x(row_xg, g) * ig11,                                          # y-linear
         corr_x(row_g, xg) * ig11,                                          # x-linear

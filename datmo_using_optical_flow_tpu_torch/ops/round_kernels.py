@@ -71,6 +71,30 @@ def fma32_reference(a: torch.Tensor, b, c, root: bool = False) -> torch.Tensor:
     return sqrt_rn(out) if root else out
 
 
+def fma_chain_reference(terms: list, shared: frozenset = frozenset()) -> torch.Tensor:
+    """``sum(w * x for i, w, x in terms)`` in tap order, rounded as XLA's CPU
+    code rounds such a chain: each product is contracted into the add that
+    takes it (a once-rounded fma), the first product into the add of the
+    second; a product that two sums of the same output share (taps in
+    ``shared``) keeps its own rounding.  ``w`` is a float32 number, ``x`` a
+    float32 tensor.  The correlations of K1's and K8's plain versions."""
+    def prod(w, x):
+        return float(w) * x
+
+    if len(terms) == 1:
+        return prod(terms[0][1], terms[0][2])
+    (i0, w0, x0), (i1, w1, x1) = terms[0], terms[1]
+    if i0 not in shared:
+        out = fma32_reference(x0, w0, prod(w1, x1))
+    elif i1 not in shared:
+        out = fma32_reference(x1, w1, prod(w0, x0))
+    else:
+        out = prod(w0, x0) + prod(w1, x1)
+    for i, w, x in terms[2:]:
+        out = out + prod(w, x) if i in shared else fma32_reference(x, w, out)
+    return out
+
+
 def bits_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
     """Equal float32 bits, NaN where NaN (a NaN's payload is not compared):
     how a kernel of this module is held to its plain version."""

@@ -156,7 +156,9 @@ def coarse_flow(im1_block: torch.Tensor, im2_block: torch.Tensor, group: RowGrou
 def level0_image(img_block: torch.Tensor, group: RowGroup) -> torch.Tensor:
     """Level 0's pre-blur of a row-sharded image: cv2's 3-tap Gaussian with
     BORDER_REFLECT_101 (``ops.farneback.level_image`` at scale 1), the
-    vertical pass through a one-row halo."""
+    vertical pass through a one-row halo.  Its taps (1/4, 1/2, 1/4) are
+    powers of two, so every product is exact and these separately rounded
+    sums give the same bits as the level image's contracted chain (K8)."""
     hl = img_block.shape[0]
     k3 = gaussian_kernel(3, 0.0).astype(np.float32)
     ext = halo_exchange_rows(img_block.to(torch.float32), 1, group, edge_mode="reflect101")
@@ -193,8 +195,13 @@ def sharded_flow_launches(h: int, w: int, pyr_scale: float = 0.3, levels: int = 
     on the card, by the code above: two K1 per level (the replicated coarse
     levels and level 0's halo-extended blocks), ``iterations`` K3 on each
     coarse level of at least 128x256 (``warp.eligible``), ``iterations`` K2
-    on each smaller one and on level 0."""
+    on each smaller one and on level 0; K8 twice per coarse level image (two
+    images a level) and once per plane of each upsample (dx and dy: between
+    the coarse levels and to full size).  Level 0's pre-blur runs
+    :func:`level0_image`'s plain ops."""
     sizes = level_sizes(h, w, pyr_scale, levels)
     k3 = sum(warp.eligible(lh, lw) for _, _, lh, lw in sizes[:-1])
+    coarse = len(sizes) - 1
     return {"poly_exp": 2 * len(sizes), "blur_solve": iterations * (len(sizes) - k3),
-            "fused_iteration": iterations * k3}
+            "fused_iteration": iterations * k3,
+            "level_image": 2 * 2 * coarse + 2 * coarse if coarse else 0}

@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from datmo_using_optical_flow_tpu_torch.diagnostics import (icp_body, micro_flow, profile_1080p,
-                                                            roofline)
+from datmo_using_optical_flow_tpu_torch.diagnostics import (icp_body, launch_count, micro_flow,
+                                                            profile_1080p, roofline)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 
@@ -106,6 +106,15 @@ def test_profile_1080p_runs_every_stage(frames):
                       "flow of the levels below the finest", "build_pyramid (all levels)"],
                 ("ms", "device_ms", "busy_share"))
     assert all(r["ms"] > 0 and r["device_ms"] is None for r in res["rows"])
+
+
+def test_launch_count_runs_both_rows_on_the_cpu():
+    """``launch_count`` times the stream step and the pyramid; on the CPU it
+    measures no device records (nothing runs on a device)."""
+    rec = launch_count.run(256, 320, "cpu", traces=1)
+    assert rec["card"] == "cpu" and rec["shape"] == [256, 320]
+    assert set(rec["rows"]) == {"stream step", "build_pyramid"}
+    assert all(r["host_ms"] > 0 and r["device_records"] is None for r in rec["rows"].values())
 
 
 def test_icp_body_runs_every_part_and_the_tile_probe():

@@ -238,11 +238,13 @@ def test_sharded_flow_matches_jax_and_unsharded(inputs, port):
 def test_launch_count_follows_the_level_sizes():
     """One call's kernel launches per rank on the card, from the level sizes:
     at 1088x1920 the replicated 98x173 (K2) and 326x576 (K3) levels, then
-    level 0 (K2)."""
+    level 0 (K2); K8 for the coarse levels' two images each (two launches an
+    image) and the upsamples of dx and dy (one launch a plane)."""
     assert sf.sharded_flow_launches(1088, 1920) == {"poly_exp": 6, "blur_solve": 10,
-                                                    "fused_iteration": 5}
+                                                    "fused_iteration": 5, "level_image": 12}
     assert sf.sharded_flow_launches(64, 80, 0.5, 2, 3) == {"poly_exp": 4, "blur_solve": 6,
-                                                           "fused_iteration": 0}
+                                                           "fused_iteration": 0,
+                                                           "level_image": 6}
 
 
 def test_shapes_that_cannot_be_sharded_raise():
