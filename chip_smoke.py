@@ -10,11 +10,14 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
 1. device and toolchain: the card, its power limit, torch/CUDA/nvcc versions;
 2. build of the CUDA kernels from ``datmo_using_optical_flow_tpu_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes, K1, K2 and K3 bit for bit (``torch.equal``), the others
-   with the CPU tests' tolerances, and both timed (CUDA events, median of 20
+   path's shapes, K1-K4 and K9 bit for bit (``torch.equal``), the others
+   as their phases below say, and both timed (CUDA events, median of 20
    calls each, in turns plain, kernel, kernel, plain); K1 at all three
    pyramid levels and K3 at both levels that run it also by their device
-   µs; K4 with the converged flow of two 1080x1920 frames, and K4 into K2
+   µs; K9 (the packed warp) and K2 at the coarsest level, K2, K3 and K9 also
+   with the flow as the main path carries it (the upsampled flow times
+   1 / pyr_scale, the solve's numerators and 1 / det); K4 with the converged
+   flow of two 1080x1920 frames, and K4 into K2
    bit-equal to K3 there; K1 (at each level) and K6 also beside one PyTorch
    call of the same function (``F.conv2d``, ``torch.add``), timed and not
    used by the port; K6's launch path split into its parts, each timed over
@@ -87,10 +90,10 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
     (``benchmarks/from_points.py``: 12 frames of ~56,000 points, 5000 RANSAC
     hypotheses, a 200x200 BEV): the preprocess and step warm-up with
     synchronising CUDA operations turned into errors, the card's BEV equal
-    to the CPU's on 3 frames, K1 and K2 bit-equal at 200x200 and 60x60 and
-    timed, then ``process_files`` with float32 and with q16 points, each
-    with the launch counts set to 0 just before and read just after (2 K1
-    and 10 K2 launches per frame, no frame skipped, tracks out), and a
+    to the CPU's on 3 frames, K1, K9 and K2 bit-equal at 200x200 and 60x60
+    and timed, then ``process_files`` with float32 and with q16 points, each
+    with the launch counts set to 0 just before and read just after (2 K1,
+    10 K9 and 10 K2 launches per frame, no frame skipped, tracks out), and a
     4-frame run on the card against the CPU's;
 13. GMFA from PCD files at a small configuration: ``process_files`` over 4
     ``synth`` frames on the card against the CPU (rows, track ids, states,
@@ -101,8 +104,9 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
 15. the reference-API surface (``compat``, ``ops/nn``) on the card against
     the port on the CPU, each part with the launch counts set to 0 just
     before and read just after: ``compute_velocity_vectors`` on two 200x200
-    from-points BEVs (K1 4, K2 10) and on two 1080x1920 frames (K1 6, K3
-    10, K2 5), as compat's Farnebäck defaults and the level sizes predict;
+    from-points BEVs (K1 4, K4 10, K2 10: compat warps exactly) and on two
+    1080x1920 frames (K1 6, K3 10, K4 5, K2 5), as compat's Farnebäck
+    defaults and the level sizes predict;
     the propagation and continuity masks, DBSCAN and the road filter on the
     200x200 flow (equal); ``process_multiple_frames`` over 4 from-points
     files with seeds 0 and 5 (tracks within the CPU tests' 5e-3);
@@ -138,8 +142,9 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
     every kernel of each phase held to its plain version on rank 0, on the
     inputs that phase gives it (the first call at each input signature: K1
     on the halo-extended 282x1920 block and the replicated 326x576 and
-    98x173 levels, K3 at 326x576, K2 on the 286x1920 extended M and at
-    98x173, the 200x200 pipelines' K1-K3, and K5 and K7 at 1024 points; K1-K3
+    98x173 levels, K3 at 326x576, K4 on the 272x1920 block (with its rows)
+    and at 98x173, K2 on the 286x1920 extended M and at 98x173, the 200x200
+    pipelines' K1-K3 and K9, and K5 and K7 at 1024 points; K1-K4 and K9
     ``torch.equal`` and timed, K5 and K7 bit for bit); each rank's launches
     of one sharded flow call (counts set to 0 just before, read just after)
     equal to ``sharded_flow.sharded_flow_launches``; the sharded flow's ms
@@ -148,20 +153,21 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
 19. pipeline A's stream step on the 4K grid (2176x3840, ``benchmarks/
     stream_4k``): K1-K3 ``torch.equal`` to their plain versions at every
     level (K1 at 2176x3840, 653x1152, 196x346, 59x104; K3 at the first
-    three, K2 at 59x104) and timed (per call, device µs, bound, K1 beside
-    ``F.conv2d``); the step over 2 frames on the card, counted alone (K1 8,
-    K3 30, K2 10: each stream step runs the flow, the priming one against
+    three, K9 and K2 at 59x104) and timed (per call, device µs, bound, K1
+    beside ``F.conv2d``); the step over 2 frames on the card, counted alone
+    (K1 8, K3 30, K9 10, K2 10: each stream step runs the flow, the priming
+    one against
     the zero pyramid), against the same 2 frames on the CPU (every output
     bit for bit but the track table's state, within 5e-3); then the
     benchmark shortened in its own process;
 20. the batched flow at 720p (``benchmarks/flow_batched_720p``): K1-K3 at
     every level (720x1280, 216x384, 65x115) as in phase 19; the 8 pairs'
-    batched flow counted alone (K1 48, K3 80, K2 40), each pair equal to its
+    batched flow counted alone (K1 48, K3 80, K9 40, K2 40), each pair equal to its
     own flow, pair 0 equal to the CPU's; the benchmark shortened in this
     process (1 repetition, 2 pairs within 0.1 px EPE of the numpy model of
     cv2);
 21. the quality benchmark's evaluations (``benchmarks/quality``) on its
-    easy scene over 12 frames, counted alone (K1, K2, K5, K7), pipeline A's
+    easy scene over 12 frames, counted alone (K1, K4, K2, K5, K7), pipeline A's
     velocity grids against the numpy model of cv2, its DBSCAN partitions
     reported as not run where sklearn does not import; then
     ``benchmarks/evaluate`` in its own process.
@@ -204,23 +210,30 @@ REPLACES = {
     # K8: no Pallas kernel either; XLA fuses the level image's blur and resize
     "level_image": "none: XLA's fused gaussian_blur/resize_bilinear, "
                    "datmo_using_optical_flow_tpu/ops/farneback.py:68,76",
+    # K9: neither; XLA runs the small levels' packed warp (the kernel path's too)
+    "warp_packed": "none: XLA's fused update_matrices with R1_packed, "
+                   "datmo_using_optical_flow_tpu/ops/farneback.py:256",
 }
 SOURCES = {"poly_exp": "flow_kernels.cu", "blur_solve": "flow_kernels.cu",
            "fused_iteration": "flow_kernels.cu", "warp_matrices": "flow_kernels.cu",
            "nearest_neighbors": "nn_kernels.cu", "tiny": "probe_kernels.cu",
            "fma32": "round_kernels.cu", "sumsq": "round_kernels.cu",
-           "level_image": "level_kernels.cu"}
-# 1080p, 3 levels; K8: two launches per level image, one per upsample
-PER_STEP = {"poly_exp": 3, "fused_iteration": 10, "blur_solve": 5, "level_image": 8}
-TOL = {"warp_matrices": 2e-4}
-EXACT = ("poly_exp", "blur_solve", "fused_iteration", "level_image")  # held to torch.equal
+           "level_image": "level_kernels.cu", "warp_packed": "flow_kernels.cu"}
+# 1080p, 3 levels; K8: two launches per level image, one per upsample; K9 and
+# K2 five each on the 97x173 level
+PER_STEP = {"poly_exp": 3, "fused_iteration": 10, "blur_solve": 5, "level_image": 8,
+            "warp_packed": 5}
 # K7's launches follow the data (tracker A's association runs once per
 # cluster slot), so the exact per-path counts below are of K1-K6 and K8
 ROUNDING = ("fma32", "sumsq")
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the run's log, with the seconds since the script started."""
+    print(f"[{time.perf_counter() - _T0:6.1f} s] {msg}", flush=True)
 
 
 def _counted_modules():
@@ -288,18 +301,12 @@ def equal(a, b) -> bool:
 
 
 def check(kernel: str, label: str, got, want) -> float:
-    """Raise unless ``got`` agrees with ``want``: bit for bit for K1, K2, K3
-    and K8 (``EXACT``), else within ``TOL``.  Logs and returns the max
-    abs error."""
+    """Raise unless ``got`` equals ``want`` bit for bit (``torch.equal``: K1-K4,
+    K8 and K9 all are).  Logs and returns the max abs error."""
     err = max_abs(got, want)
-    if kernel in EXACT:
-        ok, tol = equal(got, want), "bit-equal required"
-    else:
-        ok = err <= TOL[kernel]
-        tol = f"tol {TOL[kernel]:g}"
-    log(f"{kernel} {label}: max_abs_err {err:.3e} ({tol})")
-    if not ok:
-        raise AssertionError(f"{kernel} {label}: error {err} ({tol})")
+    log(f"{kernel} {label}: max_abs_err {err:.3e} (bit-equal required)")
+    if not equal(got, want):
+        raise AssertionError(f"{kernel} {label}: error {err} (bit-equal required)")
     return err
 
 
@@ -381,13 +388,26 @@ def kernel_phases(dev, name: str, smi: str, h: int, w: int) -> dict:
 
     R0, R1 = pyr[0][0], pyr[1][0]  # the coarsest level
     zero = torch.zeros(R0.shape[1:], dtype=torch.float32, device=dev)
-    M = fb.update_matrices(R0, R1, zero, zero, fb.pack_corner_pairs(R1))
+    packed = fb.pack_corner_pairs(R1)
+    label = f"{R0.shape[1]}x{R0.shape[2]}"
+    M = fk.warp_matrices_packed(R0, *packed, zero, zero)
+    ms, plain_ms = time_pair(lambda: fk.warp_packed_reference(R0, *packed, zero, zero),
+                             lambda: fk.warp_matrices_packed(R0, *packed, zero, zero))
+    record("warp_packed", f"{label} zero flow", M,
+           fk.warp_packed_reference(R0, *packed, zero, zero), ms, plain_ms, timed=True)
     for gaussian in (False, True):
         got, want = fk.blur_solve(M, 15, gaussian), fk.blur_solve_reference(M, 15, gaussian)
         ms, plain_ms = time_pair(lambda: fk.blur_solve_reference(M, 15, gaussian),
                                  lambda: fk.blur_solve(M, 15, gaussian))
-        record("blur_solve", f"{R0.shape[1]}x{R0.shape[2]} {'gauss' if gaussian else 'box'}",
+        record("blur_solve", f"{label} {'gauss' if gaussian else 'box'}",
                got, want, ms, plain_ms, timed=not gaussian)
+        # between iterations: the numerators and 1 / det, and K9 on that flow
+        nx, ny, idet = fk.blur_solve(M, 15, gaussian, terms=True)
+        check("blur_solve", f"{label} {'gauss' if gaussian else 'box'} (nx, ny, 1/det)",
+              (nx, ny, idet), fk.blur_solve_reference(M, 15, gaussian, terms=True))
+        check("warp_packed", f"{label} flow (nx, ny) * 1/det",
+              fk.warp_matrices_packed(R0, *packed, nx, ny, idet),
+              fk.warp_packed_reference(R0, *packed, nx, ny, idet))
 
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = [(pyr[0][top], pyr[1][top]), (pyr[0][top - 1], pyr[1][top - 1]),
@@ -402,6 +422,16 @@ def kernel_phases(dev, name: str, smi: str, h: int, w: int) -> dict:
                                  lambda: fk.fused_iteration(R0, R1, dx, dy, 15))
         label = f"{R0.shape[1]}x{R0.shape[2]}"
         record("fused_iteration", label, got, want, ms, plain_ms, timed=i == 0)
+        # the flow as the main path carries it: upsampled times 1 / pyr_scale
+        # into the first iteration, (nx, ny) times 1 / det between iterations
+        inv = float(np.float32(1 / 0.3))
+        nx, ny, idet = fk.fused_iteration(R0, R1, dx, dy, 15, False, inv, True)
+        check("fused_iteration", f"{label} flow (dx, dy) * 1/0.3, (nx, ny, 1/det) out",
+              (nx, ny, idet), fk.fused_iteration_reference(R0, R1, dx, dy, 15, False, inv, True))
+        for gaussian in (False, True):
+            check("fused_iteration", f"{label} flow (nx, ny) * 1/det, gauss={gaussian}",
+                  fk.fused_iteration(R0, R1, nx, ny, 15, gaussian, idet),
+                  fk.fused_iteration_reference(R0, R1, nx, ny, 15, gaussian, idet))
         if i < 2:  # the two levels that run K3 on the main path
             us = kernel_us(lambda: fk.fused_iteration(R0, R1, dx, dy, 15), dev,
                            f"fused_iteration {label}")
@@ -428,13 +458,14 @@ def check_k4_into_k2(R0, R1, dx, dy, win: int, gaussian: bool, label: str) -> No
     on the card)."""
     from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
 
-    got = fk.blur_solve(fk.warp_matrices(R0, R1, dx, dy), win, gaussian)
-    want = fk.fused_iteration(R0, R1, dx, dy, win, gaussian)
-    err = max_abs(got, want)
-    log(f"warp_matrices into blur_solve vs fused_iteration {label} win={win} gauss={gaussian}: "
-        f"max_abs_err {err:.3e} (bit-equal required)")
-    if not equal(got, want):
-        raise AssertionError(f"K4 into K2 {label}: differs from K3 (max_abs_err {err})")
+    for scale in (None, float(np.float32(1 / 0.3))):  # the flow, or the upsampled flow
+        got = fk.blur_solve(fk.warp_matrices(R0, R1, dx, dy, scale), win, gaussian)
+        want = fk.fused_iteration(R0, R1, dx, dy, win, gaussian, scale)
+        err = max_abs(got, want)
+        log(f"warp_matrices into blur_solve vs fused_iteration {label} win={win} "
+            f"gauss={gaussian} flow scale {scale}: max_abs_err {err:.3e} (bit-equal required)")
+        if not equal(got, want):
+            raise AssertionError(f"K4 into K2 {label}: differs from K3 (max_abs_err {err})")
 
 
 def poly_exp_conv(img, n: int, sigma: float):
@@ -1138,7 +1169,8 @@ def diagnostics_phase(dev, gmfa_cfg, pair) -> dict:
     from datmo_using_optical_flow_tpu_torch.sim.frames import make_frames
 
     frames = make_frames(2, 1080, 1920, seed=0)
-    flow = ("poly_exp", "blur_solve", "fused_iteration", "warp_matrices", "level_image")
+    flow = ("poly_exp", "blur_solve", "fused_iteration", "warp_matrices", "warp_packed",
+            "level_image")
     runs = (("micro_flow", lambda: micro_flow.run(frames, dev), flow),
             ("profile_1080p", lambda: profile_1080p.run(frames, dev), flow),
             ("icp_body", lambda: icp_body.run(
@@ -1152,10 +1184,12 @@ def diagnostics_phase(dev, gmfa_cfg, pair) -> dict:
         counts = read_launches()
         log(f"diagnostics.{label}: launches {counts}, {time.perf_counter() - t0:.1f} s")
         missing = [k for k in kernels if counts[k] <= 0]
-        timings = [v for r in res["rows"] for k, v in r.items() if k.startswith(("ms", "device"))]
-        if missing or not all(v is not None and np.isfinite(v) and v > 0 for v in timings):
-            raise AssertionError(f"diagnostics.{label}: kernels {missing} not launched, or a "
-                                 f"time is missing")
+        untimed = [f"{r.get('name')} {k}" for r in res["rows"] for k, v in r.items()
+                   if k.startswith(("ms", "device"))
+                   and not (v is not None and np.isfinite(v) and v > 0)]
+        if missing or untimed:
+            raise AssertionError(f"diagnostics.{label}: kernels {missing} not launched, times "
+                                 f"{untimed} missing")
         for k in kernels:
             launches[k] = launches.get(k, 0) + counts[k]
     tiles = res["tile_probe"]["rounds"]
@@ -1168,9 +1202,9 @@ def diagnostics_phase(dev, gmfa_cfg, pair) -> dict:
 
 def level_rows(dev, name: str, smi: str, frames, c, tag: str) -> dict:
     """K1 at every level of two frames' pyramids, K3 at the levels of at
-    least 128x256 and K2 below them, each ``torch.equal`` to its plain
+    least 128x256 and K9 and K2 below them, each ``torch.equal`` to its plain
     version and timed (per call, device µs) beside its bound, K1 also beside
-    ``F.conv2d``.  K3 takes a smooth flow, K2 the M of zero flow (packed)."""
+    ``F.conv2d``.  K3 takes a smooth flow, K9 zero flow and K2 K9's M."""
     from datmo_using_optical_flow_tpu_torch.diagnostics import roofline
     from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
     from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
@@ -1180,7 +1214,7 @@ def level_rows(dev, name: str, smi: str, frames, c, tag: str) -> dict:
     pyr = [fb.build_pyramid(f.to(torch.float32), c.pyr_scale, c.levels, c.poly_n, c.poly_sigma)
            for f in frames[:2]]
     top = len(pyr[0]) - 1
-    rows = {"poly_exp": {}, "blur_solve": {}, "fused_iteration": {}}
+    rows = {"poly_exp": {}, "blur_solve": {}, "fused_iteration": {}, "warp_packed": {}}
 
     def row(kernel, label, got, want, plain, kern, work, lib=None):
         err = check(kernel, f"{tag} {label}", got, want)
@@ -1214,27 +1248,35 @@ def level_rows(dev, name: str, smi: str, frames, c, tag: str) -> dict:
                 roofline.fused_iteration(lh, lw, c.winsize))
         else:
             zero = torch.zeros((lh, lw), dtype=torch.float32, device=dev)
-            M = fb.update_matrices(R0, R1, zero, zero, fb.pack_corner_pairs(R1))
+            packed = fb.pack_corner_pairs(R1)
+            M = fk.warp_matrices_packed(R0, *packed, zero, zero)
+            row("warp_packed", label, M, fk.warp_packed_reference(R0, *packed, zero, zero),
+                lambda: fk.warp_packed_reference(R0, *packed, zero, zero),
+                lambda: fk.warp_matrices_packed(R0, *packed, zero, zero),
+                roofline.warp_packed(lh, lw))
             row("blur_solve", label, fk.blur_solve(M, c.winsize), fk.blur_solve_reference(
                 M, c.winsize), lambda: fk.blur_solve_reference(M, c.winsize),
                 lambda: fk.blur_solve(M, c.winsize), roofline.blur_solve(lh, lw, c.winsize))
     return rows
 
 
-def _flow_launches(h: int, w: int, pairs: int, frames_expanded: int, c) -> dict:
-    """K1-K3 and K8 launches of ``pairs`` flows over ``frames_expanded``
+def _flow_launches(h: int, w: int, pairs: int, frames_expanded: int, c,
+                   fast_warp: bool = True) -> dict:
+    """K1-K4, K8 and K9 launches of ``pairs`` flows over ``frames_expanded``
     expanded frames at (h, w) with Farnebäck settings ``c``: K1 once per level
-    and frame, K3 ``iterations`` times per level of at least 128x256, K2 on the
-    others, K8 twice per level and frame (the level image) and once per pair
-    and level transition (the 2-plane upsample)."""
+    and frame, K3 ``iterations`` times per level of at least 128x256, K2 and
+    the warp on the others (K9, packed, with ``fast_warp``, else K4), K8 twice
+    per level and frame (the level image) and once per pair and level
+    transition (the 2-plane upsample)."""
     from datmo_using_optical_flow_tpu_torch.ops import warp
     from datmo_using_optical_flow_tpu_torch.oracle.np_farneback import level_sizes
 
     levels = [s[2:] for s in level_sizes(h, w, c.pyr_scale, c.levels)]
     k3 = sum(warp.eligible(lh, lw) for lh, lw in levels)
+    small = (len(levels) - k3) * c.iterations * pairs
     return {"poly_exp": len(levels) * frames_expanded,
             "fused_iteration": k3 * c.iterations * pairs,
-            "blur_solve": (len(levels) - k3) * c.iterations * pairs,
+            "blur_solve": small, "warp_packed" if fast_warp else "warp_matrices": small,
             "level_image": 2 * len(levels) * frames_expanded + (len(levels) - 1) * pairs}
 
 
@@ -1432,7 +1474,7 @@ def compat_phase(dev, name: str, smi: str, root: str, gclouds) -> dict:
         h, w = im1.shape
         got, counts = _counted(f"compat compute_velocity_vectors {label}", lambda: compat.
                                compute_velocity_vectors(im1, im2, *ranges),
-                               _flow_launches(h, w, 1, 2, fb))
+                               _flow_launches(h, w, 1, 2, fb, fast_warp=False))
         add(counts)
         cpu = compat.compute_velocity_vectors(im1, im2, *ranges, device="cpu")
         _flow_close(f"compute_velocity_vectors {label}", got, cpu)
@@ -1873,7 +1915,8 @@ def streams_phase(dev, name: str, smi: str, gclouds) -> dict:
     frames = np.stack([make_frames(3, 1080, 1920, seed=s) for s in range(n)])
     bevs = [torch.as_tensor(frames[:, t], device=dev) for t in range(3)]
     single = PipelineA(cfg, dev, fast_warp=True)
-    flow = ("poly_exp", "blur_solve", "fused_iteration", "level_image", *ROUNDING)
+    flow = ("poly_exp", "blur_solve", "fused_iteration", "warp_packed", "level_image",
+            *ROUNDING)
 
     # A's frame-pair step
     ref, want = singles([lambda s=s: single.step(bevs[0][s], bevs[1][s], single.init_carry())
@@ -2136,7 +2179,7 @@ def quality_phase(dev, name: str, smi: str, n_frames: int = 12) -> dict:
     torch.cuda.synchronize(dev)
     launches = read_launches()
     log(f"quality, easy scene, {n_frames} frames: launches {launches}")
-    if any(launches[k] <= 0 for k in ("poly_exp", "blur_solve", "level_image",
+    if any(launches[k] <= 0 for k in ("poly_exp", "blur_solve", "warp_matrices", "level_image",
                                       "nearest_neighbors")) \
             or launches["fused_iteration"]:
         raise AssertionError(f"quality: launches {launches}")
@@ -2324,7 +2367,8 @@ def main() -> None:
             "nearest_neighbors": results["nearest_neighbors"]["work"],
             "tiny": roofline.tiny(8 * 128), "fma32": results["fma32"]["work"],
             "sumsq": results["sumsq"]["work"],
-            "level_image": roofline.level_image(1080, 1920, 324, 576, 7)}
+            "level_image": roofline.level_image(1080, 1920, 324, 576, 7),
+            "warp_packed": roofline.warp_packed(97, 173)}
     kernels = []
     for k in REPLACES:
         res, bound_us = results[k], work[k].bound_us()
@@ -2345,7 +2389,8 @@ def main() -> None:
                     "busiest_round_us": icp_ab[s]["busiest_round"]["k5_us"],
                     "busiest_block_us": icp_ab[s]["busiest_round"]["busiest_block_us"]}
                 for s in ("compact", "inplace")}
-        if k in ("poly_exp", "blur_solve", "fused_iteration", "level_image"):  # at each level
+        if k in ("poly_exp", "blur_solve", "fused_iteration", "level_image",
+                 "warp_packed"):  # at each level
             kernels[-1]["levels"] = res["levels"]
             kernels[-1]["sharded_flow_launches_per_rank"] = (
                 sharded["per_rank"][0]["launches"]["sharded_flow"].get(k, 0))

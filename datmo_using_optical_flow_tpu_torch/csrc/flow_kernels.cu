@@ -10,6 +10,8 @@
 //                               blur_solve_strip; warp_pallas._warp_into/_warp_epilogue)
 //   warp_matrices_kernel     <- ops/warp_pallas.py::warp_matrices    (_kernel,
 //                               _warp_into/_warp_epilogue)
+//   warp_packed_kernel       <- no Pallas kernel: ops/farneback.py::update_matrices
+//                               with R1_packed, the small levels' warp (K9)
 //
 // Layouts are the JAX package's: images (H, W) and coefficient / normal-equation
 // planes (5, H, W), float32, row-major and contiguous.  K1-K3 give each block one
@@ -19,15 +21,24 @@
 // its halo in shared memory, recomputing the halo rather than exchanging it:
 // blocks run in any order, nothing carries between them.  Halo positions outside
 // the image take the value at the clamped pixel (BORDER_REPLICATE), so a partial
-// last tile needs no special case.  K4 has no window and so no halo: one thread
-// per output pixel.  K3 and K4 share the per-pixel warp and M assembly
-// (warp_assemble).
+// last tile needs no special case.  K4 and K9 have no window and so no halo:
+// one thread per output pixel.  K3 and K4 share the per-pixel exact warp
+// (warp_assemble), and all three M's tail (assemble_tail).
 //
 // Arithmetic order is the plain version's: taps accumulate in ascending order,
 // the vertical pass before the horizontal one, and the 1/win^2 box scale comes
 // after the horizontal pass.  The library is built with -fmad=false (see
 // kernels/build.py) so no multiply-add is contracted but where the plain
-// version takes a once-rounded fma (K1's sums, __fmaf_rn).
+// version takes a once-rounded fma (__fmaf_rn), as XLA's compiled CPU code
+// contracts it: K1's sums, the Gaussian window's taps, the warp's bilinear
+// sums, M's tail and the 2x2 solve.
+//
+// The flow into a warp (FlowIn) is (vx, vy) or (vx, vy) times a scale, the
+// product XLA's compiled refinement recomputes in the warp: the upsampled
+// flow times 1 / pyr_scale, or the last solve's numerators times 1 / det.
+// Then the position is fma(vx, s, j), once rounded, and M's flow terms take
+// the rounded product.  K2 and K3 write either the flow or, between
+// iterations, the numerators and 1 / det.
 //
 // K1 has three kernels: a compile-time instance for poly_n 5 and 7, taken when
 // the taps have their structural zero pattern (register-blocked passes, taps
@@ -78,6 +89,7 @@ constexpr int kPolyNarrow = 128;
 
 struct Window {
   float w[kMaxTaps];
+  unsigned long long shared;  // taps whose weight another tap has (tap_shared)
 };
 
 struct PolyTaps {
@@ -119,18 +131,37 @@ __device__ __forceinline__ float border_atten(int i, int size) {
 }
 
 // The per-pixel 2x2 solve of the five window sums a[0..4] at pixel (i, j),
-// stored when the pixel lies in the image.
+// stored when the pixel lies in the image: each difference of products a
+// once-rounded fma(a, b, -(c * d)), as XLA's compiled solve_flow.  With oidet
+// the numerators go to (odx, ody) and 1 / det to oidet (the flow into the next
+// iteration's warp); else the flow, numerator times 1 / det.
 __device__ __forceinline__ void solve_store(const float* a, float scale, int i, int j, int h,
-                                            int w, float* odx, float* ody) {
+                                            int w, float* odx, float* ody, float* oidet) {
   if (i >= h || j >= w) return;
   const float g11 = a[0] * scale;
   const float g12 = a[1] * scale;
   const float g22 = a[2] * scale;
   const float h1 = a[3] * scale;
   const float h2 = a[4] * scale;
-  const float idet = 1.0f / (g11 * g22 - g12 * g12 + 1e-3f);
-  odx[static_cast<size_t>(i) * w + j] = (g11 * h2 - g12 * h1) * idet;
-  ody[static_cast<size_t>(i) * w + j] = (g22 * h1 - g12 * h2) * idet;
+  const float idet = 1.0f / (__fmaf_rn(g11, g22, -(g12 * g12)) + 1e-3f);
+  const float nx = __fmaf_rn(g11, h2, -(g12 * h1));
+  const float ny = __fmaf_rn(g22, h1, -(g12 * h2));
+  const size_t p = static_cast<size_t>(i) * w + j;
+  if (oidet != nullptr) {
+    odx[p] = nx;
+    ody[p] = ny;
+    oidet[p] = idet;
+  } else {
+    odx[p] = nx * idet;
+    ody[p] = ny * idet;
+  }
+}
+
+// The shared-product mask of a window's taps on an axis of one value, where
+// every tap reads that value and XLA computes the product of taps of equal
+// weight once: bit k set when another nonzero tap has tap k's weight.
+__device__ __forceinline__ bool tap_shared(unsigned long long shared, int k) {
+  return (shared >> k) & 1ull;
 }
 
 // Window sum of the five staged M planes, then the per-pixel 2x2 solve, at a
@@ -139,13 +170,20 @@ __device__ __forceinline__ void solve_store(const float* a, float scale, int i, 
 // ms: 5 planes of e x e (tile plus a halo of r on each side, e = kTile + 2r);
 // vbuf: kTile x e scratch; taps: 2r+1 window weights in shared memory.  Writes
 // the new flow of the block's tile to (odx, ody).  Shared by K2 and K3.
+//
+// Each sum is a chain of once-rounded fmas in tap order, zero taps skipped
+// (FmaChain; the box's unit taps make it a chain of adds), as XLA's compiled
+// gauss_blur5; on an axis of length 1 the products of equal taps are added
+// separately rounded (shared).  Levels of one row or column take this stage.
 __device__ void window_solve(const float* ms, float* vbuf, const float* taps, int r,
-                             float scale, int y0, int x0, int h, int w, float* odx,
-                             float* ody) {
+                             unsigned long long shared, float scale, int y0, int x0, int h,
+                             int w, float* odx, float* ody, float* oidet) {
   const int e = kTile + 2 * r;
   const int ntaps = 2 * r + 1;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nthreads = blockDim.x * blockDim.y;
+  const bool one_row = h == 1;
+  const bool one_col = w == 1;
   float acc[kRowsPerThread][5];
 #pragma unroll
   for (int c = 0; c < 5; ++c) {
@@ -154,23 +192,25 @@ __device__ void window_solve(const float* ms, float* vbuf, const float* taps, in
     for (int idx = tid; idx < kTile * e; idx += nthreads) {
       const int i = idx / e;
       const int j = idx - i * e;
-      float s = taps[0] * m[i * e + j];
-      for (int k = 1; k < ntaps; ++k) s = s + taps[k] * m[(i + k) * e + j];
-      vbuf[idx] = s;
+      FmaChain s;
+      for (int k = 0; k < ntaps; ++k)
+        if (taps[k] != 0.0f) s.add(taps[k], m[(i + k) * e + j], one_row && tap_shared(shared, k));
+      vbuf[idx] = s.value();
     }
     __syncthreads();
 #pragma unroll
     for (int q = 0; q < kRowsPerThread; ++q) {
       const float* v = vbuf + (threadIdx.y + q * kBlockY) * e + threadIdx.x;
-      float s = taps[0] * v[0];
-      for (int k = 1; k < ntaps; ++k) s = s + taps[k] * v[k];
-      acc[q][c] = s;
+      FmaChain s;
+      for (int k = 0; k < ntaps; ++k)
+        if (taps[k] != 0.0f) s.add(taps[k], v[k], one_col && tap_shared(shared, k));
+      acc[q][c] = s.value();
     }
   }
 #pragma unroll
   for (int q = 0; q < kRowsPerThread; ++q)
     solve_store(acc[q], scale, y0 + threadIdx.y + q * kBlockY, x0 + threadIdx.x, h, w, odx,
-                ody);
+                ody, oidet);
 }
 
 // Layout of the five staged planes of a block: edge e = kTile + 2r, rows
@@ -195,7 +235,10 @@ struct Staged {
 // vertical pass overwrites their first kTile rows.  No shared scratch and no
 // taps in shared memory: box sums are plain chains of adds (1.0f * m == m, so
 // they equal the plain version's 1.0 * m terms bit for bit), Gaussian taps are
-// kernel parameters read at unrolled, constant indices.
+// kernel parameters read at unrolled, constant indices, each sum a chain of
+// once-rounded fmas as in window_solve (a running sum holds its first value
+// until the second tap: fma(t0, v0, t1 * v1)).  Levels of one row or column
+// take window_solve, which adds the products of equal taps there.
 //
 // Vertical pass: thread (c, j), 5 e of the block's threads, owns column j of
 // plane c.  It reads the column's e values once, top to bottom, each into the
@@ -209,7 +252,7 @@ struct Staged {
 // tap order, as the plain version, and the scale follows the horizontal pass.
 template <int R, bool kBox>
 __device__ void window_solve_fixed(float* ms, const Window& win, float scale, int y0, int x0,
-                                   int h, int w, float* odx, float* ody) {
+                                   int h, int w, float* odx, float* ody, float* oidet) {
   constexpr int kTaps = 2 * R + 1;
   constexpr int kE = kTile + 2 * R;
   constexpr int kStride = kE | 1;
@@ -234,8 +277,12 @@ __device__ void window_solve_fixed(float* ms, const Window& win, float scale, in
       for (int k = 0; k < kTaps; ++k) {
         const int i = y - k;  // output row i takes tap k from row y
         if (i >= 0 && i < kTile) {
-          const float term = kBox ? v : taps[k] * v;
-          acc[i] = k == 0 ? term : acc[i] + term;
+          if (kBox)
+            acc[i] = k == 0 ? v : acc[i] + v;
+          else
+            acc[i] = k == 0 ? v
+                   : k == 1 ? __fmaf_rn(taps[0], acc[i], taps[1] * v)
+                            : __fmaf_rn(taps[k], v, acc[i]);
         }
       }
       if (y >= 2 * R) col[(y - 2 * R) * kStride] = acc[y - 2 * R];
@@ -258,8 +305,12 @@ __device__ void window_solve_fixed(float* ms, const Window& win, float scale, in
       for (int k = 0; k < kTaps; ++k) {
         const int q = x - k;  // output q takes tap k from column x
         if (q >= 0 && q < kRun) {
-          const float term = kBox ? val : taps[k] * val;
-          acc[q] = k == 0 ? term : acc[q] + term;
+          if (kBox)
+            acc[q] = k == 0 ? val : acc[q] + val;
+          else
+            acc[q] = k == 0 ? val
+                   : k == 1 ? __fmaf_rn(taps[0], acc[q], taps[1] * val)
+                            : __fmaf_rn(taps[k], val, acc[q]);
         }
       }
     }
@@ -268,7 +319,7 @@ __device__ void window_solve_fixed(float* ms, const Window& win, float scale, in
   }
 #pragma unroll
   for (int q = 0; q < kRun; ++q)
-    solve_store(out[q], scale, y0 + row, x0 + c0 + q, h, w, odx, ody);
+    solve_store(out[q], scale, y0 + row, x0 + c0 + q, h, w, odx, ody, oidet);
 }
 
 __device__ void load_taps(float* dst, const Window& win, int ntaps) {
@@ -276,63 +327,216 @@ __device__ void load_taps(float* dst, const Window& win, int ntaps) {
   for (int k = tid; k < ntaps; k += blockDim.x * blockDim.y) dst[k] = win.w[k];
 }
 
-// The warp and M assembly of one pixel (gi, gj), shared by K3 and K4: bilinear
-// warp of R1's five planes to the absolute position (gj + dx, gi + dy), the
-// inside mask, the BORDER=5 attenuation and the five normal-equation values,
-// stored at m[0], m[stride], ..., m[4 * stride].  Warp weights: floor and
-// fraction of the absolute position j + dx, not of dx.  The operations and
-// their order are the plain version's (ops/farneback.py::update_matrices).
+// The flow into a warp at pixel p: (vx, vy) (mode 0) or (vx, vy) times a
+// scale, s0 (mode 1: the upsampled flow's 1 / pyr_scale) or s[p] (mode 2: the
+// last solve's 1 / det).  The kernels take the mode as a template parameter
+// (with_flow_mode), so a warp carries no branch on it.
+struct FlowIn {
+  const float* vx;
+  const float* vy;
+  const float* s;
+  float s0;
+  int mode;
+  // The sampling position (gx, gy) of pixel (gi, gj) and the flow (dx, dy):
+  // with a scale the position is fma(v, s, j), once rounded, and the flow the
+  // rounded product.  Read-only loads (the flow is an input of the kernel).
+  template <int kMode>
+  __device__ __forceinline__ void at(size_t p, int gi, int gj, float* gx, float* gy,
+                                     float* dx, float* dy) const {
+    const float fx = __ldg(vx + p);
+    const float fy = __ldg(vy + p);
+    if constexpr (kMode == 0) {
+      *gx = static_cast<float>(gj) + fx;
+      *gy = static_cast<float>(gi) + fy;
+      *dx = fx;
+      *dy = fy;
+    } else {
+      const float sc = kMode == 1 ? s0 : __ldg(s + p);
+      *gx = __fmaf_rn(fx, sc, static_cast<float>(gj));
+      *gy = __fmaf_rn(fy, sc, static_cast<float>(gi));
+      *dx = fx * sc;
+      *dy = fy * sc;
+    }
+  }
+};
+
+// The bilinear warp's sampling of pixel (gi, gj): the floor of the position,
+// its fraction's four weights and the inside mask.
+struct WarpAt {
+  float a00, a01, a10, a11, dx, dy;
+  int x1, y1;
+  bool inside;
+  template <int kMode>
+  __device__ __forceinline__ void init(const FlowIn& flow, size_t p, int gi, int gj, int h,
+                                       int w) {
+    float gx, gy;
+    flow.at<kMode>(p, gi, gj, &gx, &gy, &dx, &dy);
+    const float fx1 = floorf(gx);
+    const float fy1 = floorf(gy);
+    const float fx = gx - fx1;
+    const float fy = gy - fy1;
+    inside = fx1 >= 0.0f && fx1 < static_cast<float>(w - 1) && fy1 >= 0.0f &&
+             fy1 < static_cast<float>(h - 1);
+    x1 = inside ? static_cast<int>(fx1) : 0;
+    y1 = inside ? static_cast<int>(fy1) : 0;
+    a00 = (1.0f - fx) * (1.0f - fy);
+    a01 = fx * (1.0f - fy);
+    a10 = (1.0f - fx) * fy;
+    a11 = fx * fy;
+  }
+  // a00 c00 + a01 c01 + a10 c10 + a11 c11 as XLA's compiled warp rounds it:
+  // fma(a11, c11, fma(a10, c10, fma(a00, c00, a01 c01)))
+  __device__ __forceinline__ float sum(float c00, float c01, float c10, float c11) const {
+    return __fmaf_rn(a11, c11, __fmaf_rn(a10, c10, __fmaf_rn(a00, c00, a01 * c01)));
+  }
+};
+
+// The rows of a block: its first row in the grid, the target's rows R1 holds
+// above it (a halo), R1's row count and the grid's height; `sharded` for a
+// rank's block of the row-sharded flow (parallel/sharded_flow.py), whose
+// attenuation XLA cannot fold.  A whole level is {0, 0, h, h, false}.
+struct Rows {
+  int start, halo, ext, total;
+  bool sharded;
+};
+
+// M's tail at pixel (gi, gj) from the differences d0 = R0[0] - r[0], d1 and
+// the sums s4 = R0[2] + r[2], s5, s6 of the sampled planes r (used where
+// inside), stored at m[0], m[stride], ..., m[4 * stride]: the plain version's
+// ops/farneback.py::matrices_from_samples, each contraction a __fmaf_rn.  The
+// attenuation s of BORDER=5 enters as (a * b) * s^2, XLA's folded form.  Which
+// product of h2 + r4 dy and h3 + r6 dy each of M3 and M4 contracts depends on
+// the warp (kPacked: K9), on a level of one row or column and on whether the
+// flow is a recomputed product (`computed`), as the plain version says.
+// (gi, gj) is the pixel in the grid of h rows.  A
+// sharded block scales each value first, R = r s (`unfolded`), and then
+// M0 = fma(R4, R4, R6 R6), M3 = fma(R4, R2, R6 R3) and M4 takes r4 dy rounded.
+// K3 (!kGeneral) runs levels of at least 128x256 and no sharded block, and
+// carries neither case.
+template <bool kPacked, bool kGeneral>
+__device__ __forceinline__ void assemble_tail(const float* r0, size_t plane, const WarpAt& wa,
+                                              float d0, float d1, float s4, float s5,
+                                              float s6, bool computed, bool unfolded, int gi,
+                                              int gj, int h, int w, float* m, size_t stride) {
+  const bool in = wa.inside;
+  const float r4 = in ? s4 * 0.5f : r0[2 * plane];
+  const float r5 = in ? s5 * 0.5f : r0[3 * plane];
+  const float r6 = in ? s6 * 0.25f : r0[4 * plane] * 0.5f;
+  const float h2 = (in ? d0 : r0[0]) * 0.5f;
+  const float h3 = (in ? d1 : r0[plane]) * 0.5f;
+  const float dx = wa.dx;
+  const float dy = wa.dy;
+  // r4 dy also stays rounded on a level of one row or column (no pixel inside);
+  // M3's sums as the plain version picks them for each kind of level
+  const bool one_line = kGeneral && (h == 1 || w == 1);
+  const float r2_sep = __fmaf_rn(r6, dx, h2 + r4 * dy);
+  const float r2_fma = __fmaf_rn(r6, dx, __fmaf_rn(r4, dy, h2));
+  const float r2 = one_line ? r2_sep : r2_fma;
+  const float r3 = __fmaf_rn(r5, dx, __fmaf_rn(r6, dy, h3));
+  const float r3_sep = __fmaf_rn(r5, dx, h3 + r6 * dy);
+  const float r2_m3 = kPacked ? (h == 1 || (w == 1 && computed) ? r2_sep : r2_fma) : r2;
+  const float r3_m3 = (kPacked ? computed || w == 1 : computed && one_line) ? r3_sep : r3;
+  const float s = border_atten(gi, h) * border_atten(gj, w);
+  m[stride] = __fmaf_rn(r4, s, r5 * s) * (r6 * s);
+  if (kGeneral && unfolded) {
+    const float R4 = r4 * s, R5 = r5 * s, R6 = r6 * s, R3 = r3 * s;
+    m[0] = __fmaf_rn(R4, R4, R6 * R6);
+    m[2 * stride] = __fmaf_rn(R5, R5, R6 * R6);
+    m[3 * stride] = __fmaf_rn(R4, r2 * s, R6 * R3);
+    m[4 * stride] = __fmaf_rn(R6, r2_sep * s, R5 * R3);
+    return;
+  }
+  const float s2 = s * s;
+  const float r66 = (r6 * r6) * s2;
+  m[0] = __fmaf_rn(r4 * r4, s2, r66);
+  m[2 * stride] = __fmaf_rn(r5 * r5, s2, r66);
+  m[3 * stride] = __fmaf_rn(r4 * r2_m3, s2, (r6 * r3_m3) * s2);
+  m[4 * stride] = __fmaf_rn(r6 * (kPacked ? r2_sep : r2), s2, (r5 * r3) * s2);
+}
+
+// The exact warp and M assembly of one pixel (gi, gj) of a block of h rows,
+// shared by K3 and K4: bilinear warp of R1's five planes to the absolute
+// position (gj + dx, gi + rows.start + dy), the inside mask, the BORDER=5
+// attenuation and the five normal-equation values, stored at m[0], m[stride],
+// ..., m[4 * stride].  Warp weights: floor and fraction of the absolute
+// position j + dx, not of dx; a sampled row clamps to R1's rows (a sharded
+// block's halo).  The operations and their order are the plain version's
+// (ops/farneback.py::update_matrices, parallel/sharded_flow.py::
+// sharded_update_reference).
+template <int kMode, bool kGeneral>
 __device__ __forceinline__ void warp_assemble(const float* __restrict__ R0,
-                                              const float* __restrict__ R1,
-                                              const float* __restrict__ dx,
-                                              const float* __restrict__ dy, int gi, int gj,
-                                              int h, int w, float* m, size_t stride) {
+                                              const float* __restrict__ R1, const FlowIn& flow,
+                                              const Rows& rows, int gi, int gj, int h, int w,
+                                              float* m, size_t stride) {
   const size_t plane = static_cast<size_t>(h) * w;
   const size_t p = static_cast<size_t>(gi) * w + gj;
-  const float fdx = dx[p];
-  const float fdy = dy[p];
-  const float gx = static_cast<float>(gj) + fdx;
-  const float gy = static_cast<float>(gi) + fdy;
-  const float x1 = floorf(gx);
-  const float y1 = floorf(gy);
-  const float fx = gx - x1;
-  const float fy = gy - y1;
-  const bool inside = x1 >= 0.0f && x1 < static_cast<float>(w - 1) && y1 >= 0.0f &&
-                      y1 < static_cast<float>(h - 1);
+  const int row = gi + rows.start;
+  WarpAt wa;
+  wa.init<kMode>(flow, p, row, gj, rows.total, w);
   float wr[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  if (inside) {
-    const float a00 = (1.0f - fx) * (1.0f - fy);
-    const float a01 = fx * (1.0f - fy);
-    const float a10 = (1.0f - fx) * fy;
-    const float a11 = fx * fy;
-    const size_t b = static_cast<size_t>(y1) * w + static_cast<size_t>(x1);
+  if (wa.inside) {
+    const int y = clampi(wa.y1 - rows.start + rows.halo, 0, rows.ext - 2);
+    const size_t b = static_cast<size_t>(y) * w + static_cast<size_t>(clampi(wa.x1, 0, w - 2));
+    const size_t plane1 = static_cast<size_t>(rows.ext) * w;
 #pragma unroll
     for (int c = 0; c < 5; ++c) {
-      const float* q = R1 + c * plane + b;
-      wr[c] = a00 * q[0] + a01 * q[1] + a10 * q[w] + a11 * q[w + 1];
+      const float* q = R1 + c * plane1 + b;
+      wr[c] = wa.sum(q[0], q[1], q[w], q[w + 1]);
     }
   }
   const float* r0 = R0 + p;
-  float r2 = inside ? wr[0] : 0.0f;
-  float r3 = inside ? wr[1] : 0.0f;
-  float r4 = inside ? (r0[2 * plane] + wr[2]) * 0.5f : r0[2 * plane];
-  float r5 = inside ? (r0[3 * plane] + wr[3]) * 0.5f : r0[3 * plane];
-  float r6 = inside ? (r0[4 * plane] + wr[4]) * 0.25f : r0[4 * plane] * 0.5f;
-  r2 = (r0[0] - r2) * 0.5f;
-  r3 = (r0[plane] - r3) * 0.5f;
-  r2 = r2 + r4 * fdy + r6 * fdx;
-  r3 = r3 + r6 * fdy + r5 * fdx;
-  const float s = border_atten(gi, h) * border_atten(gj, w);
-  r2 = r2 * s;
-  r3 = r3 * s;
-  r4 = r4 * s;
-  r5 = r5 * s;
-  r6 = r6 * s;
-  m[0] = r4 * r4 + r6 * r6;
-  m[stride] = (r4 + r5) * r6;
-  m[2 * stride] = r5 * r5 + r6 * r6;
-  m[3 * stride] = r4 * r2 + r6 * r3;
-  m[4 * stride] = r6 * r2 + r5 * r3;
+  assemble_tail<false, kGeneral>(r0, plane, wa, r0[0] - wr[0], r0[plane] - wr[1],
+                                 r0[2 * plane] + wr[2], r0[3 * plane] + wr[3],
+                                 r0[4 * plane] + wr[4], kMode != 0, rows.sharded, row, gj,
+                                 rows.total, w, m, stride);
+}
+
+// The packed warp and M assembly of one pixel (gi, gj) (K9): the four corners
+// of the five planes from the pixel's row of the packed table (7 words: the
+// int16 pairs of planes 0-1, the int8 quads of planes 2-4,
+// ops/farneback.py::pack_corner_pairs) times the planes' scales qs[5], and M's
+// tail, rounded as XLA compiles the packed update_matrices: the int16 planes'
+// sums start fma(a01, c01, a00 c00); the scale of planes 2-4 is contracted
+// into R0 + r, that of planes 0-1 into R0 - r in XLA's vector loops, the
+// columns below (w - 1) / 8 * 8, not in their scalar remainder.
+template <int kMode>
+__device__ __forceinline__ void warp_assemble_packed(const float* __restrict__ R0,
+                                                     const int* __restrict__ table,
+                                                     const float* __restrict__ qs,
+                                                     const FlowIn& flow, int gi, int gj, int h,
+                                                     int w, float* m, size_t stride) {
+  const size_t plane = static_cast<size_t>(h) * w;
+  const size_t p = static_cast<size_t>(gi) * w + gj;
+  WarpAt wa;
+  wa.init<kMode>(flow, p, gi, gj, h, w);
+  const int* row = table + 7 * (static_cast<size_t>(wa.y1) * w + wa.x1);
+  const float* r0 = R0 + p;
+  float c[5];
+#pragma unroll
+  for (int ch = 0; ch < 2; ++ch) {
+    const int ab = row[2 * ch];
+    const int cd = row[2 * ch + 1];
+    const float a = static_cast<float>(static_cast<short>(ab >> 16));
+    const float b = static_cast<float>(static_cast<short>(ab & 0xFFFF));
+    const float cc = static_cast<float>(static_cast<short>(cd >> 16));
+    const float d = static_cast<float>(static_cast<short>(cd & 0xFFFF));
+    c[ch] = __fmaf_rn(wa.a11, d, __fmaf_rn(wa.a10, cc, __fmaf_rn(wa.a01, b, wa.a00 * a)));
+  }
+#pragma unroll
+  for (int ch = 2; ch < 5; ++ch) {
+    const int word = row[4 + ch - 2];
+    c[ch] = wa.sum(static_cast<float>(static_cast<signed char>(word >> 24)),
+                   static_cast<float>(static_cast<signed char>(word >> 16)),
+                   static_cast<float>(static_cast<signed char>(word >> 8)),
+                   static_cast<float>(static_cast<signed char>(word)));
+  }
+  const bool vec = gj < (w - 1) / 8 * 8;
+  const float d0 = vec ? __fmaf_rn(c[0], -qs[0], r0[0]) : r0[0] - c[0] * qs[0];
+  const float d1 = vec ? __fmaf_rn(c[1], -qs[1], r0[plane]) : r0[plane] - c[1] * qs[1];
+  assemble_tail<true, true>(r0, plane, wa, d0, d1, __fmaf_rn(c[2], qs[2], r0[2 * plane]),
+                            __fmaf_rn(c[3], qs[3], r0[3 * plane]),
+                            __fmaf_rn(c[4], qs[4], r0[4 * plane]), kMode != 0, false, gi, gj,
+                            h, w, m, stride);
 }
 
 // ---------------------------------------------------------------- K1
@@ -807,7 +1011,8 @@ poly_exp_tiny_kernel(const float* __restrict__ img, float* __restrict__ out, int
 template <int kR, bool kBox>
 __global__ void __launch_bounds__(kBlockX * kBlockY, kR > 0 ? kWindowMinBlocks : 1)
 blur_solve_kernel(const float* __restrict__ M, float* __restrict__ odx,
-                  float* __restrict__ ody, int h, int w, int r, Window win, float scale) {
+                  float* __restrict__ ody, float* __restrict__ oidet, int h, int w, int r,
+                  Window win, float scale) {
   extern __shared__ float smem[];
   if (kR > 0) r = kR;
   const Staged<kR> st(r);
@@ -829,9 +1034,9 @@ blur_solve_kernel(const float* __restrict__ M, float* __restrict__ odx,
     for (int c = 0; c < 5; ++c) ms[c * st.plane() + st.at(idx, li, lj)] = M[c * plane + p];
   }
   if constexpr (kR > 0)
-    window_solve_fixed<kR, kBox>(ms, win, scale, y0, x0, h, w, odx, ody);
+    window_solve_fixed<kR, kBox>(ms, win, scale, y0, x0, h, w, odx, ody, oidet);
   else
-    window_solve(ms, vbuf, taps, r, scale, y0, x0, h, w, odx, ody);
+    window_solve(ms, vbuf, taps, r, win.shared, scale, y0, x0, h, w, odx, ody, oidet);
 }
 
 // ---------------------------------------------------------------- K3
@@ -857,12 +1062,12 @@ blur_solve_kernel(const float* __restrict__ M, float* __restrict__ odx,
 // M at a halo position outside the image is M at the clamped pixel, then the
 // window sum and solve run from shared memory as in K2, with the same
 // choice of window stage (kR, kBox).
-template <int kR, bool kBox>
+template <int kR, bool kBox, int kMode>
 __global__ void __launch_bounds__(kBlockX * kBlockY, kR > 0 ? kWindowMinBlocks : 1)
 fused_iteration_kernel(const float* __restrict__ R0, const float* __restrict__ R1,
-                       const float* __restrict__ dx, const float* __restrict__ dy,
-                       float* __restrict__ odx, float* __restrict__ ody, int h, int w,
-                       int r, Window win, float scale) {
+                       FlowIn flow, float* __restrict__ odx, float* __restrict__ ody,
+                       float* __restrict__ oidet, int h, int w, int r, Window win,
+                       float scale) {
   extern __shared__ float smem[];
   if (kR > 0) r = kR;
   const Staged<kR> st(r);
@@ -879,12 +1084,13 @@ fused_iteration_kernel(const float* __restrict__ R0, const float* __restrict__ R
     const int lj = idx - li * st.e;
     const int gi = clampi(y0 - r + li, 0, h - 1);
     const int gj = clampi(x0 - r + lj, 0, w - 1);
-    warp_assemble(R0, R1, dx, dy, gi, gj, h, w, ms + st.at(idx, li, lj), st.plane());
+    warp_assemble<kMode, false>(R0, R1, flow, Rows{0, 0, h, h, false}, gi, gj, h, w,
+                                ms + st.at(idx, li, lj), st.plane());
   }
   if constexpr (kR > 0)
-    window_solve_fixed<kR, kBox>(ms, win, scale, y0, x0, h, w, odx, ody);
+    window_solve_fixed<kR, kBox>(ms, win, scale, y0, x0, h, w, odx, ody, oidet);
   else
-    window_solve(ms, vbuf, taps, r, scale, y0, x0, h, w, odx, ody);
+    window_solve(ms, vbuf, taps, r, win.shared, scale, y0, x0, h, w, odx, ody, oidet);
 }
 
 // ---------------------------------------------------------------- K4
@@ -899,16 +1105,40 @@ fused_iteration_kernel(const float* __restrict__ R0, const float* __restrict__ R
 // flops, so it is bound by memory.  One thread per output pixel, consecutive
 // threads on consecutive pixels: the R0, flow and M accesses coalesce, and the
 // corner gathers of a smooth flow hit L1/L2.
+template <int kMode>
 __global__ void __launch_bounds__(kPixelThreads)
-warp_matrices_kernel(const float* __restrict__ R0, const float* __restrict__ R1,
-                     const float* __restrict__ dx, const float* __restrict__ dy,
-                     float* __restrict__ M, int h, int w) {
+warp_matrices_kernel(const float* __restrict__ R0, const float* __restrict__ R1, FlowIn flow,
+                     Rows rows, float* __restrict__ M, int h, int w) {
   const size_t plane = static_cast<size_t>(h) * w;
   const size_t p = static_cast<size_t>(blockIdx.x) * kPixelThreads + threadIdx.x;
   if (p >= plane) return;
   const int gi = static_cast<int>(p / w);
   const int gj = static_cast<int>(p - static_cast<size_t>(gi) * w);
-  warp_assemble(R0, R1, dx, dy, gi, gj, h, w, M + p, plane);
+  warp_assemble<kMode, true>(R0, R1, flow, rows, gi, gj, h, w, M + p, plane);
+}
+
+// ---------------------------------------------------------------- K9
+// K4 from the packed corner table: the small levels' warp and M assembly when
+// the flow packs R1 (fast_warp), one thread per output pixel as K4.
+//
+// No Pallas kernel: the JAX package's kernel path runs update_matrices with
+// R1_packed in XLA below 128x256 (ops/farneback.py), whose contracted
+// multiply-adds this kernel carries onto the card (it replaces the plain
+// PyTorch ops the port ran there).  Bound on the H100: 40 bytes of unique
+// traffic per pixel (R0's five planes, the flow, M's five planes; the table's
+// 28-byte rows of a smooth flow hit L1/L2) against ~110 operations, so it is
+// bound by memory.
+template <int kMode>
+__global__ void __launch_bounds__(kPixelThreads)
+warp_packed_kernel(const float* __restrict__ R0, const int* __restrict__ table,
+                   const float* __restrict__ qs, FlowIn flow, float* __restrict__ M, int h,
+                   int w) {
+  const size_t plane = static_cast<size_t>(h) * w;
+  const size_t p = static_cast<size_t>(blockIdx.x) * kPixelThreads + threadIdx.x;
+  if (p >= plane) return;
+  const int gi = static_cast<int>(p / w);
+  const int gj = static_cast<int>(p - static_cast<size_t>(gi) * w);
+  warp_assemble_packed<kMode>(R0, table, qs, flow, gi, gj, h, w, M + p, plane);
 }
 
 // K2 and K3's dynamic shared memory: the staged planes, plus the vertical
@@ -929,20 +1159,45 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
 
 bool window_from_host(Window* win, const float* taps, int winsize) {
   if (winsize < 1 || winsize > kMaxTaps - 1 || winsize % 2 == 0) return false;
-  for (int k = 0; k < winsize; ++k) win->w[k] = taps[k];
+  win->shared = 0;
+  for (int k = 0; k < winsize; ++k) {
+    win->w[k] = taps[k];
+    for (int j = 0; j < winsize; ++j)
+      if (j != k && taps[j] == taps[k] && taps[k] != 0.0f) win->shared |= 1ull << k;
+  }
   return true;
+}
+
+// The flow into a warp from the host's arguments; false for a bad mode.
+bool flow_from_host(FlowIn* flow, const float* vx, const float* vy, const float* s, float s0,
+                    int mode) {
+  *flow = FlowIn{vx, vy, s, s0, mode};
+  return (mode == 0 || mode == 1 || (mode == 2 && s != nullptr));
 }
 
 // Calls launch(radius, box) with the window stage's instance for `win`: the
 // compile-time kMainR one for winsize 15 (box when every tap is 1.0f), else the
-// runtime-radius one (radius 0).  Both are std::integral_constant values.
+// runtime-radius one (radius 0), which also takes levels of one row or column
+// and windows with a zero tap.  Both are std::integral_constant values.
 template <typename Launch>
-cudaError_t with_window_instance(const Window& win, int winsize, Launch launch) {
+cudaError_t with_window_instance(const Window& win, int winsize, int h, int w, Launch launch) {
   using Main = std::integral_constant<int, kMainR>;
-  if (winsize != 2 * kMainR + 1) return launch(std::integral_constant<int, 0>{}, std::false_type{});
-  for (int k = 0; k < winsize; ++k)
-    if (win.w[k] != 1.0f) return launch(Main{}, std::false_type{});
-  return launch(Main{}, std::true_type{});
+  using Runtime = std::integral_constant<int, 0>;
+  if (winsize != 2 * kMainR + 1 || h == 1 || w == 1) return launch(Runtime{}, std::false_type{});
+  bool box = true;
+  for (int k = 0; k < winsize; ++k) {
+    if (win.w[k] == 0.0f) return launch(Runtime{}, std::false_type{});
+    box = box && win.w[k] == 1.0f;
+  }
+  return box ? launch(Main{}, std::true_type{}) : launch(Main{}, std::false_type{});
+}
+
+// Calls launch(mode) with the flow's mode as a std::integral_constant.
+template <typename Launch>
+cudaError_t with_flow_mode(int mode, Launch launch) {
+  if (mode == 1) return launch(std::integral_constant<int, 1>{});
+  if (mode == 2) return launch(std::integral_constant<int, 2>{});
+  return launch(std::integral_constant<int, 0>{});
 }
 
 dim3 tile_grid(int h, int w, int tile_h = kTile) {
@@ -1051,57 +1306,99 @@ int datmo_poly_exp_tiny(float* out, const float* img, int h, int w, int n, const
   return cudaGetLastError();
 }
 
-// taps (winsize) is a HOST pointer.
-int datmo_blur_solve(float* odx, float* ody, const float* M, int h, int w,
+// taps (winsize) is a HOST pointer.  With oidet (else null) the numerators
+// go to (odx, ody) and 1 / det to oidet; without it, the flow.
+int datmo_blur_solve(float* odx, float* ody, float* oidet, const float* M, int h, int w,
                      const float* taps, int winsize, float scale, int device, void* stream) {
   Window win;
   if (h < 1 || w < 1 || !window_from_host(&win, taps, winsize)) return cudaErrorInvalidValue;
   datmo::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
   const int r = winsize / 2;
-  return with_window_instance(win, winsize, [&](auto radius, auto box) {
+  return with_window_instance(win, winsize, h, w, [&](auto radius, auto box) {
     const auto kernel = blur_solve_kernel<decltype(radius)::value, decltype(box)::value>;
     const size_t smem = window_smem_bytes<decltype(radius)::value>(r);
     cudaError_t err = set_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     kernel<<<tile_grid(h, w), dim3(kBlockX, kBlockY), smem, static_cast<cudaStream_t>(stream)>>>(
-        M, odx, ody, h, w, r, win, scale);
+        M, odx, ody, oidet, h, w, r, win, scale);
     return cudaGetLastError();
   });
 }
 
-// taps (winsize) is a HOST pointer.
-int datmo_fused_iteration(float* odx, float* ody, const float* R0, const float* R1,
-                          const float* dx, const float* dy, int h, int w,
-                          const float* taps, int winsize, float scale, int device,
-                          void* stream) {
+// taps (winsize) is a HOST pointer.  The flow in is (vx, vy) (mode 0), times
+// s0 (mode 1) or times the plane s (mode 2); oidet as datmo_blur_solve's.
+int datmo_fused_iteration(float* odx, float* ody, float* oidet, const float* R0,
+                          const float* R1, const float* vx, const float* vy, const float* s,
+                          float s0, int mode, int h, int w, const float* taps, int winsize,
+                          float scale, int device, void* stream) {
   Window win;
-  if (h < 2 || w < 2 || !window_from_host(&win, taps, winsize)) return cudaErrorInvalidValue;
+  FlowIn flow;
+  if (h < 2 || w < 2 || !window_from_host(&win, taps, winsize) ||
+      !flow_from_host(&flow, vx, vy, s, s0, mode))
+    return cudaErrorInvalidValue;
   datmo::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
   const int r = winsize / 2;
-  return with_window_instance(win, winsize, [&](auto radius, auto box) {
-    const auto kernel = fused_iteration_kernel<decltype(radius)::value, decltype(box)::value>;
-    const size_t smem = window_smem_bytes<decltype(radius)::value>(r);
-    cudaError_t err = set_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<tile_grid(h, w), dim3(kBlockX, kBlockY), smem, static_cast<cudaStream_t>(stream)>>>(
-        R0, R1, dx, dy, odx, ody, h, w, r, win, scale);
-    return cudaGetLastError();
+  return with_window_instance(win, winsize, h, w, [&](auto radius, auto box) {
+    return with_flow_mode(mode, [&](auto flow_mode) {
+      const auto kernel = fused_iteration_kernel<decltype(radius)::value, decltype(box)::value,
+                                                 decltype(flow_mode)::value>;
+      const size_t smem = window_smem_bytes<decltype(radius)::value>(r);
+      cudaError_t err = set_smem(kernel, smem);
+      if (err != cudaSuccess) return err;
+      kernel<<<tile_grid(h, w), dim3(kBlockX, kBlockY), smem,
+               static_cast<cudaStream_t>(stream)>>>(R0, R1, flow, odx, ody, oidet, h, w, r, win,
+                                                    scale);
+      return cudaGetLastError();
+    });
   });
 }
 
-// All pointers are DEVICE pointers.
-int datmo_warp_matrices(float* M, const float* R0, const float* R1, const float* dx,
-                        const float* dy, int h, int w, int device, void* stream) {
-  if (h < 2 || w < 2) return cudaErrorInvalidValue;
+// All pointers are DEVICE pointers; the flow as datmo_fused_iteration's.  R0,
+// the flow and M are the h rows from `start` of a grid of `total` rows, R1
+// holds `halo` more rows above and below them; `sharded` for a rank's block of
+// the row-sharded flow (a whole level: 0, 0, h, 0).
+int datmo_warp_matrices(float* M, const float* R0, const float* R1, const float* vx,
+                        const float* vy, const float* s, float s0, int mode, int h, int w,
+                        int start, int halo, int total, int sharded, int device,
+                        void* stream) {
+  FlowIn flow;
+  if (h < 1 || w < 1 || start < 0 || halo < 0 || start + h > total ||
+      !flow_from_host(&flow, vx, vy, s, s0, mode))
+    return cudaErrorInvalidValue;
+  const Rows rows{start, halo, h + 2 * halo, total, sharded != 0};
   datmo::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
   const size_t n = static_cast<size_t>(h) * w;
   const unsigned int blocks = static_cast<unsigned int>((n + kPixelThreads - 1) / kPixelThreads);
-  warp_matrices_kernel<<<blocks, kPixelThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      R0, R1, dx, dy, M, h, w);
-  return cudaGetLastError();
+  return with_flow_mode(mode, [&](auto flow_mode) {
+    warp_matrices_kernel<decltype(flow_mode)::value>
+        <<<blocks, kPixelThreads, 0, static_cast<cudaStream_t>(stream)>>>(R0, R1, flow, rows, M,
+                                                                          h, w);
+    return cudaGetLastError();
+  });
+}
+
+// All pointers are DEVICE pointers: table (h * w, 7) int32 and qs (5), the
+// packed corners and their scales (ops/farneback.py::pack_corner_pairs); the
+// flow as datmo_fused_iteration's.
+int datmo_warp_packed(float* M, const float* R0, const int* table, const float* qs,
+                      const float* vx, const float* vy, const float* s, float s0, int mode,
+                      int h, int w, int device, void* stream) {
+  FlowIn flow;
+  if (h < 1 || w < 1 || !flow_from_host(&flow, vx, vy, s, s0, mode))
+    return cudaErrorInvalidValue;
+  datmo::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return guard.err;
+  const size_t n = static_cast<size_t>(h) * w;
+  const unsigned int blocks = static_cast<unsigned int>((n + kPixelThreads - 1) / kPixelThreads);
+  return with_flow_mode(mode, [&](auto flow_mode) {
+    warp_packed_kernel<decltype(flow_mode)::value>
+        <<<blocks, kPixelThreads, 0, static_cast<cudaStream_t>(stream)>>>(R0, table, qs, flow, M,
+                                                                          h, w);
+    return cudaGetLastError();
+  });
 }
 
 const char* datmo_error_string(int err) {

@@ -58,6 +58,7 @@ def count(fn, torch, dev, traces: int) -> dict:
         ms.append((time.perf_counter() - t0) * 1e3)
     records = None
     if dev.type == "cuda":
+        os.environ.setdefault("TEARDOWN_CUPTI", "0")  # as diagnostics/measure.py sets it
         records = []
         for _ in range(traces):
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

@@ -11,6 +11,7 @@ there is no device time: it is ``None``, printed "not measured".
 
 from __future__ import annotations
 
+import os
 import statistics
 import subprocess
 import time
@@ -22,7 +23,13 @@ from datmo_using_optical_flow_tpu_torch.diagnostics.roofline import Work
 
 _SENTINELS = 8  # kernels that close each trace (device_us_per_call)
 _SENTINEL_NAME = "spin_kernel"
-_ATTEMPTS = 5  # traces taken before LostTrace
+_ATTEMPTS = 10  # traces taken before LostTrace
+
+# Kineto tears CUPTI down after each trace unless TEARDOWN_CUPTI is "0".  On
+# the H100 that leaves traces empty, and every trace once another process has
+# profiled the card (``diagnostics/profiler_traces.py``).  Kineto reads the
+# variable when a trace ends, so setting it here, after torch is imported, holds.
+os.environ.setdefault("TEARDOWN_CUPTI", "0")
 
 
 def card_label(dev: torch.device) -> str:
@@ -110,6 +117,31 @@ def trace_layout(kernels: list[tuple[str, float]]) -> str:
     return text if len(text) <= 160 else text[:157] + "..."
 
 
+def trace_records(fn: Callable, dev: torch.device, reps: int) -> list[tuple[str, float]]:
+    """One profiler trace of ``reps`` calls of ``fn`` on the card, laid out
+    for :func:`traced_us`: its kernel records ``(name, µs)`` in start order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def sentinels(n):
+        sync(dev)
+        for _ in range(n):
+            torch.cuda._sleep(1000)
+        sync(dev)
+
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sentinels(_SENTINELS)
+        for i in range(reps):
+            if i:
+                sentinels(1)
+            fn()
+        sentinels(_SENTINELS)
+    kernels = sorted((ev for ev in prof.events() if ev.device_type == DeviceType.CUDA),
+                     key=lambda ev: ev.time_range.start)
+    return [(ev.name, ev.device_time_total) for ev in kernels]
+
+
 def device_us_per_call(fn: Callable, dev: torch.device, reps: int = 5,
                        launches: int = 1) -> float | None:
     """Mean device time (µs) of the work one call of ``fn`` puts on the card;
@@ -117,34 +149,16 @@ def device_us_per_call(fn: Callable, dev: torch.device, reps: int = 5,
     launches (0 for a stage that may run on the host alone)."""
     if dev.type != "cuda":
         return None
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     # Late in a long process the H100's traces lose their first kernel
     # records (unguarded, K3 read 4/5 of its time over 5 calls; guarded only
     # by sentinel ends, K2 once read 0 µs: the opening sentinels and all five
     # calls were lost).  So sentinel kernels (torch.cuda._sleep's
     # spin_kernel) open and close each trace and stand between the calls, and
-    # :func:`traced_us` holds the trace to that layout.  It is taken again, up to ``_ATTEMPTS`` times in all, and
-    # said, when it does not; then :class:`LostTrace` is raised.
-    def sentinels(n):
-        sync(dev)
-        for _ in range(n):
-            torch.cuda._sleep(1000)
-        sync(dev)
-
+    # :func:`traced_us` holds the trace to that layout.  It is taken again, up
+    # to ``_ATTEMPTS`` times in all, and said, when it does not; then
+    # :class:`LostTrace` is raised.
     for attempt in range(_ATTEMPTS):
-        sync(dev)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            sentinels(_SENTINELS)
-            for i in range(reps):
-                if i:
-                    sentinels(1)
-                fn()
-            sentinels(_SENTINELS)
-        kernels = sorted((ev for ev in prof.events() if ev.device_type == DeviceType.CUDA),
-                         key=lambda ev: ev.time_range.start)
-        records = [(ev.name, ev.device_time_total) for ev in kernels]
+        records = trace_records(fn, dev, reps)
         us = traced_us(records, reps, launches)
         if us is not None:
             return us
@@ -173,13 +187,16 @@ def kernel_row(name: str, fn: Callable, work: Work, dev: torch.device, card: str
     return row
 
 
-def stage_row(name: str, fn: Callable, dev: torch.device, card: str, reps: int = 5) -> dict:
+def stage_row(name: str, fn: Callable, dev: torch.device, card: str, reps: int = 5,
+              launches: int = 0) -> dict:
     """One synchronized stage: ms per call and the device ms it keeps busy
     (not measured, and said so, when the profiler loses its traces: a
-    stage's row is a breakdown, not a check)."""
+    stage's row is a breakdown, not a check).  ``launches`` is the least
+    number of kernels one call launches: a stage that runs on the card passes
+    1, so that a trace which lost its calls' records is not read as 0 ms."""
     ms = ms_per_call(fn, dev, reps, warmup=1)
     try:
-        us = device_us_per_call(fn, dev, reps=max(1, reps // 2), launches=0)
+        us = device_us_per_call(fn, dev, reps=max(1, reps // 2), launches=launches)
     except LostTrace as e:
         print(f"{name}: device time not measured ({e})", flush=True)
         us = None

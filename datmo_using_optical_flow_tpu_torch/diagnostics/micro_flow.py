@@ -5,11 +5,12 @@ frames' pyramids and their converged flow come from the port's
 ``build_pyramid`` and ``flow_from_pyramids`` (the pipeline's configuration;
 the number of distinct displacements matters to the warp).  At the finest
 level it times K3 (one fused iteration, with the pipeline's box window and
-with the Gaussian one), K4 (the standalone warp and M), K2 on K4's M and the
-packed-gather ``update_matrices`` (plain PyTorch, for reference); K3 at the
-second level (324x576 at 1080p) with that level's converged flow; K2 at the
-coarsest level (97x173) on the packed ``update_matrices``' M with that
-level's converged flow, as the step runs it; and K1 at every level, on the
+with the Gaussian one, and as the step runs it between iterations, the flow
+in and out as numerators and 1 / det), K4 (the standalone warp and M), K2
+on K4's M and K9 (the packed-gather warp); K3 at the second level (324x576
+at 1080p) with that level's converged flow; K2 at the coarsest level
+(97x173) on K9's M with that level's converged flow, as the step runs it;
+and K1 at every level, on the
 image ``build_pyramid`` gives it (1080x1920, 324x576 and 97x173 at 1080p).
 Each row gives ms per call, device µs, the bytes and operations of
 the work, its bound on the H100 and the share of the bound reached
@@ -17,9 +18,12 @@ the work, its bound on the H100 and the share of the bound reached
 
 With ``--parent DIR``, an older checkout of the repo (``git archive <rev> |
 tar -x -C build/parent``, say), that checkout's ``flow_kernels.cu`` is built
-by hand beside the package's, and every K1, K2 and K3 row also holds both
-builds bit-equal to the plain version and takes their device µs in turns on
-the same inputs (the parent, this build twice, the parent; three times).
+by hand beside the package's, and every K1-K4 row also holds this
+build bit-equal to the plain version, gives the parent's largest difference
+from it (0 unless the parent rounds otherwise) and takes both builds' device
+µs in turns on the same inputs (the parent, this build twice, the parent;
+three times).  A parent's entry points are called with the C signature its
+source declares.
 
 With ``--small``, K1 alone at the pipelines' small levels and two tiny
 images instead (:func:`small_levels`): each beside one ``F.conv2d`` that
@@ -56,7 +60,19 @@ from datmo_using_optical_flow_tpu_torch.sim.frames import make_frames
 from datmo_using_optical_flow_tpu_torch.utils.device import resolve_device
 
 _WINDOW_ENTRIES = ("datmo_fused_iteration", "datmo_blur_solve")
-_PARENT_ENTRIES = (*_WINDOW_ENTRIES, "datmo_poly_exp")
+_PARENT_ENTRIES = (*_WINDOW_ENTRIES, "datmo_poly_exp", "datmo_warp_matrices")
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# K2's and K3's C signatures before their entries took the flow's numerators
+# and 1 / det, by parameter count: an older parent declares these
+_OLD_SIGNATURES = {("datmo_fused_iteration", 13): ([_P] * 6 + [_I, _I, _P, _I, _F, _I, _P], _I),
+                   ("datmo_blur_solve", 10): ([_P, _P, _P, _I, _I, _P, _I, _F, _I, _P], _I),
+                   ("datmo_warp_matrices", 9): ([_P] * 5 + [_I, _I, _I, _P], _I)}
+
+
+def c_params(source: str, entry: str) -> int:
+    """The parameter count of ``int entry(...)`` in a C source's text."""
+    head = source[source.index(f"int {entry}("):]
+    return len(head[:head.index(")")].split(","))
 
 
 class Inputs(NamedTuple):
@@ -98,20 +114,25 @@ def parent_library(parent: str | Path) -> ctypes.CDLL:
         raise RuntimeError(f"nvcc failed for {source}:\n{' '.join(cmd)}\n"
                            f"{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(str(out))
+    text = source.read_text()
     for entry in _PARENT_ENTRIES:
         fn = getattr(lib, entry)
-        fn.argtypes, fn.restype = build._SIGNATURES[entry]
+        fn.argtypes, fn.restype = _OLD_SIGNATURES.get((entry, c_params(text, entry)),
+                                                      build._SIGNATURES[entry])
     return lib
 
 
 def parent_call(lib: ctypes.CDLL, args: tuple, winsize: int, gaussian: bool) -> Callable:
     """A call of the parent's K3 (four tensors ``R0, R1, dx, dy``) or K2 (one,
     ``M``) on the current stream, allocating its outputs as the wrapper does."""
-    fn = getattr(lib, _WINDOW_ENTRIES[0] if len(args) == 4 else _WINDOW_ENTRIES[1])
+    entry = _WINDOW_ENTRIES[0] if len(args) == 4 else _WINDOW_ENTRIES[1]
+    fn = getattr(lib, entry)
     first = args[0]
     h, w = first.shape[-2:]
     taps, scale = fk._window(winsize, gaussian)
     ptrs = [t.data_ptr() for t in args]
+    if len(fn.argtypes) == len(build._SIGNATURES[entry][0]):  # no 1 / det out; (dx, dy), mode 0
+        ptrs = [None, *ptrs] if len(args) == 1 else [None, *ptrs[:2], *ptrs[2:], None, 0.0, 0]
 
     def call():
         odx = torch.empty((h, w), dtype=torch.float32, device=first.device)
@@ -120,6 +141,25 @@ def parent_call(lib: ctypes.CDLL, args: tuple, winsize: int, gaussian: bool) -> 
                        scale, first.device.index,
                        torch.cuda.current_stream(first.device).cuda_stream), "parent")
         return odx, ody
+
+    return call
+
+
+def parent_warp(lib: ctypes.CDLL, R0, R1, dx, dy) -> Callable:
+    """A call of the parent's K4 on the current stream, allocating M as the
+    wrapper does; returns ``(M,)``."""
+    fn = lib.datmo_warp_matrices
+    _, h, w = R0.shape
+    ptrs = [t.data_ptr() for t in (R0, R1, dx, dy)]
+    if len(fn.argtypes) == len(build._SIGNATURES["datmo_warp_matrices"][0]):
+        ptrs += [None, 0.0, 0]  # the flow (dx, dy), mode 0, after the pointers
+
+    def call():
+        M = torch.empty((5, h, w), dtype=torch.float32, device=R0.device)
+        rows = [] if len(ptrs) == 4 else [0, 0, h, 0]  # a whole level
+        build.check(fn(M.data_ptr(), *ptrs, h, w, *rows, R0.device.index,
+                       torch.cuda.current_stream(R0.device).cuda_stream), "parent")
+        return (M,)
 
     return call
 
@@ -144,14 +184,20 @@ def parent_poly_exp(lib: ctypes.CDLL, img: torch.Tensor, n: int, sigma: float) -
 
 def against_parent(call: Callable, parent: Callable, plain: Callable, work: roofline.Work,
                    dev: torch.device, card: str, rounds: int = 3, reps: int = 5) -> dict:
-    """Hold this build's ``call`` and the parent's to ``plain`` bit for bit,
-    time ``plain`` per call, then take both device µs in turns (the parent,
-    this build twice, the parent), ``rounds`` times; medians."""
+    """Hold this build's ``call`` to ``plain`` bit for bit and the parent's
+    within 1e-4 of the plain version's scale (a parent may round otherwise:
+    its largest difference is reported), time ``plain`` per call, then take
+    both device µs in turns (the parent, this build twice, the parent),
+    ``rounds`` times; medians."""
     want = plain()
     plain_ms = ms_per_call(plain, dev, reps=3, warmup=1)
-    for name, fn in (("this build", call), ("the parent", parent)):
-        if not all(torch.equal(g, x) for g, x in zip(fn(), want)):
-            raise AssertionError(f"{name} differs from the plain version")
+    if not all(torch.equal(g, x) for g, x in zip(call(), want)):
+        raise AssertionError("this build differs from the plain version")
+    parent_diff = max(float((g - x).abs().max()) for g, x in zip(parent(), want))
+    scale = max(float(x.abs().max()) for x in want)
+    if not parent_diff <= 1e-4 * scale:
+        raise AssertionError(f"the parent differs from the plain version by {parent_diff:.3e}, "
+                             f"more than 1e-4 of its scale {scale:.3e}")
     us = {"package": [], "parent": []}
     for _ in range(rounds):
         for name, fn in (("parent", parent), ("package", call), ("package", call),
@@ -161,10 +207,11 @@ def against_parent(call: Callable, parent: Callable, plain: Callable, work: roof
     bound = work.bound_us()
     print(f"{'':44s} in turns: device {med['package']:.1f} us (share "
           f"{bound / med['package']:.3f}), parent {med['parent']:.1f} us (share "
-          f"{bound / med['parent']:.3f}), both bit-equal to the plain version "
-          f"({plain_ms:.3f} ms/call) [{card}]", flush=True)
+          f"{bound / med['parent']:.3f}); this build bit-equal to the plain version "
+          f"({plain_ms:.3f} ms/call), the parent {parent_diff:.3e} from it [{card}]", flush=True)
     return {"plain_ms": plain_ms, "turns_device_us": us, "turns_median_us": med["package"],
-            "parent_device_us": med["parent"], "parent_share_of_bound": bound / med["parent"]}
+            "parent_device_us": med["parent"], "parent_share_of_bound": bound / med["parent"],
+            "parent_max_abs_diff": parent_diff}
 
 
 def run(frames: np.ndarray, device: str | torch.device = "cuda", reps: int = 20,
@@ -183,15 +230,16 @@ def run(frames: np.ndarray, device: str | torch.device = "cuda", reps: int = 20,
     _, h, w = R0.shape
     M = fk.warp_matrices(R0, R1, dx, dy)
     packed = fb.pack_corner_pairs(R1)
+    terms = fk.blur_solve(M, win, gaussian, terms=True)  # the flow between iterations
     print(f"micro_flow {h}x{w}: flow dx [{float(dx.min()):.2f}, {float(dx.max()):.2f}] "
           f"dy [{float(dy.min()):.2f}, {float(dy.max()):.2f}] [{card}]", flush=True)
-    # the second level, and the coarsest level's packed M (update_matrices
-    # with fast_warp's corner table, as the step runs it)
+    # the second level, and the coarsest level's packed M (K9 with fast_warp's
+    # corner table, as the step runs it)
     S0, S1 = inp.pyr1[-2], inp.pyr2[-2]
     _, sh, sw = S0.shape
     C0, C1 = inp.pyr1[0], inp.pyr2[0]
     _, ch, cw = C0.shape
-    Mc = fb.update_matrices(C0, C1, *inp.flows[0], fb.pack_corner_pairs(C1))
+    Mc = fk.warp_matrices_packed(C0, *fb.pack_corner_pairs(C1), *inp.flows[0])
 
     def window_row(name: str, args: tuple, gauss: bool) -> dict:
         """A K3 row (``args`` R0, R1, dx, dy) or a K2 row (``args`` M)."""
@@ -209,17 +257,31 @@ def run(frames: np.ndarray, device: str | torch.device = "cuda", reps: int = 20,
                                       lambda: plain(*args, win, gauss), work, dev, card))
         return row
 
+    def warp_row(name: str) -> dict:
+        work = roofline.warp_matrices(h, w)
+        row = kernel_row(name, lambda: fk.warp_matrices(R0, R1, dx, dy), work, dev, card, reps)
+        if lib is not None:
+            row.update(against_parent(lambda: (fk.warp_matrices(R0, R1, dx, dy),),
+                                      parent_warp(lib, R0, R1, dx, dy),
+                                      lambda: (fk.warp_matrices_reference(R0, R1, dx, dy),),
+                                      work, dev, card))
+        return row
+
     rows = [
         window_row(f"K3 fused_iteration {h}x{w}", (R0, R1, dx, dy), gaussian),
         window_row(f"K3 fused_iteration {h}x{w}, Gaussian window", (R0, R1, dx, dy), True),
-        kernel_row(f"K4 warp_matrices {h}x{w}", lambda: fk.warp_matrices(R0, R1, dx, dy),
-                   roofline.warp_matrices(h, w), dev, card, reps),
+        kernel_row(f"K3 fused_iteration {h}x{w}, (nx, ny, 1/det) in and out",
+                   lambda: fk.fused_iteration(R0, R1, terms[0], terms[1], win, gaussian,
+                                              terms[2], True),
+                   roofline.fused_iteration(h, w, win, 3, 3), dev, card, reps),
+        warp_row(f"K4 warp_matrices {h}x{w}"),
         window_row(f"K2 blur_solve on K4's M {h}x{w}", (M,), gaussian),
-        kernel_row(f"update_matrices packed (plain) {h}x{w}", lambda: fb.update_matrices(
-            R0, R1, dx, dy, packed), roofline.update_matrices_packed(h, w), dev, card, reps),
+        kernel_row(f"K9 warp_matrices_packed {h}x{w}",
+                   lambda: fk.warp_matrices_packed(R0, *packed, dx, dy),
+                   roofline.warp_packed(h, w), dev, card, reps),
         window_row(f"K3 fused_iteration {sh}x{sw}, second level", (S0, S1, *inp.flows[-2]),
                    gaussian),
-        window_row(f"K2 blur_solve on packed M {ch}x{cw}, coarsest level", (Mc,), gaussian),
+        window_row(f"K2 blur_solve on K9's M {ch}x{cw}, coarsest level", (Mc,), gaussian),
     ]
     # K1 on every level's image, finest first, as build_pyramid feeds it
     n, sigma = c.poly_n, c.poly_sigma

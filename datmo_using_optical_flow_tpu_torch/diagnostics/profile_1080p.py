@@ -75,7 +75,7 @@ def run(frames: np.ndarray, device: str | torch.device = "cuda", reps: int = 5,
         ("flow of the levels below the finest", lambda: flow(pyr1[:-1], pyr2[:-1])),
         ("build_pyramid (all levels)", lambda: pyramid(bev1)),
     ]
-    rows = [stage_row(name, fn, dev, card, reps) for name, fn in stages]
+    rows = [stage_row(name, fn, dev, card, reps, launches=1) for name, fn in stages]
     return {"card": card, "device": str(dev), "shape": [h, w], "rows": rows}
 
 

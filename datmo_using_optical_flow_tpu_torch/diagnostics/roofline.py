@@ -32,13 +32,16 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 33.5e12  # separately rounded instructions (see above)
 SMS = 132
 
-# K3/K4's per-pixel warp and M assembly (csrc/flow_kernels.cu::warp_assemble):
-# positions, floors and fractions 6; the inside test 4; bilinear weights 6;
-# five planes x (4 mul + 3 add) 35; r2..r6 from R0 and the warp 10; the flow
-# terms 8; the border attenuation 6; the five M values 14.
-WARP_M_OPS = 89
+# K3/K4's per-pixel warp and M assembly (csrc/flow_kernels.cu::warp_assemble),
+# a once-rounded fma counted as two: positions, floors and fractions 6; the
+# inside test 4; bilinear weights 6; five planes x (4 mul + 3 add) 35; r2..r6
+# from R0 and the warp 10; the flow terms 8; the border attenuation and its
+# square 7; the five M values 23.
+WARP_M_OPS = 99
+# K9's packed warp adds the five planes' scales (an fma each).
+WARP_PACKED_OPS = WARP_M_OPS + 10
 # K2's per-pixel solve: five scales, the regularised determinant and its
-# reciprocal (5), dx and dy (4 each).
+# reciprocal (5), the numerators (3 each), dx and dy (1 each).
 SOLVE_OPS = 18
 # K5 per (source row, target) pair: the cross product 5, d2 = tn - 2 cross 2,
 # and the running minimum, tie and second-minimum tests 3.
@@ -76,10 +79,13 @@ def blur_solve(h: int, w: int, winsize: int = 15) -> Work:
     return Work(28 * h * w, (10 * (2 * winsize - 1) + SOLVE_OPS) * h * w)
 
 
-def fused_iteration(h: int, w: int, winsize: int = 15) -> Work:
+def fused_iteration(h: int, w: int, winsize: int = 15, planes_in: int = 2,
+                    planes_out: int = 2) -> Work:
     """K3: R0 and R1 (ten planes) and the flow in, the new flow out; M stays
-    on chip."""
-    return Work(56 * h * w, (WARP_M_OPS + 10 * (2 * winsize - 1) + SOLVE_OPS) * h * w)
+    on chip.  Between iterations the flow is three planes, the numerators
+    and 1 / det (``planes_in``, ``planes_out`` 3)."""
+    return Work((40 + 4 * (planes_in + planes_out)) * h * w,
+                (WARP_M_OPS + 10 * (2 * winsize - 1) + SOLVE_OPS) * h * w)
 
 
 def warp_matrices(h: int, w: int) -> Work:
@@ -87,10 +93,11 @@ def warp_matrices(h: int, w: int) -> Work:
     return Work(68 * h * w, WARP_M_OPS * h * w)
 
 
-def update_matrices_packed(h: int, w: int) -> Work:
-    """The packed-gather ``update_matrices``: R0, the 7-word corner table and
-    the flow in, M out.  The unpacking's integer operations are not counted."""
-    return Work(76 * h * w, WARP_M_OPS * h * w)
+def warp_packed(h: int, w: int) -> Work:
+    """K9, the packed-gather ``update_matrices``: R0, the 7-word corner table
+    and the flow in, M out.  The unpacking's integer operations are not
+    counted."""
+    return Work(76 * h * w, WARP_PACKED_OPS * h * w)
 
 
 def nearest_neighbors(n_src: int, n_tgt: int, tile_visits: int, live_blocks: int) -> Work:

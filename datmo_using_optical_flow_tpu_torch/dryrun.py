@@ -82,10 +82,11 @@ POINTS = 1024         # GMFA points per feed
 # the sharded flow's options: sharded_farneback_flow's defaults
 POLY_N, POLY_SIGMA, WINSIZE, WARP_HALO = 5, 5.0, 15, 16
 _COUNTED = (flow_kernels, level_kernels, nn_kernels, round_kernels)
-# the kernels the dry run launches on the card (K1-K3 and K8 in the flows, K5
-# in GMFA's step, K7 in both pipelines), each held to its plain version by rank 0
-KERNELS = ("poly_exp", "blur_solve", "fused_iteration", "level_image", "nearest_neighbors",
-           "fma32", "sumsq")
+# the kernels the dry run launches on the card (K1-K4, K8 and K9 in the flows,
+# K5 in GMFA's step, K7 in both pipelines), each held to its plain version by
+# rank 0
+KERNELS = ("poly_exp", "blur_solve", "fused_iteration", "warp_matrices", "warp_packed",
+           "level_image", "nearest_neighbors", "fma32", "sumsq")
 
 
 def prod_cfg(h: int = GRID[0], w: int = GRID[1]) -> PipelineAConfig:
@@ -230,11 +231,16 @@ def _sig(x) -> tuple | str:
     return tuple(x.shape) if isinstance(x, torch.Tensor) else "number"
 
 
+def _flow_sig(flow_scale) -> tuple | str:
+    """The form of a warp's flow: no scale, a number or a plane."""
+    return "none" if flow_scale is None else _sig(flow_scale)
+
+
 @contextlib.contextmanager
 def _held_to_plain(rows: dict, phase: str, dev: torch.device, on: bool = True):
     """Within, on the card and when ``on``: the first call of each kernel
     wrapper at each input signature is also held to its plain version on the
-    same inputs, raising unless equal (K1-K3 and K8's three entry points
+    same inputs, raising unless equal (K1-K4, K9 and K8's three entry points
     ``torch.equal`` and timed by :func:`_kernel_row`; K5's five outputs
     ``torch.equal``; K7 bit for bit), and its row goes to ``rows``.  The
     checks' launches are made outside the counted runs."""
@@ -243,7 +249,8 @@ def _held_to_plain(rows: dict, phase: str, dev: torch.device, on: bool = True):
         return
     fk, k5, k8, rk = flow_kernels, nn_kernels, level_kernels, round_kernels
     orig = {"poly_exp": fk.poly_exp, "blur_solve": fk.blur_solve,
-            "fused_iteration": fk.fused_iteration, "nearest_neighbors": k5.nearest_neighbors,
+            "fused_iteration": fk.fused_iteration, "warp_matrices": fk.warp_matrices,
+            "warp_packed": fk.warp_matrices_packed, "nearest_neighbors": k5.nearest_neighbors,
             "fma32": rk._fma32, "sumsq": rk._sumsq, "level_image": k8.level_image,
             "blur": k8.blur, "resize": k8.resize}
 
@@ -264,21 +271,43 @@ def _held_to_plain(rows: dict, phase: str, dev: torch.device, on: bool = True):
             shape, dev))
         return orig["poly_exp"](img, n, sigma)
 
-    def blur_solve(M, winsize, gaussian=False):
+    def blur_solve(M, winsize, gaussian=False, terms=False):
         shape = tuple(M.shape)
-        once(("blur_solve", shape, winsize, gaussian), lambda: _kernel_row(
-            "blur_solve", lambda: orig["blur_solve"](M, winsize, gaussian),
-            lambda: fk.blur_solve_reference(M, winsize, gaussian),
+        once(("blur_solve", shape, winsize, gaussian, terms), lambda: _kernel_row(
+            "blur_solve", lambda: orig["blur_solve"](M, winsize, gaussian, terms),
+            lambda: fk.blur_solve_reference(M, winsize, gaussian, terms),
             roofline.blur_solve(*shape[1:], winsize), shape, dev))
-        return orig["blur_solve"](M, winsize, gaussian)
+        return orig["blur_solve"](M, winsize, gaussian, terms)
 
-    def fused_iteration(R0, R1, dx, dy, winsize, gaussian=False):
+    def fused_iteration(R0, R1, dx, dy, winsize, gaussian=False, flow_scale=None, terms=False):
         shape = tuple(R0.shape)
-        once(("fused_iteration", shape, winsize, gaussian), lambda: _kernel_row(
-            "fused_iteration", lambda: orig["fused_iteration"](R0, R1, dx, dy, winsize, gaussian),
-            lambda: fk.fused_iteration_reference(R0, R1, dx, dy, winsize, gaussian),
-            roofline.fused_iteration(*shape[1:], winsize), shape, dev))
-        return orig["fused_iteration"](R0, R1, dx, dy, winsize, gaussian)
+        planes = (2 if flow_scale is None or not isinstance(flow_scale, torch.Tensor) else 3,
+                  3 if terms else 2)
+        args = (R0, R1, dx, dy, winsize, gaussian, flow_scale, terms)
+        once(("fused_iteration", shape, winsize, gaussian, _flow_sig(flow_scale), terms),
+             lambda: _kernel_row(
+                 "fused_iteration", lambda: orig["fused_iteration"](*args),
+                 lambda: fk.fused_iteration_reference(*args),
+                 roofline.fused_iteration(*shape[1:], winsize, *planes), shape, dev))
+        return orig["fused_iteration"](*args)
+
+    def warp_matrices(R0, R1, dx, dy, flow_scale=None, rows=None):
+        shape = tuple(R0.shape)
+        args = (R0, R1, dx, dy, flow_scale, rows)
+        once(("warp_matrices", shape, _flow_sig(flow_scale), rows), lambda: _kernel_row(
+            "warp_matrices", lambda: orig["warp_matrices"](*args),
+            lambda: fk.warp_matrices_reference(*args), roofline.warp_matrices(*shape[1:]),
+            shape, dev))
+        return orig["warp_matrices"](*args)
+
+    def warp_matrices_packed(R0, table, scale, dx, dy, flow_scale=None):
+        shape = tuple(R0.shape)
+        args = (R0, table, scale, dx, dy, flow_scale)
+        once(("warp_packed", shape, _flow_sig(flow_scale)), lambda: _kernel_row(
+            "warp_packed", lambda: orig["warp_packed"](*args),
+            lambda: fk.warp_packed_reference(*args), roofline.warp_packed(*shape[1:]),
+            shape, dev))
+        return orig["warp_packed"](*args)
 
     def level_image(im, scale, lh, lw):
         shape = (*im.shape, lh, lw)
@@ -332,6 +361,8 @@ def _held_to_plain(rows: dict, phase: str, dev: torch.device, on: bool = True):
     with contextlib.ExitStack() as stack:
         for mod, name, fn in ((fk, "poly_exp", poly_exp), (fk, "blur_solve", blur_solve),
                               (fk, "fused_iteration", fused_iteration),
+                              (fk, "warp_matrices", warp_matrices),
+                              (fk, "warp_matrices_packed", warp_matrices_packed),
                               (k5, "nearest_neighbors", nearest_neighbors),
                               (k8, "level_image", level_image), (k8, "blur", blur),
                               (k8, "resize", resize),
@@ -359,7 +390,8 @@ def _dryrun_rank(group: RowGroup, grid: tuple, flow_hw: tuple, points: int,
     (_, outs, metrics), out["launches"]["stream_a"] = _counted(
         lambda: step(bev1[mine].to(dev), bev2[mine].to(dev),
                      streams.init_stream_carry(cfg, len(feeds), dev)), dev)
-    _need("phase 1", out["launches"]["stream_a"], ("poly_exp", "blur_solve", "level_image"), dev)
+    _need("phase 1", out["launches"]["stream_a"], ("poly_exp", "blur_solve", "warp_packed",
+                                                   "level_image"), dev)
     tracks = int(group.all_reduce_sum(metrics["total_tracks"]))
     cells = int(group.all_reduce_sum(metrics["total_cells"]))
     checks: dict = {}  # rank 0's kernels held to their plain versions, by signature
@@ -443,7 +475,8 @@ def _dryrun_rank(group: RowGroup, grid: tuple, flow_hw: tuple, points: int,
 
     results, out["launches"]["stream_space"] = _counted(
         lambda: [combined(s) for s in feeds4], dev)
-    _need("phase 4", out["launches"]["stream_space"], ("poly_exp", "blur_solve", "level_image"),
+    _need("phase 4", out["launches"]["stream_space"], ("poly_exp", "blur_solve", "warp_matrices",
+                                                       "level_image"),
           dev)
     with _held_to_plain(checks, "phase 4", dev, feeds4.start == 0 and space.rank == 0):
         for s in feeds4:

@@ -51,12 +51,15 @@ _NN_SWEEP = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _F,
 _SIGNATURES = {
     "datmo_poly_exp": ([_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P], _I),
     "datmo_poly_exp_tiny": ([_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P], _I),
-    "datmo_blur_solve": ([_P, _P, _P, _I, _I, _P, _I, _F, _I, _P], _I),
-    "datmo_fused_iteration": ([_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _F, _I, _P], _I),
+    "datmo_blur_solve": ([_P, _P, _P, _P, _I, _I, _P, _I, _F, _I, _P], _I),
+    "datmo_fused_iteration": ([_P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _P, _I, _F,
+                               _I, _P], _I),
     "datmo_nn_sweep": ([*_NN_SWEEP, _I, _P], _I),
     "datmo_nn_sweep_active": ([*_NN_SWEEP, _I, _P], _I),
     "datmo_nn_sweep_sized": ([*_NN_SWEEP, _I, _I, _P], _I),
-    "datmo_warp_matrices": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "datmo_warp_matrices": ([_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _P], _I),
+    "datmo_warp_packed": ([_P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _P], _I),
     "datmo_tiny": ([_P, _P, ctypes.c_int64, _I, _P], _I),
     "datmo_fma32": ([_P, _P, _P, _P, _F, _F, _I, ctypes.c_int64, _I, _P], _I),
     "datmo_sumsq": ([_P, _P, _I, _I, ctypes.c_int64, _I, _P], _I),

@@ -151,18 +151,26 @@ def blur_taps(ksize: int, sigma: float) -> np.ndarray:
 
 
 def _corr_at(img: torch.Tensor, taps: np.ndarray, axis: int,
-             at: torch.Tensor | None = None) -> torch.Tensor:
-    """The 1-D correlation along ``axis`` (-2 or -1) with reflect-101
-    padding, at the positions ``at`` of that axis (every position when
-    None): a chain of once-rounded fmas in ascending tap order, zero taps
-    skipped (:func:`.round_kernels.fma_chain_reference`), as XLA's compiled
-    ``_corr_axis`` rounds the blur.  On an axis of length 1 every tap reads
-    the one value, and XLA computes the product of taps of equal weight
-    once: such products are rounded on their own and added."""
+             at: torch.Tensor | None = None, pad_mode: str = "reflect") -> torch.Tensor:
+    """The 1-D correlation along ``axis`` (-2 or -1) with ``jnp.pad``'s
+    ``pad_mode`` padding (reflect-101 or edge), at the positions ``at`` of
+    that axis (every position when None): a chain of once-rounded fmas in
+    ascending tap order, zero taps skipped
+    (:func:`.round_kernels.fma_chain_reference`), as XLA's compiled
+    ``_corr_axis`` rounds the level images' blur and the Gaussian window.
+    On an axis of length 1 every tap reads the one value, and XLA computes
+    the product of taps of equal weight once: such products are rounded on
+    their own and added."""
     from datmo_using_optical_flow_tpu_torch.ops import round_kernels
 
     n, size = len(taps) // 2, img.shape[axis]
     pos = torch.arange(size, device=img.device) if at is None else at
+    if pad_mode == "edge":
+        def source(i):
+            return torch.clamp(pos + (i - n), 0, size - 1)
+    else:
+        def source(i):
+            return reflect101(pos + (i - n), size)
     if size == 1:
         ws = [float(w) for w in taps if w != 0.0]
         x = img.index_select(axis, torch.zeros_like(pos))
@@ -170,8 +178,7 @@ def _corr_at(img: torch.Tensor, taps: np.ndarray, axis: int,
             [(i, w, x) for i, w in enumerate(ws)],
             frozenset(i for i, w in enumerate(ws) if ws.count(w) > 1))
     return round_kernels.fma_chain_reference(
-        [(i, w, img.index_select(axis, reflect101(pos + (i - n), size)))
-         for i, w in enumerate(taps) if w != 0.0])
+        [(i, w, img.index_select(axis, source(i))) for i, w in enumerate(taps) if w != 0.0])
 
 
 def gaussian_blur_reference(img: torch.Tensor, ksize: int, sigma: float) -> torch.Tensor:
@@ -265,8 +272,9 @@ def pack_corner_pairs(R1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     * words 4-6: channels 2-4, all four corners as int8 bytes
 
     Corners: A = R1(y,x), B = (y,x+1), C = (y+1,x), D = (y+1,x+1),
-    edge-replicated.  Returns ``(table (H*W, 7) int32, scale (5,))``; JAX keeps
-    the same bits in a float32-typed table.
+    edge-replicated.  Returns ``(table (H*W, 7) int32, scale (5,))``, equal to
+    the jitted ``pack_corner_pairs``; JAX keeps the same bits in a
+    float32-typed table.
     """
     _, h, w = R1.shape
     right = torch.cat([R1[:, :, 1:], R1[:, :, -1:]], dim=2)
@@ -276,7 +284,9 @@ def pack_corner_pairs(R1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
     absmax = torch.amax(torch.abs(R1), dim=(1, 2))  # (5,)
     qmax = torch.where(torch.arange(5, device=R1.device) < 2, 32767.0, 127.0)
-    scale = torch.clamp(absmax, min=1e-20) / qmax
+    # XLA folds the division by the constant qmax into a multiply by its
+    # float32 reciprocal
+    scale = torch.clamp(absmax, min=1e-20) * (1.0 / qmax)
     qb = qmax[None, :, None, None]
     q = torch.clamp(torch.round(corners / scale[None, :, None, None]), -qb, qb)
     qi = q.to(torch.int64)
@@ -296,8 +306,11 @@ def pack_corner_pairs(R1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return table.reshape(h * w, 7), scale
 
 
-def _unpack_warp(g: torch.Tensor, scale: torch.Tensor, a00, a01, a10, a11):
-    """Bilinear-combine the packed corners: (N, 7) rows -> list of 5 (N,) values."""
+def _unpack_warp(g: torch.Tensor, a00, a01, a10, a11) -> list[torch.Tensor]:
+    """Bilinear-combine the packed corners: (N, 7) rows -> list of 5 (N,)
+    sums of the quantized corners, not yet times the planes' scales (XLA
+    contracts that multiply into the add that takes it,
+    :func:`matrices_from_samples`).  Each sum is :func:`_bilinear`'s chain."""
     def signed(v, bits):
         return (v - ((v >> (bits - 1)) << bits)).to(torch.float32)
 
@@ -308,34 +321,55 @@ def _unpack_warp(g: torch.Tensor, scale: torch.Tensor, a00, a01, a10, a11):
         return signed((word >> (24 - 8 * byte)) & 0xFF, 8)
 
     out = []
-    for ch, (wa, wb) in enumerate(((0, 1), (2, 3))):
-        r = (a00 * i16(g[:, wa], True) + a01 * i16(g[:, wa], False)
-             + a10 * i16(g[:, wb], True) + a11 * i16(g[:, wb], False))
-        out.append(r * scale[ch])
-    for j, ch in enumerate((2, 3, 4)):
+    for wa, wb in ((0, 1), (2, 3)):
+        # XLA's code takes the int16 planes' first two products the other
+        # way round: fma(a01, c01, a00 * c00)
+        out.append(_bilinear((a01, a00, a10, a11), (i16(g[:, wa], False), i16(g[:, wa], True),
+                                                    i16(g[:, wb], True), i16(g[:, wb], False))))
+    for j in range(3):
         word = g[:, 4 + j]
-        r = (a00 * i8(word, 0) + a01 * i8(word, 1)
-             + a10 * i8(word, 2) + a11 * i8(word, 3))
-        out.append(r * scale[ch])
+        out.append(_bilinear((a00, a01, a10, a11), [i8(word, byte) for byte in range(4)]))
     return out
 
 
-def update_matrices(R0: torch.Tensor, R1: torch.Tensor, dx: torch.Tensor,
+def _bilinear(weights, corners) -> torch.Tensor:
+    """``a00 * c00 + a01 * c01 + a10 * c10 + a11 * c11`` as XLA's compiled
+    warp rounds it: ``fma(a11, c11, fma(a10, c10, fma(a00, c00, a01 *
+    c01)))``."""
+    from datmo_using_optical_flow_tpu_torch.ops import round_kernels
+
+    return round_kernels.fma_chain_reference(
+        [(i, a, c) for i, (a, c) in enumerate(zip(weights, corners))])
+
+
+def update_matrices(R0: torch.Tensor, R1: torch.Tensor | None, dx: torch.Tensor,
                     dy: torch.Tensor,
-                    R1_packed: tuple[torch.Tensor, torch.Tensor] | None = None
-                    ) -> torch.Tensor:
-    """Flow-compensated normal-equation planes M (5, H, W).
+                    R1_packed: tuple[torch.Tensor, torch.Tensor] | None = None,
+                    flow_scale: float | torch.Tensor | None = None) -> torch.Tensor:
+    """Flow-compensated normal-equation planes M (5, H, W), rounded as the
+    JAX package's jitted refinement: the plain version of K4 (exact warp)
+    and of K9 (``R1_packed``, from :func:`pack_corner_pairs`: the corners
+    come from the quantized int16/int8 table, and ``R1`` is not read).
 
     The warp samples R1 at the absolute position (j + dx, i + dy): floor and
     fraction are taken of the position, not of the displacement.  With
-    ``R1_packed`` (from :func:`pack_corner_pairs`) the corners come from the
-    quantized int16/int8 table; without it the warp is exact.
+    ``flow_scale`` (a float32 number or an (H, W) tensor) the flow is
+    ``(dx, dy) * flow_scale``, as where XLA recomputes it in the warp's
+    fusion: the upsampled flow times 1 / pyr_scale, or the last solve's
+    numerators times 1 / det.  Then the position is the once-rounded
+    ``fma(dx, flow_scale, j)``, and M's flow terms take the rounded product.
     """
+    from datmo_using_optical_flow_tpu_torch.ops import round_kernels
+
     _, h, w = R0.shape
-    xs = torch.arange(w, dtype=dx.dtype, device=dx.device)[None, :]
-    ys = torch.arange(h, dtype=dx.dtype, device=dx.device)[:, None]
-    fx = xs + dx
-    fy = ys + dy
+    xs = torch.arange(w, dtype=torch.float32, device=dx.device)[None, :]
+    ys = torch.arange(h, dtype=torch.float32, device=dx.device)[:, None]
+    if flow_scale is None:
+        fx, fy = xs + dx, ys + dy
+    else:
+        fx = round_kernels.fma32_reference(dx, flow_scale, xs)
+        fy = round_kernels.fma32_reference(dy, flow_scale, ys)
+        dx, dy = dx * flow_scale, dy * flow_scale
     x1 = torch.floor(fx)
     y1 = torch.floor(fy)
     fx = fx - x1
@@ -346,50 +380,102 @@ def update_matrices(R0: torch.Tensor, R1: torch.Tensor, dx: torch.Tensor,
     yi = torch.where(inside, y1, 0.0).to(torch.int64)
 
     base = (yi * w + xi).reshape(-1)
-    a00 = ((1 - fx) * (1 - fy))[None]
-    a01 = (fx * (1 - fy))[None]
-    a10 = ((1 - fx) * fy)[None]
-    a11 = (fx * fy)[None]
+    weights = ((1 - fx) * (1 - fy), fx * (1 - fy), (1 - fx) * fy, fx * fy)
+    scale = _border_scale(h, w, R0.device)
     if R1_packed is not None:
-        table, scale = R1_packed
-        flat_w = (a00.reshape(-1), a01.reshape(-1), a10.reshape(-1), a11.reshape(-1))
-        vals = _unpack_warp(table[base], scale, *flat_w)
+        table, r_scale = R1_packed
+        vals = _unpack_warp(table[base], *(a.reshape(-1) for a in weights))
         r = torch.stack([v.reshape(h, w) for v in vals])
-    else:
-        flat = R1.reshape(5, h * w)
+        return matrices_from_samples(R0, r, inside, dx, dy, scale, r_scale,
+                                     flow_scale is not None)
+    flat = R1.reshape(5, h * w)
 
-        # an index past the end (a pixel outside, on a level of one row or
-        # column) is clamped, as JAX's gather clamps it
-        def take(offset):
-            return flat[:, torch.clamp(base + offset, max=h * w - 1)].reshape(5, h, w)
+    # an index past the end (a pixel outside, on a level of one row or
+    # column) is clamped, as JAX's gather clamps it
+    def take(offset):
+        return flat[:, torch.clamp(base + offset, max=h * w - 1)].reshape(5, h, w)
 
-        r = a00 * take(0) + a01 * take(1) + a10 * take(w) + a11 * take(w + 1)
-    return matrices_from_samples(R0, r, inside, dx, dy, _border_scale(h, w, R0.device))
+    r = _bilinear([a[None] for a in weights], [take(o) for o in (0, 1, w, w + 1)])
+    return matrices_from_samples(R0, r, inside, dx, dy, scale, None, flow_scale is not None)
 
 
 def matrices_from_samples(R0: torch.Tensor, r: torch.Tensor, inside: torch.Tensor,
-                          dx: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor
-                          ) -> torch.Tensor:
+                          dx: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
+                          r_scale: torch.Tensor | None = None,
+                          computed_flow: bool = False, folded: bool = True) -> torch.Tensor:
     """M (5, H, W) from the source planes R0, the target's planes ``r``
-    sampled at the flow (used where ``inside``), the flow and the certainty
-    attenuation ``scale`` (H, W): the tail of :func:`update_matrices`, shared
-    with the row-sharded warp."""
-    r2 = torch.where(inside, r[0], 0.0)
-    r3 = torch.where(inside, r[1], 0.0)
-    r4 = torch.where(inside, (R0[2] + r[2]) * 0.5, R0[2])
-    r5 = torch.where(inside, (R0[3] + r[3]) * 0.5, R0[3])
-    r6 = torch.where(inside, (R0[4] + r[4]) * 0.25, R0[4] * 0.5)
-    r2 = (R0[0] - r2) * 0.5
-    r3 = (R0[1] - r3) * 0.5
-    r2 = r2 + r4 * dy + r6 * dx
-    r3 = r3 + r6 * dy + r5 * dx
-    r2, r3, r4, r5, r6 = (v * scale for v in (r2, r3, r4, r5, r6))
+    sampled at the flow (used where ``inside``; times ``r_scale`` (5,), the
+    packed table's scales, when given), the flow and the certainty
+    attenuation ``scale`` (H, W): the tail of :func:`update_matrices`.
+
+    Rounded as XLA compiles it for the CPU, where the attenuation is a
+    constant: the packed scales and the flow terms are each contracted into
+    the add that takes them, and ``(a * s) * (b * s)`` becomes
+    ``(a * b) * s2`` with ``s2 = s * s`` folded, its first product of each
+    sum contracted: ``M0 = fma(r4 r4, s2, (r6 r6) s2)``,
+    ``M1 = fma(r4, s, r5 s) (r6 s)``, ``M3 = fma(r4 r2, s2, (r6 r3) s2)``,
+    and so on.  Which product of ``h2 + r4 dy`` and ``h3 + r6 dy`` is
+    contracted follows the operand order of each of XLA's loops, measured:
+    ``r4 dy`` stays rounded on a level of one row or column, where no pixel
+    is inside and LLVM folds the mask; in the packed warp it stays rounded
+    in M4's, and in M3's on a level of one row, and of one column where the
+    flow is ``computed_flow`` (a product XLA recomputes in the warp, see
+    :func:`update_matrices`); ``r6 dy`` stays rounded in M3's in the packed
+    warp with a ``computed_flow`` or on a level of one column, and in the
+    exact warp with a ``computed_flow`` on a level of one row or column.
+    Not ``folded`` (the row-sharded warp, whose
+    attenuation depends on the rank): each value is scaled first,
+    ``R = r * s``, ``M0 = fma(R4, R4, R6 R6)``, ``M3 = fma(R4, R2, R6 R3)``,
+    and ``r4 dy`` stays rounded in M4."""
+    from datmo_using_optical_flow_tpu_torch.ops import round_kernels
+
+    fma = round_kernels.fma32_reference
+    w = R0.shape[-1]
+    if r_scale is None:
+        d0, d1, s4, s5, s6 = (R0[c] - r[c] if c < 2 else R0[c] + r[c] for c in range(5))
+    else:
+        s4, s5, s6 = (fma(r[c], r_scale[c], R0[c]) for c in (2, 3, 4))
+        # the difference takes the packed scale contracted in XLA's vector
+        # loops (8 lanes), not in their scalar remainder: the last
+        # (w - 1) % 8 + 1 columns of each row
+        vec = torch.arange(w, device=R0.device) < (w - 1) // 8 * 8
+        d0, d1 = (torch.where(vec, fma(r[c], -r_scale[c], R0[c]), R0[c] - r[c] * r_scale[c])
+                  for c in (0, 1))
+    r4 = torch.where(inside, s4 * 0.5, R0[2])
+    r5 = torch.where(inside, s5 * 0.5, R0[3])
+    r6 = torch.where(inside, s6 * 0.25, R0[4] * 0.5)
+    h2 = torch.where(inside, d0, R0[0]) * 0.5
+    h3 = torch.where(inside, d1, R0[1]) * 0.5
+    terms: dict = {}
+
+    def term(name: str, sep: bool) -> torch.Tensor:
+        """``h2 + r4 dy + r6 dx`` ("r2") or ``h3 + r6 dy + r5 dx`` ("r3"),
+        the last product contracted, the first one too unless ``sep``."""
+        if (name, sep) not in terms:
+            h, a, b = (h2, r4, r6) if name == "r2" else (h3, r6, r5)
+            terms[name, sep] = fma(b, dx, h + a * dy if sep else fma(a, dy, h))
+        return terms[name, sep]
+
+    rows, one_line, packed = R0.shape[1], 1 in R0.shape[1:], r_scale is not None
+    if packed:
+        r2, r3 = term("r2", rows == 1 or (w == 1 and computed_flow)), \
+            term("r3", computed_flow or w == 1)
+    else:
+        r2, r3 = term("r2", one_line), term("r3", computed_flow and one_line)
+    r2_m4, r3_m4 = term("r2", packed or one_line or not folded), term("r3", False)
+    m1 = fma(r4, scale, r5 * scale) * (r6 * scale)
+    if not folded:
+        R2, R3, R2_m4, R3_m4, R4, R5, R6 = (v * scale for v in (r2, r3, r2_m4, r3_m4, r4, r5, r6))
+        return torch.stack([fma(R4, R4, R6 * R6), m1, fma(R5, R5, R6 * R6),
+                            fma(R4, R2, R6 * R3), fma(R6, R2_m4, R5 * R3_m4)])
+    s2 = scale * scale
+    r66 = (r6 * r6) * s2
     return torch.stack([
-        r4 * r4 + r6 * r6,
-        (r4 + r5) * r6,
-        r5 * r5 + r6 * r6,
-        r4 * r2 + r6 * r3,
-        r6 * r2 + r5 * r3,
+        fma(r4 * r4, s2, r66),
+        m1,
+        fma(r5 * r5, s2, r66),
+        fma(r4 * r2, s2, (r6 * r3) * s2),
+        fma(r6 * r2_m4, s2, (r5 * r3_m4) * s2),
     ])
 
 
@@ -410,45 +496,68 @@ def gauss_window(winsize: int) -> np.ndarray:
 
 
 def gauss_blur5(M: torch.Tensor, winsize: int) -> torch.Tensor:
-    """Gaussian window aggregation (cv2 flags=256), BORDER_REPLICATE."""
+    """Gaussian window aggregation (cv2 flags=256), BORDER_REPLICATE: the
+    vertical pass, then the horizontal one, each a chain of once-rounded
+    fmas (:func:`_corr_at`), as XLA's compiled ``gauss_blur5`` rounds it."""
     g = gauss_window(winsize)
-    return _corr_axis(_corr_axis(M, g, -2, "edge"), g, -1, "edge")
+    return _corr_at(_corr_at(M, g, -2, pad_mode="edge"), g, -1, pad_mode="edge")
+
+
+def solve_terms(Mb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The per-pixel 2x2 solve's numerators and 1 / det, with OpenCV's +1e-3
+    determinant regularizer, rounded as XLA's compiled ``solve_flow``: each
+    difference of products is ``fma(a, b, -(c * d))``.  The flow is
+    ``(nx * idet, ny * idet)``."""
+    from datmo_using_optical_flow_tpu_torch.ops import round_kernels
+
+    fma = round_kernels.fma32_reference
+    g11, g12, g22, h1, h2 = Mb[0], Mb[1], Mb[2], Mb[3], Mb[4]
+    idet = 1.0 / (fma(g11, g22, -(g12 * g12)) + 1e-3)
+    return fma(g11, h2, -(g12 * h1)), fma(g22, h1, -(g12 * h2)), idet
 
 
 def solve_flow(Mb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-pixel 2x2 solve with OpenCV's +1e-3 determinant regularizer."""
-    g11, g12, g22, h1, h2 = Mb[0], Mb[1], Mb[2], Mb[3], Mb[4]
-    idet = 1.0 / (g11 * g22 - g12 * g12 + 1e-3)
-    return (g11 * h2 - g12 * h1) * idet, (g22 * h1 - g12 * h2) * idet
+    """Per-pixel 2x2 solve -> (dx, dy), as XLA's compiled ``solve_flow``
+    (:func:`solve_terms`)."""
+    nx, ny, idet = solve_terms(Mb)
+    return nx * idet, ny * idet
 
 
 def farneback_level(R0: torch.Tensor, R1: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor,
                     winsize: int, iterations: int, fast_warp: bool = True,
-                    gaussian: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """One pyramid level: ``iterations`` x (matrices -> window -> solve).
+                    gaussian: bool = False,
+                    flow_scale: float | torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One pyramid level: ``iterations`` x (matrices -> window -> solve),
+    from the flow ``(dx, dy)`` (times ``flow_scale``, see
+    :func:`update_matrices`).
 
     Levels of at least 128x256 run each iteration as one fused kernel (K3),
     with an exact warp of any displacement.  Smaller levels assemble M with
-    :func:`update_matrices` and aggregate + solve with the K2 kernel; their warp
-    is the packed int16/int8 one when ``fast_warp`` is set (as on the JAX
-    package's kernel path, which packs there whatever its flag says), else
-    exact.
+    K4 (exact warp) or, when ``fast_warp`` is set (as on the JAX package's
+    kernel path, which packs there whatever its flag says), with K9 from the
+    packed int16/int8 table, and aggregate + solve with K2.  Between
+    iterations the flow is the solve's numerators times 1 / det, the form
+    XLA's compiled refinement carries into the next warp.
     """
-    from datmo_using_optical_flow_tpu_torch.ops import flow_kernels
+    from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
 
     _, h, w = R0.shape
-    if warp.eligible(h, w):
-        for _ in range(iterations):
-            dx, dy = flow_kernels.fused_iteration(R0, R1, dx, dy, winsize, gaussian)
-        return dx, dy
-
-    packed = pack_corner_pairs(R1) if fast_warp else None
-    M = update_matrices(R0, R1, dx, dy, packed)
+    if iterations < 1:
+        return (dx, dy) if flow_scale is None else (dx * flow_scale, dy * flow_scale)
+    eligible = warp.eligible(h, w)
+    packed = pack_corner_pairs(R1) if fast_warp and not eligible else None
     for i in range(iterations):
-        dx, dy = flow_kernels.blur_solve(M, winsize, gaussian)
-        if i < iterations - 1:
-            M = update_matrices(R0, R1, dx, dy, packed)
-    return dx, dy
+        terms = i < iterations - 1
+        if eligible:
+            out = fk.fused_iteration(R0, R1, dx, dy, winsize, gaussian, flow_scale, terms)
+        else:
+            M = (fk.warp_matrices_packed(R0, *packed, dx, dy, flow_scale) if packed
+                 else fk.warp_matrices(R0, R1, dx, dy, flow_scale))
+            out = fk.blur_solve(M, winsize, gaussian, terms)
+        if terms:
+            dx, dy, flow_scale = out
+    return out
 
 
 # ------------------------------------------------------------------ pyramid and refinement
@@ -479,19 +588,25 @@ def flow_from_pyramids(pyr1, pyr2, pyr_scale: float, winsize: int, iterations: i
     dx = dy = None
     for R0, R1 in zip(pyr1, pyr2):
         _, lh, lw = R0.shape
+        # the level's flow is (dx, dy) times ``scale`` (None: 1), the
+        # product XLA's compiled refinement recomputes in the warp
         if dx is None:
+            scale = None
             if flow0 is not None:  # OPTFLOW_USE_INITIAL_FLOW
-                scale = float(np.float32(pyr_scale ** (len(pyr1) - 1)))
                 f0 = torch.movedim(flow0.to(torch.float32), -1, 0).contiguous()  # (2, H, W)
-                f0 = resize_bilinear(f0, lh, lw, scale)
+                f0 = resize_bilinear(f0, lh, lw)
                 dx, dy = f0[0], f0[1]
+                scale = float(np.float32(pyr_scale ** (len(pyr1) - 1)))
+                scale = None if scale == 1.0 else scale
             else:
                 dx = torch.zeros((lh, lw), dtype=torch.float32, device=R0.device)
                 dy = torch.zeros((lh, lw), dtype=torch.float32, device=R0.device)
         else:
-            f = resize_bilinear(torch.stack([dx, dy]), lh, lw, 1.0 / pyr_scale)
+            f = resize_bilinear(torch.stack([dx, dy]), lh, lw)
             dx, dy = f[0], f[1]
-        dx, dy = farneback_level(R0, R1, dx, dy, winsize, iterations, fast_warp, gaussian)
+            scale = float(np.float32(1.0 / pyr_scale))
+        dx, dy = farneback_level(R0, R1, dx, dy, winsize, iterations, fast_warp, gaussian,
+                                 scale)
     return torch.stack([dx, dy], dim=-1)
 
 

@@ -2,7 +2,9 @@
 
 The counterpart of ``datmo_using_optical_flow_tpu.ops.flow_pallas`` and
 ``ops.warp_pallas``.  Each of :func:`poly_exp` (K1), :func:`blur_solve` (K2),
-:func:`fused_iteration` (K3) and :func:`warp_matrices` (K4) dispatches on its
+:func:`fused_iteration` (K3), :func:`warp_matrices` (K4) and
+:func:`warp_matrices_packed` (K9, the small levels' packed warp, which the JAX
+package runs in XLA) dispatches on its
 input's device alone: a CPU tensor takes the plain version (``*_reference``),
 a CUDA tensor launches the hand-written kernel of ``csrc/flow_kernels.cu`` on
 the current stream (through ``kernels/build.Entry``), and any other device
@@ -25,12 +27,14 @@ from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
 from datmo_using_optical_flow_tpu_torch.ops import poly_tiny, round_kernels
 from datmo_using_optical_flow_tpu_torch.oracle.np_farneback import prepare_gaussian
 
-LAUNCHES = {"poly_exp": 0, "blur_solve": 0, "fused_iteration": 0, "warp_matrices": 0}
+LAUNCHES = {"poly_exp": 0, "blur_solve": 0, "fused_iteration": 0, "warp_matrices": 0,
+            "warp_packed": 0}
 _POLY_EXP = build.Entry("datmo_poly_exp", "poly_exp")
 _POLY_EXP_TINY = build.Entry("datmo_poly_exp_tiny", "poly_exp")
 _BLUR_SOLVE = build.Entry("datmo_blur_solve", "blur_solve")
 _FUSED_ITERATION = build.Entry("datmo_fused_iteration", "fused_iteration")
 _WARP_MATRICES = build.Entry("datmo_warp_matrices", "warp_matrices")
+_WARP_PACKED = build.Entry("datmo_warp_packed", "warp_packed")
 
 
 def reset_launches() -> None:
@@ -183,90 +187,172 @@ def poly_exp(img: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
 
 # ------------------------------------------------------------------ K2
 
-def blur_solve_reference(M: torch.Tensor, winsize: int, gaussian: bool = False
-                         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K2: ``solve_flow(box_blur5 or gauss_blur5 (M))``."""
+def blur_solve_reference(M: torch.Tensor, winsize: int, gaussian: bool = False,
+                         terms: bool = False) -> tuple[torch.Tensor, ...]:
+    """Plain version of K2: ``solve_flow(box_blur5 or gauss_blur5 (M))``,
+    or with ``terms`` its numerators and 1 / det (``solve_terms``)."""
     blur = fb.gauss_blur5 if gaussian else fb.box_blur5
-    return fb.solve_flow(blur(M, winsize))
+    return (fb.solve_terms if terms else fb.solve_flow)(blur(M, winsize))
 
 
-def blur_solve(M: torch.Tensor, winsize: int, gaussian: bool = False
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K2: window aggregation of M (5, H, W) and the 2x2 solve -> (dx, dy)."""
+def _outputs(h: int, w: int, device, terms: bool) -> tuple[torch.Tensor, ...]:
+    """(dx, dy), or with ``terms`` (nx, ny, idet), allocated for a kernel."""
+    return tuple(torch.empty((h, w), dtype=torch.float32, device=device)
+                 for _ in range(3 if terms else 2))
+
+
+def blur_solve(M: torch.Tensor, winsize: int, gaussian: bool = False, terms: bool = False
+               ) -> tuple[torch.Tensor, ...]:
+    """K2: window aggregation of M (5, H, W) and the 2x2 solve -> (dx, dy),
+    or with ``terms`` the flow into the next iteration's warp: the
+    numerators and 1 / det, (nx, ny, idet), with dx = nx * idet."""
     if M.ndim != 3 or M.shape[0] != 5:
         raise ValueError(f"M: expected (5, H, W), got {tuple(M.shape)}")
     _, h, w = M.shape
     _check(M, "M", (5, h, w))
     _check_window(winsize)
     if not _on_cuda(M):
-        return blur_solve_reference(M, winsize, gaussian)
+        return blur_solve_reference(M, winsize, gaussian, terms)
     taps, scale = _window(winsize, gaussian)
-    dx = torch.empty((h, w), dtype=torch.float32, device=M.device)
-    dy = torch.empty_like(dx)
-    _BLUR_SOLVE(M.device.index, dx.data_ptr(), dy.data_ptr(), M.data_ptr(), h, w,
-                taps.ctypes.data, winsize, scale)
+    out = _outputs(h, w, M.device, terms)
+    _BLUR_SOLVE(M.device.index, out[0].data_ptr(), out[1].data_ptr(),
+                out[2].data_ptr() if terms else None, M.data_ptr(), h, w, taps.ctypes.data,
+                winsize, scale)
     LAUNCHES["blur_solve"] += 1
-    return dx, dy
+    return out
 
 
 # ------------------------------------------------------------------ K3
 
 def fused_iteration_reference(R0: torch.Tensor, R1: torch.Tensor, dx: torch.Tensor,
-                              dy: torch.Tensor, winsize: int, gaussian: bool = False
-                              ) -> tuple[torch.Tensor, torch.Tensor]:
+                              dy: torch.Tensor, winsize: int, gaussian: bool = False,
+                              flow_scale: float | torch.Tensor | None = None,
+                              terms: bool = False) -> tuple[torch.Tensor, ...]:
     """Plain version of K3: K4's plain version then K2's."""
-    return blur_solve_reference(warp_matrices_reference(R0, R1, dx, dy), winsize, gaussian)
+    return blur_solve_reference(warp_matrices_reference(R0, R1, dx, dy, flow_scale), winsize,
+                                gaussian, terms)
 
 
-def _check_planes_and_flow(R0, R1, dx, dy) -> tuple[int, int]:
+def _check_planes_and_flow(R0, R1, dx, dy, flow_scale=None, halo: int = 0) -> tuple[int, int]:
+    """R0 (5, H, W), R1 with ``halo`` more rows above and below, the flow and
+    its scale (H, W): each float32 and contiguous.  Returns (H, W)."""
     if R0.ndim != 3 or R0.shape[0] != 5:
         raise ValueError(f"R0: expected (5, H, W), got {tuple(R0.shape)}")
     _, h, w = R0.shape
-    for t, name, shape in ((R0, "R0", (5, h, w)), (R1, "R1", (5, h, w)),
+    for t, name, shape in ((R0, "R0", (5, h, w)), (R1, "R1", (5, h + 2 * halo, w)),
                            (dx, "dx", (h, w)), (dy, "dy", (h, w))):
         _check(t, name, shape)
+    if isinstance(flow_scale, torch.Tensor):
+        _check(flow_scale, "flow_scale", (h, w))
     return h, w
 
 
+def _flow_args(dx: torch.Tensor, dy: torch.Tensor, flow_scale) -> tuple:
+    """The C entries' flow (vx, vy, s, s0, mode): the flow ``(dx, dy)``
+    (mode 0), times the float32 ``flow_scale`` (mode 1) or times the plane
+    ``flow_scale`` (mode 2)."""
+    if flow_scale is None:
+        return dx.data_ptr(), dy.data_ptr(), None, 0.0, 0
+    if isinstance(flow_scale, torch.Tensor):
+        return dx.data_ptr(), dy.data_ptr(), flow_scale.data_ptr(), 0.0, 2
+    return dx.data_ptr(), dy.data_ptr(), None, float(np.float32(flow_scale)), 1
+
+
 def fused_iteration(R0: torch.Tensor, R1: torch.Tensor, dx: torch.Tensor,
-                    dy: torch.Tensor, winsize: int, gaussian: bool = False
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
+                    dy: torch.Tensor, winsize: int, gaussian: bool = False,
+                    flow_scale: float | torch.Tensor | None = None, terms: bool = False
+                    ) -> tuple[torch.Tensor, ...]:
     """K3: one refinement iteration (warp R1 by the flow, assemble M, window
-    sum, solve) -> new (dx, dy).  R0, R1 are (5, H, W), dx, dy (H, W); unlike
+    sum, solve) -> new (dx, dy), or with ``terms`` (nx, ny, idet) as K2's.
+    R0, R1 are (5, H, W), dx, dy (H, W); the flow is (dx, dy) times
+    ``flow_scale`` when given (``ops/farneback.update_matrices``).  Unlike
     the JAX kernel, R1 is not padded: the warp gathers any displacement."""
-    h, w = _check_planes_and_flow(R0, R1, dx, dy)
+    h, w = _check_planes_and_flow(R0, R1, dx, dy, flow_scale)
     _check_window(winsize)
-    if not _on_cuda(R0, R1, dx, dy):
-        return fused_iteration_reference(R0, R1, dx, dy, winsize, gaussian)
+    scale_t = flow_scale if isinstance(flow_scale, torch.Tensor) else dx
+    if not _on_cuda(R0, R1, dx, dy, scale_t):
+        return fused_iteration_reference(R0, R1, dx, dy, winsize, gaussian, flow_scale, terms)
     taps, scale = _window(winsize, gaussian)
-    odx = torch.empty((h, w), dtype=torch.float32, device=R0.device)
-    ody = torch.empty_like(odx)
-    _FUSED_ITERATION(R0.device.index, odx.data_ptr(), ody.data_ptr(), R0.data_ptr(),
-                     R1.data_ptr(), dx.data_ptr(), dy.data_ptr(), h, w, taps.ctypes.data,
-                     winsize, scale)
+    out = _outputs(h, w, R0.device, terms)
+    _FUSED_ITERATION(R0.device.index, out[0].data_ptr(), out[1].data_ptr(),
+                     out[2].data_ptr() if terms else None, R0.data_ptr(), R1.data_ptr(),
+                     *_flow_args(dx, dy, flow_scale), h, w, taps.ctypes.data, winsize, scale)
     LAUNCHES["fused_iteration"] += 1
-    return odx, ody
+    return out
 
 
 # ------------------------------------------------------------------ K4
 
 def warp_matrices_reference(R0: torch.Tensor, R1: torch.Tensor, dx: torch.Tensor,
-                            dy: torch.Tensor) -> torch.Tensor:
-    """Plain version of K4: the exact (unpacked) ``update_matrices``."""
-    return fb.update_matrices(R0, R1, dx, dy)
+                            dy: torch.Tensor, flow_scale: float | torch.Tensor | None = None,
+                            rows: tuple[int, int, int] | None = None) -> torch.Tensor:
+    """Plain version of K4: the exact (unpacked) ``update_matrices``, or
+    with ``rows`` the row-sharded one (``parallel/sharded_flow``)."""
+    if rows is not None:
+        from datmo_using_optical_flow_tpu_torch.parallel import sharded_flow
+
+        return sharded_flow.sharded_update_reference(R0, R1, dx, dy, *rows, flow_scale)
+    return fb.update_matrices(R0, R1, dx, dy, flow_scale=flow_scale)
 
 
 def warp_matrices(R0: torch.Tensor, R1: torch.Tensor, dx: torch.Tensor,
-                  dy: torch.Tensor) -> torch.Tensor:
+                  dy: torch.Tensor, flow_scale: float | torch.Tensor | None = None,
+                  rows: tuple[int, int, int] | None = None) -> torch.Tensor:
     """K4: warp R1 by the flow and assemble the normal-equation planes
     M (5, H, W).  As for K3, R1 is not padded: the warp gathers any
     displacement (the JAX kernel takes ``_pad_r1``'s window layout and only
-    the displacements that window reaches)."""
-    h, w = _check_planes_and_flow(R0, R1, dx, dy)
-    if not _on_cuda(R0, R1, dx, dy):
-        return warp_matrices_reference(R0, R1, dx, dy)
+    the displacements that window reaches).  The small levels' exact warp.
+
+    ``rows = (start, halo, h_global)``: R0 and the flow are the rows from
+    ``start`` of a grid of ``h_global`` rows, and R1 holds ``halo`` more rows
+    above and below them; a sampled row clamps to R1's rows, and M's tail
+    takes the row-sharded warp's unfolded form."""
+    start, halo, total = rows if rows is not None else (0, 0, R0.shape[-2])
+    h, w = _check_planes_and_flow(R0, R1, dx, dy, flow_scale, halo)
+    if start < 0 or halo < 0 or start + h > total:
+        raise ValueError(f"rows {rows}: the block's rows lie outside the grid")
+    scale_t = flow_scale if isinstance(flow_scale, torch.Tensor) else dx
+    if not _on_cuda(R0, R1, dx, dy, scale_t):
+        return warp_matrices_reference(R0, R1, dx, dy, flow_scale, rows)
     M = torch.empty((5, h, w), dtype=torch.float32, device=R0.device)
-    _WARP_MATRICES(R0.device.index, M.data_ptr(), R0.data_ptr(), R1.data_ptr(), dx.data_ptr(),
-                   dy.data_ptr(), h, w)
+    _WARP_MATRICES(R0.device.index, M.data_ptr(), R0.data_ptr(), R1.data_ptr(),
+                   *_flow_args(dx, dy, flow_scale), h, w, start, halo, total,
+                   int(rows is not None))
     LAUNCHES["warp_matrices"] += 1
+    return M
+
+
+# ------------------------------------------------------------------ K9
+
+def warp_packed_reference(R0: torch.Tensor, table: torch.Tensor, scale: torch.Tensor,
+                          dx: torch.Tensor, dy: torch.Tensor,
+                          flow_scale: float | torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of K9: ``update_matrices`` with the packed table."""
+    return fb.update_matrices(R0, None, dx, dy, (table, scale), flow_scale)
+
+
+def warp_matrices_packed(R0: torch.Tensor, table: torch.Tensor, scale: torch.Tensor,
+                         dx: torch.Tensor, dy: torch.Tensor,
+                         flow_scale: float | torch.Tensor | None = None) -> torch.Tensor:
+    """K9: K4 from the packed corner table ``(table, scale)`` of
+    ``ops/farneback.pack_corner_pairs``: the small levels' warp and M when
+    the flow packs R1 (``fast_warp``)."""
+    if R0.ndim != 3 or R0.shape[0] != 5:
+        raise ValueError(f"R0: expected (5, H, W), got {tuple(R0.shape)}")
+    _, h, w = R0.shape
+    for t, name, shape in ((R0, "R0", (5, h, w)), (dx, "dx", (h, w)), (dy, "dy", (h, w)),
+                           (scale, "scale", (5,))):
+        _check(t, name, shape)
+    if table.dtype != torch.int32 or tuple(table.shape) != (h * w, 7) or not table.is_contiguous():
+        raise ValueError(f"table: expected a contiguous int32 of shape ({h * w}, 7), got "
+                         f"{table.dtype} {tuple(table.shape)}")
+    if isinstance(flow_scale, torch.Tensor):
+        _check(flow_scale, "flow_scale", (h, w))
+    scale_t = flow_scale if isinstance(flow_scale, torch.Tensor) else dx
+    if not _on_cuda(R0, table, scale, dx, dy, scale_t):
+        return warp_packed_reference(R0, table, scale, dx, dy, flow_scale)
+    M = torch.empty((5, h, w), dtype=torch.float32, device=R0.device)
+    _WARP_PACKED(R0.device.index, M.data_ptr(), R0.data_ptr(), table.data_ptr(),
+                 scale.data_ptr(), *_flow_args(dx, dy, flow_scale), h, w)
+    LAUNCHES["warp_packed"] += 1
     return M

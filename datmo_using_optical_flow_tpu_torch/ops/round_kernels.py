@@ -51,6 +51,23 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).float()
 
 
+# CPU elements per pass of fma32_reference: its float64 temporaries then stay
+# in cache (~2x faster on 1080p planes, one thread or eight)
+_FMA_CHUNK = 1 << 17
+
+
+def _fma_rounded(a: torch.Tensor, b, c) -> torch.Tensor:
+    """``fma(a, b, c)`` rounded to float32, for float32 ``a`` and float64 or
+    number ``b``, ``c`` that broadcast with it (:func:`fma32_reference`)."""
+    p = a.double() * b
+    s = p + c
+    pv = s - c
+    err = (c - (s - pv)).add_(p.sub_(pv))
+    # ``err * inf`` is NaN only where ``err`` is 0, where it is not taken
+    step = (err != 0) & ((s.view(torch.int64) & 1) == 0) & torch.isfinite(s)
+    return torch.where(step, torch.nextafter(s, err.mul_(torch.inf)), s).float()
+
+
 def fma32_reference(a: torch.Tensor, b, c, root: bool = False) -> torch.Tensor:
     """Plain version of :func:`fma32`.
 
@@ -58,16 +75,22 @@ def fma32_reference(a: torch.Tensor, b, c, root: bool = False) -> torch.Tensor:
     TwoSum's error is nonzero and the sum's last bit is even, it steps one
     ulp toward the error), and a sum rounded to odd with 53 bits rounds to
     the nearest float32 as the exact sum would.  Where the sum is infinite
-    or NaN it is taken as it is, as IEEE's fma gives it."""
+    or NaN it is taken as it is, as IEEE's fma gives it.  Large CPU inputs
+    go through in passes of ``_FMA_CHUNK`` elements."""
     b = b.double() if isinstance(b, torch.Tensor) else float(np.float32(b))
     c = c.double() if isinstance(c, torch.Tensor) else float(np.float32(c))
-    p = a.double() * b
-    s = p + c
-    pv = s - c
-    err = (c - (s - pv)) + (p - pv)
-    # ``err * inf`` is NaN only where ``err`` is 0, where it is not taken
-    step = (err != 0) & ((s.view(torch.int64) & 1) == 0) & torch.isfinite(s)
-    out = torch.where(step, torch.nextafter(s, err * torch.inf), s).float()
+    shape = torch.broadcast_shapes(*(x.shape for x in (a, b, c) if isinstance(x, torch.Tensor)))
+    n = shape.numel()
+    if a.device.type != "cpu" or n <= _FMA_CHUNK:
+        out = _fma_rounded(a, b, c)
+    else:
+        flat = [x.expand(shape).reshape(-1) if isinstance(x, torch.Tensor) else x
+                for x in (a, b, c)]
+        out = torch.empty(n, dtype=torch.float32)
+        for i in range(0, n, _FMA_CHUNK):
+            out[i:i + _FMA_CHUNK] = _fma_rounded(
+                *(x[i:i + _FMA_CHUNK] if isinstance(x, torch.Tensor) else x for x in flat))
+        out = out.reshape(shape)
     return sqrt_rn(out) if root else out
 
 
@@ -76,10 +99,11 @@ def fma_chain_reference(terms: list, shared: frozenset = frozenset()) -> torch.T
     code rounds such a chain: each product is contracted into the add that
     takes it (a once-rounded fma), the first product into the add of the
     second; a product that two sums of the same output share (taps in
-    ``shared``) keeps its own rounding.  ``w`` is a float32 number, ``x`` a
-    float32 tensor.  The correlations of K1's and K8's plain versions."""
+    ``shared``) keeps its own rounding.  ``w`` is a float32 number or
+    tensor, ``x`` a float32 tensor.  The correlations of K1's and K8's plain
+    versions, the Gaussian window's and the warp's bilinear sums."""
     def prod(w, x):
-        return float(w) * x
+        return w * x if isinstance(w, torch.Tensor) else float(w) * x
 
     if len(terms) == 1:
         return prod(terms[0][1], terms[0][2])

@@ -17,9 +17,9 @@ block and the replicated coarse levels; K2 (``flow_kernels.blur_solve``) sums
 the window and solves on the halo-extended M of level 0 (its horizontal pass
 is row-local, so its interior rows are :func:`~.halo.sharded_box_blur5` then
 ``solve_flow``) and on the small replicated levels; K3 runs the replicated
-levels of at least 128x256.  The warp's M stays plain PyTorch
-(:func:`sharded_update_matrices`), as in the JAX package, which computes it
-outside any Pallas kernel.
+levels of at least 128x256.  K4 assembles the warp's M on level 0, with the
+rank's rows (:func:`sharded_update_matrices`; the JAX package computes it in
+XLA, outside any Pallas kernel), and on the small replicated levels.
 
 Every function runs on every rank of the group at once, on blocks of shape
 (5, H_local, W) or (H_local, W).
@@ -49,23 +49,42 @@ def sharded_poly_exp(img_block: torch.Tensor, n: int, sigma: float,
 
 def sharded_update_matrices(R0: torch.Tensor, R1ext: torch.Tensor, dx: torch.Tensor,
                             dy: torch.Tensor, group: RowGroup, warp_halo: int,
-                            h_global: int) -> torch.Tensor:
+                            h_global: int,
+                            flow_scale: float | torch.Tensor | None = None) -> torch.Tensor:
     """Flow-compensated normal-equation planes M (5, H_local, W) of a
-    row-sharded block (JAX ``sharded_flow.py:54-120``).
+    row-sharded block (JAX ``sharded_flow.py:54-120``): K4 with this rank's
+    rows (:func:`sharded_update_reference` on the CPU).
 
     ``R1ext``: the target's planes grown by ``warp_halo`` rows of each
     neighbour, (5, H_local + 2*warp_halo, W).  Equals
     ``ops.farneback.update_matrices`` of the whole grid on this rank's rows
     while |dy| stays within ``warp_halo`` rows; beyond, the sampled row
-    clamps to the halo's edge."""
-    _, hl, w = R0.shape
-    start = group.rank * hl
-    xs = torch.arange(w, dtype=dx.dtype, device=dx.device)[None, :]
-    ys_local = torch.arange(hl, dtype=dx.dtype, device=dx.device)[:, None]
-    ys_global = ys_local + start
+    clamps to the halo's edge.  The flow is (dx, dy), times ``flow_scale``
+    when given (``ops.farneback.update_matrices``)."""
+    rows = (group.rank * R0.shape[1], warp_halo, h_global)
+    return flow_kernels.warp_matrices(R0.contiguous(), R1ext.contiguous(), dx.contiguous(),
+                                      dy.contiguous(), flow_scale, rows)
 
-    fx = xs + dx
-    fy = ys_global + dy
+
+def sharded_update_reference(R0: torch.Tensor, R1ext: torch.Tensor, dx: torch.Tensor,
+                             dy: torch.Tensor, start: int, warp_halo: int, h_global: int,
+                             flow_scale: float | torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of :func:`sharded_update_matrices` (K4 with rows) for
+    the block whose first row is the grid's row ``start``, rounded as the
+    JAX package's jitted ``sharded_update_matrices``: the warp as the
+    unsharded one (``ops.farneback.update_matrices``), M's tail in its
+    unfolded form (the attenuation depends on the rank)."""
+    from datmo_using_optical_flow_tpu_torch.ops import round_kernels
+
+    _, hl, w = R0.shape
+    xs = torch.arange(w, dtype=torch.float32, device=dx.device)[None, :]
+    ys_global = torch.arange(hl, dtype=torch.float32, device=dx.device)[:, None] + start
+    if flow_scale is None:
+        fx, fy = xs + dx, ys_global + dy
+    else:
+        fx = round_kernels.fma32_reference(dx, flow_scale, xs)
+        fy = round_kernels.fma32_reference(dy, flow_scale, ys_global)
+        dx, dy = dx * flow_scale, dy * flow_scale
     x1 = torch.floor(fx)
     y1 = torch.floor(fy)
     fx = fx - x1
@@ -83,74 +102,81 @@ def sharded_update_matrices(R0: torch.Tensor, R1ext: torch.Tensor, dx: torch.Ten
     def take(offset):
         return flat[:, base + offset].reshape(5, hl, w)
 
-    a00 = ((1 - fx) * (1 - fy))[None]
-    a01 = (fx * (1 - fy))[None]
-    a10 = ((1 - fx) * fy)[None]
-    a11 = (fx * fy)[None]
-    r = a00 * take(0) + a01 * take(1) + a10 * take(w) + a11 * take(w + 1)
+    weights = ((1 - fx) * (1 - fy), fx * (1 - fy), (1 - fx) * fy, fx * fy)
+    r = fb._bilinear([a[None] for a in weights], [take(o) for o in (0, 1, w, w + 1)])
     rows = torch.arange(start, start + hl, device=dx.device)  # attenuated as global rows
     scale = (fb.border_axis(rows, h_global)[:, None]
              * fb.border_axis(torch.arange(w, device=dx.device), w)[None, :])
-    return fb.matrices_from_samples(R0, r, inside, dx, dy, scale)
+    return fb.matrices_from_samples(R0, r, inside, dx, dy, scale,
+                                    computed_flow=flow_scale is not None, folded=False)
 
 
-def sharded_blur_solve(M: torch.Tensor, winsize: int, group: RowGroup
-                       ) -> tuple[torch.Tensor, torch.Tensor]:
+def sharded_blur_solve(M: torch.Tensor, winsize: int, group: RowGroup, terms: bool = False
+                       ) -> tuple[torch.Tensor, ...]:
     """Box window sum and 2x2 solve of row-sharded M (5, H_local, W): K2 on
     M grown by ``winsize // 2`` rows of each neighbour, its interior rows
-    kept (``solve_flow(sharded_box_blur5(M))``)."""
+    kept (``solve_flow(sharded_box_blur5(M))``; with ``terms`` the
+    numerators and 1 / det, as ``flow_kernels.blur_solve``)."""
     r = winsize // 2
     hl = M.shape[-2]
-    dx, dy = flow_kernels.blur_solve(halo_exchange_rows(M, r, group).contiguous(), winsize)
-    return dx[r:r + hl].contiguous(), dy[r:r + hl].contiguous()
+    out = flow_kernels.blur_solve(halo_exchange_rows(M, r, group).contiguous(), winsize,
+                                  terms=terms)
+    return tuple(t[r:r + hl].contiguous() for t in out)
 
 
 def sharded_farneback_level(R0: torch.Tensor, R1: torch.Tensor, dx: torch.Tensor,
                             dy: torch.Tensor, winsize: int, iterations: int,
-                            group: RowGroup, h_global: int, warp_halo: int = 16
+                            group: RowGroup, h_global: int, warp_halo: int = 16,
+                            flow_scale: float | torch.Tensor | None = None
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """One pyramid level on row-sharded blocks: ``iterations`` x (matrices ->
-    window -> solve)."""
+    window -> solve), the flow between iterations carried as the unsharded
+    level carries it (``ops.farneback.farneback_level``)."""
     R1ext = halo_exchange_rows(R1, warp_halo, group)
-    M = sharded_update_matrices(R0, R1ext, dx, dy, group, warp_halo, h_global)
+    if iterations < 1:
+        return (dx, dy) if flow_scale is None else (dx * flow_scale, dy * flow_scale)
     for i in range(iterations):
-        dx, dy = sharded_blur_solve(M, winsize, group)
-        if i < iterations - 1:
-            M = sharded_update_matrices(R0, R1ext, dx, dy, group, warp_halo, h_global)
-    return dx, dy
+        terms = i < iterations - 1
+        M = sharded_update_matrices(R0, R1ext, dx, dy, group, warp_halo, h_global, flow_scale)
+        out = sharded_blur_solve(M, winsize, group, terms)
+        if terms:
+            dx, dy, flow_scale = out
+    return out
 
 
 def coarse_flow(im1_block: torch.Tensor, im2_block: torch.Tensor, group: RowGroup,
                 pyr_scale: float = 0.3, levels: int = 5, winsize: int = 15,
                 iterations: int = 5, poly_n: int = 5, poly_sigma: float = 5.0
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """This rank's rows of the flow that level 0 starts from: the levels
-    below full size run replicated on every rank, on the gathered images
-    (they cost ~``pyr_scale²`` of level 0), and their flow is upsampled to
-    full size (JAX ``sharded_flow.py:156-193``).  Zeros when the pyramid has
-    one level."""
+                ) -> tuple[torch.Tensor, torch.Tensor, float | None]:
+    """This rank's rows of the flow that level 0 starts from, as ``(dx, dy,
+    scale)``, the flow ``(dx, dy) * scale`` (``ops.farneback.update_matrices``):
+    the levels below full size run replicated on every rank, on the gathered
+    images (they cost ~``pyr_scale²`` of level 0), and their flow is
+    upsampled to full size (JAX ``sharded_flow.py:156-193``).  Zeros and no
+    scale when the pyramid has one level."""
     hl, w = im1_block.shape
     h_global = hl * group.world_size
     sizes = level_sizes(h_global, w, pyr_scale, levels)
     if len(sizes) == 1:
         zero = torch.zeros((hl, w), dtype=torch.float32, device=im1_block.device)
-        return zero, zero.clone()
+        return zero, zero.clone(), None
     full = [group.all_gather_rows(im).to(torch.float32) for im in (im1_block, im2_block)]
-    dx = dy = None
+    dx = dy = flow_scale = None
     inv = float(np.float32(1.0 / pyr_scale))
     for _, scale, lh, lw in sizes[:-1]:
         if dx is None:
             dx = torch.zeros((lh, lw), dtype=torch.float32, device=im1_block.device)
             dy = torch.zeros_like(dx)
         else:
-            dx = fb.resize_bilinear(dx, lh, lw) * inv
-            dy = fb.resize_bilinear(dy, lh, lw) * inv
+            dx, dy = fb.resize_bilinear(torch.stack([dx, dy]), lh, lw)
+            flow_scale = inv
         R0, R1 = (fb.poly_exp(fb.level_image(im, scale, lh, lw), poly_n, poly_sigma)
                   for im in full)
-        dx, dy = fb.farneback_level(R0, R1, dx, dy, winsize, iterations, fast_warp=False)
+        dx, dy = fb.farneback_level(R0, R1, dx, dy, winsize, iterations, False,
+                                    flow_scale=flow_scale)
     rows = slice(group.rank * hl, (group.rank + 1) * hl)
-    return ((fb.resize_bilinear(dx, h_global, w) * inv)[rows].contiguous(),
-            (fb.resize_bilinear(dy, h_global, w) * inv)[rows].contiguous())
+    full_flow = fb.resize_bilinear(torch.stack([dx, dy]), h_global, w)[:, rows]
+    return full_flow[0].contiguous(), full_flow[1].contiguous(), inv
 
 
 def level0_image(img_block: torch.Tensor, group: RowGroup) -> torch.Tensor:
@@ -180,12 +206,12 @@ def sharded_farneback_flow(img1_block: torch.Tensor, img2_block: torch.Tensor,
     within ``warp_halo`` rows.  ``img*_block``: this rank's (H_local, W) rows (``mesh.shard_rows``).
     """
     hl, _ = img1_block.shape
-    dx, dy = coarse_flow(img1_block, img2_block, group, pyr_scale, levels, winsize,
-                         iterations, poly_n, poly_sigma)
+    dx, dy, flow_scale = coarse_flow(img1_block, img2_block, group, pyr_scale, levels,
+                                     winsize, iterations, poly_n, poly_sigma)
     R0, R1 = (sharded_poly_exp(level0_image(im, group), poly_n, poly_sigma, group)
               for im in (img1_block, img2_block))
     dx, dy = sharded_farneback_level(R0, R1, dx, dy, winsize, iterations, group,
-                                     hl * group.world_size, warp_halo)
+                                     hl * group.world_size, warp_halo, flow_scale)
     return torch.stack([dx, dy], dim=-1)
 
 
@@ -194,14 +220,15 @@ def sharded_flow_launches(h: int, w: int, pyr_scale: float = 0.3, levels: int = 
     """Kernel launches of one :func:`sharded_farneback_flow` call on each rank
     on the card, by the code above: two K1 per level (the replicated coarse
     levels and level 0's halo-extended blocks), ``iterations`` K3 on each
-    coarse level of at least 128x256 (``warp.eligible``), ``iterations`` K2
-    on each smaller one and on level 0; K8 twice per coarse level image (two
-    images a level) and once per plane of each upsample (dx and dy: between
-    the coarse levels and to full size).  Level 0's pre-blur runs
+    coarse level of at least 128x256 (``warp.eligible``), ``iterations`` K4
+    and K2 on each smaller one and on level 0; K8 twice per coarse level
+    image (two images a level) and once per 2-plane upsample (between the
+    coarse levels and to full size).  Level 0's pre-blur runs
     :func:`level0_image`'s plain ops."""
     sizes = level_sizes(h, w, pyr_scale, levels)
     k3 = sum(warp.eligible(lh, lw) for _, _, lh, lw in sizes[:-1])
     coarse = len(sizes) - 1
     return {"poly_exp": 2 * len(sizes), "blur_solve": iterations * (len(sizes) - k3),
+            "warp_matrices": iterations * (len(sizes) - k3),
             "fused_iteration": iterations * k3,
-            "level_image": 2 * 2 * coarse + 2 * coarse if coarse else 0}
+            "level_image": 2 * 2 * coarse + coarse}

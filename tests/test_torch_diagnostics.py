@@ -37,8 +37,11 @@ def test_roofline_operation_counts():
     px = 1080 * 1920
     assert roofline.poly_exp(1080, 1920).ops == 211 * px  # 61 vertical, 141 horizontal, 9
     assert roofline.blur_solve(1080, 1920, 15).ops == 308 * px
-    assert roofline.fused_iteration(1080, 1920, 15).ops == (89 + 308) * px
-    assert roofline.warp_matrices(1080, 1920).ops == 89 * px
+    assert roofline.fused_iteration(1080, 1920, 15).ops == (99 + 308) * px
+    assert roofline.warp_matrices(1080, 1920).ops == 99 * px  # an fma counted as two
+    assert roofline.warp_packed(1080, 1920).ops == 109 * px   # and the packed scales
+    # between iterations K3 reads and writes the numerators and 1 / det
+    assert roofline.fused_iteration(1080, 1920, 15, 3, 3).bytes == 64 * px
     # K5: 400 blocks of 102,400 rows visiting 30 tiles each is bound by operations
     work = roofline.nearest_neighbors(102_400, 102_400, 400 * 30, 400)
     assert work.ops == 10 * 400 * 30 * 256 * 256
@@ -80,17 +83,20 @@ def test_micro_flow_runs_every_row():
     row at each."""
     res = micro_flow.run(_moving_frames(2, 360, 384, seed=3), device="cpu", reps=1)
     _check_rows(res, ["K3 fused_iteration 360x384",
-                      "K3 fused_iteration 360x384, Gaussian window", "K4 warp_matrices 360x384",
+                      "K3 fused_iteration 360x384, Gaussian window",
+                      "K3 fused_iteration 360x384, (nx, ny, 1/det) in and out",
+                      "K4 warp_matrices 360x384",
                       "K2 blur_solve on K4's M 360x384",
-                      "update_matrices packed (plain) 360x384",
+                      "K9 warp_matrices_packed 360x384",
                       "K3 fused_iteration 108x115, second level",
-                      "K2 blur_solve on packed M 32x35, coarsest level",
+                      "K2 blur_solve on K9's M 32x35, coarsest level",
                       "K1 poly_exp 360x384", "K1 poly_exp 108x115", "K1 poly_exp 32x35"],
                 ("ms", "device_us", "bytes", "ops", "bound_us", "bound_by", "share_of_bound"))
     for r in res["rows"]:
         assert r["ms"] > 0 and r["bytes"] > 0 and r["bound_us"] > 0
         assert r["device_us"] is None and r["share_of_bound"] is None  # not measured here
-    assert res["rows"][2]["bytes"] == roofline.warp_matrices(360, 384).bytes
+    assert res["rows"][3]["bytes"] == roofline.warp_matrices(360, 384).bytes
+    assert res["rows"][5]["bytes"] == roofline.warp_packed(360, 384).bytes
     assert res["rows"][-1]["bytes"] == roofline.poly_exp(32, 35).bytes
     assert res["parent"] is None and "parent_device_us" not in res["rows"][0]
 
@@ -199,19 +205,25 @@ def test_micro_flow_builds_the_parent_only_for_the_card(frames, tmp_path):
         micro_flow.run(frames, device="cpu", parent=tmp_path)
 
 
-def test_against_parent_refuses_a_build_that_differs():
-    """Both builds are held to the plain version bit for bit before either is
-    timed: a parent one ulp off in one pixel is refused."""
+def test_against_parent_refuses_a_build_that_differs(monkeypatch):
+    """Before either build is timed, this build is held to the plain version
+    bit for bit (one ulp off in one pixel is refused) and the parent within
+    1e-4 of its scale (a parent may round otherwise: its difference is
+    reported; one far off is refused)."""
+    monkeypatch.setattr(micro_flow, "device_us_per_call", lambda fn, dev, reps=5: 1.0)
     a = torch.linspace(0, 1, 12).reshape(3, 4)
     off = a.clone()
     off[1, 2] = torch.nextafter(off[1, 2], torch.tensor(2.0))
     work = roofline.blur_solve(3, 4, 15)
-    with pytest.raises(AssertionError, match="the parent differs"):
-        micro_flow.against_parent(lambda: (a, a), lambda: (a, off), lambda: (a, a.clone()), work,
-                                  torch.device("cpu"), "cpu")
     with pytest.raises(AssertionError, match="this build differs"):
         micro_flow.against_parent(lambda: (off, a), lambda: (a, a), lambda: (a, a), work,
                                   torch.device("cpu"), "cpu")
+    with pytest.raises(AssertionError, match="the parent differs"):
+        micro_flow.against_parent(lambda: (a, a), lambda: (a, a + 1e-3), lambda: (a, a.clone()),
+                                  work, torch.device("cpu"), "cpu")
+    row = micro_flow.against_parent(lambda: (a, a), lambda: (a, off), lambda: (a, a.clone()),
+                                    work, torch.device("cpu"), "cpu")
+    assert row["parent_max_abs_diff"] == float(off[1, 2] - a[1, 2]) > 0
 
 
 def test_stage_row_reports_a_lost_trace_as_not_measured(monkeypatch, capsys):
@@ -227,6 +239,33 @@ def test_stage_row_reports_a_lost_trace_as_not_measured(monkeypatch, capsys):
                             reps=1)
     assert row["ms"] > 0 and row["device_ms"] is None and row["busy_share"] is None
     assert "a stage: device time not measured" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("given,kept", [(None, "0"), ("1", "1")])
+def test_measure_keeps_cupti_between_traces_unless_told(given, kept):
+    """Importing ``measure`` sets ``TEARDOWN_CUPTI=0`` (kineto otherwise tears
+    CUPTI down after each trace and the card's traces come back empty), and
+    leaves a value the caller set."""
+    import os
+    import subprocess
+    import sys
+
+    env = {k: v for k, v in os.environ.items() if k != "TEARDOWN_CUPTI"}
+    if given is not None:
+        env["TEARDOWN_CUPTI"] = given
+    code = ("import os; import datmo_using_optical_flow_tpu_torch.diagnostics.measure; "
+            "print(os.environ['TEARDOWN_CUPTI'])")
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                         check=True, cwd=Path(__file__).resolve().parents[1])
+    assert out.stdout.strip() == kept
+
+
+def test_profiler_traces_needs_the_card(monkeypatch):
+    from datmo_using_optical_flow_tpu_torch.diagnostics import profiler_traces
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profiler_traces.run(traces=1)
 
 
 def _trace(*calls, head=8, tail=8):

@@ -198,6 +198,34 @@ def test_tiny_image_flow_matches_jax_exact_path(h, w):
     assert np.abs(want).max() > (0.01 if min(h, w) > 1 else 0.0)
 
 
+_REFINE = [(200, 200, False, False), (200, 200, True, False), (256, 320, False, False),
+           (256, 320, True, False), (200, 200, False, True), (200, 200, True, True)]
+
+
+@pytest.mark.parametrize("h,w,gaussian,fast_warp", _REFINE, ids=[
+    f"{h}x{w}-{'gauss' if g else 'box'}-{'packed' if f else 'exact'}" for h, w, g, f in _REFINE])
+def test_refinement_bit_equal_to_jitted_jax(h, w, gaussian, fast_warp):
+    """The whole refinement equals the JAX package's jitted jnp
+    ``flow_from_pyramids`` bit for bit, on its jitted pyramids of
+    ``make_frames(3, h, w, seed=3)`` (poly_sigma 1.1): box and Gaussian
+    windows, the exact warp at 200x200 (60x60 and 200x200 levels) and
+    256x320 (77x96, and 256x320 through K3), the packed warp at 200x200,
+    below 128x256, where both sides pack.  XLA carries the solve's
+    numerators and 1 / det, and the upsampled flow and 1 / pyr_scale, into
+    the next warp, where it contracts their product into the position; the
+    port carries them as ``flow_scale``."""
+    a, b = make_frames(3, h, w, seed=3)[:2].astype(np.float32)
+    pyr = dict(PYR, poly_sigma=1.1)
+    build = jax.jit(lambda im: jfb.build_pyramid(im, use_pallas=False, **pyr))
+    p1, p2 = build(jnp.asarray(a)), build(jnp.asarray(b))
+    want = np.asarray(jax.jit(lambda x, y: jfb.flow_from_pyramids(
+        x, y, 0.3, 15, 5, use_pallas=False, fast_warp=fast_warp, gaussian=gaussian))(p1, p2))
+    got = fb.flow_from_pyramids(*(tuple(torch.tensor(np.asarray(q)) for q in p) for p in (p1, p2)),
+                                0.3, 15, 5, fast_warp=fast_warp, gaussian=gaussian)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert np.abs(want).max() > 0.5  # the scene moves
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_identical_noise_flow_follows_jitted_jax_pieces(seed):
     """Two identical uniform-noise 200x200 frames (near-singular normal
