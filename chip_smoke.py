@@ -35,15 +35,20 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
    ragged shapes with poly_n 5 and 7, through both of its tile heights and
    both of its C paths (a sigma of 0.3 takes the runtime-n kernel), K4 at
    160x384, 130x384 and 160x1920 and K4 into K2 bit-equal to K3 at the
-   shapes of ``tests/test_flow_pallas.py``;
+   shapes of ``tests/test_flow_pallas.py``; K4 at tiny levels (2x2 ... 4x4,
+   1x4, 2x64, 64x2, 3x40, 40x3, ...: its instance for a one-valued
+   attenuation) with a given, a scalar-scaled and a plane-scaled flow, and
+   K2's Gaussian window there at winsizes 15 and 5 (its broadcast taps),
+   ``torch.equal`` to their plain versions;
 4b. K1's narrow form (``w + n < 128``, where XLA rounds the y^2 plane
    otherwise): both CUDA instances ``torch.equal`` to the plain version at
    the pipelines' narrow levels (60x60, 65x115, 59x104) and on both sides of
    the boundary, at sigma 5.0 and 1.1, at 0.3 across the boundary and at
    n = 7; K1's tiny form (at most n rows or columns, ``ops/poly_tiny``)
-   ``torch.equal`` to the plain version in 47 tiny cases (5x122 ... 1x1,
-   122x5, 1088x5, 200x3, 5x5; n = 5 and 7; the compile-time and the runtime-n
-   taps); K1 at the sharded flow's 282x1920 block timed beside
+   ``torch.equal`` to the plain version in 57 tiny cases (5x122 ... 1x1,
+   122x5, 1088x5, 200x3, 5x5, the shapes of ROADMAP Queue 3 item 8; n = 5
+   and 7; the compile-time and the runtime-n taps); K1 at the sharded
+   flow's 282x1920 block timed beside
    ``F.conv2d``;
 5. the 256x320 slice on the card (kernels) against the CPU (plain versions);
 6. pipeline A's main path: the stream step on 25 ``make_frames`` 1080x1920
@@ -139,6 +144,8 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
     tolerances: stream-parallel A at 200x200, the row-sharded flow at
     1088x1920 (272 rows per rank, EPE < 1e-3 against the unsharded flow),
     stream-parallel GMFA at 1024 points per feed, 2 feeds x 2 row ranks;
+    the sharded level (64 rows per rank, 320 columns) on the card
+    bit-equal to the CPU's over the same group after each of 3 iterations;
     every kernel of each phase held to its plain version on rank 0, on the
     inputs that phase gives it (the first call at each input signature: K1
     on the halo-extended 282x1920 block and the replicated 326x576 and
@@ -705,6 +712,47 @@ def other_shapes_phase(dev) -> None:
                              (130, 384, 15, False)):
         dx, dy = smooth_flow(h, w, dev)
         check_k4_into_k2(rand(5, h, w), rand(5, h, w), dx, dy, win, gauss, f"{h}x{w}")
+    tiny_window_phase(dev)
+
+
+# levels of an axis at most 4 (K4's one-valued attenuation) and of an axis at
+# most the radius of the Gaussian window (K2's broadcast taps), and thin ones
+TINY_LEVELS = ((2, 2), (3, 3), (4, 4), (2, 4), (4, 2), (3, 4), (4, 3), (1, 4), (4, 1), (2, 64),
+               (64, 2), (3, 40), (40, 3), (4, 40), (40, 4), (60, 6), (7, 7))
+
+
+def tiny_window_phase(dev) -> None:
+    """K4 and K2 at tiny levels, ``torch.equal`` to their plain versions:
+    K4's instance for a level whose attenuation is one value (at most 4 rows
+    and columns) with the flow as it enters a warp (given, times 1 /
+    pyr_scale, or the last solve's numerators times 1 / det), and K2's
+    Gaussian window where an axis is at most its radius (the runtime-radius
+    stage with the broadcast taps), at winsizes 15 and 5."""
+    from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+
+    def rand(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+
+    n = 0
+    for h, w in TINY_LEVELS:
+        R0, R1 = rand(5, h, w), rand(5, h, w)
+        dx, dy = rand(h, w) * 1.5, rand(h, w) * 1.5
+        for scale in (None, float(np.float32(1 / 0.3)), rand(h, w).abs() + 0.5):
+            check("warp_matrices", f"{h}x{w} tiny level (flow scale "
+                  f"{'none' if scale is None else type(scale).__name__})",
+                  fk.warp_matrices(R0, R1, dx, dy, scale),
+                  fk.warp_matrices_reference(R0, R1, dx, dy, scale))
+            n += 1
+        M = rand(5, h, w) ** 2
+        for win in (15, 5):
+            for terms in (False, True):
+                check("blur_solve", f"{h}x{w} tiny level win={win} gauss terms={terms}",
+                      fk.blur_solve(M, win, True, terms),
+                      fk.blur_solve_reference(M, win, True, terms))
+                n += 1
+    log(f"K4 and K2 (Gaussian) at {len(TINY_LEVELS)} tiny levels: {n} calls bit-equal")
 
 
 def slice_phase(dev, h: int, w: int) -> None:
@@ -2045,6 +2093,11 @@ def k1_narrow_phase(dev, name: str, smi: str) -> dict:
     tiny_cases = [(h, w, 5, s) for h, w in tiny for s in (5.0, 1.1, 0.3)]
     tiny_cases += [(h, w, 7, s) for h, w in ((7, 300), (3, 130), (300, 7), (1, 1))
                    for s in (1.5, 0.3)]
+    # ROADMAP Queue 3 item 8's shapes, where the plan is not yet XLA's: the
+    # card still equals the plain version
+    tiny_cases += [(122, 5, 5, 0.3), (5, 5, 5, 1.5), (109, 4, 5, 5.0), (69, 2, 7, 1.5),
+                   (50, 5, 7, 5.0), (246, 2, 7, 0.3), (197, 2, 7, 1.1), (175, 6, 7, 1.1),
+                   (241, 4, 7, 0.3), (17, 3, 5, 0.3)]
     for h, w, n, sigma in tiny_cases:
         img = torch.rand((h, w), device=dev, generator=gen) * 255
         path = "compile-time taps" if fk.poly_exp_compiled(n, sigma) else "runtime-n taps"
@@ -2211,7 +2264,7 @@ def sharded_phase(name: str, smi: str, timeout: float = 600.0) -> tuple[dict, di
     among them), and each rank's launches of one sharded flow call are the
     code's reckoning.  Returns the launches of every rank's counted runs,
     summed, and the dry run's report."""
-    from datmo_using_optical_flow_tpu_torch.dryrun import KERNELS
+    from datmo_using_optical_flow_tpu_torch.dryrun import KERNELS, LEVEL
     from datmo_using_optical_flow_tpu_torch.parallel.sharded_flow import sharded_flow_launches
 
     t0 = time.perf_counter()
@@ -2258,6 +2311,13 @@ def sharded_phase(name: str, smi: str, timeout: float = 600.0) -> tuple[dict, di
                      f"({row['bound_by']}) [{name}, {smi}]")
         log(f"{row['kernel']} at {row['shape']} ({row['phase']}, rank 0): equal to its plain "
             f"version{timed}")
+    level = rep.get("level_iterations")
+    if level is None or any(level):
+        raise AssertionError(f"dryrun: the sharded level on the card against the CPU's after "
+                             f"each iteration: {level}")
+    log(f"sharded level (4 ranks, {LEVEL[0]} rows each, {LEVEL[1]} columns) on the card "
+        f"bit-equal to the CPU's after each of iterations 1-{len(level)}: values differing "
+        f"{level}")
     p4 = rep["phase4"]
     log(f"sharded flow {p2['shape'][0]}x{p2['shape'][1]} over 4 ranks sharing one card over "
         f"gloo (not a four-card speed): ms per call by rank "

@@ -75,6 +75,9 @@ constexpr int kMaxPolyN = 7;        // poly_n in {5, 7}
 constexpr int kMaxPolyTaps = 2 * kMaxPolyN + 1;
 constexpr int kBorder = 5;          // OpenCV's certainty attenuation band
 __constant__ float kBorderAtten[kBorder] = {0.14f, 0.14f, 0.4472f, 0.4472f, 0.4472f};
+// Levels of at most this many rows and columns have one attenuation value
+// (the first two of kBorderAtten are equal), which XLA folds to a scalar.
+constexpr int kUniformMax = 4;
 constexpr int kMainR = 7;           // the main path's window radius (winsize 15)
 // Blocks per SM the winsize-15 instances are built for (56 registers for K3).
 // 5 (48 registers, 5 blocks of 43.2 KB) measured slower on the H100: K3 122.4
@@ -90,6 +93,11 @@ constexpr int kPolyNarrow = 128;
 struct Window {
   float w[kMaxTaps];
   unsigned long long shared;  // taps whose weight another tap has (tap_shared)
+  // Taps whose products keep their own rounding where an axis is at most the
+  // radius (window_broadcast): in the vertical sums of the image's columns
+  // (v_int) and of the edge columns that pad them (v_pad), and in the
+  // horizontal sums (h_bcast).  Zero on every other level.
+  unsigned long long v_int, v_pad, h_bcast;
 };
 
 struct PolyTaps {
@@ -174,10 +182,18 @@ __device__ __forceinline__ bool tap_shared(unsigned long long shared, int k) {
 // Each sum is a chain of once-rounded fmas in tap order, zero taps skipped
 // (FmaChain; the box's unit taps make it a chain of adds), as XLA's compiled
 // gauss_blur5; on an axis of length 1 the products of equal taps are added
-// separately rounded (shared).  Levels of one row or column take this stage.
+// separately rounded (shared), and where an axis is at most the radius the
+// broadcast taps' products keep their own rounding (Window's v_int, v_pad for
+// the staged columns outside the image, and h_bcast), in the kBcast
+// instance, which the launch picks for such a level alone (as runtime flags
+// they cost the other levels of this stage 17-19 µs a launch on the H100,
+// PERF.md).  Levels of one row or column take this stage, and so do those.
+template <bool kBcast>
 __device__ void window_solve(const float* ms, float* vbuf, const float* taps, int r,
-                             unsigned long long shared, float scale, int y0, int x0, int h,
-                             int w, float* odx, float* ody, float* oidet) {
+                             unsigned long long shared, unsigned long long v_int,
+                             unsigned long long v_pad, unsigned long long h_bcast, float scale,
+                             int y0, int x0, int h, int w, float* odx, float* ody,
+                             float* oidet) {
   const int e = kTile + 2 * r;
   const int ntaps = 2 * r + 1;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -192,9 +208,13 @@ __device__ void window_solve(const float* ms, float* vbuf, const float* taps, in
     for (int idx = tid; idx < kTile * e; idx += nthreads) {
       const int i = idx / e;
       const int j = idx - i * e;
+      const int gj = x0 - r + j;
+      const unsigned long long bcast = !kBcast ? 0ull : gj < 0 || gj >= w ? v_pad : v_int;
       FmaChain s;
       for (int k = 0; k < ntaps; ++k)
-        if (taps[k] != 0.0f) s.add(taps[k], m[(i + k) * e + j], one_row && tap_shared(shared, k));
+        if (taps[k] != 0.0f)
+          s.add(taps[k], m[(i + k) * e + j],
+                (one_row && tap_shared(shared, k)) || (kBcast && tap_shared(bcast, k)));
       vbuf[idx] = s.value();
     }
     __syncthreads();
@@ -203,7 +223,9 @@ __device__ void window_solve(const float* ms, float* vbuf, const float* taps, in
       const float* v = vbuf + (threadIdx.y + q * kBlockY) * e + threadIdx.x;
       FmaChain s;
       for (int k = 0; k < ntaps; ++k)
-        if (taps[k] != 0.0f) s.add(taps[k], v[k], one_col && tap_shared(shared, k));
+        if (taps[k] != 0.0f)
+          s.add(taps[k], v[k],
+                (one_col && tap_shared(shared, k)) || (kBcast && tap_shared(h_bcast, k)));
       acc[q][c] = s.value();
     }
   }
@@ -411,9 +433,13 @@ struct Rows {
 // (gi, gj) is the pixel in the grid of h rows.  A
 // sharded block scales each value first, R = r s (`unfolded`), and then
 // M0 = fma(R4, R4, R6 R6), M3 = fma(R4, R2, R6 R3) and M4 takes r4 dy rounded.
-// K3 (!kGeneral) runs levels of at least 128x256 and no sharded block, and
-// carries neither case.
-template <bool kPacked, bool kGeneral>
+// A level of more than one pixel whose attenuation is one value (kUniform:
+// at most 4 rows and 4 columns, where kBorderAtten[0] == kBorderAtten[1])
+// takes the same unfolded form, XLA's for a scalar attenuation, with M4's
+// r4 dy contracted but on a level of one row or column, where
+// M1 = (R4 + R5) R6.  K3 (!kGeneral) runs
+// levels of at least 128x256 and no sharded block, and carries no such case.
+template <bool kPacked, bool kGeneral, bool kUniform = false>
 __device__ __forceinline__ void assemble_tail(const float* r0, size_t plane, const WarpAt& wa,
                                               float d0, float d1, float s4, float s5,
                                               float s6, bool computed, bool unfolded, int gi,
@@ -438,12 +464,13 @@ __device__ __forceinline__ void assemble_tail(const float* r0, size_t plane, con
   const float r3_m3 = (kPacked ? computed || w == 1 : computed && one_line) ? r3_sep : r3;
   const float s = border_atten(gi, h) * border_atten(gj, w);
   m[stride] = __fmaf_rn(r4, s, r5 * s) * (r6 * s);
-  if (kGeneral && unfolded) {
-    const float R4 = r4 * s, R5 = r5 * s, R6 = r6 * s, R3 = r3 * s;
+  if (kGeneral && (kUniform || unfolded)) {
+    const float R4 = r4 * s, R5 = r5 * s, R6 = r6 * s;
+    if (kUniform && one_line) m[stride] = (R4 + R5) * R6;
     m[0] = __fmaf_rn(R4, R4, R6 * R6);
     m[2 * stride] = __fmaf_rn(R5, R5, R6 * R6);
-    m[3 * stride] = __fmaf_rn(R4, r2 * s, R6 * R3);
-    m[4 * stride] = __fmaf_rn(R6, r2_sep * s, R5 * R3);
+    m[3 * stride] = __fmaf_rn(R4, r2_m3 * s, R6 * (r3_m3 * s));
+    m[4 * stride] = __fmaf_rn(R6, (kUniform ? r2 : r2_sep) * s, R5 * (r3 * s));
     return;
   }
   const float s2 = s * s;
@@ -463,7 +490,7 @@ __device__ __forceinline__ void assemble_tail(const float* r0, size_t plane, con
 // block's halo).  The operations and their order are the plain version's
 // (ops/farneback.py::update_matrices, parallel/sharded_flow.py::
 // sharded_update_reference).
-template <int kMode, bool kGeneral>
+template <int kMode, bool kGeneral, bool kUniform = false>
 __device__ __forceinline__ void warp_assemble(const float* __restrict__ R0,
                                               const float* __restrict__ R1, const FlowIn& flow,
                                               const Rows& rows, int gi, int gj, int h, int w,
@@ -485,10 +512,10 @@ __device__ __forceinline__ void warp_assemble(const float* __restrict__ R0,
     }
   }
   const float* r0 = R0 + p;
-  assemble_tail<false, kGeneral>(r0, plane, wa, r0[0] - wr[0], r0[plane] - wr[1],
-                                 r0[2 * plane] + wr[2], r0[3 * plane] + wr[3],
-                                 r0[4 * plane] + wr[4], kMode != 0, rows.sharded, row, gj,
-                                 rows.total, w, m, stride);
+  assemble_tail<false, kGeneral, kUniform>(r0, plane, wa, r0[0] - wr[0], r0[plane] - wr[1],
+                                           r0[2 * plane] + wr[2], r0[3 * plane] + wr[3],
+                                           r0[4 * plane] + wr[4], kMode != 0, rows.sharded,
+                                           row, gj, rows.total, w, m, stride);
 }
 
 // The packed warp and M assembly of one pixel (gi, gj) (K9): the four corners
@@ -1007,8 +1034,9 @@ poly_exp_tiny_kernel(const float* __restrict__ img, float* __restrict__ out, int
 // only the two flow components are written.
 //
 // kR > 0 is the compile-time instance of that radius (window_solve_fixed,
-// box when kBox); kR == 0 takes the radius r at run time (window_solve).
-template <int kR, bool kBox>
+// box when kBox); kR == 0 takes the radius r at run time (window_solve, with
+// the broadcast taps when kBcast).
+template <int kR, bool kBox, bool kBcast>
 __global__ void __launch_bounds__(kBlockX * kBlockY, kR > 0 ? kWindowMinBlocks : 1)
 blur_solve_kernel(const float* __restrict__ M, float* __restrict__ odx,
                   float* __restrict__ ody, float* __restrict__ oidet, int h, int w, int r,
@@ -1036,7 +1064,8 @@ blur_solve_kernel(const float* __restrict__ M, float* __restrict__ odx,
   if constexpr (kR > 0)
     window_solve_fixed<kR, kBox>(ms, win, scale, y0, x0, h, w, odx, ody, oidet);
   else
-    window_solve(ms, vbuf, taps, r, win.shared, scale, y0, x0, h, w, odx, ody, oidet);
+    window_solve<kBcast>(ms, vbuf, taps, r, win.shared, win.v_int, win.v_pad, win.h_bcast,
+                         scale, y0, x0, h, w, odx, ody, oidet);
 }
 
 // ---------------------------------------------------------------- K3
@@ -1090,7 +1119,8 @@ fused_iteration_kernel(const float* __restrict__ R0, const float* __restrict__ R
   if constexpr (kR > 0)
     window_solve_fixed<kR, kBox>(ms, win, scale, y0, x0, h, w, odx, ody, oidet);
   else
-    window_solve(ms, vbuf, taps, r, win.shared, scale, y0, x0, h, w, odx, ody, oidet);
+    window_solve<false>(ms, vbuf, taps, r, win.shared, win.v_int, win.v_pad, win.h_bcast,
+                        scale, y0, x0, h, w, odx, ody, oidet);
 }
 
 // ---------------------------------------------------------------- K4
@@ -1105,7 +1135,10 @@ fused_iteration_kernel(const float* __restrict__ R0, const float* __restrict__ R
 // flops, so it is bound by memory.  One thread per output pixel, consecutive
 // threads on consecutive pixels: the R0, flow and M accesses coalesce, and the
 // corner gathers of a smooth flow hit L1/L2.
-template <int kMode>
+// kUniform: a level of at most kUniformMax rows and columns, whose
+// attenuation is one value (assemble_tail); picked per launch, so the other
+// levels' instance carries no code for it.
+template <int kMode, bool kUniform>
 __global__ void __launch_bounds__(kPixelThreads)
 warp_matrices_kernel(const float* __restrict__ R0, const float* __restrict__ R1, FlowIn flow,
                      Rows rows, float* __restrict__ M, int h, int w) {
@@ -1114,7 +1147,7 @@ warp_matrices_kernel(const float* __restrict__ R0, const float* __restrict__ R1,
   if (p >= plane) return;
   const int gi = static_cast<int>(p / w);
   const int gj = static_cast<int>(p - static_cast<size_t>(gi) * w);
-  warp_assemble<kMode, true>(R0, R1, flow, rows, gi, gj, h, w, M + p, plane);
+  warp_assemble<kMode, true, kUniform>(R0, R1, flow, rows, gi, gj, h, w, M + p, plane);
 }
 
 // ---------------------------------------------------------------- K9
@@ -1159,13 +1192,43 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
 
 bool window_from_host(Window* win, const float* taps, int winsize) {
   if (winsize < 1 || winsize > kMaxTaps - 1 || winsize % 2 == 0) return false;
-  win->shared = 0;
+  win->shared = win->v_int = win->v_pad = win->h_bcast = 0;
   for (int k = 0; k < winsize; ++k) {
     win->w[k] = taps[k];
     for (int j = 0; j < winsize; ++j)
       if (j != k && taps[j] == taps[k] && taps[k] != 0.0f) win->shared |= 1ull << k;
   }
   return true;
+}
+
+// The broadcast taps of a window over an h x w level (ops/farneback.py::
+// broadcast_taps and gauss_blur5): at two or more rows and three or more
+// columns, where an axis is at most the radius, a tap whose slice of the
+// edge-padded axis is all padding has its product computed once by XLA; a
+// lead of one such tap keeps its product's rounding, and so do the trailing
+// ones in the edge columns' vertical sums and in the horizontal sums.  The
+// box window's unit taps make every product exact, so it takes none.
+void window_broadcast(Window* win, int winsize, int h, int w) {
+  bool box = true;
+  for (int k = 0; k < winsize; ++k) box = box && win->w[k] == 1.0f;
+  if (box || h < 2 || w < 3) return;
+  const int r = winsize / 2;
+  auto mask = [&](int size, bool trail) {
+    unsigned long long out = 0;
+    int lead = 0, first = -1;
+    for (int k = 0; k < winsize; ++k) {
+      if (win->w[k] == 0.0f) continue;
+      if (k <= r - size) {
+        ++lead;
+        if (first < 0) first = k;
+      }
+      if (trail && k >= r + size) out |= 1ull << k;
+    }
+    return lead == 1 ? out | 1ull << first : out;
+  };
+  win->v_int = mask(h, false);
+  win->v_pad = mask(h, true);
+  win->h_bcast = mask(w, true);
 }
 
 // The flow into a warp from the host's arguments; false for a bad mode.
@@ -1177,13 +1240,15 @@ bool flow_from_host(FlowIn* flow, const float* vx, const float* vy, const float*
 
 // Calls launch(radius, box) with the window stage's instance for `win`: the
 // compile-time kMainR one for winsize 15 (box when every tap is 1.0f), else the
-// runtime-radius one (radius 0), which also takes levels of one row or column
-// and windows with a zero tap.  Both are std::integral_constant values.
+// runtime-radius one (radius 0), which also takes levels of one row or column,
+// windows with a zero tap and a window with broadcast taps (window_broadcast).
+// Both are std::integral_constant values.
 template <typename Launch>
 cudaError_t with_window_instance(const Window& win, int winsize, int h, int w, Launch launch) {
   using Main = std::integral_constant<int, kMainR>;
   using Runtime = std::integral_constant<int, 0>;
-  if (winsize != 2 * kMainR + 1 || h == 1 || w == 1) return launch(Runtime{}, std::false_type{});
+  if (winsize != 2 * kMainR + 1 || h == 1 || w == 1 || (win.v_int | win.v_pad | win.h_bcast))
+    return launch(Runtime{}, std::false_type{});
   bool box = true;
   for (int k = 0; k < winsize; ++k) {
     if (win.w[k] == 0.0f) return launch(Runtime{}, std::false_type{});
@@ -1312,12 +1377,19 @@ int datmo_blur_solve(float* odx, float* ody, float* oidet, const float* M, int h
                      const float* taps, int winsize, float scale, int device, void* stream) {
   Window win;
   if (h < 1 || w < 1 || !window_from_host(&win, taps, winsize)) return cudaErrorInvalidValue;
+  window_broadcast(&win, winsize, h, w);
   datmo::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
   const int r = winsize / 2;
+  const bool bcast = (win.v_int | win.v_pad | win.h_bcast) != 0;
   return with_window_instance(win, winsize, h, w, [&](auto radius, auto box) {
-    const auto kernel = blur_solve_kernel<decltype(radius)::value, decltype(box)::value>;
-    const size_t smem = window_smem_bytes<decltype(radius)::value>(r);
+    constexpr int kR = decltype(radius)::value;
+    constexpr bool kBox = decltype(box)::value;
+    auto kernel = blur_solve_kernel<kR, kBox, false>;
+    if constexpr (kR == 0) {
+      if (bcast) kernel = blur_solve_kernel<0, kBox, true>;
+    }
+    const size_t smem = window_smem_bytes<kR>(r);
     cudaError_t err = set_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     kernel<<<tile_grid(h, w), dim3(kBlockX, kBlockY), smem, static_cast<cudaStream_t>(stream)>>>(
@@ -1372,10 +1444,13 @@ int datmo_warp_matrices(float* M, const float* R0, const float* R1, const float*
   if (guard.err != cudaSuccess) return guard.err;
   const size_t n = static_cast<size_t>(h) * w;
   const unsigned int blocks = static_cast<unsigned int>((n + kPixelThreads - 1) / kPixelThreads);
+  const bool uniform = !rows.sharded && h * w > 1 && h <= kUniformMax && w <= kUniformMax;
   return with_flow_mode(mode, [&](auto flow_mode) {
-    warp_matrices_kernel<decltype(flow_mode)::value>
-        <<<blocks, kPixelThreads, 0, static_cast<cudaStream_t>(stream)>>>(R0, R1, flow, rows, M,
-                                                                          h, w);
+    constexpr int kFlowMode = decltype(flow_mode)::value;
+    const auto kernel = uniform ? warp_matrices_kernel<kFlowMode, true>
+                                : warp_matrices_kernel<kFlowMode, false>;
+    kernel<<<blocks, kPixelThreads, 0, static_cast<cudaStream_t>(stream)>>>(R0, R1, flow, rows, M,
+                                                                           h, w);
     return cudaGetLastError();
   });
 }

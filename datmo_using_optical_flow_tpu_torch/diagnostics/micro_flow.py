@@ -25,13 +25,17 @@ from it (0 unless the parent rounds otherwise) and takes both builds' device
 three times).  A parent's entry points are called with the C signature its
 source declares.
 
+With ``--tiny``, also K4 and K2 (Gaussian window) at tiny levels (4x4,
+2x64) and K1's tiny form at 5x5 and 122x5 (:func:`tiny_rows`), with the
+parent in turns where given; K9's row is timed against the parent too.
+
 With ``--small``, K1 alone at the pipelines' small levels and two tiny
 images instead (:func:`small_levels`): each beside one ``F.conv2d`` that
 computes the same planes, per call and split into the host's enqueue and the
 device's time.
 
     python -m datmo_using_optical_flow_tpu_torch.diagnostics.micro_flow [--height H --width W]
-        [--parent DIR] [--small]
+        [--parent DIR] [--tiny] [--small]
 """
 
 from __future__ import annotations
@@ -60,7 +64,8 @@ from datmo_using_optical_flow_tpu_torch.sim.frames import make_frames
 from datmo_using_optical_flow_tpu_torch.utils.device import resolve_device
 
 _WINDOW_ENTRIES = ("datmo_fused_iteration", "datmo_blur_solve")
-_PARENT_ENTRIES = (*_WINDOW_ENTRIES, "datmo_poly_exp", "datmo_warp_matrices")
+_PARENT_ENTRIES = (*_WINDOW_ENTRIES, "datmo_poly_exp", "datmo_poly_exp_tiny",
+                   "datmo_warp_matrices", "datmo_warp_packed")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # K2's and K3's C signatures before their entries took the flow's numerators
 # and 1 / det, by parameter count: an older parent declares these
@@ -103,10 +108,10 @@ def inputs(frames: np.ndarray, dev: torch.device) -> Inputs:
 
 def parent_library(parent: str | Path) -> ctypes.CDLL:
     """``flow_kernels.cu`` of the checkout at ``parent``, built by hand with
-    the package's flags into ``build/parent_kernels/``, with the C signatures
-    of its K1, K2 and K3 entry points set."""
+    the package's flags into ``build/parent_kernels/<its directory's name>/``,
+    with the C signatures of its entry points set."""
     source = Path(parent) / "datmo_using_optical_flow_tpu_torch" / "csrc" / "flow_kernels.cu"
-    out = build.BUILD_DIR.parent / "parent_kernels" / "libflow_kernels.so"
+    out = build.BUILD_DIR.parent / "parent_kernels" / Path(parent).name / "libflow_kernels.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     cmd = [build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(out), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -182,6 +187,43 @@ def parent_poly_exp(lib: ctypes.CDLL, img: torch.Tensor, n: int, sigma: float) -
     return call
 
 
+def parent_packed(lib: ctypes.CDLL, R0, table, qs, dx, dy) -> Callable:
+    """A call of the parent's K9 (the packed warp, flow mode 0) on the
+    current stream, allocating M as the wrapper does; returns ``(M,)``."""
+    _, h, w = R0.shape
+    ptrs = [t.data_ptr() for t in (R0, table, qs, dx, dy)]
+
+    def call():
+        M = torch.empty((5, h, w), dtype=torch.float32, device=R0.device)
+        build.check(lib.datmo_warp_packed(M.data_ptr(), *ptrs, None, 0.0, 0, h, w,
+                                          R0.device.index,
+                                          torch.cuda.current_stream(R0.device).cuda_stream),
+                    "parent")
+        return (M,)
+
+    return call
+
+
+def parent_poly_exp_tiny(lib: ctypes.CDLL, img: torch.Tensor, n: int, sigma: float) -> Callable:
+    """A call of the parent's K1 tiny form on ``img`` with this package's
+    rounding plan (``ops/poly_tiny``); returns ``(planes,)``."""
+    h, w = img.shape
+    taps = fk._poly_taps(n, float(sigma))
+    plan = fk._tiny_plan_array(h, w, n, float(sigma))
+    ptr = img.data_ptr()
+
+    def call():
+        out = torch.empty((5, h, w), dtype=torch.float32, device=img.device)
+        build.check(lib.datmo_poly_exp_tiny(out.data_ptr(), ptr, h, w, n,
+                                            *(t.ctypes.data for t in taps), plan.ctypes.data,
+                                            img.device.index,
+                                            torch.cuda.current_stream(img.device).cuda_stream),
+                    "parent")
+        return (out,)
+
+    return call
+
+
 def against_parent(call: Callable, parent: Callable, plain: Callable, work: roofline.Work,
                    dev: torch.device, card: str, rounds: int = 3, reps: int = 5) -> dict:
     """Hold this build's ``call`` to ``plain`` bit for bit and the parent's
@@ -215,9 +257,9 @@ def against_parent(call: Callable, parent: Callable, plain: Callable, work: roof
 
 
 def run(frames: np.ndarray, device: str | torch.device = "cuda", reps: int = 20,
-        parent: str | Path | None = None) -> dict:
+        parent: str | Path | None = None, tiny: bool = False) -> dict:
     """Rows for the first two of ``frames`` ((n, H, W) uint8 BEV grids);
-    ``parent`` as ``--parent``."""
+    ``parent`` as ``--parent``, ``tiny`` as ``--tiny``."""
     dev = resolve_device(device)
     if parent is not None and dev.type != "cuda":
         raise RuntimeError("the parent's kernels are built and timed on the card")
@@ -257,6 +299,18 @@ def run(frames: np.ndarray, device: str | torch.device = "cuda", reps: int = 20,
                                       lambda: plain(*args, win, gauss), work, dev, card))
         return row
 
+    def packed_row(name: str, R0, packed, dx, dy) -> dict:
+        lh, lw = R0.shape[-2:]
+        work = roofline.warp_packed(lh, lw)
+        row = kernel_row(name, lambda: fk.warp_matrices_packed(R0, *packed, dx, dy), work, dev,
+                         card, reps)
+        if lib is not None:
+            row.update(against_parent(lambda: (fk.warp_matrices_packed(R0, *packed, dx, dy),),
+                                      parent_packed(lib, R0, *packed, dx, dy),
+                                      lambda: (fk.warp_packed_reference(R0, *packed, dx, dy),),
+                                      work, dev, card))
+        return row
+
     def warp_row(name: str) -> dict:
         work = roofline.warp_matrices(h, w)
         row = kernel_row(name, lambda: fk.warp_matrices(R0, R1, dx, dy), work, dev, card, reps)
@@ -276,9 +330,7 @@ def run(frames: np.ndarray, device: str | torch.device = "cuda", reps: int = 20,
                    roofline.fused_iteration(h, w, win, 3, 3), dev, card, reps),
         warp_row(f"K4 warp_matrices {h}x{w}"),
         window_row(f"K2 blur_solve on K4's M {h}x{w}", (M,), gaussian),
-        kernel_row(f"K9 warp_matrices_packed {h}x{w}",
-                   lambda: fk.warp_matrices_packed(R0, *packed, dx, dy),
-                   roofline.warp_packed(h, w), dev, card, reps),
+        packed_row(f"K9 warp_matrices_packed {h}x{w}", R0, packed, dx, dy),
         window_row(f"K3 fused_iteration {sh}x{sw}, second level", (S0, S1, *inp.flows[-2]),
                    gaussian),
         window_row(f"K2 blur_solve on K9's M {ch}x{cw}, coarsest level", (Mc,), gaussian),
@@ -296,8 +348,74 @@ def run(frames: np.ndarray, device: str | torch.device = "cuda", reps: int = 20,
                                       lambda img=img: (fk.poly_exp_reference(img, n, sigma),),
                                       work, dev, card))
         rows.append(row)
+    if tiny:
+        rows += tiny_rows(dev, card, lib, reps)
     return {"card": card, "device": str(dev), "shape": [h, w],
             "parent": None if parent is None else str(parent), "rows": rows}
+
+
+# Tiny levels and images: K4 and K2 (Gaussian window) at levels of a
+# one-valued attenuation and of a thin axis, K1's tiny form at a square and
+# a column image
+TINY_LEVELS = ((4, 4), (2, 64))
+TINY_IMAGES = ((5, 5), (122, 5))
+# K2 (Gaussian) where every build takes the runtime-radius window stage: a
+# level of one row, and a winsize other than 15
+RUNTIME_WINDOWS = (((1, 64), 15), ((17, 33), 7))
+
+
+def tiny_rows(dev: torch.device, card: str, lib: ctypes.CDLL | None, reps: int) -> list:
+    """K4 and K2 (Gaussian, winsize 15) at :data:`TINY_LEVELS`, K2 at
+    :data:`RUNTIME_WINDOWS` and K1 at :data:`TINY_IMAGES` (poly_n 5, sigma
+    5.0), seeded normal planes and a 1.5 px flow, each held to its plain
+    version and, with a parent library, timed beside it in turns."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for h, w in TINY_LEVELS:
+        R0, R1 = (torch.randn((5, h, w), device=dev, generator=gen) for _ in range(2))
+        dx, dy = (torch.randn((h, w), device=dev, generator=gen) * 1.5 for _ in range(2))
+        work = roofline.warp_matrices(h, w)
+        row = kernel_row(f"K4 warp_matrices {h}x{w} (tiny level)",
+                         lambda: fk.warp_matrices(R0, R1, dx, dy), work, dev, card, reps)
+        if lib is not None:
+            row.update(against_parent(lambda: (fk.warp_matrices(R0, R1, dx, dy),),
+                                      parent_warp(lib, R0, R1, dx, dy),
+                                      lambda: (fk.warp_matrices_reference(R0, R1, dx, dy),),
+                                      work, dev, card))
+        rows.append(row)
+        M = fk.warp_matrices(R0, R1, dx, dy)
+        work = roofline.blur_solve(h, w, 15)
+        row = kernel_row(f"K2 blur_solve {h}x{w}, Gaussian window (tiny level)",
+                         lambda: fk.blur_solve(M, 15, True), work, dev, card, reps)
+        if lib is not None:
+            row.update(against_parent(lambda: fk.blur_solve(M, 15, True),
+                                      parent_call(lib, (M,), 15, True),
+                                      lambda: fk.blur_solve_reference(M, 15, True), work, dev,
+                                      card))
+        rows.append(row)
+    for (h, w), win in RUNTIME_WINDOWS:
+        M = torch.rand((5, h, w), device=dev, generator=gen)
+        work = roofline.blur_solve(h, w, win)
+        row = kernel_row(f"K2 blur_solve {h}x{w} win {win}, Gaussian (runtime-radius stage)",
+                         lambda: fk.blur_solve(M, win, True), work, dev, card, reps)
+        if lib is not None:
+            row.update(against_parent(lambda: fk.blur_solve(M, win, True),
+                                      parent_call(lib, (M,), win, True),
+                                      lambda: fk.blur_solve_reference(M, win, True), work, dev,
+                                      card))
+        rows.append(row)
+    for h, w in TINY_IMAGES:
+        img = torch.rand((h, w), device=dev, generator=gen) * 255
+        work = roofline.poly_exp(h, w, 5, 5.0)
+        row = kernel_row(f"K1 poly_exp {h}x{w} (tiny form)", lambda: fk.poly_exp(img, 5, 5.0),
+                         work, dev, card, reps)
+        if lib is not None:
+            row.update(against_parent(lambda: (fk.poly_exp(img, 5, 5.0),),
+                                      parent_poly_exp_tiny(lib, img, 5, 5.0),
+                                      lambda: (fk.poly_exp_reference(img, 5, 5.0),),
+                                      work, dev, card))
+        rows.append(row)
+    return rows
 
 
 # K1's small shapes: the coarse levels of the pipelines (A's 200x200 and
@@ -391,11 +509,14 @@ def main() -> None:
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--parent", help="an older checkout whose flow_kernels.cu to time beside")
     ap.add_argument("--small", action="store_true", help="K1 at the small shapes beside F.conv2d")
+    ap.add_argument("--tiny", action="store_true",
+                    help="also K4, K2 (Gaussian) and K1 at tiny levels and images")
     args = ap.parse_args()
     if args.small:
         print(json.dumps(small_levels()))
     else:
-        print(json.dumps(run(make_frames(2, args.height, args.width), parent=args.parent)))
+        print(json.dumps(run(make_frames(2, args.height, args.width), parent=args.parent,
+                             tiny=args.tiny)))
 
 
 if __name__ == "__main__":

@@ -70,8 +70,12 @@ from datmo_using_optical_flow_tpu_torch.ops import (flow_kernels, level_kernels,
                                                     round_kernels)
 from datmo_using_optical_flow_tpu_torch.parallel import mesh, streams
 from datmo_using_optical_flow_tpu_torch.parallel.mesh import RowGroup, shard_rows
-from datmo_using_optical_flow_tpu_torch.parallel.sharded_flow import (sharded_farneback_flow,
-                                                                     sharded_flow_launches)
+from datmo_using_optical_flow_tpu_torch.parallel.sharded_flow import (coarse_flow,
+                                                                     level0_image,
+                                                                     sharded_farneback_flow,
+                                                                     sharded_farneback_level,
+                                                                     sharded_flow_launches,
+                                                                     sharded_poly_exp)
 from datmo_using_optical_flow_tpu_torch.sim.frames import make_frames
 from datmo_using_optical_flow_tpu_torch.utils import prng
 from datmo_using_optical_flow_tpu_torch.utils.device import resolve_device
@@ -81,6 +85,8 @@ FLOW = (1088, 1920)   # the sharded flow's frame
 POINTS = 1024         # GMFA points per feed
 # the sharded flow's options: sharded_farneback_flow's defaults
 POLY_N, POLY_SIGMA, WINSIZE, WARP_HALO = 5, 5.0, 15, 16
+LEVEL = (64, 320)     # rows per rank and columns of the sharded level held to the CPU's
+LEVEL_ITERATIONS = 3
 _COUNTED = (flow_kernels, level_kernels, nn_kernels, round_kernels)
 # the kernels the dry run launches on the card (K1-K4, K8 and K9 in the flows,
 # K5 in GMFA's step, K7 in both pipelines), each held to its plain version by
@@ -371,6 +377,35 @@ def _held_to_plain(rows: dict, phase: str, dev: torch.device, on: bool = True):
         yield
 
 
+def _level_iterations(group: RowGroup) -> list:
+    """The sharded flow's level 0 (``LEVEL`` rows per rank and columns, from
+    the coarse levels' flow) run on this rank's device and on the CPU over
+    the same gloo group, after each of 1 to ``LEVEL_ITERATIONS`` iterations:
+    the number of flow values of the whole grid that differ at each (every
+    rank's count summed).  Raises unless every count is 0."""
+    cpu = RowGroup(group.rank, group.world_size, group.backend, torch.device("cpu"), group.pg,
+                   group.ranks)
+    h, w = LEVEL[0] * group.world_size, LEVEL[1]
+    pair = textured_pair(h, w, np.random.default_rng(2))
+    blocks = [shard_rows(torch.from_numpy(a), group) for a in pair]
+    counts = []
+    for it in range(1, LEVEL_ITERATIONS + 1):
+        flows = []
+        for g in (group, cpu):
+            b1, b2 = (b.to(g.device) for b in blocks)
+            dx, dy = coarse_flow(b1, b2, g)
+            R0, R1 = (sharded_poly_exp(level0_image(b, g), POLY_N, POLY_SIGMA, g)
+                      for b in (b1, b2))
+            flows.append(torch.stack(sharded_farneback_level(R0, R1, dx, dy, WINSIZE, it, g, h,
+                                                             WARP_HALO)).cpu())
+        differ = (flows[0].view(torch.int32) != flows[1].view(torch.int32)).sum()
+        counts.append(int(group.all_reduce_sum(differ.to(group.device))))
+    if any(counts):
+        raise AssertionError(f"the sharded level on {group.device} parts from the CPU's: "
+                             f"{counts} values differ after 1..{LEVEL_ITERATIONS} iterations")
+    return counts
+
+
 def _dryrun_rank(group: RowGroup, grid: tuple, flow_hw: tuple, points: int,
                  reps: int) -> dict:
     """One rank of :func:`dryrun_multichip`.  Rank 0 returns the checks'
@@ -431,6 +466,10 @@ def _dryrun_rank(group: RowGroup, grid: tuple, flow_hw: tuple, points: int,
         if group.rank == 0:
             out["unsharded_ms"] = measure.ms_per_call(unsharded, dev, reps=reps, warmup=1)
         group.barrier()
+
+    # the sharded level on the card against the CPU's after each iteration
+    if group.backend == "gloo":
+        out["level_iterations"] = _level_iterations(group)
 
     # phase 3: GMFA's step, the feeds shared over the ranks
     gcfg, prev, cur = gmfa_case(n, points, rng)

@@ -78,8 +78,10 @@ def _corr_axis(img: torch.Tensor, kernel: np.ndarray, axis: int,
 
 
 def sep_filter(img: torch.Tensor, ky: np.ndarray, kx: np.ndarray, pad_mode: str) -> torch.Tensor:
-    """Separable 2-D filter over the last two axes."""
-    return _corr_axis(_corr_axis(img, ky, -2, pad_mode), kx, -1, pad_mode)
+    """Separable 2-D filter over the last two axes, each pass a chain of
+    once-rounded fmas (:func:`_corr_at`), as the JAX package's jitted
+    ``sep_filter``."""
+    return _corr_at(_corr_at(img, ky, -2, pad_mode=pad_mode), kx, -1, pad_mode=pad_mode)
 
 
 def gaussian_blur(img: torch.Tensor, ksize: int, sigma: float) -> torch.Tensor:
@@ -151,13 +153,15 @@ def blur_taps(ksize: int, sigma: float) -> np.ndarray:
 
 
 def _corr_at(img: torch.Tensor, taps: np.ndarray, axis: int,
-             at: torch.Tensor | None = None, pad_mode: str = "reflect") -> torch.Tensor:
+             at: torch.Tensor | None = None, pad_mode: str = "reflect",
+             shared: frozenset = frozenset()) -> torch.Tensor:
     """The 1-D correlation along ``axis`` (-2 or -1) with ``jnp.pad``'s
     ``pad_mode`` padding (reflect-101 or edge), at the positions ``at`` of
     that axis (every position when None): a chain of once-rounded fmas in
     ascending tap order, zero taps skipped
     (:func:`.round_kernels.fma_chain_reference`), as XLA's compiled
-    ``_corr_axis`` rounds the level images' blur and the Gaussian window.
+    ``_corr_axis`` rounds the level images' blur and the Gaussian window;
+    the products of the taps in ``shared`` keep their own rounding.
     On an axis of length 1 every tap reads the one value, and XLA computes
     the product of taps of equal weight once: such products are rounded on
     their own and added."""
@@ -178,7 +182,8 @@ def _corr_at(img: torch.Tensor, taps: np.ndarray, axis: int,
             [(i, w, x) for i, w in enumerate(ws)],
             frozenset(i for i, w in enumerate(ws) if ws.count(w) > 1))
     return round_kernels.fma_chain_reference(
-        [(i, w, img.index_select(axis, source(i))) for i, w in enumerate(taps) if w != 0.0])
+        [(i, w, img.index_select(axis, source(i))) for i, w in enumerate(taps) if w != 0.0],
+        shared)
 
 
 def gaussian_blur_reference(img: torch.Tensor, ksize: int, sigma: float) -> torch.Tensor:
@@ -255,6 +260,18 @@ def border_axis(idx: torch.Tensor, size: int) -> torch.Tensor:
     for k in range(BORDER):
         out = torch.where(near == k, float(BORDER_ATTEN[k]), out)
     return out
+
+
+@functools.lru_cache(maxsize=64)
+def uniform_attenuation(h: int, w: int) -> bool:
+    """Whether every pixel of an h x w level has the same certainty
+    attenuation (each axis of at most 4 positions, where BORDER_ATTEN's first
+    two values are equal), which XLA then folds to one scalar constant."""
+    def one_value(size):
+        near = np.minimum(np.arange(size), size - 1 - np.arange(size))
+        return len(set(np.where(near < BORDER, BORDER_ATTEN[np.minimum(near, BORDER - 1)],
+                                1.0).tolist())) == 1
+    return one_value(h) and one_value(w)
 
 
 def _border_scale(h: int, w: int, device) -> torch.Tensor:
@@ -426,7 +443,11 @@ def matrices_from_samples(R0: torch.Tensor, r: torch.Tensor, inside: torch.Tenso
     Not ``folded`` (the row-sharded warp, whose
     attenuation depends on the rank): each value is scaled first,
     ``R = r * s``, ``M0 = fma(R4, R4, R6 R6)``, ``M3 = fma(R4, R2, R6 R3)``,
-    and ``r4 dy`` stays rounded in M4."""
+    and ``r4 dy`` stays rounded in M4.  On a level of more than one pixel
+    whose attenuation is one value (:func:`uniform_attenuation`: at most 4
+    rows and 4 columns) XLA folds it to a scalar and keeps the same unfolded
+    form, M4's ``r4 dy`` contracted but on a level of one row or column,
+    where ``M1 = (R4 + R5) R6``."""
     from datmo_using_optical_flow_tpu_torch.ops import round_kernels
 
     fma = round_kernels.fma32_reference
@@ -464,8 +485,11 @@ def matrices_from_samples(R0: torch.Tensor, r: torch.Tensor, inside: torch.Tenso
         r2, r3 = term("r2", one_line), term("r3", computed_flow and one_line)
     r2_m4, r3_m4 = term("r2", packed or one_line or not folded), term("r3", False)
     m1 = fma(r4, scale, r5 * scale) * (r6 * scale)
-    if not folded:
+    uniform = folded and not packed and rows * w > 1 and uniform_attenuation(rows, w)
+    if not folded or uniform:
         R2, R3, R2_m4, R3_m4, R4, R5, R6 = (v * scale for v in (r2, r3, r2_m4, r3_m4, r4, r5, r6))
+        if uniform and one_line:
+            m1 = (R4 + R5) * R6
         return torch.stack([fma(R4, R4, R6 * R6), m1, fma(R5, R5, R6 * R6),
                             fma(R4, R2, R6 * R3), fma(R6, R2_m4, R5 * R3_m4)])
     s2 = scale * scale
@@ -495,12 +519,52 @@ def gauss_window(winsize: int) -> np.ndarray:
     return (g / g.sum()).astype(np.float32)
 
 
+def broadcast_taps(taps: np.ndarray, size: int, trail: bool) -> frozenset:
+    """The taps of a window pass over an axis of ``size`` values whose
+    products keep their own rounding in XLA's compiled ``gauss_blur5``.
+    A tap whose slice of the edge-padded axis is all padding reads one edge
+    value, and XLA computes its product once, broadcast: the leading such
+    taps (``k <= r - size``) form a chain of their own, onto which the rest
+    is contracted, so a lead of one tap is a rounded product; the trailing
+    ones (``k >= r + size``) are rounded and added where ``trail`` (where
+    LLVM hoists their products out of the loop that adds them)."""
+    r = len(taps) // 2
+    lead = [k for k, t in enumerate(taps) if t != 0.0 and k <= r - size]
+    out = set(lead) if len(lead) == 1 else set()
+    if trail:
+        out |= {k for k, t in enumerate(taps) if t != 0.0 and k >= r + size}
+    return frozenset(out)
+
+
 def gauss_blur5(M: torch.Tensor, winsize: int) -> torch.Tensor:
     """Gaussian window aggregation (cv2 flags=256), BORDER_REPLICATE: the
     vertical pass, then the horizontal one, each a chain of once-rounded
-    fmas (:func:`_corr_at`), as XLA's compiled ``gauss_blur5`` rounds it."""
+    fmas (:func:`_corr_at`), as XLA's compiled ``gauss_blur5`` rounds it.
+
+    Where an axis is at most the window's radius some taps read only edge
+    padding (:func:`broadcast_taps`).  At two or more rows and three or more
+    columns: the vertical sums keep their trailing broadcast products
+    contracted, but in the edge columns that pad them for the horizontal
+    pass (computed in fusions of their own, where the products are hoisted
+    and rounded); the horizontal pass rounds its trailing broadcast
+    products."""
+    from datmo_using_optical_flow_tpu_torch.ops import round_kernels
+
     g = gauss_window(winsize)
-    return _corr_at(_corr_at(M, g, -2, pad_mode="edge"), g, -1, pad_mode="edge")
+    h, w = M.shape[-2:]
+    if h < 2 or w < 3:
+        return _corr_at(_corr_at(M, g, -2, pad_mode="edge"), g, -1, pad_mode="edge")
+    vert = _corr_at(M, g, -2, pad_mode="edge", shared=broadcast_taps(g, h, False))
+    edge = _corr_at(M, g, -2, pad_mode="edge", shared=broadcast_taps(g, h, True))
+    r, pos = len(g) // 2, torch.arange(w, device=M.device)
+    terms = []
+    for k, t in enumerate(g):
+        if t != 0.0:
+            col = pos + (k - r)
+            src = col.clamp(0, w - 1)
+            terms.append((k, t, torch.where((col >= 0) & (col < w), vert.index_select(-1, src),
+                                            edge.index_select(-1, src))))
+    return round_kernels.fma_chain_reference(terms, broadcast_taps(g, w, True))
 
 
 def solve_terms(Mb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

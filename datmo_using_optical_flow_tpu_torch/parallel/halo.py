@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from datmo_using_optical_flow_tpu_torch.ops.farneback import _corr_axis
+from datmo_using_optical_flow_tpu_torch.ops.farneback import _corr_at, _corr_axis
 from datmo_using_optical_flow_tpu_torch.parallel.mesh import RowGroup
 
 EDGE_MODES = ("edge", "reflect101")
@@ -53,14 +53,15 @@ def sharded_sep_filter(x: torch.Tensor, ky: np.ndarray, kx: np.ndarray,
                        group: RowGroup) -> torch.Tensor:
     """Separable 2-D filter on a row-sharded block, edge-padded globally:
     ``ops.farneback.sep_filter(..., 'edge')`` of the whole image, this rank's
-    rows.  The vertical pass reads its cross-shard rows from the halo; the
-    horizontal pass is row-local."""
+    rows, rounded as JAX's jitted one (each pass a chain of fmas).  The
+    vertical pass reads its cross-shard rows from the halo; the horizontal
+    pass is row-local."""
     ry = len(ky) // 2
     hl = x.shape[-2]
     padded = halo_exchange_rows(x, ry, group)
-    # _corr_axis edge-pads again; its rows [ry, ry + hl) read true halo rows only
-    v = _corr_axis(padded, ky, -2, "edge")[..., ry:ry + hl, :]
-    return _corr_axis(v, kx, -1, "edge")
+    # _corr_at edge-pads again; its rows [ry, ry + hl) read true halo rows only
+    v = _corr_at(padded, ky, -2, pad_mode="edge")[..., ry:ry + hl, :]
+    return _corr_at(v, kx, -1, pad_mode="edge")
 
 
 def sharded_box_blur5(m: torch.Tensor, winsize: int, group: RowGroup) -> torch.Tensor:

@@ -49,8 +49,7 @@ def sharded_poly_exp(img_block: torch.Tensor, n: int, sigma: float,
 
 def sharded_update_matrices(R0: torch.Tensor, R1ext: torch.Tensor, dx: torch.Tensor,
                             dy: torch.Tensor, group: RowGroup, warp_halo: int,
-                            h_global: int,
-                            flow_scale: float | torch.Tensor | None = None) -> torch.Tensor:
+                            h_global: int) -> torch.Tensor:
     """Flow-compensated normal-equation planes M (5, H_local, W) of a
     row-sharded block (JAX ``sharded_flow.py:54-120``): K4 with this rank's
     rows (:func:`sharded_update_reference` on the CPU).
@@ -59,11 +58,10 @@ def sharded_update_matrices(R0: torch.Tensor, R1ext: torch.Tensor, dx: torch.Ten
     neighbour, (5, H_local + 2*warp_halo, W).  Equals
     ``ops.farneback.update_matrices`` of the whole grid on this rank's rows
     while |dy| stays within ``warp_halo`` rows; beyond, the sampled row
-    clamps to the halo's edge.  The flow is (dx, dy), times ``flow_scale``
-    when given (``ops.farneback.update_matrices``)."""
+    clamps to the halo's edge."""
     rows = (group.rank * R0.shape[1], warp_halo, h_global)
     return flow_kernels.warp_matrices(R0.contiguous(), R1ext.contiguous(), dx.contiguous(),
-                                      dy.contiguous(), flow_scale, rows)
+                                      dy.contiguous(), rows=rows)
 
 
 def sharded_update_reference(R0: torch.Tensor, R1ext: torch.Tensor, dx: torch.Tensor,
@@ -111,55 +109,52 @@ def sharded_update_reference(R0: torch.Tensor, R1ext: torch.Tensor, dx: torch.Te
                                     computed_flow=flow_scale is not None, folded=False)
 
 
-def sharded_blur_solve(M: torch.Tensor, winsize: int, group: RowGroup, terms: bool = False
-                       ) -> tuple[torch.Tensor, ...]:
+def sharded_blur_solve(M: torch.Tensor, winsize: int, group: RowGroup
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Box window sum and 2x2 solve of row-sharded M (5, H_local, W): K2 on
     M grown by ``winsize // 2`` rows of each neighbour, its interior rows
-    kept (``solve_flow(sharded_box_blur5(M))``; with ``terms`` the
-    numerators and 1 / det, as ``flow_kernels.blur_solve``)."""
+    kept (``solve_flow(sharded_box_blur5(M))``)."""
     r = winsize // 2
     hl = M.shape[-2]
-    out = flow_kernels.blur_solve(halo_exchange_rows(M, r, group).contiguous(), winsize,
-                                  terms=terms)
+    out = flow_kernels.blur_solve(halo_exchange_rows(M, r, group).contiguous(), winsize)
     return tuple(t[r:r + hl].contiguous() for t in out)
 
 
 def sharded_farneback_level(R0: torch.Tensor, R1: torch.Tensor, dx: torch.Tensor,
                             dy: torch.Tensor, winsize: int, iterations: int,
-                            group: RowGroup, h_global: int, warp_halo: int = 16,
-                            flow_scale: float | torch.Tensor | None = None
+                            group: RowGroup, h_global: int, warp_halo: int = 16
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """One pyramid level on row-sharded blocks: ``iterations`` x (matrices ->
-    window -> solve), the flow between iterations carried as the unsharded
-    level carries it (``ops.farneback.farneback_level``)."""
+    window -> solve), the flow between iterations the solve's rounded
+    (dx, dy), as the JAX package's jitted ``sharded_update_matrices`` and
+    jitted window + solve compute each iteration.  (JAX's whole level jitted
+    as one program rounds otherwise, and how depends on the block's shape:
+    XLA fuses the solve into each warp plane's fusion and contracts there by
+    each fusion's operand order.)"""
     R1ext = halo_exchange_rows(R1, warp_halo, group)
-    if iterations < 1:
-        return (dx, dy) if flow_scale is None else (dx * flow_scale, dy * flow_scale)
-    for i in range(iterations):
-        terms = i < iterations - 1
-        M = sharded_update_matrices(R0, R1ext, dx, dy, group, warp_halo, h_global, flow_scale)
-        out = sharded_blur_solve(M, winsize, group, terms)
-        if terms:
-            dx, dy, flow_scale = out
-    return out
+    for _ in range(iterations):
+        M = sharded_update_matrices(R0, R1ext, dx, dy, group, warp_halo, h_global)
+        dx, dy = sharded_blur_solve(M, winsize, group)
+    return dx, dy
 
 
 def coarse_flow(im1_block: torch.Tensor, im2_block: torch.Tensor, group: RowGroup,
                 pyr_scale: float = 0.3, levels: int = 5, winsize: int = 15,
                 iterations: int = 5, poly_n: int = 5, poly_sigma: float = 5.0
-                ) -> tuple[torch.Tensor, torch.Tensor, float | None]:
-    """This rank's rows of the flow that level 0 starts from, as ``(dx, dy,
-    scale)``, the flow ``(dx, dy) * scale`` (``ops.farneback.update_matrices``):
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """This rank's rows of the flow that level 0 starts from, ``(dx, dy)``:
     the levels below full size run replicated on every rank, on the gathered
-    images (they cost ~``pyr_scale²`` of level 0), and their flow is
-    upsampled to full size (JAX ``sharded_flow.py:156-193``).  Zeros and no
-    scale when the pyramid has one level."""
+    images (they cost ~``pyr_scale²`` of level 0), as the unsharded
+    ``ops.farneback.flow_from_pyramids`` (the JAX package's jitted one), and
+    their flow is upsampled to full size times 1 / pyr_scale, as the jitted
+    ``resize_bilinear(...) * (1 / pyr_scale)`` (JAX ``sharded_flow.py:156-193``).
+    Zeros when the pyramid has one level."""
     hl, w = im1_block.shape
     h_global = hl * group.world_size
     sizes = level_sizes(h_global, w, pyr_scale, levels)
     if len(sizes) == 1:
         zero = torch.zeros((hl, w), dtype=torch.float32, device=im1_block.device)
-        return zero, zero.clone(), None
+        return zero, zero.clone()
     full = [group.all_gather_rows(im).to(torch.float32) for im in (im1_block, im2_block)]
     dx = dy = flow_scale = None
     inv = float(np.float32(1.0 / pyr_scale))
@@ -175,8 +170,8 @@ def coarse_flow(im1_block: torch.Tensor, im2_block: torch.Tensor, group: RowGrou
         dx, dy = fb.farneback_level(R0, R1, dx, dy, winsize, iterations, False,
                                     flow_scale=flow_scale)
     rows = slice(group.rank * hl, (group.rank + 1) * hl)
-    full_flow = fb.resize_bilinear(torch.stack([dx, dy]), h_global, w)[:, rows]
-    return full_flow[0].contiguous(), full_flow[1].contiguous(), inv
+    full_flow = fb.resize_bilinear(torch.stack([dx, dy]), h_global, w, inv)[:, rows]
+    return full_flow[0].contiguous(), full_flow[1].contiguous()
 
 
 def level0_image(img_block: torch.Tensor, group: RowGroup) -> torch.Tensor:
@@ -206,12 +201,12 @@ def sharded_farneback_flow(img1_block: torch.Tensor, img2_block: torch.Tensor,
     within ``warp_halo`` rows.  ``img*_block``: this rank's (H_local, W) rows (``mesh.shard_rows``).
     """
     hl, _ = img1_block.shape
-    dx, dy, flow_scale = coarse_flow(img1_block, img2_block, group, pyr_scale, levels,
-                                     winsize, iterations, poly_n, poly_sigma)
+    dx, dy = coarse_flow(img1_block, img2_block, group, pyr_scale, levels, winsize,
+                         iterations, poly_n, poly_sigma)
     R0, R1 = (sharded_poly_exp(level0_image(im, group), poly_n, poly_sigma, group)
               for im in (img1_block, img2_block))
     dx, dy = sharded_farneback_level(R0, R1, dx, dy, winsize, iterations, group,
-                                     hl * group.world_size, warp_halo, flow_scale)
+                                     hl * group.world_size, warp_halo)
     return torch.stack([dx, dy], dim=-1)
 
 

@@ -31,6 +31,9 @@ def test_every_phase_passes(report):
     assert p4["cells"] > 0
     for warp in ("packed", "exact"):  # the production step's warp, and the sharded flow's
         assert p4[warp]["velocity_err"] <= 5e-3 and p4[warp]["state_err"] <= 1e-3
+    # the sharded level on the ranks' device against the CPU's, after each
+    # iteration (both on the CPU here; the card's on the card)
+    assert report["level_iterations"] == [0] * dryrun.LEVEL_ITERATIONS
 
 
 def test_every_rank_reports_and_launches_nothing_on_the_cpu(report):

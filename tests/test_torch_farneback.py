@@ -19,6 +19,7 @@ from datmo_using_optical_flow_tpu.ops import warp_pallas
 from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
 from datmo_using_optical_flow_tpu_torch.ops import warp
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+from xla_isa import hold_to_recorded
 
 H, W = 256, 320
 PYR = dict(pyr_scale=0.3, levels=5, poly_n=5, poly_sigma=5.0)
@@ -200,6 +201,13 @@ def test_tiny_image_flow_matches_jax_exact_path(h, w):
 
 _REFINE = [(200, 200, False, False), (200, 200, True, False), (256, 320, False, False),
            (256, 320, True, False), (200, 200, False, True), (200, 200, True, True)]
+# SHA-256 of the float32 bytes of JAX's jitted packed refinement compiled for
+# AVX-512 (jax 0.9.0), whose bits depend on the vector instructions XLA
+# compiles for (``xla_isa``; the AVX2 build parts by up to 4.9e-6 px).
+_REFINE_DIGESTS = {
+    (200, 200, False): "43ade1cbd0f5c9935018e81a0b911c40b411c5faed88464849816eeb20a46c69",
+    (200, 200, True): "be445bf53faaffa00cba2b95ab817e75a1a296bffc1f7db6ccce1da8e5ddb566",
+}
 
 
 @pytest.mark.parametrize("h,w,gaussian,fast_warp", _REFINE, ids=[
@@ -213,7 +221,10 @@ def test_refinement_bit_equal_to_jitted_jax(h, w, gaussian, fast_warp):
     below 128x256, where both sides pack.  XLA carries the solve's
     numerators and 1 / det, and the upsampled flow and 1 / pyr_scale, into
     the next warp, where it contracts their product into the position; the
-    port carries them as ``flow_scale``."""
+    port carries them as ``flow_scale``.  The packed warp's bits depend on
+    the host's vector instructions: its cases hold the port to the digest of
+    the AVX-512 build's answer on every host, and to JAX's local answer
+    within 1e-4 px where XLA does not compile for AVX-512."""
     a, b = make_frames(3, h, w, seed=3)[:2].astype(np.float32)
     pyr = dict(PYR, poly_sigma=1.1)
     build = jax.jit(lambda im: jfb.build_pyramid(im, use_pallas=False, **pyr))
@@ -222,8 +233,34 @@ def test_refinement_bit_equal_to_jitted_jax(h, w, gaussian, fast_warp):
         x, y, 0.3, 15, 5, use_pallas=False, fast_warp=fast_warp, gaussian=gaussian))(p1, p2))
     got = fb.flow_from_pyramids(*(tuple(torch.tensor(np.asarray(q)) for q in p) for p in (p1, p2)),
                                 0.3, 15, 5, fast_warp=fast_warp, gaussian=gaussian)
-    np.testing.assert_array_equal(got.numpy(), want)
+    if fast_warp:
+        hold_to_recorded(got.numpy(), want, _REFINE_DIGESTS[h, w, gaussian], 1e-4)
+    else:
+        np.testing.assert_array_equal(got.numpy(), want)
     assert np.abs(want).max() > 0.5  # the scene moves
+
+
+_TINY_LEVELS = [(3, 40, False), (3, 40, True), (4, 4, False), (4, 40, True), (60, 6, True),
+                (7, 7, True), (2, 64, True), (40, 5, True)]
+
+
+@pytest.mark.parametrize("h,w,gaussian", _TINY_LEVELS, ids=[
+    f"{h}x{w}-{'gauss' if g else 'box'}" for h, w, g in _TINY_LEVELS])
+def test_tiny_exact_level_bit_equal_to_jitted_jax(h, w, gaussian):
+    """Three exact-warp iterations on tiny levels equal the jitted JAX
+    ``farneback_level`` bit for bit: the warp where the attenuation is one
+    value (4x4), and the Gaussian window where an axis is within its radius
+    (``ops/farneback.broadcast_taps``), with the flow carried between
+    iterations as the solve's numerators and 1 / det."""
+    rng = np.random.default_rng(h * w)
+    R0, R1 = (rng.normal(size=(5, h, w)).astype(np.float32) for _ in range(2))
+    dx, dy = (rng.normal(size=(h, w)).astype(np.float32) * np.float32(1.5) for _ in range(2))
+    want = jax.jit(lambda *a: jfb.farneback_level(*a, 15, 3, fast_warp=False,
+                                                  gaussian=gaussian))(R0, R1, dx, dy)
+    got = fb.farneback_level(*map(torch.from_numpy, (R0, R1, dx, dy)), 15, 3, fast_warp=False,
+                             gaussian=gaussian)
+    for g, e in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(e))
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -10,6 +10,7 @@ multiply-adds, and the plain versions round as it does.  The CUDA kernels are
 held to the same plain versions on the card by ``chip_smoke.py``.
 """
 
+import functools
 import os
 import subprocess
 import sys
@@ -20,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from bench import make_frames
 from datmo_using_optical_flow_tpu.ops import farneback as jfb
 from datmo_using_optical_flow_tpu.ops import flow_pallas
 from datmo_using_optical_flow_tpu.ops import warp_pallas
@@ -27,6 +29,7 @@ from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
 from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
 from datmo_using_optical_flow_tpu_torch.ops import warp
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+from xla_isa import XLA_AVX512, hold_to_recorded
 
 
 def _planes(shape, seed):
@@ -191,43 +194,50 @@ def test_tiny_jitted_poly_exp_moves_with_its_program(h, w, n, sigma):
 
 
 @pytest.fixture(scope="module")
-def avx2_poly_exp(tmp_path_factory):
-    """The jitted ``poly_exp`` of _ISA_MOVES' images compiled for AVX2 in a
-    process of its own (``XLA_FLAGS=--xla_cpu_max_isa=AVX2``), on a host
-    whose CPU has AVX-512 (else skipped: the default build is then AVX2's)."""
-    with open("/proc/cpuinfo") as f:
-        if "avx512f" not in f.read():
-            pytest.skip("the host has no AVX-512, so XLA's default ISA is already AVX2")
-    path = tmp_path_factory.mktemp("avx2") / "planes.npz"
+def avx2_answers(tmp_path_factory):
+    """JAX's answers where its bits depend on the vector instructions XLA
+    compiles for, compiled for AVX2 in one process of its own
+    (``XLA_FLAGS=--xla_cpu_max_isa=AVX2``) on a host where XLA compiles for
+    AVX-512 (else skipped: the default build then is not AVX-512's): the
+    jitted ``poly_exp`` of _ISA_MOVES' images ("poly-h-w-n-s"), the
+    packed warp's cases (``_packed_jax``, "packed-case") and the tiny warps
+    of _ISA_WARPS ("warp-...")."""
+    if not XLA_AVX512:
+        pytest.skip("XLA does not compile for AVX-512 here, so there is no AVX-512 answer "
+                    "to compare the AVX2 build with")
+    path = tmp_path_factory.mktemp("avx2") / "answers.npz"
     script = (
         "import sys, numpy as np, jax\n"
         "jax.config.update('jax_platforms', 'cpu')\n"
-        "from datmo_using_optical_flow_tpu.ops import farneback as jfb\n"
-        f"cases = {_ISA_MOVES!r}\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import test_torch_farneback_kernels as t\n"
         "out = {}\n"
-        "for h, w, n, s in cases:\n"
-        "    img = np.random.default_rng(h + w).uniform(0, 255, size=(h, w)).astype(np.float32)\n"
-        "    out[f'{h}-{w}-{n}-{s}'] = np.asarray(jax.jit(lambda x: jfb.poly_exp(x, n, s))(img))\n"
+        "for h, w, n, s in t._ISA_MOVES:\n"
+        "    out[f'poly-{h}-{w}-{n}-{s}'] = t._jit_poly_exp(t._tiny_image(h, w), n, s)\n"
+        "for case in t._PACKED_MOVES:\n"
+        "    out[f'packed-{case}'] = t._packed_jax(case)\n"
+        "for warp, h, w, flow in t._ISA_WARPS:\n"
+        "    out[f'warp-{warp}-{h}x{w}-{flow}'] = t._isa_warp(warp, h, w, flow)[1]\n"
         "np.savez(sys.argv[1], **out)\n")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     flags = f"{os.environ.get('XLA_FLAGS', '')} --xla_cpu_max_isa=AVX2".strip()
     env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=flags)
     subprocess.run([sys.executable, "-c", script, str(path)], cwd=repo, env=env, check=True,
-                   timeout=300)
-    with np.load(path) as planes:
-        return {k: planes[k] for k in planes.files}
+                   timeout=600)
+    with np.load(path) as answers:
+        return {k: answers[k] for k in answers.files}
 
 
 @pytest.mark.parametrize("h,w,n,sigma", _ISA_MOVES,
                          ids=[f"{h}-{w}-n{n}-s{s}" for h, w, n, s in _ISA_MOVES])
-def test_tiny_jitted_poly_exp_moves_with_the_isa(avx2_poly_exp, h, w, n, sigma):
+def test_tiny_jitted_poly_exp_moves_with_the_isa(avx2_answers, h, w, n, sigma):
     """Item 8's shapes where the jitted ``poly_exp`` compiled for AVX2 parts
     from the one compiled for this host's AVX-512: JAX's own bits move with
     the host, so a bit-equal test there could pass by accident on one host
     and fail on another.  The port's tiny form stays within 1e-5 of the
     plane scale of both."""
     img = _tiny_image(h, w)
-    native, avx2 = _jit_poly_exp(img, n, sigma), avx2_poly_exp[f"{h}-{w}-{n}-{sigma}"]
+    native, avx2 = _jit_poly_exp(img, n, sigma), avx2_answers[f"poly-{h}-{w}-{n}-{sigma}"]
     assert (native != avx2).any()
     got = fk.poly_exp_reference(_t(img), n, sigma).numpy()
     for want in (native, avx2):
@@ -292,17 +302,119 @@ def test_pack_corner_pairs_bit_equal(h, w):
     np.testing.assert_array_equal(scale.numpy(), np.asarray(jscale))
 
 
-def test_packed_update_matrices_matches_jax():
-    """The quantized warp of the small levels (update_matrices with the packed
-    table, K9's plain version) is the JAX package's jitted one, bit for bit."""
+# SHA-256 of the float32 bytes of JAX's jitted packed warp where its bits
+# depend on the vector instructions XLA compiles for (``xla_isa``): the
+# answer of an AVX-512 build (jax 0.9.0), which the port follows.  The AVX2
+# build parts from it by up to 1.9e-6 at these cases.
+_PACKED_DIGESTS = {
+    "packed_update": "443c8402f880f6dddbbae94c0074e1205db652c25d2b84315a328bbd73526efa",
+    "60x60-0.0": "ada66023d29af1522549feb68a500e8067b899eb6fd631134c438bc9927c08ba",
+    "60x60-1.5": "63e8863acfd049cf949c47e55450c91dc25ae7bc5c034e9282a13378ad31acac",
+    "60x60-6.0": "7cc7be916a005ef1e7ec36eebd35ac7449a2b3095af9911290b90ee935514a1d",
+    "97x173-0.0": "75fed0de8bfbf2121e77cfb0b00bcfe2a9b1cbfc3f75f754016686488dbccacc",
+    "97x173-1.5": "27310f7b80d2e1a2ab85d21463905d32c310561a76e8fd96338741c4c7ca0ca9",
+    "97x173-6.0": "dbdd56567f14ab10f32bd1367f8cefaa239adca26788b367c6d2704ca81e815d",
+    "40x48-0.0": "37ec47c36ca6413401dbc5ca0e73bde0fe6b29bbcb3922957d733c9a34d733e2",
+    "40x48-1.5": "ca15b2bf80f5dcdf433377395d11bc5c38449d7254484e0d924c433e24c9abc1",
+    "40x48-6.0": "5c816c6156935a2d6b03b4d78bbcae066e0fd0e785622ce8216cdb75d084768a",
+    "60x60-plane": "2945da18cd4d1d85892481089866200c50359d371f6247b43c42689441f9a7b9",
+    "60x60-scalar": "9ed42034e2bd4008a0655fd935687f5ec5cec7fdae3dae26446dcde8da19f2f4",
+    "97x173-plane": "3991f3f90509916d272176d879083d71f83160941727aef212477e3ccaee182e",
+    "97x173-scalar": "e13ce882ab84b377f28b74550303682e9eaf4054eb987d2bfea41e694824a2ae",
+}
+
+
+def _hold_packed(case, got, want):
+    """The packed warp's M where JAX's bits depend on the host: the port has
+    the recorded AVX-512 answer on every host (``xla_isa``), and is within
+    1e-5 of the plane scale of JAX's answer on a host without AVX-512."""
+    want = np.asarray(want)
+    hold_to_recorded(got, want, _PACKED_DIGESTS[case], 1e-5 * np.abs(want).max())
+
+
+def _packed_update_inputs():
     rng = np.random.default_rng(3)
     h, w = 97, 173
     R0, R1 = (rng.normal(size=(5, h, w)).astype(np.float32) for _ in range(2))
     dx, dy = (rng.normal(size=(h, w)).astype(np.float32) * 3 for _ in range(2))
+    return R0, R1, dx, dy
+
+
+def test_packed_update_matrices_matches_jax():
+    """The quantized warp of the small levels (update_matrices with the packed
+    table, K9's plain version) is the JAX package's jitted one compiled for
+    AVX-512, bit for bit (held by its digest on any host)."""
+    R0, R1, dx, dy = _packed_update_inputs()
     want = jax.jit(lambda a, b, c, d: jfb.update_matrices(a, b, c, d, jfb.pack_corner_pairs(b)))(
         *map(jnp.asarray, (R0, R1, dx, dy)))
     got = fk.warp_matrices_packed(_t(R0), *fb.pack_corner_pairs(_t(R1)), _t(dx), _t(dy))
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    _hold_packed("packed_update", got.numpy(), want)
+
+
+def _packed_case(case):
+    """The inputs of a packed-warp case of _PACKED_DIGESTS: (R0, R1, dx, dy,
+    scale), scale None or the flow's scale (a plane or a float32 number)."""
+    if case == "packed_update":
+        return (*_packed_update_inputs(), None)
+    shape, arg = case.split("-")
+    h, w = map(int, shape.split("x"))
+    if arg in ("plane", "scalar"):
+        R0, R1, nx, ny = _warp_inputs(h, w, 2.0, h + w)
+        scale = (np.random.default_rng(w).uniform(0.5, 1.5, (h, w)).astype(np.float32)
+                 if arg == "plane" else np.float32(1 / 0.3))
+        return R0, R1, nx, ny, scale
+    flow = float(arg)
+    return (*_warp_inputs(h, w, flow, h * w + int(flow)), None)
+
+
+@functools.lru_cache(maxsize=1)
+def _refine_pyramids():
+    """The jitted pyramids of ``tests/test_torch_farneback.py``'s 200x200
+    refinement (``make_frames(3, 200, 200, seed=3)``, poly_sigma 1.1)."""
+    build = jax.jit(lambda im: jfb.build_pyramid(im, 0.3, 5, 5, 1.1, use_pallas=False))
+    return [build(jnp.asarray(f)) for f in make_frames(3, 200, 200, seed=3)[:2].astype(np.float32)]
+
+
+def _packed_jax(case):
+    """JAX's jitted answer of a packed-warp case: M of a _PACKED_DIGESTS case,
+    or the 200x200 packed refinement ("refine-box", "refine-gauss")."""
+    if case.startswith("refine-"):
+        p1, p2 = _refine_pyramids()
+        return np.asarray(jax.jit(lambda x, y: jfb.flow_from_pyramids(
+            x, y, 0.3, 15, 5, use_pallas=False, fast_warp=True,
+            gaussian=case == "refine-gauss"))(p1, p2))
+    R0, R1, dx, dy, scale = _packed_case(case)
+    return np.asarray(_jit_update(True)(R0, R1, dx, dy, *([] if scale is None else [scale])))
+
+
+def _packed_port(case):
+    """The port's answer of a packed-warp case (``_packed_jax``)."""
+    if case.startswith("refine-"):
+        p1, p2 = (tuple(_t(q) for q in p) for p in _refine_pyramids())
+        return fb.flow_from_pyramids(p1, p2, 0.3, 15, 5, fast_warp=True,
+                                     gaussian=case == "refine-gauss").numpy()
+    R0, R1, dx, dy, scale = _packed_case(case)
+    s = None if scale is None else _t(scale) if scale.ndim else float(scale)
+    return fk.warp_matrices_packed(_t(R0), *fb.pack_corner_pairs(_t(R1)), _t(dx), _t(dy),
+                                   s).numpy()
+
+
+_PACKED_MOVES = (*_PACKED_DIGESTS, "refine-box", "refine-gauss")
+
+
+@pytest.mark.parametrize("case", _PACKED_MOVES)
+def test_packed_warp_moves_with_the_isa(avx2_answers, case):
+    """The packed warp's cases held by digest: JAX's jitted answer compiled
+    for AVX2 parts from the one compiled for AVX-512 (by up to 1.9e-6 in M,
+    4.9e-6 px in the flow), so no bit-equal test can hold both hosts.  The
+    port stays within 1e-5 of the plane scale of both answers (the flow
+    within 1e-4 px)."""
+    native, avx2 = _packed_jax(case), avx2_answers[f"packed-{case}"]
+    assert (native != avx2).any()
+    got = _packed_port(case)
+    for want in (native, avx2):
+        tol = 1e-4 if case.startswith("refine-") else 1e-5 * np.abs(want).max()
+        assert np.abs(got - want).max() <= tol
 
 
 def _warp_inputs(h, w, flow, seed):
@@ -335,14 +447,19 @@ def test_update_matrices_bit_equal_to_jitted_jax(h, w, flow, packed):
     ``update_matrices``) equal the jitted JAX function bit for bit: at the
     small levels' shapes, at a narrow width (40x48: XLA's vector loops end
     at column 40) and on levels of one row or column (no pixel inside), at
-    zero flow and at seeded flows that leave pixels outside the warp."""
+    zero flow and at seeded flows that leave pixels outside the warp.  The
+    packed warp's cases whose JAX bits depend on the host's vector
+    instructions are held to the AVX-512 answer's digest (_hold_packed)."""
     R0, R1, dx, dy = _warp_inputs(h, w, flow, h * w + int(flow))
     want = np.asarray(_jit_update(packed)(R0, R1, dx, dy))
     if packed:
         got = fk.warp_matrices_packed(_t(R0), *fb.pack_corner_pairs(_t(R1)), _t(dx), _t(dy))
     else:
         got = fk.warp_matrices(*map(_t, (R0, R1, dx, dy)))
-    np.testing.assert_array_equal(got.numpy(), want)
+    if packed and f"{h}x{w}-{flow}" in _PACKED_DIGESTS:
+        _hold_packed(f"{h}x{w}-{flow}", got.numpy(), want)
+    else:
+        np.testing.assert_array_equal(got.numpy(), want)
     if flow == 6.0 and min(h, w) > 1:
         fy = np.arange(h)[:, None] + dy
         assert ((fy < 0) | (fy >= h - 1)).any()  # pixels outside the warp
@@ -356,7 +473,7 @@ def test_update_matrices_with_a_recomputed_flow_bit_equal_to_jitted_jax(h, w, ki
     ``(nx, ny) * idet`` after a solve (kind "plane") or the upsampled flow
     times 1 / pyr_scale ("scalar").  XLA recomputes the product in the warp
     and contracts it into the position, ``fma(nx, idet, j)``; the plain
-    versions take it as ``flow_scale``."""
+    versions take it as ``flow_scale``.  Packed cases as above."""
     R0, R1, nx, ny = _warp_inputs(h, w, 2.0, h + w)
     scale = (np.random.default_rng(w).uniform(0.5, 1.5, (h, w)).astype(np.float32)
              if kind == "plane" else np.float32(1 / 0.3))
@@ -366,7 +483,94 @@ def test_update_matrices_with_a_recomputed_flow_bit_equal_to_jitted_jax(h, w, ki
         got = fk.warp_matrices_packed(_t(R0), *fb.pack_corner_pairs(_t(R1)), _t(nx), _t(ny), s)
     else:
         got = fk.warp_matrices(*map(_t, (R0, R1, nx, ny)), s)
+    if packed and f"{h}x{w}-{kind}" in _PACKED_DIGESTS:
+        _hold_packed(f"{h}x{w}-{kind}", got.numpy(), want)
+    else:
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+# Tiny warps whose jitted JAX bits move with the vector instructions XLA
+# compiles for (measured against an AVX2 build): the exact warp on 3-4
+# columns of 16 rows or more, the packed warp on 2-9 rows of 60 columns
+# (warp, h, w, flow amplitude)
+_ISA_WARPS = [("exact", 40, 3, 6.0), ("exact", 40, 4, 1.5), ("exact", 64, 3, 1.5),
+              ("exact", 33, 4, 6.0), ("packed", 5, 60, 0.0), ("packed", 7, 60, 1.5)]
+
+
+def _isa_warp(warp, h, w, flow):
+    """(the port's M, JAX's jitted M) of an _ISA_WARPS case."""
+    R0, R1, dx, dy = _warp_inputs(h, w, flow, h * w + int(flow))
+    want = np.asarray(_jit_update(warp == "packed")(R0, R1, dx, dy))
+    if warp == "packed":
+        got = fk.warp_matrices_packed(_t(R0), *fb.pack_corner_pairs(_t(R1)), _t(dx), _t(dy))
+    else:
+        got = fk.warp_matrices(*map(_t, (R0, R1, dx, dy)))
+    return got.numpy(), want
+
+
+@pytest.mark.parametrize("warp,h,w,flow", _ISA_WARPS,
+                         ids=[f"{p}-{h}x{w}-{f}" for p, h, w, f in _ISA_WARPS])
+def test_tiny_warps_move_with_the_isa(avx2_answers, warp, h, w, flow):
+    """Where the jitted ``update_matrices`` compiled for AVX2 parts from the
+    one compiled for AVX-512 (the loops over these few columns or rows
+    vectorise otherwise), no single answer is XLA's: the port stays within
+    1e-5 of the plane scale of both."""
+    got, native = _isa_warp(warp, h, w, flow)
+    avx2 = avx2_answers[f"warp-{warp}-{h}x{w}-{flow}"]
+    assert (native != avx2).any()
+    for want in (native, avx2):
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+# Levels of 2-4 rows and columns, whose attenuation XLA folds to one scalar
+# (``ops/farneback.uniform_attenuation``), a line of 4, and thin levels of 2-4
+# rows or columns
+_TINY_UPDATE = [(2, 2), (3, 3), (4, 4), (2, 4), (4, 2), (3, 4), (4, 3), (2, 3), (3, 2), (1, 4),
+                (4, 1), (2, 64), (64, 2), (3, 40), (4, 40)]
+
+
+@pytest.mark.parametrize("flow", [0.0, 1.5, "plane", "scalar"])
+@pytest.mark.parametrize("h,w", _TINY_UPDATE, ids=[f"{h}x{w}" for h, w in _TINY_UPDATE])
+def test_exact_update_matrices_bit_equal_at_tiny_levels(h, w, flow):
+    """K4's plain version on tiny levels equals the jitted ``update_matrices``
+    bit for bit, with a given flow and with the flow as the refinement
+    carries it (times a plane or a number, ``flow_scale``): where the
+    attenuation is one value (at most 4 rows and columns) XLA's tail takes
+    the unfolded form ``fma(R4, R4, R6 R6)``, ``fma(r4, s, R5) R6``, ...
+    (on a line, ``(R4 + R5) R6``)."""
+    amp = 2.0 if isinstance(flow, str) else flow
+    R0, R1, dx, dy = _warp_inputs(h, w, amp, h * w + int(amp))
+    if flow == "plane":
+        scale = np.random.default_rng(w).uniform(0.5, 1.5, (h, w)).astype(np.float32)
+    elif flow == "scalar":
+        scale = np.float32(1 / 0.3)
+    else:
+        scale = None
+    extra = [] if scale is None else [scale]
+    want = np.asarray(_jit_update(False)(R0, R1, dx, dy, *extra))
+    s = None if scale is None else _t(scale) if scale.ndim else float(scale)
+    got = fk.warp_matrices(*map(_t, (R0, R1, dx, dy)), s)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# Levels with an axis of at most the Gaussian window's radius and the other
+# of 5 or more: taps that read only edge padding (``ops/farneback.
+# broadcast_taps``)
+_THIN_WINDOWS = [(3, 40), (40, 3), (4, 40), (40, 4), (60, 6), (6, 60), (7, 60), (60, 7), (7, 7),
+                 (2, 64), (8, 3), (8, 5), (5, 40), (40, 5)]
+
+
+@pytest.mark.parametrize("win", [5, 15])
+@pytest.mark.parametrize("h,w", _THIN_WINDOWS, ids=[f"{h}x{w}" for h, w in _THIN_WINDOWS])
+def test_gauss_blur5_bit_equal_where_an_axis_is_within_the_radius(h, w, win):
+    """The Gaussian window where some taps read only the edge padding: a
+    lead of one such tap keeps its product's rounding, the vertical sums'
+    trailing ones are contracted but in the edge columns that pad them, and
+    the horizontal pass adds its trailing ones rounded, as the jitted
+    ``gauss_blur5``."""
+    M = _planes((h, w), seed=h + w + win)
+    want = np.asarray(jax.jit(lambda m: jfb.gauss_blur5(m, win))(jnp.asarray(M)))
+    np.testing.assert_array_equal(fb.gauss_blur5(_t(M), win).numpy(), want)
 
 
 @pytest.mark.parametrize("win", [5, 15])
