@@ -22,15 +22,19 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
    call of the same function (``F.conv2d``, ``torch.add``), timed and not
    used by the port; K6's launch path split into its parts, each timed over
    1,000 calls;
-3b. K8 (the level image and the flow's upsample, ``ops/level_kernels``)
-   ``torch.equal`` to its plain version at every level image of the 1080p,
-   from-points, 4K and 720p flows (level 0's blur alone included, 3 to 91
-   taps) and at the 2-plane upsample of each of their level transitions,
-   times 1 / pyr_scale, each timed (per call, device µs, bound) beside its
-   plain version and one PyTorch composition of the same function (a
-   separable ``F.conv2d`` and ``F.interpolate``, within 1e-3 of the scale);
-   every counted path below checks K8's launches exactly (two per level
-   image, one per upsample);
+3b. K8 (the level images and the flow's upsample, ``ops/level_kernels``)
+   ``torch.equal`` to its plain version: each frame's level images in one
+   launch (the 1080p, from-points, 4K and 720p pyramids), every level image
+   alone (one launch each; level 0's blur included, 3 to 91 taps) and the
+   upsample of each level transition in the main path's form (two planes,
+   scale 1.0), each timed (per call, device µs, bound) beside its plain
+   version and one PyTorch composition of the same function (the pyramid:
+   the sum of each level's separable ``F.conv2d`` and ``F.interpolate``; the
+   upsample: ``F.interpolate`` of the stacked flow), within 1e-3 of the
+   scale; the general form (a stack times 1 / pyr_scale) ``torch.equal``
+   too; the upsample's host launch path split into its parts; every counted
+   path below checks K8's launches exactly (one per frame's level images,
+   one per upsample);
 4. the same at the CPU tests' other shapes and options (untimed): K1 at
    ragged shapes with poly_n 5 and 7, through both of its tile heights and
    both of its C paths (a sigma of 0.3 takes the runtime-n kernel), K4 at
@@ -39,7 +43,9 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
    1x4, 2x64, 64x2, 3x40, 40x3, ...: its instance for a one-valued
    attenuation) with a given, a scalar-scaled and a plane-scaled flow, and
    K2's Gaussian window there at winsizes 15 and 5 (its broadcast taps),
-   ``torch.equal`` to their plain versions;
+   ``torch.equal`` to their plain versions; K8 at the edge shapes (one row,
+   one column, 1x1, a radius past the axis: 3x200 at 25 taps, 64x1 at 7),
+   the blur and a three-level pyramid in one launch each, ``torch.equal``;
 4b. K1's narrow form (``w + n < 128``, where XLA rounds the y^2 plane
    otherwise): both CUDA instances ``torch.equal`` to the plain version at
    the pipelines' narrow levels (60x60, 65x115, 59x104) and on both sides of
@@ -226,9 +232,9 @@ SOURCES = {"poly_exp": "flow_kernels.cu", "blur_solve": "flow_kernels.cu",
            "nearest_neighbors": "nn_kernels.cu", "tiny": "probe_kernels.cu",
            "fma32": "round_kernels.cu", "sumsq": "round_kernels.cu",
            "level_image": "level_kernels.cu", "warp_packed": "flow_kernels.cu"}
-# 1080p, 3 levels; K8: two launches per level image, one per upsample; K9 and
-# K2 five each on the 97x173 level
-PER_STEP = {"poly_exp": 3, "fused_iteration": 10, "blur_solve": 5, "level_image": 8,
+# 1080p, 3 levels; K8: one launch for the frame's level images, one per
+# upsample; K9 and K2 five each on the 97x173 level
+PER_STEP = {"poly_exp": 3, "fused_iteration": 10, "blur_solve": 5, "level_image": 3,
             "warp_packed": 5}
 # K7's launches follow the data (tracker A's association runs once per
 # cluster slot), so the exact per-path counts below are of K1-K6 and K8
@@ -325,7 +331,7 @@ def smooth_flow(h: int, w: int, dev, amp: float = 4.0):
     return dx.contiguous(), dy.contiguous()
 
 
-def kernel_us(fn, dev, label: str) -> float | None:
+def kernel_us(fn, dev, label: str, reps: int = 5) -> float | None:
     """Device µs per call of a kernel (``measure.device_us_per_call``), or
     None, logged as not measured, when the profiler keeps losing the trace's
     kernel records: late in this long process the card's traces at times come
@@ -334,7 +340,7 @@ def kernel_us(fn, dev, label: str) -> float | None:
     from datmo_using_optical_flow_tpu_torch.diagnostics import measure
 
     try:
-        return measure.device_us_per_call(fn, dev)
+        return measure.device_us_per_call(fn, dev, reps)
     except measure.LostTrace as e:
         log(f"{label}: device time not measured ({e})")
         return None
@@ -519,17 +525,9 @@ def probe_phase(dev, name: str, smi: str) -> dict:
 def _k8_paths():
     """The flows whose level images and upsamples K8 runs: (path, (h, w),
     Farnebäck settings)."""
-    from datmo_using_optical_flow_tpu_torch.benchmarks import flow_batched_720p as fbm
-    from datmo_using_optical_flow_tpu_torch.benchmarks import from_points as fpb
-    from datmo_using_optical_flow_tpu_torch.benchmarks import stream_4k
-    from datmo_using_optical_flow_tpu_torch.benchmarks.stream_1080p import config
-    from datmo_using_optical_flow_tpu_torch.config import FarnebackConfig
+    from datmo_using_optical_flow_tpu_torch.diagnostics.micro_flow import k8_paths
 
-    fp = fpb.config()
-    return (("1080p", (1080, 1920), config(1080, 1920).farneback),
-            ("from points", fp.grid_shape, fp.farneback),
-            ("4K", (stream_4k.H, stream_4k.W), config(stream_4k.H, stream_4k.W).farneback),
-            ("720p", (fbm.H, fbm.W), FarnebackConfig()))
+    return k8_paths()
 
 
 def _no_tf32(fn):
@@ -567,18 +565,30 @@ def level_image_conv(img, ksize: int, sigma: float, lh: int, lw: int):
     return _no_tf32(call)
 
 
+def pyramid_conv(img, sizes):
+    """The sum of :func:`level_image_conv` over a frame's levels: one PyTorch
+    composition per level image, the yardstick of K8's one launch."""
+    from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
+
+    calls = [level_image_conv(img, *fb.level_blur(scale), lh, lw) for scale, lh, lw in sizes]
+    return lambda: tuple(call() for call in calls)
+
+
 def level_image_phase(dev, name: str, smi: str) -> dict:
-    """K8 ``torch.equal`` to its plain version at every level image of every
-    path (1080p, from points, 4K, 720p; level 0, the blur alone, included) and
-    at the 2-plane upsample of each level transition (times 1 / pyr_scale),
-    each timed: per call (CUDA events, in turns with the plain version),
-    device µs, bound (``diagnostics/roofline``) and the library call
-    (:func:`level_image_conv`; ``F.interpolate`` times the scale for an
-    upsample), held to 1e-3 of the level's scale.  The 1080p level image
-    1080x1920 -> 324x576 is the kernels line's timed call."""
+    """K8 ``torch.equal`` to its plain version at each path's (1080p, from
+    points, 4K, 720p) level images in one launch, at every level image alone
+    (level 0, the blur alone, included) and at the upsample of each level
+    transition in the main path's form (two planes, scale 1.0), each timed:
+    per call (CUDA events, in turns with the plain version), device µs,
+    bound (``diagnostics/roofline``) and the library call (:func:`pyramid_conv`,
+    :func:`level_image_conv`; ``F.interpolate`` of the stacked flow), held to
+    1e-3 of the level's scale; the general form (the resize of a stack times
+    1 / pyr_scale) ``torch.equal`` too.  Then the upsample's host launch path
+    in parts (``micro_flow.upsample_path``).  The 1080p pyramid is the
+    kernels line's timed call."""
     import torch.nn.functional as F
 
-    from datmo_using_optical_flow_tpu_torch.diagnostics import roofline
+    from datmo_using_optical_flow_tpu_torch.diagnostics import micro_flow, roofline
     from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
     from datmo_using_optical_flow_tpu_torch.ops import level_kernels as lk
     from datmo_using_optical_flow_tpu_torch.oracle.np_farneback import level_sizes
@@ -592,8 +602,8 @@ def level_image_phase(dev, name: str, smi: str) -> dict:
         err = check("level_image", label, kern(), want)
         ms, plain_ms = time_pair(plain, kern)
         us = kernel_us(kern, dev, f"level_image {label}")
-        lib_ms = library_phase("level_image", label, lib, want,
-                               1e-3 * float(want.abs().max()), dev, name, smi)
+        scale = max(float(x.abs().max()) for x in (want if isinstance(want, tuple) else (want,)))
+        lib_ms = library_phase("level_image", label, lib, want, 1e-3 * scale, dev, name, smi)
         bound = work.bound_us()
         rows[label] = {"ms": ms, "plain_ms": plain_ms, "device_us": us, "library_ms": lib_ms,
                        "bound_us": bound, "max_abs_err": err}
@@ -603,28 +613,41 @@ def level_image_phase(dev, name: str, smi: str) -> dict:
 
     for tag, (h, w), c in _k8_paths():
         img = torch.rand((h, w), device=dev, generator=gen) * 255
-        sizes = level_sizes(h, w, c.pyr_scale, c.levels)  # coarsest first
-        for _, scale, lh, lw in sizes:
+        sizes = [(s, lh, lw) for _, s, lh, lw in level_sizes(h, w, c.pyr_scale, c.levels)]
+        taps = [len(lk._taps(*fb.level_blur(s))[1]) for s, _, _ in sizes]
+        row(f"{h}x{w} level images, {len(sizes)} levels in one launch ({tag})",
+            lambda sizes=sizes: fb.level_images(img, sizes),
+            lambda sizes=sizes: fb.level_images_reference(img, sizes),
+            roofline.level_images(h, w, [(lh, lw, n) for (_, lh, lw), n in zip(sizes, taps)]),
+            pyramid_conv(img, sizes))
+        for (scale, lh, lw), n in zip(sizes, taps):
             ksize, sigma = fb.level_blur(scale)
-            taps = len(lk._taps(ksize, sigma)[1])
             row(f"{h}x{w} -> {lh}x{lw}, {ksize} taps ({tag})",
                 lambda scale=scale, lh=lh, lw=lw: fb.level_image(img, scale, lh, lw),
                 lambda scale=scale, lh=lh, lw=lw: fb.level_image_reference(img, scale, lh, lw),
-                roofline.level_image(h, w, lh, lw, taps),
+                roofline.level_image(h, w, lh, lw, n),
                 level_image_conv(img, ksize, sigma, lh, lw))
         inv = float(np.float32(1.0 / c.pyr_scale))
-        for (_, _, ph, pw), (_, _, lh, lw) in zip(sizes, sizes[1:]):
-            flow = torch.randn((2, ph, pw), device=dev, generator=gen).mul_(3.0)
+        for (_, ph, pw), (_, lh, lw) in zip(sizes, sizes[1:]):
+            dx, dy = (torch.randn((ph, pw), device=dev, generator=gen).mul_(3.0)
+                      for _ in range(2))
+            stacked = torch.stack([dx, dy])
             row(f"upsample 2x{ph}x{pw} -> {lh}x{lw} ({tag})",
-                lambda flow=flow, lh=lh, lw=lw: fb.resize_bilinear(flow, lh, lw, inv),
-                lambda flow=flow, lh=lh, lw=lw: fb.resize_bilinear_reference(flow, lh, lw, inv),
-                roofline.resize(2, ph, pw, lh, lw, True),
-                lambda flow=flow, lh=lh, lw=lw: F.interpolate(
-                    flow[None], size=(lh, lw), mode="bilinear", align_corners=False)[0] * inv)
-    top = rows["1080x1920 -> 324x576, 7 taps (1080p)"]
+                lambda dx=dx, dy=dy, lh=lh, lw=lw: fb.upsample(dx, dy, lh, lw),
+                lambda st=stacked, lh=lh, lw=lw: tuple(
+                    fb.resize_bilinear_reference(st, lh, lw)),
+                roofline.resize(2, ph, pw, lh, lw, False),
+                lambda st=stacked, lh=lh, lw=lw: tuple(F.interpolate(
+                    st[None], size=(lh, lw), mode="bilinear", align_corners=False)[0]))
+            check("level_image", f"resize 2x{ph}x{pw} -> {lh}x{lw} times 1/{c.pyr_scale} "
+                  f"(general form, {tag})", fb.resize_bilinear(stacked, lh, lw, inv),
+                  fb.resize_bilinear_reference(stacked, lh, lw, inv))
+    top = rows["1080x1920 level images, 3 levels in one launch (1080p)"]
+    path = micro_flow.upsample_path(dev, f"{name}, {smi}")
     log(f"phase 3b (K8, {len(rows)} shapes bit-equal): {time.perf_counter() - t0:.1f} s")
     return {"max_abs_err": max(r["max_abs_err"] for r in rows.values()), "ms": top["ms"],
-            "plain_ms": top["plain_ms"], "library_ms": top["library_ms"], "levels": rows}
+            "plain_ms": top["plain_ms"], "library_ms": top["library_ms"], "levels": rows,
+            "upsample_launch_path_us": path["package"]}
 
 
 def launch_path_breakdown(x, name: str, smi: str, n: int = 1000) -> dict:
@@ -633,6 +656,7 @@ def launch_path_breakdown(x, name: str, smi: str, n: int = 1000) -> dict:
     wrapper call and ``torch.add``: the wrapper's checks of its input, the
     output's allocation, the raw stream lookup, the ctypes call that launches
     the kernel (with its device guard in C), and the check of its return."""
+    from datmo_using_optical_flow_tpu_torch.diagnostics.micro_flow import host_us
     from datmo_using_optical_flow_tpu_torch.kernels import build
     from datmo_using_optical_flow_tpu_torch.ops import probe_kernels as pk
     from datmo_using_optical_flow_tpu_torch.ops.flow_kernels import _on_cuda
@@ -653,15 +677,7 @@ def launch_path_breakdown(x, name: str, smi: str, n: int = 1000) -> dict:
              "check of the return": lambda: build.check(0, "tiny"),
              "whole tiny() call": lambda: pk.tiny(x),
              "torch.add(x, 1.0)": lambda: torch.add(x, 1.0)}
-    us = {}
-    for label, body in parts.items():
-        body()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            body()
-        us[label] = (time.perf_counter() - t0) / n * 1e6
-        torch.cuda.synchronize()
+    us = host_us(parts, x.device, n)
     log("tiny launch path, host us per call over " + str(n) + " calls: "
         + ", ".join(f"{k} {v:.3f}" for k, v in us.items()) + f" [{name}, {smi}]")
     return us
@@ -713,6 +729,36 @@ def other_shapes_phase(dev) -> None:
         dx, dy = smooth_flow(h, w, dev)
         check_k4_into_k2(rand(5, h, w), rand(5, h, w), dx, dy, win, gauss, f"{h}x{w}")
     tiny_window_phase(dev)
+    k8_edge_phase(dev)
+
+
+# ROADMAP Queue 3 item 10's shapes: one row, one column, 1x1, a radius past
+# the axis; (h, w, ksize, sigma) of the blur
+K8_EDGES = ((1, 64, 3, 0.0), (64, 1, 3, 0.0), (1, 1, 3, 0.0), (3, 200, 25, 5.0556),
+            (64, 1, 7, 1.1667), (1, 300, 91, 18.019), (300, 1, 25, 5.0556))
+
+
+def k8_edge_phase(dev) -> None:
+    """K8 at :data:`K8_EDGES`, ``torch.equal`` to its plain versions: the
+    blur, and the image with its levels at 0.3 and 0.09 in one launch."""
+    from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
+    from datmo_using_optical_flow_tpu_torch.ops import level_kernels as lk
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    for h, w, ksize, sigma in K8_EDGES:
+        img = torch.rand((h, w), device=dev, generator=gen) * 255
+        check("level_image", f"{h}x{w} blur, {ksize} taps (edge shape)",
+              lk.blur(img, ksize, sigma), fb.gaussian_blur_reference(img, ksize, sigma))
+        sizes = [(1.0, h, w)] + [(s, max(1, round(h * s)), max(1, round(w * s)))
+                                 for s in (0.3, 0.09)]
+        reset_launches()
+        got = fb.level_images(img, sizes)
+        if read_launches()["level_image"] != 1:
+            raise AssertionError(f"K8 {h}x{w}: {read_launches()['level_image']} launches, "
+                                 f"one expected")
+        check("level_image", f"{h}x{w} levels {[s[1:] for s in sizes]} in one launch "
+              f"(edge shape)", got, fb.level_images_reference(img, sizes))
+    log(f"K8 at {len(K8_EDGES)} edge shapes: bit-equal, one launch a frame")
 
 
 # levels of an axis at most 4 (K4's one-valued attenuation) and of an axis at
@@ -949,7 +995,6 @@ def nn_phase(dev, name: str, smi: str, cases) -> dict:
     timed as in phase 3; the tiles each block visits (read from the plain
     sweep) and the bounds they set."""
     from datmo_using_optical_flow_tpu_torch.diagnostics import roofline
-    from datmo_using_optical_flow_tpu_torch.diagnostics.measure import device_us_per_call
     from datmo_using_optical_flow_tpu_torch.ops import nn_kernels as k5
 
     res = {"max_abs_err": 0.0, "cases": []}
@@ -975,11 +1020,13 @@ def nn_phase(dev, name: str, smi: str, cases) -> dict:
         per_c = {}
         for c in k5.CLUSTER_SIZES:
             _k5_equal(f"{label} C={c}", k5._sweep_kernel(p, c), want)
-            per_c[c] = device_us_per_call(lambda: k5._sweep_kernel(p, c), dev, reps=3)
-            log(f"K5 {label} C={c}: bit-equal, device {per_c[c]:.1f} us, busiest block's serial "
+            per_c[c] = kernel_us(lambda: k5._sweep_kernel(p, c), dev, f"K5 {label} C={c}",
+                                 reps=3)
+            log(f"K5 {label} C={c}: bit-equal, device {us_text(per_c[c])}, busiest block's serial "
                 f"bound {roofline.nearest_neighbors_serial_us(vmax, c):.3f} us "
                 f"[{name}, {smi}]")
-        kept_us = device_us_per_call(lambda: k5._sweep_kernel(p, active=active), dev, reps=3)
+        kept_us = kernel_us(lambda: k5._sweep_kernel(p, active=active), dev, f"K5 {label}",
+                            reps=3)
         row = {"label": label, "device_us": per_c, "kept_us": kept_us,
                "bound_us": work.bound_us(), "visits_max": vmax}
         if i != 3:  # the tie case is a check, not a shape of the path
@@ -988,7 +1035,7 @@ def nn_phase(dev, name: str, smi: str, cases) -> dict:
                                      rounds=3, warmup=1)
             row.update(ms=ms, plain_ms=plain_ms)
             log(f"K5 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per call (incl. the "
-                f"block table), kernel device {kept_us:.1f} us [{name}, {smi}]")
+                f"block table), kernel device {us_text(kept_us)} [{name}, {smi}]")
         res["cases"].append(row)
         if i == 0:
             res["ms"], res["plain_ms"], res["work"] = row["ms"], row["plain_ms"], work
@@ -1002,7 +1049,6 @@ def k5_step_phase(dev, name: str, smi: str, pipe, clouds) -> dict:
     recorded sweeps replayed under the profiler."""
     from unittest import mock
 
-    from datmo_using_optical_flow_tpu_torch.diagnostics.measure import device_us_per_call
     from datmo_using_optical_flow_tpu_torch.ops import nn_kernels as k5
     from datmo_using_optical_flow_tpu_torch.utils import prng
 
@@ -1024,11 +1070,14 @@ def k5_step_phase(dev, name: str, smi: str, pipe, clouds) -> dict:
     def step_ms(cluster) -> dict:
         out = {}
         for g, ps in groups.items():
-            out[g] = device_us_per_call(
-                lambda: [k5._sweep_kernel(p, cluster, g == "active") for p in ps], dev,
-                reps=1) / 1e3
-        out["total"] = out["full"] + out["active"]
+            us = kernel_us(lambda: [k5._sweep_kernel(p, cluster, g == "active") for p in ps],
+                           dev, f"K5 per GMFA step, {g} sweeps, cluster {cluster}", reps=1)
+            out[g] = None if us is None else us / 1e3
+        out["total"] = None if None in out.values() else out["full"] + out["active"]
         return out
+
+    def ms_text(v):
+        return "not measured" if v is None else f"{v:.3f}"
 
     res = {"kept": step_ms(None)}
     for c in k5.CLUSTER_SIZES:
@@ -1036,8 +1085,8 @@ def k5_step_phase(dev, name: str, smi: str, pipe, clouds) -> dict:
     for key, ms in res.items():
         log(f"K5 per GMFA step ({len(groups['full'])} full + {len(groups['active'])} active "
             f"sweeps), {'kept cluster size' if key == 'kept' else f'C={key}'}: device "
-            f"{ms['total']:.3f} ms (full {ms['full']:.3f}, active {ms['active']:.3f}) "
-            f"[{name}, {smi}]")
+            f"{ms_text(ms['total'])} ms (full {ms_text(ms['full'])}, active "
+            f"{ms_text(ms['active'])}) [{name}, {smi}]")
     return res
 
 
@@ -1313,9 +1362,9 @@ def _flow_launches(h: int, w: int, pairs: int, frames_expanded: int, c,
     """K1-K4, K8 and K9 launches of ``pairs`` flows over ``frames_expanded``
     expanded frames at (h, w) with Farnebäck settings ``c``: K1 once per level
     and frame, K3 ``iterations`` times per level of at least 128x256, K2 and
-    the warp on the others (K9, packed, with ``fast_warp``, else K4), K8 twice
-    per level and frame (the level image) and once per pair and level
-    transition (the 2-plane upsample)."""
+    the warp on the others (K9, packed, with ``fast_warp``, else K4), K8 once
+    per frame (its level images) and once per pair and level transition (the
+    2-plane upsample)."""
     from datmo_using_optical_flow_tpu_torch.ops import warp
     from datmo_using_optical_flow_tpu_torch.oracle.np_farneback import level_sizes
 
@@ -1325,7 +1374,7 @@ def _flow_launches(h: int, w: int, pairs: int, frames_expanded: int, c,
     return {"poly_exp": len(levels) * frames_expanded,
             "fused_iteration": k3 * c.iterations * pairs,
             "blur_solve": small, "warp_packed" if fast_warp else "warp_matrices": small,
-            "level_image": 2 * len(levels) * frames_expanded + (len(levels) - 1) * pairs}
+            "level_image": frames_expanded + (len(levels) - 1) * pairs}
 
 
 def _counted(label: str, fn, want: dict):
@@ -1782,7 +1831,7 @@ def round_phase(dev, name: str, smi: str, cases: dict) -> dict:
             work = roofline.sumsq(res["numel"], v.shape[-1], root)
             shape = f"{tuple(v.shape)}, root={root}"
         res["ms"], res["plain_ms"] = time_pair(*fns)
-        res["device_us"] = measure.device_us_per_call(fns[1], dev)
+        res["device_us"] = kernel_us(fns[1], dev, kernel)
         want = fns[0]()
         res["library_ms"] = None if lib is None else library_phase(
             kernel, shape, lib, want, 1e-5 * float(want[torch.isfinite(want)].abs().max()),
@@ -1790,9 +1839,9 @@ def round_phase(dev, name: str, smi: str, cases: dict) -> dict:
         res["work"] = work
         log(f"{kernel}: bit-equal to its plain version on {res['cases']} inputs (the main "
             f"paths' and special values); at {shape}: kernel {res['ms']:.4f} ms, device "
-            f"{res['device_us']:.1f} us, plain {res['plain_ms']:.4f} ms, bound "
+            f"{us_text(res['device_us'])}, plain {res['plain_ms']:.4f} ms, bound "
             f"{work.bound_us():.3f} us ({work.bound_by()}), share "
-            f"{work.bound_us() / res['device_us']:.3f} [{name}, {smi}]")
+            f"{share(work.bound_us(), res['device_us'])} [{name}, {smi}]")
     return out
 
 
@@ -2427,7 +2476,8 @@ def main() -> None:
             "nearest_neighbors": results["nearest_neighbors"]["work"],
             "tiny": roofline.tiny(8 * 128), "fma32": results["fma32"]["work"],
             "sumsq": results["sumsq"]["work"],
-            "level_image": roofline.level_image(1080, 1920, 324, 576, 7),
+            "level_image": roofline.level_images(1080, 1920, ((97, 173, 25), (324, 576, 7),
+                                                              (1080, 1920, 3))),
             "warp_packed": roofline.warp_packed(97, 173)}
     kernels = []
     for k in REPLACES:

@@ -9,8 +9,8 @@ with the Gaussian one, and as the step runs it between iterations, the flow
 in and out as numerators and 1 / det), K4 (the standalone warp and M), K2
 on K4's M and K9 (the packed-gather warp); K3 at the second level (324x576
 at 1080p) with that level's converged flow; K2 at the coarsest level
-(97x173) on K9's M with that level's converged flow, as the step runs it;
-and K1 at every level, on the
+(97x173) on K9's M with that level's converged flow, as the step runs it,
+and K9 there; and K1 at every level, on the
 image ``build_pyramid`` gives it (1080x1920, 324x576 and 97x173 at 1080p).
 Each row gives ms per call, device µs, the bytes and operations of
 the work, its bound on the H100 and the share of the bound reached
@@ -34,8 +34,17 @@ images instead (:func:`small_levels`): each beside one ``F.conv2d`` that
 computes the same planes, per call and split into the host's enqueue and the
 device's time.
 
+With ``--k8``, K8 instead (:func:`k8_rows`): a frame's level images in one
+launch, each level alone and the flow's 2-plane upsamples, at the 1080p,
+from-points, 4K and 720p flows' shapes, each with its bound; with
+``--parent``, that checkout's ``level_kernels.cu`` is built by hand too, and
+its calls, made as its wrapper made them (one call per level image, the
+upsample of a stacked flow), are held beside this build's in turns, per call
+and by device µs; the upsample's host path is split into its parts for both
+(:func:`upsample_path`).
+
     python -m datmo_using_optical_flow_tpu_torch.diagnostics.micro_flow [--height H --width W]
-        [--parent DIR] [--tiny] [--small]
+        [--parent DIR] [--tiny] [--small] [--k8]
 """
 
 from __future__ import annotations
@@ -59,6 +68,7 @@ from datmo_using_optical_flow_tpu_torch.diagnostics.measure import (card_label,
 from datmo_using_optical_flow_tpu_torch.kernels import build
 from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
 from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
+from datmo_using_optical_flow_tpu_torch.ops import level_kernels as lk
 from datmo_using_optical_flow_tpu_torch.oracle.np_farneback import level_sizes
 from datmo_using_optical_flow_tpu_torch.sim.frames import make_frames
 from datmo_using_optical_flow_tpu_torch.utils.device import resolve_device
@@ -106,20 +116,25 @@ def inputs(frames: np.ndarray, dev: torch.device) -> Inputs:
     return Inputs(c, gaussian, im1, pyr1, pyr2, flows)
 
 
-def parent_library(parent: str | Path) -> ctypes.CDLL:
-    """``flow_kernels.cu`` of the checkout at ``parent``, built by hand with
-    the package's flags into ``build/parent_kernels/<its directory's name>/``,
-    with the C signatures of its entry points set."""
-    source = Path(parent) / "datmo_using_optical_flow_tpu_torch" / "csrc" / "flow_kernels.cu"
-    out = build.BUILD_DIR.parent / "parent_kernels" / Path(parent).name / "libflow_kernels.so"
+def _build_parent(parent: str | Path, name: str) -> tuple[ctypes.CDLL, str]:
+    """``csrc/<name>.cu`` of the checkout at ``parent``, built by hand with the
+    package's flags into ``build/parent_kernels/<its directory's name>/``,
+    and its source text."""
+    source = Path(parent) / "datmo_using_optical_flow_tpu_torch" / "csrc" / f"{name}.cu"
+    out = build.BUILD_DIR.parent / "parent_kernels" / Path(parent).name / f"lib{name}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     cmd = [build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(out), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {source}:\n{' '.join(cmd)}\n"
                            f"{proc.stdout}{proc.stderr}")
-    lib = ctypes.CDLL(str(out))
-    text = source.read_text()
+    return ctypes.CDLL(str(out)), source.read_text()
+
+
+def parent_library(parent: str | Path) -> ctypes.CDLL:
+    """``flow_kernels.cu`` of the checkout at ``parent``, built by hand, with
+    the C signatures of its entry points set."""
+    lib, text = _build_parent(parent, "flow_kernels")
     for entry in _PARENT_ENTRIES:
         fn = getattr(lib, entry)
         fn.argtypes, fn.restype = _OLD_SIGNATURES.get((entry, c_params(text, entry)),
@@ -241,19 +256,24 @@ def against_parent(call: Callable, parent: Callable, plain: Callable, work: roof
         raise AssertionError(f"the parent differs from the plain version by {parent_diff:.3e}, "
                              f"more than 1e-4 of its scale {scale:.3e}")
     us = {"package": [], "parent": []}
+    ms = {"package": [], "parent": []}
     for _ in range(rounds):
         for name, fn in (("parent", parent), ("package", call), ("package", call),
                          ("parent", parent)):
             us[name].append(device_us_per_call(fn, dev, reps))
+            ms[name].append(ms_per_call(fn, dev, 2 * reps))
     med = {name: statistics.median(v) for name, v in us.items()}
+    med_ms = {name: statistics.median(v) for name, v in ms.items()}
     bound = work.bound_us()
     print(f"{'':44s} in turns: device {med['package']:.1f} us (share "
           f"{bound / med['package']:.3f}), parent {med['parent']:.1f} us (share "
-          f"{bound / med['parent']:.3f}); this build bit-equal to the plain version "
+          f"{bound / med['parent']:.3f}); per call {med_ms['package']:.4f} ms, parent "
+          f"{med_ms['parent']:.4f} ms; this build bit-equal to the plain version "
           f"({plain_ms:.3f} ms/call), the parent {parent_diff:.3e} from it [{card}]", flush=True)
     return {"plain_ms": plain_ms, "turns_device_us": us, "turns_median_us": med["package"],
             "parent_device_us": med["parent"], "parent_share_of_bound": bound / med["parent"],
-            "parent_max_abs_diff": parent_diff}
+            "parent_max_abs_diff": parent_diff, "turns_ms": ms,
+            "turns_median_ms": med_ms["package"], "parent_ms": med_ms["parent"]}
 
 
 def run(frames: np.ndarray, device: str | torch.device = "cuda", reps: int = 20,
@@ -334,6 +354,8 @@ def run(frames: np.ndarray, device: str | torch.device = "cuda", reps: int = 20,
         window_row(f"K3 fused_iteration {sh}x{sw}, second level", (S0, S1, *inp.flows[-2]),
                    gaussian),
         window_row(f"K2 blur_solve on K9's M {ch}x{cw}, coarsest level", (Mc,), gaussian),
+        packed_row(f"K9 warp_matrices_packed {ch}x{cw}, coarsest level", C0,
+                   fb.pack_corner_pairs(C1), *inp.flows[0]),
     ]
     # K1 on every level's image, finest first, as build_pyramid feeds it
     n, sigma = c.poly_n, c.poly_sigma
@@ -420,9 +442,9 @@ def tiny_rows(dev: torch.device, card: str, lib: ctypes.CDLL | None, reps: int) 
 
 # K1's small shapes: the coarse levels of the pipelines (A's 200x200 and
 # 60x60, 1080p's 97x173, 4K's 196x346 and 59x104, 720p's 216x384 and
-# 65x115) and two tiny images (K1's tiny form)
+# 65x115) and three tiny images (K1's tiny form)
 SMALL_SHAPES = ((97, 173), (200, 200), (60, 60), (196, 346), (59, 104), (216, 384), (65, 115),
-                (5, 122), (122, 5))
+                (5, 122), (122, 5), (5, 5))
 
 
 def conv_yardstick(img: torch.Tensor, n: int, sigma: float) -> Callable:
@@ -503,17 +525,260 @@ def small_levels(device: str | torch.device = "cuda", reps: int = 20, seed: int 
     return {"card": card, "device": str(dev), "rows": rows}
 
 
+# ------------------------------------------------------------------ K8
+
+# K8's C signatures in the two-pass form (two launches a level image, the
+# resize of a stacked flow), by entry point: what a parent checkout may declare
+_P64 = ctypes.c_int64
+_K8_TWO_PASS = {"datmo_level_image": ([_P, _P, _P, _I, _I, _I, _I, *[_P] * 8, _I, _I, _P], _I),
+                "datmo_blur": ([_P, _P, _P, _I, _I, _P, _P, _I, _I, _P], _I),
+                "datmo_resize": ([_P, _P, _P64, _I, _I, _I, _I, *[_P] * 6, _F, _I, _P], _I)}
+
+
+class ParentK8:
+    """The K8 calls of a parent checkout's ``level_kernels.cu``, made as its
+    wrapper made them: the two-pass form's per-level image (a scratch buffer
+    of 2 x lh rows, or of the image for the blur) and its resize of the
+    stacked flow; or, where the parent already has ``datmo_level_images``,
+    through this package's plan."""
+
+    def __init__(self, parent: str | Path, dev: torch.device):
+        self.lib, text = _build_parent(parent, "level_kernels")
+        self.dev = dev
+        self.one_launch = "int datmo_level_images(" in text
+        sigs = build._SIGNATURES if self.one_launch else _K8_TWO_PASS
+        names = (("datmo_level_images", "datmo_resize") if self.one_launch
+                 else tuple(_K8_TWO_PASS))
+        for name in names:
+            getattr(self.lib, name).argtypes, getattr(self.lib, name).restype = sigs[name]
+
+    def _stream(self) -> int:
+        return torch.cuda.current_stream(self.dev).cuda_stream
+
+    def level_image(self, im: torch.Tensor, scale: float, lh: int, lw: int) -> torch.Tensor:
+        if self.one_launch:
+            return self.level_images(im, ((scale, lh, lw),))[0]
+        h, w = im.shape
+        off, ws = lk._taps(*fb.level_blur(scale))
+        out = torch.empty((lh, lw), dtype=torch.float32, device=self.dev)
+        if (lh, lw) == (h, w):
+            scratch = torch.empty_like(out)
+            err = self.lib.datmo_blur(out.data_ptr(), im.data_ptr(), scratch.data_ptr(), h, w,
+                                      off.ctypes.data, ws.ctypes.data, len(ws), self.dev.index,
+                                      self._stream())
+        else:
+            y0, y1, wy, _ = fb.resize_table(h, lh, self.dev)
+            x0, x1, wx, _ = fb.resize_table(w, lw, self.dev)
+            scratch = torch.empty((2 * lh, w), dtype=torch.float32, device=self.dev)
+            err = self.lib.datmo_level_image(
+                out.data_ptr(), im.data_ptr(), scratch.data_ptr(), h, w, lh, lw, y0.data_ptr(),
+                y1.data_ptr(), wy.data_ptr(), x0.data_ptr(), x1.data_ptr(), wx.data_ptr(),
+                off.ctypes.data, ws.ctypes.data, len(ws), self.dev.index, self._stream())
+        build.check(err, "parent level_image")
+        return out
+
+    def level_images(self, im: torch.Tensor, sizes) -> tuple[torch.Tensor, ...]:
+        if not self.one_launch:
+            return tuple(self.level_image(im, *lv) for lv in sizes)
+        h, w = im.shape
+        specs = lk._level_specs(tuple(sizes))
+        plan = lk.level_plan(h, w, specs)
+        out = torch.empty(plan.size, dtype=torch.float32, device=self.dev)
+        words = lk._device_words("levels", (h, w, specs), self.dev)[0]
+        build.check(self.lib.datmo_level_images(out.data_ptr(), im.data_ptr(), h, w,
+                                                words.data_ptr(), plan.ntiles, plan.smem,
+                                                self.dev.index, self._stream()), "parent")
+        return tuple(out[o:o + lh * lw].view(lh, lw)
+                     for o, (_, lh, lw) in zip(plan.offsets, sizes))
+
+    def upsample(self, dx: torch.Tensor, dy: torch.Tensor, lh: int, lw: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        h, w = dx.shape
+        out = torch.empty((2, lh, lw), dtype=torch.float32, device=self.dev)
+        if self.one_launch:
+            table = lk._device_words("resize", (h, w, lh, lw), self.dev)[0]
+            err = self.lib.datmo_resize(out.data_ptr(), dx.data_ptr(), dy.data_ptr(), 0, 2, h, w,
+                                        lh, lw, table.data_ptr(), 1.0, self.dev.index,
+                                        self._stream())
+        else:
+            src = torch.stack([dx, dy])
+            scale = float(np.float32(1.0))
+            y0, y1, wy, _ = fb.resize_table(h, lh, self.dev)
+            x0, x1, wx, _ = fb.resize_table(w, lw, self.dev)
+            err = self.lib.datmo_resize(out.data_ptr(), src.data_ptr(), 2, h, w, lh, lw,
+                                        y0.data_ptr(), y1.data_ptr(), wy.data_ptr(),
+                                        x0.data_ptr(), x1.data_ptr(), wx.data_ptr(), scale,
+                                        self.dev.index, self._stream())
+        build.check(err, "parent resize")
+        return out[0], out[1]
+
+
+def k8_paths() -> tuple:
+    """The flows whose pyramids K8 builds: (tag, (h, w), Farnebäck settings)."""
+    from datmo_using_optical_flow_tpu_torch.benchmarks import flow_batched_720p as fbm
+    from datmo_using_optical_flow_tpu_torch.benchmarks import from_points as fpb
+    from datmo_using_optical_flow_tpu_torch.benchmarks import stream_4k
+    from datmo_using_optical_flow_tpu_torch.benchmarks.stream_1080p import config
+
+    fp = fpb.config()
+    return (("1080p", (1080, 1920), config(1080, 1920).farneback),
+            ("from points", fp.grid_shape, fp.farneback),
+            ("4K", (stream_4k.H, stream_4k.W), config(stream_4k.H, stream_4k.W).farneback),
+            ("720p", (fbm.H, fbm.W), FarnebackConfig()))
+
+
+def k8_rows(dev: torch.device, card: str, parent: ParentK8 | None, reps: int = 20,
+            seed: int = 8) -> list:
+    """K8 at each path of :func:`k8_paths` on a uniform random image from
+    ``seed``: the frame's level images in one launch, each level alone, and
+    the flow's upsample at each level transition in the main path's form
+    (two planes, scale 1.0), each held to its plain version and, with a
+    parent, timed beside the parent's calls in turns."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = []
+
+    def row(name, call, par, plain, work):
+        r = kernel_row(name, call, work, dev, card, reps)
+        if parent is not None:
+            r.update(against_parent(call, par, plain, work, dev, card))
+        rows.append(r)
+
+    for tag, (h, w), c in k8_paths():
+        img = torch.rand((h, w), device=dev, generator=gen) * 255
+        sizes = [(s, lh, lw) for _, s, lh, lw in level_sizes(h, w, c.pyr_scale, c.levels)]
+        taps = [len(lk._taps(*fb.level_blur(s))[1]) for s, _, _ in sizes]
+        row(f"K8 level images {h}x{w} ({tag}), one launch",
+            lambda: lk.level_images(img, sizes),
+            None if parent is None else lambda: parent.level_images(img, sizes),
+            lambda: fb.level_images_reference(img, sizes),
+            roofline.level_images(h, w, [(lh, lw, n) for (_, lh, lw), n in zip(sizes, taps)]))
+        for (s, lh, lw), n in zip(sizes, taps):
+            row(f"K8 level image {h}x{w} -> {lh}x{lw}, {n} taps ({tag})",
+                lambda s=s, lh=lh, lw=lw: (lk.level_image(img, s, lh, lw),),
+                None if parent is None else (
+                    lambda s=s, lh=lh, lw=lw: (parent.level_image(img, s, lh, lw),)),
+                lambda s=s, lh=lh, lw=lw: (fb.level_image_reference(img, s, lh, lw),),
+                roofline.level_image(h, w, lh, lw, n))
+        for (_, ph, pw), (_, lh, lw) in zip(sizes, sizes[1:]):
+            dx, dy = (torch.randn((ph, pw), device=dev, generator=gen) * 3 for _ in range(2))
+            row(f"K8 upsample 2x{ph}x{pw} -> {lh}x{lw} ({tag})",
+                lambda dx=dx, dy=dy, lh=lh, lw=lw: lk.upsample(dx, dy, lh, lw),
+                None if parent is None else (
+                    lambda dx=dx, dy=dy, lh=lh, lw=lw: parent.upsample(dx, dy, lh, lw)),
+                lambda dx=dx, dy=dy, lh=lh, lw=lw: tuple(
+                    fb.resize_bilinear_reference(torch.stack([dx, dy]), lh, lw)),
+                roofline.resize(2, ph, pw, lh, lw, False))
+    return rows
+
+
+def host_us(parts: dict, dev: torch.device, n: int) -> dict:
+    """Host µs per call of each part, over ``n`` calls in a Python loop, the
+    card synchronised before and after each part."""
+    import time
+
+    us = {}
+    for label, body in parts.items():
+        body()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            body()
+        us[label] = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize(dev)
+    return us
+
+
+def upsample_path(dev: torch.device, card: str, parent: ParentK8 | None = None,
+                  shape: tuple = (97, 173), out: tuple = (324, 576), n: int = 1000) -> dict:
+    """Host µs per call of each part of the upsample's launch path at the
+    main path's small transition (97x173 -> 324x576 at 1080p), as
+    ``chip_smoke``'s ``launch_path_breakdown`` splits K6's: this package's
+    (its checks, the float32 scale, the cached table, the output's
+    allocation, the ctypes call that launches the kernel, the two views) and,
+    with a parent in the two-pass form, the parent's (the stack of the two
+    planes, its checks, the scale through numpy, two table lookups, the
+    allocation, its ctypes call of 15 arguments, the views); each beside the
+    whole call and ``F.interpolate`` of the stack."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    dx, dy = (torch.randn(shape, device=dev, generator=gen) for _ in range(2))
+    (h, w), (lh, lw) = shape, out
+    stacked = torch.stack([dx, dy])[None]
+    fn, stream = lk._RESIZE.resolve()
+    index = dev.index
+    table = lk._device_words("resize", (h, w, lh, lw), dev)[0]
+    buf = torch.empty((2, lh, lw), dtype=torch.float32, device=dev)
+    args = (buf.data_ptr(), dx.data_ptr(), dy.data_ptr(), 0, 2, h, w, lh, lw, table.data_ptr(),
+            1.0, index, stream(index))
+    parts = {"checks (device, dtype, shape)": lambda: (
+                 fk._on_cuda(dx, dy), dx.dtype != torch.float32, dy.dtype != torch.float32,
+                 dx.ndim, dx.shape == dy.shape, dx.numel(), dx.contiguous(), dy.contiguous()),
+             "scale to float32 (cached)": lambda: lk._scale32(1.0),
+             "table lookup (uploaded once)": lambda: lk._device_words(
+                 "resize", (h, w, lh, lw), dev),
+             "allocation (torch.empty)": lambda: torch.empty((2, lh, lw), dtype=torch.float32,
+                                                             device=dev),
+             "raw stream lookup": lambda: stream(index),
+             "ctypes call (device guard, launch)": lambda: fn(*args),
+             "two views (unbind)": lambda: buf.unbind(0),
+             "whole upsample() call": lambda: lk.upsample(dx, dy, lh, lw),
+             "F.interpolate of the stack": lambda: F.interpolate(
+                 stacked, size=(lh, lw), mode="bilinear", align_corners=False)}
+    rec = {"package": host_us(parts, dev, n)}
+    if parent is not None and not parent.one_launch:
+        old = parent.lib.datmo_resize
+        src = torch.stack([dx, dy])
+        y0, y1, wy, _ = fb.resize_table(h, lh, dev)
+        x0, x1, wx, _ = fb.resize_table(w, lw, dev)
+        old_args = (buf.data_ptr(), src.data_ptr(), 2, h, w, lh, lw, y0.data_ptr(),
+                    y1.data_ptr(), wy.data_ptr(), x0.data_ptr(), x1.data_ptr(), wx.data_ptr(),
+                    1.0, index, stream(index))
+        rec["parent"] = host_us({
+            "torch.stack of the two planes": lambda: torch.stack([dx, dy]),
+            "checks (device, dtype, shape)": lambda: (
+                fk._on_cuda(src), src.dtype != torch.float32, src.ndim, src.numel(),
+                src.contiguous()),
+            "scale through numpy": lambda: float(np.float32(1.0)),
+            "two table lookups": lambda: (fb.resize_table(h, lh, dev),
+                                          fb.resize_table(w, lw, dev)),
+            "allocation (torch.empty)": lambda: torch.empty((2, lh, lw), dtype=torch.float32,
+                                                            device=dev),
+            "raw stream lookup": lambda: stream(index),
+            "ctypes call (15 arguments, device guard, launch)": lambda: old(*old_args),
+            "two views": lambda: (buf[0], buf[1]),
+            "whole call (stack, then the resize)": lambda: parent.upsample(dx, dy, lh, lw)},
+            dev, n)
+    for who, us in rec.items():
+        print(f"upsample {h}x{w} -> {lh}x{lw} launch path ({who}), host us per call over {n} "
+              f"calls: " + ", ".join(f"{k} {v:.3f}" for k, v in us.items()) + f" [{card}]",
+              flush=True)
+    return rec
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--width", type=int, default=1920)
-    ap.add_argument("--parent", help="an older checkout whose flow_kernels.cu to time beside")
+    ap.add_argument("--parent",
+                    help="an older checkout whose flow_kernels.cu (level_kernels.cu with --k8) "
+                         "to time beside")
     ap.add_argument("--small", action="store_true", help="K1 at the small shapes beside F.conv2d")
     ap.add_argument("--tiny", action="store_true",
                     help="also K4, K2 (Gaussian) and K1 at tiny levels and images")
+    ap.add_argument("--k8", action="store_true",
+                    help="K8 alone: level images, levels and upsamples of four flows")
     args = ap.parse_args()
     if args.small:
         print(json.dumps(small_levels()))
+    elif args.k8:
+        resolve_device("cuda")  # raises without a card
+        dev = torch.device("cuda", torch.cuda.current_device())
+        card = card_label(dev)
+        parent = None if args.parent is None else ParentK8(args.parent, dev)
+        print(json.dumps({"card": card, "parent": args.parent,
+                          "rows": k8_rows(dev, card, parent),
+                          "upsample_path": upsample_path(dev, card, parent)}))
     else:
         print(json.dumps(run(make_frames(2, args.height, args.width), parent=args.parent,
                              tiny=args.tiny)))

@@ -165,6 +165,14 @@ def level_image(h: int, w: int, lh: int, lw: int, taps: int) -> Work:
     return Work(4 * (h * w + lh * lw), ops)
 
 
+def level_images(h: int, w: int, levels) -> Work:
+    """K8's level images of one frame in one launch, ``levels`` a sequence of
+    (lh, lw, taps): the image read once, every level written once, and the
+    sum of the levels' operations (:func:`level_image`)."""
+    ops = sum(level_image(h, w, lh, lw, taps).ops for lh, lw, taps in levels)
+    return Work(4 * (h * w + sum(lh * lw for lh, lw, _ in levels)), ops)
+
+
 def resize(planes: int, h: int, w: int, oh: int, ow: int, scaled: bool) -> Work:
     """K8's resize of ``planes`` (h, w) planes to (oh, ow): each plane in and
     out once; the rows' lerp at the distinct columns read, the columns' lerp

@@ -246,7 +246,7 @@ def _flow_sig(flow_scale) -> tuple | str:
 def _held_to_plain(rows: dict, phase: str, dev: torch.device, on: bool = True):
     """Within, on the card and when ``on``: the first call of each kernel
     wrapper at each input signature is also held to its plain version on the
-    same inputs, raising unless equal (K1-K4, K9 and K8's three entry points
+    same inputs, raising unless equal (K1-K4, K9 and K8's five wrappers
     ``torch.equal`` and timed by :func:`_kernel_row`; K5's five outputs
     ``torch.equal``; K7 bit for bit), and its row goes to ``rows``.  The
     checks' launches are made outside the counted runs."""
@@ -257,8 +257,9 @@ def _held_to_plain(rows: dict, phase: str, dev: torch.device, on: bool = True):
     orig = {"poly_exp": fk.poly_exp, "blur_solve": fk.blur_solve,
             "fused_iteration": fk.fused_iteration, "warp_matrices": fk.warp_matrices,
             "warp_packed": fk.warp_matrices_packed, "nearest_neighbors": k5.nearest_neighbors,
-            "fma32": rk._fma32, "sumsq": rk._sumsq, "level_image": k8.level_image,
-            "blur": k8.blur, "resize": k8.resize}
+            "fma32": rk._fma32, "sumsq": rk._sumsq, "level_images": k8.level_images,
+            "level_image": k8.level_image, "blur": k8.blur, "resize": k8.resize,
+            "upsample": k8.upsample}
 
     def once(key: tuple, check) -> None:
         if key not in rows:
@@ -315,6 +316,24 @@ def _held_to_plain(rows: dict, phase: str, dev: torch.device, on: bool = True):
             shape, dev))
         return orig["warp_packed"](*args)
 
+    def level_images(im, levels):
+        levels = tuple(tuple(lv) for lv in levels)
+        taps = [len(k8._taps(*fb.level_blur(s))[1]) for s, _, _ in levels]
+        once(("level_image", "levels", tuple(im.shape), levels), lambda: _kernel_row(
+            "level_image", lambda: orig["level_images"](im, levels),
+            lambda: fb.level_images_reference(im, levels),
+            roofline.level_images(*im.shape, [(lh, lw, n) for (_, lh, lw), n in
+                                              zip(levels, taps)]), tuple(im.shape), dev))
+        return orig["level_images"](im, levels)
+
+    def upsample(dx, dy, lh, lw, scale=1.0):
+        shape = (*dx.shape, lh, lw)
+        once(("level_image", "upsample", shape, scale), lambda: _kernel_row(
+            "level_image", lambda: orig["upsample"](dx, dy, lh, lw, scale),
+            lambda: tuple(fb.resize_bilinear_reference(torch.stack([dx, dy]), lh, lw, scale)),
+            roofline.resize(2, *dx.shape, lh, lw, scale != 1.0), shape, dev))
+        return orig["upsample"](dx, dy, lh, lw, scale)
+
     def level_image(im, scale, lh, lw):
         shape = (*im.shape, lh, lw)
         once(("level_image", shape), lambda: _kernel_row(
@@ -370,8 +389,9 @@ def _held_to_plain(rows: dict, phase: str, dev: torch.device, on: bool = True):
                               (fk, "warp_matrices", warp_matrices),
                               (fk, "warp_matrices_packed", warp_matrices_packed),
                               (k5, "nearest_neighbors", nearest_neighbors),
+                              (k8, "level_images", level_images),
                               (k8, "level_image", level_image), (k8, "blur", blur),
-                              (k8, "resize", resize),
+                              (k8, "resize", resize), (k8, "upsample", upsample),
                               (rk, "_fma32", fma32), (rk, "_sumsq", sumsq)):
             stack.enter_context(mock.patch.object(mod, name, fn))
         yield

@@ -106,6 +106,16 @@ def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int,
     return level_kernels.resize(img, out_h, out_w, scale)
 
 
+def upsample(dx: torch.Tensor, dy: torch.Tensor, lh: int, lw: int,
+             scale: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The flow's two planes resized to (lh, lw) as :func:`resize_bilinear`
+    resizes their stack, in one K8 launch on the card and with no stack:
+    ``(dx, dy)``."""
+    from datmo_using_optical_flow_tpu_torch.ops import level_kernels
+
+    return level_kernels.upsample(dx, dy, lh, lw, scale)
+
+
 # ------------------------------------------------------------------ K8's plain versions
 
 def reflect101(idx: torch.Tensor, size: int) -> torch.Tensor:
@@ -233,6 +243,12 @@ def level_image_reference(im: torch.Tensor, scale: float, lh: int, lw: int) -> t
     (a0, a1), (b0, b1) = ([_corr_at(r, taps, -1, x) for x in (x0, x1)] for r in rows)
     wy, vy = wy[:, None], vy[:, None]
     return _lerp(_lerp(a0, b0, wy, vy), _lerp(a1, b1, wy, vy), wx, vx)
+
+
+def level_images_reference(im: torch.Tensor, levels) -> tuple[torch.Tensor, ...]:
+    """Plain version of K8's level images: :func:`level_image_reference` at
+    each ``(scale, lh, lw)`` of ``levels``."""
+    return tuple(level_image_reference(im, scale, lh, lw) for scale, lh, lw in levels)
 
 
 # ------------------------------------------------------------------ poly expansion
@@ -629,10 +645,21 @@ def farneback_level(R0: torch.Tensor, R1: torch.Tensor, dx: torch.Tensor, dy: to
 def build_pyramid(im: torch.Tensor, pyr_scale: float, levels: int, poly_n: int,
                   poly_sigma: float) -> tuple[torch.Tensor, ...]:
     """Per-level (5, lh, lw) polynomial-expansion planes of one frame,
-    coarsest first (the order :func:`flow_from_pyramids` consumes)."""
+    coarsest first (the order :func:`flow_from_pyramids` consumes); the
+    level images in one K8 launch on the card (:func:`level_images`)."""
     h, w = im.shape
-    return tuple(poly_exp(level_image(im, scale, lh, lw), poly_n, poly_sigma)
-                 for _, scale, lh, lw in level_sizes(h, w, pyr_scale, levels))
+    sizes = [(scale, lh, lw) for _, scale, lh, lw in level_sizes(h, w, pyr_scale, levels)]
+    return tuple(poly_exp(img, poly_n, poly_sigma) for img in level_images(im, sizes))
+
+
+def level_images(im: torch.Tensor, levels) -> tuple[torch.Tensor, ...]:
+    """The (lh, lw) image of each ``(scale, lh, lw)`` pyramid level of
+    ``levels``, as :func:`level_image` gives each: one K8 launch on the
+    card (:mod:`.level_kernels`), :func:`level_images_reference` on the
+    CPU."""
+    from datmo_using_optical_flow_tpu_torch.ops import level_kernels
+
+    return level_kernels.level_images(im.to(torch.float32), levels)
 
 
 def level_image(im: torch.Tensor, scale: float, lh: int, lw: int) -> torch.Tensor:
@@ -666,8 +693,7 @@ def flow_from_pyramids(pyr1, pyr2, pyr_scale: float, winsize: int, iterations: i
                 dx = torch.zeros((lh, lw), dtype=torch.float32, device=R0.device)
                 dy = torch.zeros((lh, lw), dtype=torch.float32, device=R0.device)
         else:
-            f = resize_bilinear(torch.stack([dx, dy]), lh, lw)
-            dx, dy = f[0], f[1]
+            dx, dy = upsample(dx, dy, lh, lw)
             scale = float(np.float32(1.0 / pyr_scale))
         dx, dy = farneback_level(R0, R1, dx, dy, winsize, iterations, fast_warp, gaussian,
                                  scale)

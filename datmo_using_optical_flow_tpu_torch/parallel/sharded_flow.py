@@ -163,15 +163,15 @@ def coarse_flow(im1_block: torch.Tensor, im2_block: torch.Tensor, group: RowGrou
             dx = torch.zeros((lh, lw), dtype=torch.float32, device=im1_block.device)
             dy = torch.zeros_like(dx)
         else:
-            dx, dy = fb.resize_bilinear(torch.stack([dx, dy]), lh, lw)
+            dx, dy = fb.upsample(dx, dy, lh, lw)
             flow_scale = inv
         R0, R1 = (fb.poly_exp(fb.level_image(im, scale, lh, lw), poly_n, poly_sigma)
                   for im in full)
         dx, dy = fb.farneback_level(R0, R1, dx, dy, winsize, iterations, False,
                                     flow_scale=flow_scale)
     rows = slice(group.rank * hl, (group.rank + 1) * hl)
-    full_flow = fb.resize_bilinear(torch.stack([dx, dy]), h_global, w, inv)[:, rows]
-    return full_flow[0].contiguous(), full_flow[1].contiguous()
+    fdx, fdy = fb.upsample(dx, dy, h_global, w, inv)
+    return fdx[rows].contiguous(), fdy[rows].contiguous()
 
 
 def level0_image(img_block: torch.Tensor, group: RowGroup) -> torch.Tensor:
@@ -216,7 +216,7 @@ def sharded_flow_launches(h: int, w: int, pyr_scale: float = 0.3, levels: int = 
     on the card, by the code above: two K1 per level (the replicated coarse
     levels and level 0's halo-extended blocks), ``iterations`` K3 on each
     coarse level of at least 128x256 (``warp.eligible``), ``iterations`` K4
-    and K2 on each smaller one and on level 0; K8 twice per coarse level
+    and K2 on each smaller one and on level 0; K8 once per coarse level
     image (two images a level) and once per 2-plane upsample (between the
     coarse levels and to full size).  Level 0's pre-blur runs
     :func:`level0_image`'s plain ops."""
@@ -226,4 +226,4 @@ def sharded_flow_launches(h: int, w: int, pyr_scale: float = 0.3, levels: int = 
     return {"poly_exp": 2 * len(sizes), "blur_solve": iterations * (len(sizes) - k3),
             "warp_matrices": iterations * (len(sizes) - k3),
             "fused_iteration": iterations * k3,
-            "level_image": 2 * 2 * coarse + coarse}
+            "level_image": 2 * coarse + coarse}

@@ -90,6 +90,7 @@ def test_micro_flow_runs_every_row():
                       "K9 warp_matrices_packed 360x384",
                       "K3 fused_iteration 108x115, second level",
                       "K2 blur_solve on K9's M 32x35, coarsest level",
+                      "K9 warp_matrices_packed 32x35, coarsest level",
                       "K1 poly_exp 360x384", "K1 poly_exp 108x115", "K1 poly_exp 32x35"],
                 ("ms", "device_us", "bytes", "ops", "bound_us", "bound_by", "share_of_bound"))
     for r in res["rows"]:
