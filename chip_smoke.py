@@ -85,13 +85,16 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
     with K5's and K7's launches, the host synchronisations per step and the
     moving points against the 16,384 cap; then K5's device ms per step, full
     and active sweeps apart, at the kept sizes and at each cluster size (one
-    step's sweeps recorded, then replayed under the profiler); then K7 (the
-    once-rounded fma and sum of squares, ``ops/round_kernels``) bit-equal to
-    its plain version on every input that one 1080x1920 stream step and one
-    GMFA step give it (recorded through the wrappers) and on infinities,
-    NaNs and subnormals, each kernel timed at its largest such input (with
-    its device µs) beside its plain version and one PyTorch call (``torch.addcmul``,
-    ``torch.linalg.vecdot`` / ``vector_norm``);
+    step's sweeps recorded, then replayed under the profiler) and the sum
+    of their bounds; then K7 (the once-rounded fma and sum of squares, of
+    one operand or of a difference, ``ops/round_kernels``) bit-equal to its
+    plain version on every input that one 1080x1920 stream step and one
+    GMFA step give it (recorded through the wrappers, with each call site)
+    and on infinities, NaNs, signed zeros and subnormals; the fma timed at
+    its largest such input beside ``torch.addcmul``, the sum of squares at
+    every recorded site beside ``F.pairwise_distance``, ``torch.cdist`` or
+    ``torch.linalg.vecdot`` / ``vector_norm`` (each with its device µs and
+    plain version; the kernels line takes tracker A's site);
 11. the diagnostics that run K4 and K6, at full size, each with every launch
     count set to 0 just before it and read just after: ``micro_flow`` and
     ``profile_1080p`` on two ``make_frames`` 1080x1920 frames (K1-K4), and
@@ -1046,9 +1049,11 @@ def k5_step_phase(dev, name: str, smi: str, pipe, clouds) -> dict:
     """K5's device ms per GMFA step, full and active sweeps apart, at the
     source's cluster size and at each size: the step on frame 1 after
     ``seed_carry`` on frame 0, with every K5 call's inputs recorded, then the
-    recorded sweeps replayed under the profiler."""
+    recorded sweeps replayed under the profiler; and the sum of the step's
+    launches' bounds (``icp_body.sweeps_bound_us``)."""
     from unittest import mock
 
+    from datmo_using_optical_flow_tpu_torch.diagnostics import icp_body
     from datmo_using_optical_flow_tpu_torch.ops import nn_kernels as k5
     from datmo_using_optical_flow_tpu_torch.utils import prng
 
@@ -1087,6 +1092,9 @@ def k5_step_phase(dev, name: str, smi: str, pipe, clouds) -> dict:
             f"sweeps), {'kept cluster size' if key == 'kept' else f'C={key}'}: device "
             f"{ms_text(ms['total'])} ms (full {ms_text(ms['full'])}, active "
             f"{ms_text(ms['active'])}) [{name}, {smi}]")
+    res["bound_us"] = icp_body.sweeps_bound_us(calls)
+    log(f"K5 per GMFA step: the sum of its {len(calls)} launches' bounds "
+        f"{res['bound_us']:.1f} us (roofline, the tiles each live block visits)")
     return res
 
 
@@ -1733,7 +1741,8 @@ def _keep(x):
 def round_cases(runs) -> dict:
     """Each ``runs`` callable run once on the card (not counted) with every K7
     wrapper call's inputs recorded: the first call of each signature (kernel,
-    operand shapes, root) is kept."""
+    operand shapes, root; for the sum of squares also its call site) is
+    kept."""
     from unittest import mock
 
     from datmo_using_optical_flow_tpu_torch.ops import round_kernels as rk
@@ -1747,9 +1756,15 @@ def round_cases(runs) -> dict:
             cases[key] = (ka, ka if b is a else _keep(b), ka if c is a else _keep(c), root)
         return fma_orig(a, b, c, root)
 
-    def sumsq_rec(v, root):
-        cases.setdefault(("sumsq", _sig(v), root), (v.clone(), root))
-        return sumsq_orig(v, root)
+    def sumsq_rec(a, b, root):
+        # the call site: the frame that called sumsq_fma / norm_rn (or _norm3)
+        f = sys._getframe(2)
+        if f.f_code.co_name == "_norm3":
+            f = f.f_back
+        site = f"{os.path.relpath(f.f_code.co_filename, ROOT)}:{f.f_lineno}"
+        cases.setdefault(("sumsq", _sig(a), None if b is None else _sig(b), root, site),
+                         (a.clone(), None if b is None else b.clone(), root))
+        return sumsq_orig(a, b, root)
 
     with mock.patch.object(rk, "_fma32", fma_rec), mock.patch.object(rk, "_sumsq", sumsq_rec):
         for run in runs:
@@ -1779,15 +1794,23 @@ def round_runs(dev, gpipe, gclouds) -> tuple:
                                        prng.PRNGKey(0)))
 
 
+def _distinct(t) -> int:
+    """The distinct values a (possibly expanded) view reads: 0-stride axes once."""
+    return int(np.prod([n for n, st in zip(t.shape, t.stride()) if st != 0]))
+
+
 def round_phase(dev, name: str, smi: str, cases: dict) -> dict:
     """K7 against its plain version, bit for bit, on every recorded input of
-    the main paths and on operands with infinities, NaNs, subnormals and
-    float32's extremes; each kernel timed at its largest recorded input
-    (CUDA events, and its device µs from the profiler), with its bound and
-    the one PyTorch call that computes the same function
-    (``torch.addcmul`` for a fma, ``torch.linalg.vecdot`` or ``vector_norm``
-    for a sum of squares; none for a fma's root)."""
-    from datmo_using_optical_flow_tpu_torch.diagnostics import measure, roofline
+    the main paths and on operands with infinities, NaNs, signed zeros,
+    subnormals and float32's extremes (the sum of squares of one operand, of
+    a difference and of a difference with a broadcast row).  The fma is
+    timed at its largest recorded input (CUDA events, and its device µs from
+    the profiler), with its bound and ``torch.addcmul``; the sum of squares
+    at every recorded call site, each in its own row (``micro_flow.
+    sumsq_library`` beside it), and the kernels line takes tracker A's
+    association distance, the 1080p main path's site."""
+    from datmo_using_optical_flow_tpu_torch.diagnostics import roofline
+    from datmo_using_optical_flow_tpu_torch.diagnostics.micro_flow import sumsq_library
     from datmo_using_optical_flow_tpu_torch.ops import round_kernels as rk
 
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -1797,52 +1820,92 @@ def round_phase(dev, name: str, smi: str, cases: dict) -> dict:
     a, b, c = (special[pick[i]] * torch.rand(4096, device=dev, generator=gen).add(0.5)
                for i in range(3))
     cases = dict(cases)
+    v, w = torch.stack([a, b, c], dim=1), torch.stack([c, a, b], dim=1)
     for root in (False, True):
         cases[("fma32", "special", root)] = (a, b, c, root)
-        cases[("sumsq", "special", root)] = (torch.stack([a, b, c], dim=1), root)
+        cases[("sumsq", "special", None, root, "special")] = (v, None, root)
+        cases[("sumsq", "special", "difference", root, "special")] = (v, w, root)
+        cases[("sumsq", "special", "broadcast row", root, "special")] = (v, w[7], root)
     out = {}
     for key, case in cases.items():
         kernel = key[0]
         if kernel == "fma32":
             got, want = rk._fma32(*case), rk.fma32_reference(*case)
         else:
-            got, want = rk._sumsq(*case), rk.sumsq_reference(*case)
+            x, y, root = case
+            got = rk._sumsq(x, y, root)
+            want = rk.sumsq_reference(x, root) if y is None else rk.sumsq_diff_reference(
+                x, y, root)
         if not rk.bits_equal(got, want):
             raise AssertionError(f"{kernel} {key[1:]}: the kernel differs from its plain version")
         res = out.setdefault(kernel, {"max_abs_err": 0.0, "cases": 0, "numel": -1})
         res["cases"] += 1
-        if key[1] != "special" and got.numel() > res["numel"]:
+        if kernel == "fma32" and key[1] != "special" and got.numel() > res["numel"]:
             res["numel"], res["case"] = got.numel(), case
+        if kernel == "sumsq" and key[-1] != "special":
+            res.setdefault("sites", {})[key] = case
     for kernel, res in out.items():
-        case = res.pop("case")
-        if kernel == "fma32":
-            a, b, c, root = case
-            fns = (lambda: rk.fma32_reference(a, b, c, root), lambda: rk._fma32(a, b, c, root))
-            lib = None if root or not all(isinstance(x, torch.Tensor) for x in (b, c)) else (
-                lambda: torch.addcmul(c, a, b))
-            inputs = len({x.data_ptr() for x in (a, b, c) if isinstance(x, torch.Tensor)})
-            work = roofline.fma32(res["numel"], inputs, root)
-            shape = f"{tuple(a.shape)}, {_sig(b)}, {_sig(c)}, root={root}"
-        else:
-            v, root = case
-            fns = (lambda: rk.sumsq_reference(v, root), lambda: rk._sumsq(v, root))
-            lib = ((lambda: torch.linalg.vector_norm(v, dim=-1)) if root
-                   else (lambda: torch.linalg.vecdot(v, v)))
-            work = roofline.sumsq(res["numel"], v.shape[-1], root)
-            shape = f"{tuple(v.shape)}, root={root}"
-        res["ms"], res["plain_ms"] = time_pair(*fns)
-        res["device_us"] = kernel_us(fns[1], dev, kernel)
-        want = fns[0]()
-        res["library_ms"] = None if lib is None else library_phase(
-            kernel, shape, lib, want, 1e-5 * float(want[torch.isfinite(want)].abs().max()),
-            dev, name, smi)
-        res["work"] = work
         log(f"{kernel}: bit-equal to its plain version on {res['cases']} inputs (the main "
-            f"paths' and special values); at {shape}: kernel {res['ms']:.4f} ms, device "
-            f"{us_text(res['device_us'])}, plain {res['plain_ms']:.4f} ms, bound "
-            f"{work.bound_us():.3f} us ({work.bound_by()}), share "
-            f"{share(work.bound_us(), res['device_us'])} [{name}, {smi}]")
+            f"paths' and special values)")
+    res = out["fma32"]
+    a, b, c, root = res.pop("case")
+    fns = (lambda: rk.fma32_reference(a, b, c, root), lambda: rk._fma32(a, b, c, root))
+    lib = None if root or not all(isinstance(x, torch.Tensor) for x in (b, c)) else (
+        lambda: torch.addcmul(c, a, b))
+    inputs = len({x.data_ptr() for x in (a, b, c) if isinstance(x, torch.Tensor)})
+    _time_round(res, "fma32", f"{tuple(a.shape)}, {_sig(b)}, {_sig(c)}, root={root}", fns, lib,
+                roofline.fma32(res["numel"], inputs, root), None, dev, name, smi)
+    res = out["sumsq"]
+    sites = res.pop("sites")
+    res.pop("numel")
+    rows = {}
+    for key, (x, y, root) in sites.items():
+        site = key[-1]
+        label = f"{site} {tuple(x.shape)}{'' if y is None else f' - {tuple(y.shape)}'}, " \
+                f"root={root}"
+        rows_n = x.shape[:-1].numel() if y is None else torch.broadcast_shapes(
+            x.shape, y.shape)[:-1].numel()
+        k = x.shape[-1]
+        work = (roofline.sumsq(rows_n, k, root) if y is None else
+                roofline.sumsq_diff(_distinct(x), _distinct(y), rows_n, k, root))
+        fns = ((lambda x=x, root=root: rk.sumsq_reference(x, root)) if y is None else
+               (lambda x=x, y=y, root=root: rk.sumsq_diff_reference(x, y, root)),
+               lambda x=x, y=y, root=root: rk._sumsq(x, y, root))
+        row = {"site": site, "a": list(x.shape), "b": None if y is None else list(y.shape),
+               "root": root, "difference": y is not None}
+        # a distance call stands beside a site without the root: held to its root
+        _time_round(row, "sumsq", label, fns, sumsq_library(x, y, root), work,
+                    rk.sqrt_rn if y is not None and not root else None, dev, name, smi)
+        rows[label] = row
+    res["sites"] = rows
+    main = [r for r in rows.values() if "tracker_a.py" in r["site"]]
+    if not main:
+        raise AssertionError("sumsq: tracker A's association distance was not recorded")
+    res.update({k: main[0][k] for k in ("ms", "plain_ms", "device_us", "library_ms", "work")})
+    res["main_site"] = main[0]["site"]
     return out
+
+
+def _time_round(res: dict, kernel: str, label: str, fns, lib, work, lib_of, dev, name: str,
+                smi: str) -> None:
+    """A K7 row: the kernel and its plain version per call in turns, the
+    kernel's device µs, one library call (held within 1e-5 of the plain
+    version's largest finite value, after ``lib_of`` where the library
+    computes a root of it), the work and its bound; logged."""
+    res["ms"], res["plain_ms"] = time_pair(*fns)
+    res["device_us"] = kernel_us(fns[1], dev, kernel)
+    want = fns[0]()
+    if lib_of is not None:
+        want = lib_of(want)
+    res["library_ms"] = None if lib is None else library_phase(
+        kernel, label, lib, want, 1e-5 * float(want[torch.isfinite(want)].abs().max()),
+        dev, name, smi)
+    res["work"] = work
+    log(f"{kernel} at {label}: kernel {res['ms']:.4f} ms, device {us_text(res['device_us'])}, "
+        f"plain {res['plain_ms']:.4f} ms, library "
+        f"{'none' if res['library_ms'] is None else format(res['library_ms'], '.4f')} ms, "
+        f"bound {work.bound_us():.3f} us ({work.bound_by()}), share "
+        f"{share(work.bound_us(), res['device_us'])} [{name}, {smi}]")
 
 
 # ------------------------------------------------------------------ ICP's options
@@ -2105,6 +2168,23 @@ def streams_phase(dev, name: str, smi: str, gclouds) -> dict:
 
 # ------------------------------------------------------------------ the last missing paths
 
+# K1's tiny form's cases (h, w, poly_n, sigma): every rule of its plan, tall
+# (122x5, 1088x5, 300x7) and wide (2x1920, 7x300) images that spread over
+# many blocks, the compile-time taps and the runtime-n kernel's (sigma 0.3);
+# shapes at poly_n 5 with more than 5 rows and columns take the wide form.
+# Then ROADMAP Queue 3 item 8's shapes, where the plan is not yet XLA's (with
+# 5x5 at sigma 5.0 and 1.1 above, all 12): the card still equals the plain
+# version.  tests/test_torch_farneback_kernels.py runs the tiny kernel's
+# program and tiles on the CPU at each of them.
+K1_TINY_CASES = (
+    [(h, w, 5, s) for h, w in ((5, 122), (5, 124), (4, 200), (7, 300), (2, 1920), (1, 200),
+                               (200, 1), (1, 1), (122, 5), (1088, 5), (200, 3), (5, 5), (3, 17))
+     for s in (5.0, 1.1, 0.3)]
+    + [(h, w, 7, s) for h, w in ((7, 300), (3, 130), (300, 7), (1, 1)) for s in (1.5, 0.3)]
+    + [(122, 5, 5, 0.3), (5, 5, 5, 1.5), (109, 4, 5, 5.0), (69, 2, 7, 1.5), (50, 5, 7, 5.0),
+       (246, 2, 7, 0.3), (197, 2, 7, 1.1), (175, 6, 7, 1.1), (241, 4, 7, 0.3), (17, 3, 5, 0.3)])
+
+
 def k1_narrow_phase(dev, name: str, smi: str) -> dict:
     """K1's narrow form (``ops/flow_kernels.poly_exp_narrow``: w + n < 128,
     where XLA's compiled ``poly_exp`` rounds the y^2 plane otherwise) on
@@ -2113,12 +2193,14 @@ def k1_narrow_phase(dev, name: str, smi: str) -> dict:
     both sides of the boundary, at the sigmas 5.0 and 1.1 (the compile-time
     n = 5 instance), n = 7 at 1.5 (n = 7) and sigma 0.3 (the runtime-n
     kernel) at 60x60 and across the boundary.  Then K1's tiny form
-    (``ops/poly_tiny``: at most n rows or columns, one kernel for any taps)
-    ``torch.equal`` to the plain version at tiny shapes of every rule of its
-    plan (rows, one row, one column, one pixel, w = n, and the shapes still
-    on the wide rule), with the compile-time instance's taps and with the
-    runtime-n kernel's (sigma 0.3).  Then K1 at the sharded flow's 282x1920
-    block timed beside ``F.conv2d``."""
+    (``ops/poly_tiny``: at most n rows or columns, two stages in one launch,
+    compile-time instances for n = 5 and 7 and a runtime-n one)
+    ``torch.equal`` to the plain version at :data:`K1_TINY_CASES`: shapes of
+    every rule of its plan (rows, one row, one column, one pixel, w = n, and
+    the shapes still on the wide rule), tall and wide ones, with the
+    compile-time instances' taps and with the runtime-n kernel's (sigma
+    0.3).  Then K1 at the sharded flow's 282x1920 block timed beside
+    ``F.conv2d``."""
     from datmo_using_optical_flow_tpu_torch.diagnostics import roofline
     from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
 
@@ -2137,23 +2219,13 @@ def k1_narrow_phase(dev, name: str, smi: str) -> dict:
               f"{fk.poly_exp_narrow(w, n)})", fk.poly_exp(img, n, sigma),
               fk.poly_exp_reference(img, n, sigma))
     log(f"K1 narrow form: {len(cases)} shapes bit-equal, {narrow} of them narrow")
-    tiny = ((5, 122), (5, 124), (4, 200), (7, 300), (2, 1920), (1, 200), (200, 1), (1, 1),
-            (122, 5), (1088, 5), (200, 3), (5, 5), (3, 17))
-    tiny_cases = [(h, w, 5, s) for h, w in tiny for s in (5.0, 1.1, 0.3)]
-    tiny_cases += [(h, w, 7, s) for h, w in ((7, 300), (3, 130), (300, 7), (1, 1))
-                   for s in (1.5, 0.3)]
-    # ROADMAP Queue 3 item 8's shapes, where the plan is not yet XLA's: the
-    # card still equals the plain version
-    tiny_cases += [(122, 5, 5, 0.3), (5, 5, 5, 1.5), (109, 4, 5, 5.0), (69, 2, 7, 1.5),
-                   (50, 5, 7, 5.0), (246, 2, 7, 0.3), (197, 2, 7, 1.1), (175, 6, 7, 1.1),
-                   (241, 4, 7, 0.3), (17, 3, 5, 0.3)]
-    for h, w, n, sigma in tiny_cases:
+    for h, w, n, sigma in K1_TINY_CASES:
         img = torch.rand((h, w), device=dev, generator=gen) * 255
         path = "compile-time taps" if fk.poly_exp_compiled(n, sigma) else "runtime-n taps"
         check("poly_exp", f"{h}x{w} n={n} sigma={sigma} (tiny form, {path})",
               fk.poly_exp(img, n, sigma), fk.poly_exp_reference(img, n, sigma))
-    log(f"K1 tiny form: {len(tiny_cases)} shapes bit-equal: "
-        + ", ".join(f"{h}x{w} n={n} s={s}" for h, w, n, s in tiny_cases))
+    log(f"K1 tiny form: {len(K1_TINY_CASES)} shapes bit-equal: "
+        + ", ".join(f"{h}x{w} n={n} s={s}" for h, w, n, s in K1_TINY_CASES))
     img = torch.rand((282, 1920), device=dev, generator=gen) * 255
     want = fk.poly_exp_reference(img, 5, 5.0)
     err = check("poly_exp", "282x1920 (the sharded level-0 block)", fk.poly_exp(img, 5, 5.0),
@@ -2493,9 +2565,12 @@ def main() -> None:
                         "bound_us": bound_us, "bound_by": work[k].bound_by(),
                         "library_ms": res.get("library_ms"), "lib_ms": res.get("library_ms")})
         if k == "nearest_neighbors":  # its time per GMFA step, by cluster size
-            kernels[-1]["device_ms_per_step"] = {str(c): v for c, v in k5_step_ms.items()}
+            kernels[-1]["device_ms_per_step"] = {str(c): v for c, v in k5_step_ms.items()
+                                                 if c != "bound_us"}
+            kernels[-1]["bound_us_per_step"] = k5_step_ms["bound_us"]
             kernels[-1]["icp_sweeps"] = {
                 s: {"icp_ms": icp_ab[s]["ms"], "k5_device_ms": icp_ab[s]["k5_device_ms"],
+                    "k5_bound_us": icp_ab[s]["k5_bound_us"],
                     "busiest_round_us": icp_ab[s]["busiest_round"]["k5_us"],
                     "busiest_block_us": icp_ab[s]["busiest_round"]["busiest_block_us"]}
                 for s in ("compact", "inplace")}
@@ -2509,6 +2584,12 @@ def main() -> None:
             kernels[-1]["dryrun_checks"] = dry
         if k in ROUNDING:
             kernels[-1]["device_us"] = res["device_us"]
+        if k == "sumsq":  # each call site's row; the line's numbers are tracker A's
+            kernels[-1]["main_site"] = res["main_site"]
+            kernels[-1]["sites"] = {
+                label: {**{f: row[f] for f in ("ms", "plain_ms", "device_us", "library_ms")},
+                        "bound_us": row["work"].bound_us(), "bound_by": row["work"].bound_by()}
+                for label, row in res["sites"].items()}
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -43,8 +43,9 @@
 // K1 has three kernels: a compile-time instance for poly_n 5 and 7, taken when
 // the taps have their structural zero pattern (register-blocked passes, taps
 // out of shared memory), the runtime-n kernel for any other taps, and the
-// tiny form for images of at most poly_n rows or columns, which interprets a
-// rounding plan (ops/poly_tiny.py) with its own entry, datmo_poly_exp_tiny.
+// tiny form for images of at most poly_n rows or columns, which runs a
+// rounding plan (ops/poly_tiny.py) as a program in two stages, with its own
+// entry, datmo_poly_exp_tiny.
 //
 // K2 and K3 have two window stages.  The main path's window (winsize 15) runs
 // a compile-time instance, box or Gaussian (window_solve_fixed: register-
@@ -920,106 +921,142 @@ poly_exp_kernel(const float* __restrict__ img, float* __restrict__ out, int h, i
 // such shapes by rules of their own (broadcast taps, sums recomputed in the
 // planes' fusion), which ops/poly_tiny.tiny_plan writes down as a rounding
 // plan: vertical-sum variants and the seven horizontal sums that read them.
-// This kernel interprets the plan, one thread per pixel, recomputing every
-// vertical sum it reads; at most 7 rows or columns, the work is small and
-// latency-bound, so it is kept plain.  Any taps, structural or not.
+// ops/poly_tiny.tiny_program turns the plan into the program this kernel
+// runs: each chain's operation at each tap (poly_tiny.chain_ops, the plan's
+// chain with its lead, swap, separate products and trailing broadcast terms
+// decided on the host), each horizontal tap's fixed variant, and the tile.
+//
+// Bound on the H100: a few thousand outputs, so launch latency and one
+// block's dependent chains, not bytes or operations.  Two stages in one
+// launch.  Stage 1 computes every vertical-sum variant once per (row,
+// column) of the block's tile and of its n-column halo inside the image, in
+// parallel across the threads, into shared memory; stage 2 forms each of
+// the seven horizontal chains of each pixel from there, in parallel, into
+// shared memory; stage 3 writes each pixel's five planes.  Each chain is
+// straight-line code (TinyAcc): a pixel's seven sums unrolled in one thread
+// took many more registers and measured slower.  The program and the
+// taps sit in shared memory; the tap loops unroll into registers (compile-time
+// instances for n = 5 and 7, taken for the structural taps as K1's wide form
+// takes them; the runtime-n instance unrolls to kMaxPolyTaps, its program
+// skipping the taps past 2n + 1).  A block takes all of the short axis by up
+// to poly_tiny.TILE of the long one, the tile whose grid takes the fewest
+// rounds of chains per thread (poly_tiny.tiny_tiles), so a tall or a wide
+// image spreads over many blocks.
 constexpr int kTinyVariants = 12;
-constexpr int kTinyThreads = 128;
+constexpr int kTinyOps = 16;  // operations per chain: one per tap, then skips
+constexpr int kTinyThreads = 256;
+constexpr int kTinySmem = 48 * 1024;
+enum TinyOp { kSkip = 0, kFirst = 1, kFuse0 = 2, kFma = 3, kAdd = 4 };
 
-struct TinyPlan {
-  int nv;
-  int var[kTinyVariants][5];  // kind (0 g, 1 xg, 2 xxg), sep mask, swap, lead, trail
-  int sum[7][10];             // kind, sep, lead, trail, v_int, v_pad, v_rem, rem_start,
-                              // v_centre, v_bcast
+// ops/poly_tiny.tiny_program, packed: the variant count, the tile, then per
+// horizontal sum (v_int, v_pad, v_rem, rem_start), the kinds (0 g, 1 xg,
+// 2 xxg), the operations and each horizontal tap's fixed variant (or -1).
+struct TinyProgram {
+  int nv, tile_rows, tile_cols;
+  int sv[7][4];
+  signed char vkind[kTinyVariants];
+  signed char vop[kTinyVariants][kTinyOps];
+  signed char skind[8];
+  signed char sop[7][kTinyOps];
+  signed char sfix[7][kTinyOps];
+};
+static_assert(sizeof(TinyProgram) % sizeof(int) == 0, "copied to shared memory as words");
+
+// One chain of the program, fed its terms in tap order (poly_tiny.chain_ops):
+// every candidate is formed and the operation selects one, so that a chain
+// is straight-line code whatever its operations (they differ between a
+// block's variants and sums, not between the threads of most warps).
+struct TinyAcc {
+  float out = 0.0f, c0 = 0.0f, x0 = 0.0f;
+  __device__ __forceinline__ void step(int op, float c, float x) {
+    const float p = c * x;
+    const float fused0 = __fmaf_rn(x0, c0, p);
+    const float fused = __fmaf_rn(x, c, out);
+    const float added = out + p;
+    const bool first = op == kFirst;
+    out = first ? p : op == kFuse0 ? fused0 : op == kFma ? fused : op == kAdd ? added : out;
+    c0 = first ? c : c0;
+    x0 = first ? x : x0;
+  }
 };
 
-// poly_tiny._chain: sum of c[q] * x[q] over the terms (taps k[q]) in order.
-// The head (the leading broadcast terms with `lead`, else all but the
-// trailing ones) is a chain of fmas whose first product folds into the add
-// of the second (the second into the first with `swap` or where the first is
-// in `sep`); products of taps in `sep` are added rounded, as are the trailing
-// broadcast terms with `trail`.  A tap is broadcast when k <= lo or k >= hi.
-__device__ float tiny_chain(const int* k, const float* c, const float* x, int t, int sep,
-                            bool swap, bool lead, bool trail, int lo, int hi) {
-  int n_lead = 0;
-  while (lead && n_lead < t && (k[n_lead] <= lo || k[n_lead] >= hi)) ++n_lead;
-  int end = t;
-  while (trail && end > n_lead && (k[end - 1] <= lo || k[end - 1] >= hi)) --end;
-  const int head = n_lead ? n_lead : end;
-  float out;
-  if (head == 1) {
-    out = c[0] * x[0];
-  } else {
-    const bool s0 = (sep >> k[0]) & 1, s1 = (sep >> k[1]) & 1;
-    if ((swap || s0) && !s1) {
-      out = __fmaf_rn(x[1], c[1], c[0] * x[0]);
-    } else if (!s0) {
-      out = __fmaf_rn(x[0], c[0], c[1] * x[1]);
-    } else {
-      out = c[0] * x[0] + c[1] * x[1];
-    }
-  }
-  for (int q = head == 1 ? 1 : 2; q < end; ++q)
-    out = ((sep >> k[q]) & 1) ? out + c[q] * x[q] : __fmaf_rn(x[q], c[q], out);
-  for (int q = end; q < t; ++q) out = out + c[q] * x[q];
-  return out;
-}
-
-// Vertical sum `v` of the plan at (i, col).
-__device__ float tiny_vertical(const float* __restrict__ img, int h, int w, int n,
-                               const float* const* kern, const int* v, int i, int col) {
-  const float* c = kern[v[0]];
-  int ks[kMaxPolyTaps];
-  float cs[kMaxPolyTaps], xs[kMaxPolyTaps];
-  int t = 0;
-  for (int k = 0; k < 2 * n + 1; ++k) {
-    if (v[0] == 1 && c[k] == 0.0f) continue;  // xg skips its zero taps vertically
-    ks[t] = k;
-    cs[t] = c[k];
-    xs[t] = img[static_cast<size_t>(clampi(i + k - n, 0, h - 1)) * w + col];
-    ++t;
-  }
-  return tiny_chain(ks, cs, xs, t, v[1], v[2], v[3], v[4], n - h, n + h);
-}
-
+template <int N>
 __global__ void __launch_bounds__(kTinyThreads)
 poly_exp_tiny_kernel(const float* __restrict__ img, float* __restrict__ out, int h, int w,
-                     int n, PolyTaps pt, TinyPlan plan) {
-  const int p = blockIdx.x * kTinyThreads + threadIdx.x;
-  if (p >= h * w) return;
-  const int i = p / w;
-  const int j = p - i * w;
-  const float* const kern[3] = {pt.g, pt.xg, pt.xxg};
-  float s[7];
-  for (int q = 0; q < 7; ++q) {
-    const int* sm = plan.sum[q];
-    const float* c = kern[sm[0]];
-    int ks[kMaxPolyTaps];
-    float cs[kMaxPolyTaps], xs[kMaxPolyTaps];
-    int t = 0;
-    for (int k = 0; k < 2 * n + 1; ++k) {
-      if (c[k] == 0.0f) continue;
-      int col = j + k - n;
-      int v = (col >= 0 && col < w) ? (col >= sm[7] ? sm[6] : sm[4]) : sm[5];
-      col = clampi(col, 0, w - 1);
-      if ((k <= n - w || k >= n + w) && sm[9] >= 0) v = sm[9];
-      if (k == n && sm[8] >= 0) {
-        v = sm[8];
-        col = j;
-      }
-      ks[t] = k;
-      cs[t] = c[k];
-      xs[t] = tiny_vertical(img, h, w, n, kern, plan.var[v], i, col);
-      ++t;
-    }
-    s[q] = tiny_chain(ks, cs, xs, t, sm[1], false, sm[2], sm[3], n - w, n + w);
+                     int n_rt, const __grid_constant__ PolyTaps pt,
+                     const __grid_constant__ TinyProgram prog) {
+  constexpr int kT = N > 0 ? 2 * N + 1 : kMaxPolyTaps;
+  const int n = N > 0 ? N : n_rt;
+  __shared__ TinyProgram sp;
+  __shared__ float taps[3][kTinyOps];
+  // [variant][tile row][staged column], then [sum][pixel of the tile]
+  extern __shared__ float vs[];
+  const int tid = threadIdx.x;
+  const int* words = reinterpret_cast<const int*>(&prog);
+  for (int q = tid; q < static_cast<int>(sizeof(TinyProgram) / sizeof(int)); q += kTinyThreads)
+    reinterpret_cast<int*>(&sp)[q] = words[q];
+  if (tid < 3 * kTinyOps) {
+    const int kind = tid / kTinyOps, k = tid - kind * kTinyOps;
+    const float* c = kind == 0 ? pt.g : kind == 1 ? pt.xg : pt.xxg;
+    taps[kind][k] = k < 2 * n + 1 ? c[k] : 0.0f;
   }
+  __syncthreads();
+  const int i0 = blockIdx.y * prog.tile_rows, j0 = blockIdx.x * prog.tile_cols;
+  const int rows = min(prog.tile_rows, h - i0), cols = min(prog.tile_cols, w - j0);
+  const int c_lo = max(0, j0 - n);
+  const int sc = min(w, j0 + cols + n) - c_lo;
+  const int per_v = rows * sc;
+  const int pixels = rows * cols;
+  float* hs = vs + prog.nv * per_v;
+  // stage 1: each variant's vertical sum at each staged (row, column)
+  for (int idx = tid; idx < prog.nv * per_v; idx += kTinyThreads) {
+    const int v = idx / per_v;
+    const int r = (idx - v * per_v) / sc;
+    const float* src = img + (c_lo + idx - v * per_v - r * sc);
+    const float* c = taps[sp.vkind[v]];
+    const signed char* ops = sp.vop[v];
+    TinyAcc acc;
+#pragma unroll
+    for (int k = 0; k < kT; ++k)
+      acc.step(ops[k], c[k],
+               __ldg(src + static_cast<size_t>(clampi(i0 + r + k - n, 0, h - 1)) * w));
+    vs[idx] = acc.out;
+  }
+  __syncthreads();
+  // stage 2: each horizontal sum at each pixel, from the staged variants
+  for (int idx = tid; idx < 7 * pixels; idx += kTinyThreads) {
+    const int q = idx / pixels;
+    const int r = (idx - q * pixels) / cols;
+    const int j = j0 + idx - q * pixels - r * cols;
+    const float* vrow = vs + r * sc - c_lo;  // + v * per_v + column
+    const float* c = taps[sp.skind[q]];
+    const signed char* ops = sp.sop[q];
+    const signed char* fix = sp.sfix[q];
+    const int v_int = sp.sv[q][0], v_pad = sp.sv[q][1], v_rem = sp.sv[q][2];
+    const int rem_start = sp.sv[q][3];
+    TinyAcc acc;
+#pragma unroll
+    for (int k = 0; k < kT; ++k) {
+      const int col = j + k - n;
+      int v = fix[k];
+      if (v < 0) v = (col >= 0 && col < w) ? (col >= rem_start ? v_rem : v_int) : v_pad;
+      acc.step(ops[k], c[k], vrow[v * per_v + clampi(col, 0, w - 1)]);
+    }
+    hs[idx] = acc.out;
+  }
+  __syncthreads();
+  // stage 3: each pixel's five planes
   const size_t plane = static_cast<size_t>(h) * w;
-  out[p] = s[0] * pt.ig[0];
-  out[plane + p] = s[1] * pt.ig[0];
-  out[2 * plane + p] = __fmaf_rn(s[2], pt.ig[2], s[3] * pt.ig[1]);
-  out[3 * plane + p] = __fmaf_rn(s[4], pt.ig[2], s[5] * pt.ig[1]);
-  out[4 * plane + p] = s[6] * pt.ig[3];
+  for (int p = tid; p < pixels; p += kTinyThreads) {
+    const int r = p / cols;
+    const size_t o = static_cast<size_t>(i0 + r) * w + j0 + p - r * cols;
+    const float* s = hs + p;
+    out[o] = s[0] * pt.ig[0];
+    out[plane + o] = s[pixels] * pt.ig[0];
+    out[2 * plane + o] = __fmaf_rn(s[2 * pixels], pt.ig[2], s[3 * pixels] * pt.ig[1]);
+    out[3 * plane + o] = __fmaf_rn(s[4 * pixels], pt.ig[2], s[5 * pixels] * pt.ig[1]);
+    out[4 * plane + o] = s[6 * pixels] * pt.ig[3];
+  }
 }
 
 // ---------------------------------------------------------------- K2
@@ -1318,6 +1355,45 @@ bool poly_taps_from_host(PolyTaps* pt, int n, const float* g, const float* xg,
   return true;
 }
 
+// ops/poly_tiny.tiny_program (int32, PROGRAM_INTS) into a TinyProgram,
+// checked: the variant count, the tile, kinds, operations (skips past tap
+// 2n), and every variant index a sum reads.
+bool tiny_program_from_host(TinyProgram* tp, const int* p, int n) {
+  tp->nv = p[0];
+  tp->tile_rows = p[1];
+  tp->tile_cols = p[2];
+  if (tp->nv < 1 || tp->nv > kTinyVariants || tp->tile_rows < 1 || tp->tile_cols < 1)
+    return false;
+  auto op_ok = [n](int op, int k) {
+    return op >= kSkip && op <= kAdd && (k <= 2 * n || op == kSkip);
+  };
+  const int* at = p + 3;
+  for (int v = 0; v < kTinyVariants; ++v, at += 1 + kTinyOps) {
+    if (at[0] < 0 || at[0] > 2) return false;
+    tp->vkind[v] = static_cast<signed char>(at[0]);
+    for (int k = 0; k < kTinyOps; ++k) {
+      if (!op_ok(at[1 + k], k)) return false;
+      tp->vop[v][k] = static_cast<signed char>(at[1 + k]);
+    }
+  }
+  for (int q = 0; q < 7; ++q, at += 5 + 2 * kTinyOps) {
+    if (at[0] < 0 || at[0] > 2) return false;
+    tp->skind[q] = static_cast<signed char>(at[0]);
+    for (int k = 0; k < kTinyOps; ++k) {
+      const int fix = at[1 + kTinyOps + k];
+      if (!op_ok(at[1 + k], k) || fix < -1 || fix >= tp->nv) return false;
+      tp->sop[q][k] = static_cast<signed char>(at[1 + k]);
+      tp->sfix[q][k] = static_cast<signed char>(fix);
+    }
+    for (int f = 0; f < 4; ++f) {
+      const int x = at[1 + 2 * kTinyOps + f];
+      if (x < 0 || (f < 3 && x >= tp->nv)) return false;
+      tp->sv[q][f] = x;
+    }
+  }
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1342,32 +1418,32 @@ int datmo_poly_exp(float* out, const float* img, int h, int w, int n, const floa
   return cudaGetLastError();
 }
 
-// K1's tiny form (h <= n or w <= n).  g, xg, xxg, ig as datmo_poly_exp's; plan
-// (HOST) is ops/poly_tiny.plan_array: the variant count, kTinyVariants rows of
-// 5 ints, then 7 rows of 10.
+// K1's tiny form (h <= n or w <= n).  g, xg, xxg, ig as datmo_poly_exp's;
+// program (HOST) is ops/poly_tiny.tiny_program.
 int datmo_poly_exp_tiny(float* out, const float* img, int h, int w, int n, const float* g,
-                        const float* xg, const float* xxg, const float* ig, const int* plan,
+                        const float* xg, const float* xxg, const float* ig, const int* program,
                         int device, void* stream) {
   PolyTaps pt{};
-  if (h < 1 || w < 1 || (h > n && w > n) || !poly_taps_from_host(&pt, n, g, xg, xxg, ig))
+  TinyProgram tp{};
+  if (h < 1 || w < 1 || (h > n && w > n) || !poly_taps_from_host(&pt, n, g, xg, xxg, ig) ||
+      !tiny_program_from_host(&tp, program, n))
     return cudaErrorInvalidValue;
-  TinyPlan tp{};
-  tp.nv = plan[0];
-  if (tp.nv < 1 || tp.nv > kTinyVariants) return cudaErrorInvalidValue;
-  for (int v = 0; v < kTinyVariants; ++v)
-    for (int f = 0; f < 5; ++f) tp.var[v][f] = plan[1 + 5 * v + f];
-  for (int q = 0; q < 7; ++q) {
-    for (int f = 0; f < 10; ++f) tp.sum[q][f] = plan[1 + 5 * kTinyVariants + 10 * q + f];
-    for (int f = 4; f < 10; ++f) {  // v_int, v_pad, v_rem, (rem_start), v_centre, v_bcast
-      const int v = tp.sum[q][f];
-      if (f != 7 && (v >= tp.nv || v < (f >= 8 ? -1 : 0))) return cudaErrorInvalidValue;
-    }
-  }
+  const size_t smem = sizeof(float) * tp.tile_rows *
+                      (tp.nv * min(w, tp.tile_cols + 2 * n) + 7 * tp.tile_cols);
+  if (smem + sizeof(TinyProgram) + sizeof(float) * 3 * kTinyOps > kTinySmem)
+    return cudaErrorInvalidValue;
   datmo::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
-  const int pixels = h * w;
-  poly_exp_tiny_kernel<<<(pixels + kTinyThreads - 1) / kTinyThreads, kTinyThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(img, out, h, w, n, pt, tp);
+  const dim3 grid((w + tp.tile_cols - 1) / tp.tile_cols, (h + tp.tile_rows - 1) / tp.tile_rows);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const bool structural = poly_taps_structural(pt, n);
+  if (structural && n == 5) {
+    poly_exp_tiny_kernel<5><<<grid, kTinyThreads, smem, s>>>(img, out, h, w, n, pt, tp);
+  } else if (structural && n == 7) {
+    poly_exp_tiny_kernel<7><<<grid, kTinyThreads, smem, s>>>(img, out, h, w, n, pt, tp);
+  } else {
+    poly_exp_tiny_kernel<0><<<grid, kTinyThreads, smem, s>>>(img, out, h, w, n, pt, tp);
+  }
   return cudaGetLastError();
 }
 

@@ -119,6 +119,13 @@ def tile_visits(p: nn_kernels.Prepared) -> dict:
             "serial_bound_us": roofline.nearest_neighbors_serial_us(vmax)}
 
 
+def sweeps_bound_us(calls: list) -> float:
+    """The least time of the K5 launches ``calls`` (``(prepared, active)``
+    pairs, as :func:`_k5_calls` records them) on the H100: the sum of each
+    launch's bound for the tiles its live blocks visit (:func:`tile_visits`)."""
+    return sum(tile_visits(p)["bound_us"] for p, _ in calls)
+
+
 def _probe_pair(src: torch.Tensor):
     """A target for the probe: ``src`` turned by 0.2 degrees about z and moved
     by (5, -3, 0) cm."""
@@ -243,7 +250,8 @@ def sweep_ab(source, source_mask, target, target_mask, threshold: float, max_ite
     """One cached ICP with each sweep, ``"compact"`` and ``"inplace"`` (the
     port's counterpart of the JAX package's r4 A/B, ``ops/icp.py:298-300``):
     per sweep the ms of the whole ICP (median of ``reps``), K5's device ms
-    over it (its sweeps recorded, then replayed under the profiler), and for
+    over it (its sweeps recorded, then replayed under the profiler) and the
+    sum of their bounds (:func:`sweeps_bound_us`), and for
     its busiest round (:func:`record_icp_rounds`) K5's device µs, the tiles
     visited and the busiest block's serial bound and device µs (the kernel
     launched with that block alone live); and each transform's largest
@@ -285,10 +293,12 @@ def sweep_ab(source, source_mask, target, target_mask, threshold: float, max_ite
         us = _device_us(lambda: [nn_kernels._sweep_kernel(q, active=a) for q, a in calls], dev,
                         reps=1, launches=len(calls))
         row["k5_device_ms"] = None if us is None else us / 1e3
+        row["k5_bound_us"] = sweeps_bound_us(calls)
         out[sweep] = row
         print(f"ICP sweep={sweep}: {row['ms']:.3f} ms per ICP, {row['iterations']} rounds, "
               f"fitness {row['fitness']:.6f}, stats {row['sweep_stats']}, K5 {len(calls)} "
-              f"launches, device {fmt(row['k5_device_ms'])} ms; busiest round {busiest}: "
+              f"launches, device {fmt(row['k5_device_ms'])} ms (bound "
+              f"{row['k5_bound_us']:.1f} us); busiest round {busiest}: "
               f"{rnd.get('active_rows')} active rows in {rnd.get('live_blocks')} live blocks, K5 "
               f"{fmt(rnd['k5_us'], '.1f')} us, busiest block {rnd.get('busiest_block')} visits "
               f"{rnd.get('visits_max')} of {rnd.get('tiles')} tiles, alone "

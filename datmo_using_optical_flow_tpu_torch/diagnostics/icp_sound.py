@@ -149,7 +149,7 @@ def probe(src: torch.Tensor, src_mask: torch.Tensor, tgt: torch.Tensor,
     step[:2, :2] = [[c, -s], [s, c]]
     step[:3, 3] = _SHIFT
     pts1 = transform_points(src, torch.from_numpy(step).to(src.device))
-    delta = norm_rn(pts1 - src) + _DELTA_PAD
+    delta = norm_rn(pts1, src) + _DELTA_PAD
     lo_new = sqrt_rn(lo_capped) - delta
     excluded = ((lo_new > 0.0) & (lo_new * lo_new > thr2)).cpu().numpy() & sm
     _, d2_t1 = _truth(pts1, tgt, tgt_mask)

@@ -1,15 +1,20 @@
 """Device records (kernels, copies, fills) per call of pipeline A's stream
-step and of its ``build_pyramid``, for this checkout or another one.
+step and of its ``build_pyramid``, and with ``--gmfa`` of a GMFA step at
+reference load, for this checkout or another one.
 
     python datmo_using_optical_flow_tpu_torch/diagnostics/launch_count.py \
-        [--root DIR] [--height H --width W] [--traces N] [--device cuda|cpu]
+        [--root DIR] [--height H --width W] [--traces N] [--device cuda|cpu] [--gmfa]
 
 ``--root`` names the checkout whose package is imported (another revision
 unpacked with ``git archive <rev> | tar -x -C build/parent``, say, to count
 it on the same card); it goes first on ``sys.path``, so run the script by its
 path, not with ``-m``.  Only the package's long-standing API is used:
 ``benchmarks.stream_1080p.config``, ``models.optical_flow_datmo.PipelineA``,
-``ops.farneback.build_pyramid`` and ``sim.frames.make_frames``.
+``ops.farneback.build_pyramid`` and ``sim.frames.make_frames``; with
+``--gmfa`` also ``benchmarks.gmfa_reference_load`` (``config``, ``scene``,
+``raw_frames``, ``clouds``, ``MAX_MOVING``), ``models.gmfa.GMFAPipeline``
+and ``utils.prng``: the step from cloud 1 on cloud 2, its carry seeded on
+clouds 0 and 1 (frames 0-2 preprocessed on the device).
 
 After a warm-up call, each of ``--traces`` ``torch.profiler`` traces holds one
 synchronised call, and its ``DeviceType.CUDA`` records are counted; the line
@@ -68,8 +73,10 @@ def count(fn, torch, dev, traces: int) -> dict:
     return {"host_ms": sorted(ms)[len(ms) // 2], "device_records": records}
 
 
-def run(h: int = 1080, w: int = 1920, device: str = "cuda", traces: int = 3) -> dict:
-    """The counts for the package on ``sys.path``."""
+def run(h: int = 1080, w: int = 1920, device: str = "cuda", traces: int = 3,
+        gmfa: bool = False) -> dict:
+    """The counts for the package on ``sys.path`` (and a GMFA step's with
+    ``gmfa``)."""
     import numpy as np
     import torch
 
@@ -91,8 +98,24 @@ def run(h: int = 1080, w: int = 1920, device: str = "cuda", traces: int = 3) -> 
         "build_pyramid": count(lambda: fb.build_pyramid(
             bev1.to(torch.float32), c.pyr_scale, c.levels, c.poly_n, c.poly_sigma),
             torch, dev, traces)}
+    if gmfa:
+        rows["gmfa step"] = count(gmfa_step(torch, dev), torch, dev, traces)
     return {"package": os.path.dirname(os.path.dirname(fb.__file__)), "card": _card(torch, dev),
             "shape": [h, w], "rows": rows}
+
+
+def gmfa_step(torch, dev):
+    """One GMFA step at reference load (``benchmarks.gmfa_reference_load``):
+    the carry after cloud 1, stepped on cloud 2 with a fixed key."""
+    from datmo_using_optical_flow_tpu_torch.benchmarks import gmfa_reference_load as grl
+    from datmo_using_optical_flow_tpu_torch.models.gmfa import GMFAPipeline
+    from datmo_using_optical_flow_tpu_torch.utils import prng
+
+    cfg = grl.config()
+    pipe = GMFAPipeline(cfg, max_moving_points=grl.MAX_MOVING, device=dev)
+    cl = grl.clouds(pipe, grl.raw_frames(cfg, grl.scene(), 3))
+    carry, _ = pipe.step(*cl[1], pipe.seed_carry(*cl[0]), prng.PRNGKey(1))
+    return lambda: pipe.step(*cl[2], carry, prng.PRNGKey(2))
 
 
 def main() -> None:
@@ -102,10 +125,11 @@ def main() -> None:
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--traces", type=int, default=3)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--gmfa", action="store_true", help="also a GMFA step at reference load")
     args = ap.parse_args()
     root = os.path.abspath(args.root or os.path.join(os.path.dirname(__file__), "..", ".."))
     sys.path.insert(0, root)
-    rec = run(args.height, args.width, args.device, args.traces)
+    rec = run(args.height, args.width, args.device, args.traces, args.gmfa)
     for name, row in rec["rows"].items():
         n = row["device_records"]
         print(f"{name}: {row['host_ms']:.3f} ms per call, device records per call "

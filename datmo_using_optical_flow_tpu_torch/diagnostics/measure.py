@@ -22,6 +22,7 @@ import torch
 from datmo_using_optical_flow_tpu_torch.diagnostics.roofline import Work
 
 _SENTINELS = 8  # kernels that close each trace (device_us_per_call)
+_LEAD = 248  # further sentinels that open each trace, ahead of its _SENTINELS
 _SENTINEL_NAME = "spin_kernel"
 _ATTEMPTS = 10  # traces taken before LostTrace
 
@@ -117,9 +118,38 @@ def trace_layout(kernels: list[tuple[str, float]]) -> str:
     return text if len(text) <= 160 else text[:157] + "..."
 
 
-def trace_records(fn: Callable, dev: torch.device, reps: int) -> list[tuple[str, float]]:
+def _opening(kernels: list[tuple[str, float]]) -> int:
+    """The number of sentinels that a trace's records start with."""
+    return next((i for i, (name, _) in enumerate(kernels) if _SENTINEL_NAME not in name),
+                len(kernels))
+
+
+def trim_lead(kernels: list[tuple[str, float]]) -> list[tuple[str, float]]:
+    """A trace's kernel records without the opening sentinels beyond the last
+    ``_SENTINELS``: what :func:`traced_us` reads of a trace opened by
+    ``_LEAD + _SENTINELS`` sentinels."""
+    return kernels[max(0, _opening(kernels) - _SENTINELS):]
+
+
+def head_lost(kernels: list[tuple[str, float]]) -> int:
+    """How many of the ``_LEAD + _SENTINELS`` opening sentinels an untrimmed
+    trace lost (all of them when its first record is not a sentinel; a
+    separator that opens it reads as an opening sentinel)."""
+    return _LEAD + _SENTINELS - min(_opening(kernels), _LEAD + _SENTINELS)
+
+
+def trace_records(fn: Callable, dev: torch.device, reps: int,
+                  trim: bool = True) -> list[tuple[str, float]]:
     """One profiler trace of ``reps`` calls of ``fn`` on the card, laid out
-    for :func:`traced_us`: its kernel records ``(name, µs)`` in start order."""
+    for :func:`traced_us`: its kernel records ``(name, µs)`` in start order.
+
+    The card's traces lose their first records: now and then a few traces in
+    a row lose hundreds (``profiler_traces --head-loss`` counts them), and in
+    a process that traces long stages every trace loses a few, more as the
+    traces add up.  Late in chip_smoke that passed ``_SENTINELS``, in every
+    retake of a stage.  So ``_LEAD`` sentinels open the trace ahead of the
+    ``_SENTINELS`` that :func:`traced_us` reads, and :func:`trim_lead` drops
+    those of them that survived (all of them kept with ``trim=False``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -131,7 +161,7 @@ def trace_records(fn: Callable, dev: torch.device, reps: int) -> list[tuple[str,
 
     sync(dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        sentinels(_SENTINELS)
+        sentinels(_LEAD + _SENTINELS)
         for i in range(reps):
             if i:
                 sentinels(1)
@@ -139,7 +169,8 @@ def trace_records(fn: Callable, dev: torch.device, reps: int) -> list[tuple[str,
         sentinels(_SENTINELS)
     kernels = sorted((ev for ev in prof.events() if ev.device_type == DeviceType.CUDA),
                      key=lambda ev: ev.time_range.start)
-    return [(ev.name, ev.device_time_total) for ev in kernels]
+    records = [(ev.name, ev.device_time_total) for ev in kernels]
+    return trim_lead(records) if trim else records
 
 
 def device_us_per_call(fn: Callable, dev: torch.device, reps: int = 5,
@@ -153,7 +184,8 @@ def device_us_per_call(fn: Callable, dev: torch.device, reps: int = 5,
     # records (unguarded, K3 read 4/5 of its time over 5 calls; guarded only
     # by sentinel ends, K2 once read 0 µs: the opening sentinels and all five
     # calls were lost).  So sentinel kernels (torch.cuda._sleep's
-    # spin_kernel) open and close each trace and stand between the calls, and
+    # spin_kernel) open and close each trace and stand between the calls, the
+    # opening ones ``_LEAD`` more than are read (:func:`trace_records`), and
     # :func:`traced_us` holds the trace to that layout.  It is taken again, up
     # to ``_ATTEMPTS`` times in all, and said, when it does not; then
     # :class:`LostTrace` is raised.

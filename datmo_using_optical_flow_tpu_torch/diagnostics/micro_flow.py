@@ -26,8 +26,9 @@ three times).  A parent's entry points are called with the C signature its
 source declares.
 
 With ``--tiny``, also K4 and K2 (Gaussian window) at tiny levels (4x4,
-2x64) and K1's tiny form at 5x5 and 122x5 (:func:`tiny_rows`), with the
-parent in turns where given; K9's row is timed against the parent too.
+2x64) and K1's tiny form at 5x5, 122x5, 300x7 (poly_n 7) and 2x1920
+(:func:`tiny_rows`), with the parent in turns where given and K1 beside its
+``F.conv2d`` yardstick in turns; K9's row is timed against the parent too.
 
 With ``--small``, K1 alone at the pipelines' small levels and two tiny
 images instead (:func:`small_levels`): each beside one ``F.conv2d`` that
@@ -43,8 +44,14 @@ upsample of a stacked flow), are held beside this build's in turns, per call
 and by device µs; the upsample's host path is split into its parts for both
 (:func:`upsample_path`).
 
+With ``--k7``, K7's sum of squares of a difference instead (:func:`k7_rows`)
+at the main paths' sites, beside one PyTorch call of each (:func:`sumsq_library`)
+and, with ``--parent``, that checkout's ``round_kernels.cu`` built by hand and
+called as its wrapper called it, in turns; then the launch path's host parts
+at tracker A's site (:func:`sumsq_path`).
+
     python -m datmo_using_optical_flow_tpu_torch.diagnostics.micro_flow [--height H --width W]
-        [--parent DIR] [--tiny] [--small] [--k8]
+        [--parent DIR] [--tiny] [--small] [--k8] [--k7]
 """
 
 from __future__ import annotations
@@ -69,6 +76,7 @@ from datmo_using_optical_flow_tpu_torch.kernels import build
 from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
 from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
 from datmo_using_optical_flow_tpu_torch.ops import level_kernels as lk
+from datmo_using_optical_flow_tpu_torch.ops import poly_tiny
 from datmo_using_optical_flow_tpu_torch.oracle.np_farneback import level_sizes
 from datmo_using_optical_flow_tpu_torch.sim.frames import make_frames
 from datmo_using_optical_flow_tpu_torch.utils.device import resolve_device
@@ -133,12 +141,15 @@ def _build_parent(parent: str | Path, name: str) -> tuple[ctypes.CDLL, str]:
 
 def parent_library(parent: str | Path) -> ctypes.CDLL:
     """``flow_kernels.cu`` of the checkout at ``parent``, built by hand, with
-    the C signatures of its entry points set."""
+    the C signatures of its entry points set; ``lib.tiny_program`` says
+    whether its tiny form reads ``poly_tiny.tiny_program`` (else the plan,
+    ``poly_tiny.plan_array``)."""
     lib, text = _build_parent(parent, "flow_kernels")
     for entry in _PARENT_ENTRIES:
         fn = getattr(lib, entry)
         fn.argtypes, fn.restype = _OLD_SIGNATURES.get((entry, c_params(text, entry)),
                                                       build._SIGNATURES[entry])
+    lib.tiny_program = "TinyProgram" in text
     return lib
 
 
@@ -221,10 +232,12 @@ def parent_packed(lib: ctypes.CDLL, R0, table, qs, dx, dy) -> Callable:
 
 def parent_poly_exp_tiny(lib: ctypes.CDLL, img: torch.Tensor, n: int, sigma: float) -> Callable:
     """A call of the parent's K1 tiny form on ``img`` with this package's
-    rounding plan (``ops/poly_tiny``); returns ``(planes,)``."""
+    rounding plan (``ops/poly_tiny``) in the form the parent reads; returns
+    ``(planes,)``."""
     h, w = img.shape
     taps = fk._poly_taps(n, float(sigma))
-    plan = fk._tiny_plan_array(h, w, n, float(sigma))
+    plan = (poly_tiny.tiny_program(h, w, n, float(sigma)) if lib.tiny_program
+            else poly_tiny.plan_array(poly_tiny.tiny_plan(h, w, n, float(sigma))))
     ptr = img.data_ptr()
 
     def call():
@@ -377,10 +390,10 @@ def run(frames: np.ndarray, device: str | torch.device = "cuda", reps: int = 20,
 
 
 # Tiny levels and images: K4 and K2 (Gaussian window) at levels of a
-# one-valued attenuation and of a thin axis, K1's tiny form at a square and
-# a column image
+# one-valued attenuation and of a thin axis, K1's tiny form (h, w, poly_n,
+# sigma) at a square, two tall images and a wide one
 TINY_LEVELS = ((4, 4), (2, 64))
-TINY_IMAGES = ((5, 5), (122, 5))
+TINY_IMAGES = ((5, 5, 5, 5.0), (122, 5, 5, 5.0), (300, 7, 7, 1.5), (2, 1920, 5, 5.0))
 # K2 (Gaussian) where every build takes the runtime-radius window stage: a
 # level of one row, and a winsize other than 15
 RUNTIME_WINDOWS = (((1, 64), 15), ((17, 33), 7))
@@ -388,9 +401,10 @@ RUNTIME_WINDOWS = (((1, 64), 15), ((17, 33), 7))
 
 def tiny_rows(dev: torch.device, card: str, lib: ctypes.CDLL | None, reps: int) -> list:
     """K4 and K2 (Gaussian, winsize 15) at :data:`TINY_LEVELS`, K2 at
-    :data:`RUNTIME_WINDOWS` and K1 at :data:`TINY_IMAGES` (poly_n 5, sigma
-    5.0), seeded normal planes and a 1.5 px flow, each held to its plain
-    version and, with a parent library, timed beside it in turns."""
+    :data:`RUNTIME_WINDOWS` and K1 at :data:`TINY_IMAGES`, seeded normal
+    planes and a 1.5 px flow, each held to its plain version and, with a
+    parent library, timed beside it in turns; K1 also beside
+    :func:`conv_yardstick` in turns (:func:`beside_conv`)."""
     gen = torch.Generator(device=dev).manual_seed(5)
     rows = []
     for h, w in TINY_LEVELS:
@@ -426,18 +440,35 @@ def tiny_rows(dev: torch.device, card: str, lib: ctypes.CDLL | None, reps: int) 
                                       lambda: fk.blur_solve_reference(M, win, True), work, dev,
                                       card))
         rows.append(row)
-    for h, w in TINY_IMAGES:
+    for h, w, n, sigma in TINY_IMAGES:
         img = torch.rand((h, w), device=dev, generator=gen) * 255
-        work = roofline.poly_exp(h, w, 5, 5.0)
-        row = kernel_row(f"K1 poly_exp {h}x{w} (tiny form)", lambda: fk.poly_exp(img, 5, 5.0),
-                         work, dev, card, reps)
+        work = roofline.poly_exp(h, w, n, sigma)
+        k1 = lambda img=img, n=n, sigma=sigma: fk.poly_exp(img, n, sigma)  # noqa: E731
+        row = kernel_row(f"K1 poly_exp {h}x{w} n={n} (tiny form)", k1, work, dev, card, reps)
         if lib is not None:
-            row.update(against_parent(lambda: (fk.poly_exp(img, 5, 5.0),),
-                                      parent_poly_exp_tiny(lib, img, 5, 5.0),
-                                      lambda: (fk.poly_exp_reference(img, 5, 5.0),),
+            row.update(against_parent(lambda: (k1(),), parent_poly_exp_tiny(lib, img, n, sigma),
+                                      lambda: (fk.poly_exp_reference(img, n, sigma),),
                                       work, dev, card))
+        row.update(beside_conv(k1, conv_yardstick(img, n, sigma), dev, card, reps))
         rows.append(row)
     return rows
+
+
+def beside_conv(k1: Callable, conv: Callable, dev: torch.device, card: str, reps: int,
+                rounds: int = 3) -> dict:
+    """K1 and its :func:`conv_yardstick` in turns (the yardstick, K1 twice,
+    the yardstick; ``rounds`` times): medians of ms per call and device µs."""
+    got = {"k1_ms": [], "k1_us": [], "conv_ms": [], "conv_us": []}
+    for _ in range(rounds):
+        for name, fn in (("conv", conv), ("k1", k1), ("k1", k1), ("conv", conv)):
+            got[f"{name}_ms"].append(ms_per_call(fn, dev, reps))
+            got[f"{name}_us"].append(device_us_per_call(fn, dev))
+    med = {k: statistics.median(v) for k, v in got.items()}
+    print(f"{'':44s} beside F.conv2d in turns: per call {med['k1_ms']:.4f} ms, device "
+          f"{med['k1_us']:.1f} us; F.conv2d {med['conv_ms']:.4f} ms, device "
+          f"{med['conv_us']:.1f} us [{card}]", flush=True)
+    return {"turns_conv": got, "k1_turns_ms": med["k1_ms"], "k1_turns_us": med["k1_us"],
+            "conv_ms": med["conv_ms"], "conv_device_us": med["conv_us"]}
 
 
 # K1's small shapes: the coarse levels of the pipelines (A's 200x200 and
@@ -756,6 +787,180 @@ def upsample_path(dev: torch.device, card: str, parent: ParentK8 | None = None,
     return rec
 
 
+# ------------------------------------------------------------------ K7's sum of squares
+
+# The main paths' sites of K7's sum of squares of a difference: (label, a's
+# shape, b's shape, root), as the 1080p step (tracker A, 32 calls a step) and
+# the GMFA step at reference load (its cost matrix, ICP's 102,400 rows, the
+# NN block table's 400 blocks by 400 tiles) call it
+K7_SITES = (("tracker A's association, models/tracker_a.py", (4,), (64, 4), True),
+            ("GMFA's cost, models/gmfa.py", (64, 1, 4), (1, 32, 4), True),
+            ("ICP's shell, ops/icp.py", (102400, 3), (102400, 3), True),
+            ("ICP's certificate and d2, ops/icp.py", (102400, 3), (102400, 3), False),
+            ("the block table's ball distance, ops/nn_kernels.py", (400, 1, 3), (1, 400, 3),
+             True))
+
+
+def sumsq_library(a: torch.Tensor, b: torch.Tensor | None, root: bool) -> Callable:
+    """The one PyTorch call closest to K7's sum of squares on these operands:
+    ``F.pairwise_distance(a, b, eps=0.0)`` row by row, ``torch.cdist`` (no
+    matrix product) for a broadcast cost matrix (n, 1, k) against (1, m, k),
+    ``torch.linalg.vector_norm`` (``vecdot`` without the root) of one
+    operand.  Where a site takes no root the distance calls stand all the
+    same: the closest single call.  Timed beside K7; the port does not use
+    it."""
+    import torch.nn.functional as F
+
+    if b is None:
+        return ((lambda: torch.linalg.vector_norm(a, dim=-1)) if root
+                else (lambda: torch.linalg.vecdot(a, a)))
+    if a.ndim == 3 and a.shape[1] == 1 and b.ndim == 3 and b.shape[0] == 1:
+        a2, b2 = a[:, 0], b[0]
+        return lambda: torch.cdist(a2, b2, compute_mode="donot_use_mm_for_euclid_dist")
+    return lambda: F.pairwise_distance(a, b, eps=0.0)
+
+
+class ParentK7:
+    """A parent checkout's ``round_kernels.cu``, built by hand, and its sum
+    of squares called as its wrapper called it: where its ``datmo_sumsq``
+    takes one operand (7 parameters), the caller's subtraction, then
+    ``reshape(-1, k).contiguous()``, the allocation and the launch; else as
+    this package calls it."""
+
+    def __init__(self, parent: str | Path, dev: torch.device):
+        self.lib, text = _build_parent(parent, "round_kernels")
+        self.one_operand = c_params(text, "datmo_sumsq") == 7
+        self.fn = self.lib.datmo_sumsq
+        self.fn.argtypes = ([_P, _P, _I, _I, ctypes.c_int64, _I, _P] if self.one_operand
+                            else build._SIGNATURES["datmo_sumsq"][0])
+        self.fn.restype = _I
+        self.dev = dev
+
+    def __call__(self, a: torch.Tensor, b: torch.Tensor, root: bool) -> torch.Tensor:
+        from datmo_using_optical_flow_tpu_torch.ops import round_kernels as rk
+
+        stream = torch.cuda.current_stream(self.dev).cuda_stream
+        if not self.one_operand:
+            out_shape, args = rk._sumsq_args(a.shape, a.stride(), b.shape, b.stride(), root)
+            out = torch.empty(out_shape, dtype=torch.float32, device=self.dev)
+            build.check(self.fn(out.data_ptr(), a.data_ptr(), b.data_ptr(), *args,
+                                self.dev.index, stream), "parent")
+            return out
+        v = a - b
+        k = v.shape[-1]
+        rows = v.reshape(-1, k).contiguous()
+        out = torch.empty(v.shape[:-1], dtype=torch.float32, device=self.dev)
+        build.check(self.fn(out.data_ptr(), rows.data_ptr(), k, int(root), rows.shape[0],
+                            self.dev.index, stream), "parent")
+        return out
+
+
+def k7_rows(dev: torch.device, card: str, parent: ParentK7 | None, reps: int = 20,
+            rounds: int = 3) -> list:
+    """K7's sum of squares of a difference at :data:`K7_SITES` (seeded normal
+    operands): held bit for bit to ``sumsq_diff_reference`` (and the
+    parent's call too), then per call (CUDA events around each synchronized
+    call) and device µs, in turns with the parent (the parent, this build
+    twice, the parent) and with :func:`sumsq_library`; medians over
+    ``rounds``; each with its bound (``roofline.sumsq_diff``)."""
+    from datmo_using_optical_flow_tpu_torch.ops import round_kernels as rk
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rows = []
+    for label, sa, sb, root in K7_SITES:
+        a = torch.randn(sa, device=dev, generator=gen) * 20
+        b = torch.randn(sb, device=dev, generator=gen) * 20
+        want = rk.sumsq_diff_reference(a, b, root)
+        call = (lambda a=a, b=b, root=root: rk._sumsq(a, b, root))
+        if not rk.bits_equal(call(), want):
+            raise AssertionError(f"sumsq {label}: this build differs from the plain version")
+        lib = sumsq_library(a, b, root)
+        shape = rk._broadcast(a.shape, b.shape)
+        n_rows = int(np.prod(shape[:-1]))
+        work = roofline.sumsq_diff(a.numel(), b.numel(), n_rows, shape[-1], root)
+        fns = {"package": call, "library": lib}
+        order = ["package", "library", "library", "package"]
+        if parent is not None:
+            fns["parent"] = lambda a=a, b=b, root=root: parent(a, b, root)
+            if not rk.bits_equal(fns["parent"](), want):
+                raise AssertionError(f"sumsq {label}: the parent differs from the plain version")
+            order = ["parent", *order, "parent"]
+        got = {name: {"ms": [], "us": []} for name in fns}
+        for _ in range(rounds):
+            for name in order:
+                got[name]["ms"].append(ms_per_call(fns[name], dev, reps))
+                got[name]["us"].append(device_us_per_call(fns[name], dev))
+        med = {name: {k: statistics.median(v) for k, v in d.items()} for name, d in got.items()}
+        plain_ms = ms_per_call(lambda: rk.sumsq_diff_reference(a, b, root), dev, 3, 1)
+        bound = work.bound_us()
+        row = {"name": f"sumsq {label}", "a": list(sa), "b": list(sb), "root": root,
+               "bytes": work.bytes, "ops": work.ops, "bound_us": bound,
+               "bound_by": work.bound_by(), "plain_ms": plain_ms, "turns": got,
+               "ms": med["package"]["ms"], "device_us": med["package"]["us"],
+               "share_of_bound": bound / med["package"]["us"],
+               "library_ms": med["library"]["ms"], "library_device_us": med["library"]["us"]}
+        if parent is not None:
+            row.update(parent_ms=med["parent"]["ms"], parent_device_us=med["parent"]["us"])
+        print(f"sumsq {label} {tuple(sa)} - {tuple(sb)} root={root}: {row['ms']:.4f} ms/call, "
+              f"device {row['device_us']:.1f} us (bound {bound:.3f} us, {work.bound_by()}, share "
+              f"{row['share_of_bound']:.3f}); library {row['library_ms']:.4f} ms, device "
+              f"{row['library_device_us']:.1f} us"
+              + ("" if parent is None else f"; parent {row['parent_ms']:.4f} ms, device "
+                 f"{row['parent_device_us']:.1f} us") + f"; plain {plain_ms:.3f} ms [{card}]",
+              flush=True)
+        rows.append(row)
+    return rows
+
+
+def sumsq_path(dev: torch.device, card: str, parent: ParentK7 | None = None,
+               n: int = 1000) -> dict:
+    """Host µs per call of each part of K7's sum of squares at tracker A's
+    site ((4,) - (64, 4), with the root): this package's checks, the
+    launch arguments (the broadcast and the strides, cached), the
+    allocation, the raw stream lookup and the ctypes call, beside the whole
+    call and ``F.pairwise_distance``; with a
+    parent of one operand, its parts (the caller's subtraction, the reshape
+    and contiguous copy, the allocation, its ctypes call) and its whole call."""
+    import torch.nn.functional as F
+
+    from datmo_using_optical_flow_tpu_torch.ops import round_kernels as rk
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    a, b = torch.randn(4, device=dev, generator=gen), torch.randn((64, 4), device=dev,
+                                                                  generator=gen)
+    fn, stream = rk._SUMSQ.resolve()
+    index = dev.index
+    out = torch.empty(64, dtype=torch.float32, device=dev)
+    args = (out.data_ptr(), a.data_ptr(), b.data_ptr(),
+            *rk._sumsq_args(a.shape, a.stride(), b.shape, b.stride(), True)[1], index,
+            stream(index))
+    rec = {"package": host_us({
+        "checks (devices, dtypes)": lambda: (fk._on_cuda(a, b), rk._f32(a, "a"),
+                                             rk._f32(b, "b")),
+        "arguments (cached by shapes and strides)": lambda: rk._sumsq_args(
+            a.shape, a.stride(), b.shape, b.stride(), True),
+        "allocation (torch.empty)": lambda: torch.empty((64,), dtype=torch.float32, device=dev),
+        "raw stream lookup": lambda: stream(index),
+        "ctypes call (15 arguments, device guard, launch)": lambda: fn(*args),
+        "whole norm_rn(a, b) call": lambda: rk.norm_rn(a, b),
+        "F.pairwise_distance": lambda: F.pairwise_distance(a, b, eps=0.0)}, dev, n)}
+    if parent is not None and parent.one_operand:
+        v = a - b
+        rows = v.reshape(-1, 4).contiguous()
+        old = (out.data_ptr(), rows.data_ptr(), 4, 1, 64, index, stream(index))
+        rec["parent"] = host_us({
+            "the caller's subtraction": lambda: a - b,
+            "reshape and contiguous": lambda: v.reshape(-1, 4).contiguous(),
+            "allocation (torch.empty)": lambda: torch.empty((64,), dtype=torch.float32,
+                                                            device=dev),
+            "ctypes call (7 arguments, device guard, launch)": lambda: parent.fn(*old),
+            "whole call (subtraction, then the sum)": lambda: parent(a, b, True)}, dev, n)
+    for who, us in rec.items():
+        print(f"sumsq (4,) - (64, 4) launch path ({who}), host us per call over {n} calls: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in us.items()) + f" [{card}]", flush=True)
+    return rec
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--height", type=int, default=1080)
@@ -768,9 +973,19 @@ def main() -> None:
                     help="also K4, K2 (Gaussian) and K1 at tiny levels and images")
     ap.add_argument("--k8", action="store_true",
                     help="K8 alone: level images, levels and upsamples of four flows")
+    ap.add_argument("--k7", action="store_true",
+                    help="K7's sum of squares alone, at the main paths' sites")
     args = ap.parse_args()
     if args.small:
         print(json.dumps(small_levels()))
+    elif args.k7:
+        resolve_device("cuda")  # raises without a card
+        dev = torch.device("cuda", torch.cuda.current_device())
+        card = card_label(dev)
+        parent = None if args.parent is None else ParentK7(args.parent, dev)
+        print(json.dumps({"card": card, "parent": args.parent,
+                          "rows": k7_rows(dev, card, parent),
+                          "sumsq_path": sumsq_path(dev, card, parent)}))
     elif args.k8:
         resolve_device("cuda")  # raises without a card
         dev = torch.device("cuda", torch.cuda.current_device())

@@ -12,6 +12,16 @@ and in the dry run's, so kineto tears CUPTI down after each trace.
     python -m datmo_using_optical_flow_tpu_torch.diagnostics.profiler_traces \
         [--traces N] [--kineto-default]
 
+With ``--head-loss`` it takes ``--traces`` traces of the same kernel in
+one process instead, untrimmed (``measure.trace_records(trim=False)``), and
+gives how many opening sentinels each lost (``measure.head_lost``), how many
+of them ``measure.traced_us`` accepts with the lead-in sentinels trimmed, and
+how many it would accept had the same number of records been lost from a trace
+opened by only ``measure._SENTINELS`` sentinels:
+
+    python -m datmo_using_optical_flow_tpu_torch.diagnostics.profiler_traces \
+        --head-loss [--traces N]
+
 Prints one JSON line with the counts and the card's name and power limit.
 """
 
@@ -43,6 +53,22 @@ def whole_traces(dev: torch.device, traces: int) -> int:
     return whole
 
 
+def head_losses(dev: torch.device, traces: int) -> dict:
+    """Opening sentinels lost by each of ``traces`` traces of five small
+    kernels, and the traces read with and without the lead-in sentinels."""
+    x = torch.randn(1 << 20, device=dev)
+    lost, read, read_unled = [], 0, 0
+    for _ in range(traces):
+        records = measure.trace_records(lambda: x.mul(3.0), dev, 5, trim=False)
+        lost.append(measure.head_lost(records))
+        read += measure.traced_us(measure.trim_lead(records), 5, 1) is not None
+        # the same loss from a trace opened by _SENTINELS sentinels only
+        read_unled += lost[-1] < measure._SENTINELS and measure.traced_us(
+            records[measure._LEAD:], 5, 1) is not None
+    return {"traces": traces, "head_lost": lost, "read": read,
+            "read_without_lead": read_unled, "card": measure.card_label(dev)}
+
+
 def run(traces: int = 30, kineto_default: bool = False) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("profiler_traces counts traces of the card: no CUDA device here")
@@ -68,8 +94,16 @@ def main() -> None:
     ap.add_argument("--traces", type=int, default=30)
     ap.add_argument("--kineto-default", action="store_true",
                     help="unset TEARDOWN_CUPTI (kineto tears CUPTI down after each trace)")
+    ap.add_argument("--head-loss", action="store_true",
+                    help="count the opening sentinels each trace loses, in one process")
     args = ap.parse_args()
-    print(json.dumps(run(args.traces, args.kineto_default)), flush=True)
+    if args.head_loss:
+        if not torch.cuda.is_available():
+            raise RuntimeError("profiler_traces counts traces of the card: no CUDA device here")
+        out = head_losses(torch.device("cuda"), args.traces)
+    else:
+        out = run(args.traces, args.kineto_default)
+    print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":

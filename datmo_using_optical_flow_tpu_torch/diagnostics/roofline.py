@@ -140,6 +140,14 @@ def sumsq(rows: int, k: int, root: bool) -> Work:
     return Work(4 * (k + 1) * rows, (k + int(root)) * rows)
 
 
+def sumsq_diff(a_values: int, b_values: int, rows: int, k: int, root: bool) -> Work:
+    """K7's sum of squares of a difference ``a - b``: the distinct float32
+    values of ``a`` and of ``b`` in (an operand broadcast over rows is read
+    once), one out per row; per row k subtractions, one multiply and k - 1
+    fused multiply-adds, and one more operation for the root."""
+    return Work(4 * (a_values + b_values + rows), (2 * k + int(root)) * rows)
+
+
 
 def _read_positions(size: int, out: int) -> int:
     """The distinct source positions cv2's INTER_LINEAR resize of an axis of

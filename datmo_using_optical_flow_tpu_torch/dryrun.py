@@ -248,7 +248,8 @@ def _held_to_plain(rows: dict, phase: str, dev: torch.device, on: bool = True):
     wrapper at each input signature is also held to its plain version on the
     same inputs, raising unless equal (K1-K4, K9 and K8's five wrappers
     ``torch.equal`` and timed by :func:`_kernel_row`; K5's five outputs
-    ``torch.equal``; K7 bit for bit), and its row goes to ``rows``.  The
+    ``torch.equal``; K7 bit for bit, the sum of squares in both its forms,
+    of ``a`` and of ``a - b``), and its row goes to ``rows``.  The
     checks' launches are made outside the counted runs."""
     if not on or dev.type != "cuda":
         yield
@@ -377,10 +378,13 @@ def _held_to_plain(rows: dict, phase: str, dev: torch.device, on: bool = True):
             [_sig(a), _sig(b), _sig(c)]))
         return got
 
-    def sumsq(v, root):
-        got = orig["sumsq"](v, root)
-        once(("sumsq", tuple(v.shape), root), lambda: exact(
-            "sumsq", rk.bits_equal(got, rk.sumsq_reference(v, root)), list(v.shape)))
+    def sumsq(a, b, root):
+        got = orig["sumsq"](a, b, root)
+        shapes = [list(a.shape), None if b is None else list(b.shape)]
+        once(("sumsq", tuple(a.shape), None if b is None else tuple(b.shape), root),
+             lambda: exact("sumsq", rk.bits_equal(got, rk.sumsq_reference(a, root) if b is None
+                                                  else rk.sumsq_diff_reference(a, b, root)),
+                           shapes))
         return got
 
     with contextlib.ExitStack() as stack:

@@ -253,9 +253,9 @@ def _gmfa_step_impl(points: torch.Tensor, mask: torch.Tensor, carry: GmfaCarry,
 
     # 6. Hungarian association on feature distances (GMFA.py:182-213)
     tb = carry.table
-    fd = tb.features[:, None, :] - feats[None, :, :]
-    # JAX models/gmfa.py:587 compiled: the contracted sum, a correct root
-    cost = norm_rn(fd)
+    # JAX models/gmfa.py:586-587 compiled: the difference, the contracted sum
+    # and a correct root, fused
+    cost = norm_rn(tb.features[:, None, :], feats[None, :, :])
     col4row, pair_ok = linear_sum_assignment(cost, row_mask=tb.alive, col_mask=exists)
     ci = torch.clamp(col4row, 0, kmax - 1).long()
     cap = tb.alive.shape[0]

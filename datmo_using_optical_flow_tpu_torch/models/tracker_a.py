@@ -163,9 +163,9 @@ def associate_and_update(table: TrackTable, clusters: Clusters, dt: float,
     for j in range(clusters.exists.shape[0]):
         exists, meas = clusters.exists[j], clusters.measurement[j]
         track_feat = torch.cat([state[:, :2], torch.zeros((cap, 2), device=dev)], dim=1)
-        diff = feats[j][None, :] - track_feat
-        # JAX tracker_a.py:169 compiled: the contracted sum, a correct root
-        dist = norm_rn(diff)
+        # JAX tracker_a.py:169 compiled: the difference, the contracted sum
+        # and a correct root, fused
+        dist = norm_rn(feats[j], track_feat)
         dist = torch.where(old_alive, dist, float("inf"))
         best = torch.argmin(dist, 0, keepdim=True)  # (1,)
         matched = exists & (dist[best] < gamma)     # (1,)

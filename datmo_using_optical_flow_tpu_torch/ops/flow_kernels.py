@@ -70,11 +70,6 @@ def _poly_taps(n: int, sigma: float) -> tuple[np.ndarray, ...]:
     return tuple(np.ascontiguousarray(a, dtype=np.float32) for a in (g, xg, xxg, igs))
 
 
-@functools.lru_cache(maxsize=64)
-def _tiny_plan_array(h: int, w: int, n: int, sigma: float) -> np.ndarray:
-    return poly_tiny.plan_array(poly_tiny.tiny_plan(h, w, n, sigma))
-
-
 def poly_exp_compiled(n: int, sigma: float) -> bool:
     """Whether ``datmo_poly_exp`` runs K1's compile-time instance for these
     taps (the rule of ``csrc/flow_kernels.cu::poly_taps_structural``): poly_n
@@ -165,24 +160,31 @@ def poly_exp_reference(img: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
 def poly_exp(img: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
     """K1: polynomial expansion of a float32 (H, W) image -> (5, H, W).  On
     the card, an image of at most ``n`` rows or columns runs the tiny form's
-    kernel on its rounding plan (:mod:`.poly_tiny`)."""
+    kernel on its rounding plan's program (:func:`.poly_tiny.tiny_program`)."""
     if img.ndim != 2:
         raise ValueError(f"img: expected (H, W), got {tuple(img.shape)}")
     h, w = img.shape
     _check(img, "img", (h, w))
     if not _on_cuda(img):
         return poly_exp_reference(img, n, sigma)
-    g, xg, xxg, igs = _poly_taps(n, float(sigma))
+    _, ptrs = _poly_args(h, w, n, float(sigma))
     out = torch.empty((5, h, w), dtype=torch.float32, device=img.device)
-    if poly_tiny.is_tiny(h, w, n):
-        _POLY_EXP_TINY(img.device.index, out.data_ptr(), img.data_ptr(), h, w, n, g.ctypes.data,
-                       xg.ctypes.data, xxg.ctypes.data, igs.ctypes.data,
-                       _tiny_plan_array(h, w, n, float(sigma)).ctypes.data)
-    else:
-        _POLY_EXP(img.device.index, out.data_ptr(), img.data_ptr(), h, w, n, g.ctypes.data,
-                  xg.ctypes.data, xxg.ctypes.data, igs.ctypes.data)
+    entry = _POLY_EXP_TINY if len(ptrs) == 5 else _POLY_EXP
+    entry(img.device.index, out.data_ptr(), img.data_ptr(), h, w, n, *ptrs)
     LAUNCHES["poly_exp"] += 1
     return out
+
+
+@functools.lru_cache(maxsize=64)
+def _poly_args(h: int, w: int, n: int, sigma: float) -> tuple[tuple, tuple[int, ...]]:
+    """K1's host arrays for a shape (the taps and, for the tiny form, its
+    program, :func:`.poly_tiny.tiny_program`) and their addresses, looked up
+    once: numpy's ``.ctypes.data`` builds a ctypes object on every call.  The
+    arrays are kept with their addresses."""
+    arrays = _poly_taps(n, sigma)
+    if poly_tiny.is_tiny(h, w, n):
+        arrays += (poly_tiny.tiny_program(h, w, n, sigma),)
+    return arrays, tuple(a.ctypes.data for a in arrays)
 
 
 # ------------------------------------------------------------------ K2

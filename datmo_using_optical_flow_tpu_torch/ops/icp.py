@@ -118,13 +118,13 @@ def _eval_cached(srcf, smask, tgtf, tmask, thr2, transform, cache, live, tgt_ind
     pts = transform_points(srcf, transform)
     # roots correctly rounded and sums contracted, as JAX's compiled ICP
     # rounds them (its ops/icp.py:109, 118-134)
-    delta = norm_rn(pts - qpos) + _DELTA_PAD
+    delta = norm_rn(pts, qpos) + _DELTA_PAD
     # the sound bound at the last query position, moved by the reverse
     # triangle inequality: rows provably outside the gate skip the sweep
     lo_new = sqrt_rn(lo_old) - delta
     excluded = (lo_new > 0.0) & (lo_new * lo_new > thr2)
     # winner certificate: the carried winner is still the unique nearest
-    dw2 = sumsq_fma(pts - qw)
+    dw2 = sumsq_fma(pts, qw)
     b2_dec = sqrt_rn(b2_old) - delta
     certified = smask & ~excluded & (sqrt_rn(dw2) + _DELTA_PAD < b2_dec)
     # a frozen round's results are discarded: it sweeps no block
@@ -156,7 +156,7 @@ def _inplace_sweep(srcf, smask, tgt_index):
     block_table = nn_kernels.build_block_table(src_build, tgt_index, n)
 
     def sweep(pts, tgtf, tmask, need, index, cap2):
-        moved = norm_rn(pts - srcf)
+        moved = norm_rn(pts, srcf)
         drift = torch.amax(torch.where(smask, moved, 0.0)) + _DELTA_PAD
         return nearest_neighbors_active_inplace(pts, tgtf, tmask, need, index, cap2=cap2,
                                                 block_table=block_table, drift=drift)
@@ -181,7 +181,7 @@ def _icp_loop(srcf, smask, tgtf, tmask, thr2, relative_fitness, relative_rmse,
         pts = transform_points(srcf, transform)
         idx, _ = nearest_neighbors(pts, tgtf, tmask)
         dst = tgtf[idx.long()]
-        d2 = sumsq_fma(pts - dst)
+        d2 = sumsq_fma(pts, dst)
         corr = smask & (d2 <= thr2)
         counts = torch.stack([torch.sum(smask.to(torch.float32)), zero, zero])
         return pts, dst, d2, corr, cache, counts

@@ -40,8 +40,9 @@ def _exact_d2(src: torch.Tensor, crd: torch.Tensor, d2: torch.Tensor) -> torch.T
     """d2 recomputed by direct subtraction at the returned winner (where one
     was found): the sweep value carries the recentred expansion's rounding.
     The sum is JAX's compiled ``jnp.sum(diff * diff, axis=1)`` (JAX
-    ``ops/nn.py:83-84``), contracted: ``ordered.sumsq_fma``."""
-    return torch.where(torch.isfinite(d2), sumsq_fma(src - crd), d2)
+    ``ops/nn.py:83-84``), contracted, the difference fused:
+    ``ordered.sumsq_fma(src, crd)``."""
+    return torch.where(torch.isfinite(d2), sumsq_fma(src, crd), d2)
 
 
 def _exact_d2_seq(src: torch.Tensor, crd: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:

@@ -84,12 +84,13 @@ class TargetIndex(NamedTuple):
     tile_hi: torch.Tensor    # (m_tiles, 3) tile AABB maxima (-inf if empty)
 
 
-def _norm3(v: torch.Tensor) -> torch.Tensor:
-    """Euclidean norm over the last axis of length 3, as the JAX package's
-    compiled ``jnp.linalg.norm`` rounds it in the index and the block table
-    (JAX ``ops/nn_pallas.py:152-155, 373-374, 387``): ``sqrt_rn(fma(z, z,
-    fma(y, y, x * x)))``, the correctly rounded root of the contracted sum."""
-    return norm_rn(v)
+def _norm3(v: torch.Tensor, w: torch.Tensor | None = None) -> torch.Tensor:
+    """Euclidean norm over the last axis of length 3 of ``v`` (or of ``v -
+    w``, the difference fused), as the JAX package's compiled
+    ``jnp.linalg.norm`` rounds it in the index and the block table (JAX
+    ``ops/nn_pallas.py:152-155, 373-374, 387``): ``sqrt_rn(fma(z, z, fma(y,
+    y, x * x)))``, the correctly rounded root of the contracted sum."""
+    return norm_rn(v, w)
 
 
 def _morton_keys(p: torch.Tensor) -> torch.Tensor:
@@ -193,8 +194,8 @@ def build_block_table(src: torch.Tensor, index: TargetIndex, n: int | None = Non
     blo = torch.amin(blocks, dim=1)
     bhi = torch.amax(blocks, dim=1)
     bc = (blo + bhi) * 0.5
-    br = torch.amax(_norm3(blocks - bc[:, None, :]), dim=1)
-    d_ct = _norm3(bc[:, None, :] - index.tile_cent[None, :, :])
+    br = torch.amax(_norm3(blocks, bc[:, None, :]), dim=1)
+    d_ct = _norm3(bc[:, None, :], index.tile_cent[None, :, :])
     ball = d_ct - br[:, None] - index.tile_rad[None, :]
     gap = torch.clamp(torch.maximum(index.tile_lo[None, :, :] - bhi[:, None, :],
                                     blo[:, None, :] - index.tile_hi[None, :, :]), min=0.0)

@@ -30,8 +30,11 @@ is not yet XLA's there.
 
 A rounding *plan* describes one shape: a list of vertical-sum variants and
 seven horizontal sums.  :func:`poly_exp_tiny_reference` evaluates it in
-PyTorch and the CUDA kernel ``datmo_poly_exp_tiny`` interprets the same plan
-(:func:`plan_array`), so the two agree bit for bit by construction.
+PyTorch; the CUDA kernel ``datmo_poly_exp_tiny`` runs the same plan as a
+program (:func:`tiny_program`: each chain's operation per tap,
+:func:`chain_ops`, and a block's tile, :func:`tiny_tiles`), so the two agree
+bit for bit by construction.  :func:`plan_array` is the plan in the form
+the first tiny kernel read, for timing a checkout that has it.
 """
 
 from __future__ import annotations
@@ -51,6 +54,17 @@ MAX_VARIANTS = 12
 # the seven horizontal sums, in plan order, and the taps of each
 SUM_KINDS = (G, XG, G, G, XXG, G, XG)   # p0, p1, p2 (b5, b1), p3 (b4, b1s), p4
 PLAN_INTS = 1 + MAX_VARIANTS * 5 + 7 * 10
+# The tiny kernel's program (csrc/flow_kernels.cu: TinyProgram): each chain's
+# operation per tap (chain_ops), and the tile of a block (tiny_tiles)
+SKIP, FIRST, FUSE0, FMA, ADD = range(5)
+OPS = 16           # operations per chain: one per tap (2n + 1 <= 15), then skips
+SUM_INTS = 1 + 2 * OPS + 4
+PROGRAM_INTS = 3 + MAX_VARIANTS * (1 + OPS) + 7 * SUM_INTS
+TILE = 32          # the most rows (columns) a block takes of a tall (wide) image
+THREADS = 256      # a block's threads (kTinyThreads)
+FILL = 2 * 132     # blocks at once: two per SM of the H100
+SMEM_LIMIT = 48 * 1024  # the default shared memory of a block
+STATIC_SMEM = 1024      # the kernel's own: the program and the taps, rounded up
 
 
 class Variant(NamedTuple):
@@ -179,6 +193,101 @@ def plan_array(plan: Plan) -> np.ndarray:
         out[base + 10 * i:base + 10 * (i + 1)] = [s.kind, s.sep, s.lead, s.trail, s.v_int,
                                                   s.v_pad, s.v_rem, min(s.rem_start, 1 << 30),
                                                   s.v_centre, s.v_bcast]
+    return out
+
+
+def chain_ops(ks: list[int], sep: int, swap: bool, lead: bool, trail: bool, bc) -> list[int]:
+    """:func:`_chain`'s rounding of the terms of taps ``ks`` (ascending), as
+    one operation per tap (:data:`OPS` of them, :data:`SKIP` where a tap is
+    no term): :data:`FIRST` ``out = c * x`` (kept as the first product),
+    :data:`FUSE0` ``out = fma(x0, c0, c * x)``, :data:`FMA` ``out = fma(x, c,
+    out)``, :data:`ADD` ``out = out + c * x``.  ``bc(k)``: tap ``k`` is a
+    broadcast tap."""
+    t = len(ks)
+    n_lead = 0
+    while lead and n_lead < t and bc(ks[n_lead]):
+        n_lead += 1
+    end = t
+    while trail and end > n_lead and bc(ks[end - 1]):
+        end -= 1
+    ops = [SKIP] * OPS
+    ops[ks[0]] = FIRST
+    q = 1
+    if (n_lead or end) >= 2:
+        s0, s1 = sep >> ks[0] & 1, sep >> ks[1] & 1
+        ops[ks[1]] = FMA if (swap or s0) and not s1 else FUSE0 if not s0 else ADD
+        q = 2
+    for i in range(q, t):
+        ops[ks[i]] = ADD if i >= end or sep >> ks[i] & 1 else FMA
+    return ops
+
+
+def tiny_tiles(h: int, w: int, n: int, nv: int) -> tuple[int, int]:
+    """The output tile (rows, columns) of one block of the tiny kernel: all
+    of a short axis (at most ``n``) by up to :data:`TILE` of the long one.
+    A thread's chains run one after another, so the tile is the one whose
+    grid takes the fewest rounds of them: the blocks' waves (:data:`FILL`
+    at a time) times the chains per thread of stage 1 (``nv`` variants at
+    the rows and staged columns) and of stage 2 (seven sums a pixel); the
+    widest such tile.  A tall or a wide image spreads over many blocks."""
+    def tile(t):
+        return (h, min(w, t)) if h <= n else (min(h, t), w)
+
+    def rounds(t):
+        rows, cols = tile(t)
+        blocks = -(-h // rows) * -(-w // cols)
+        chains = (-(-nv * rows * min(w, cols + 2 * n) // THREADS)
+                  + -(-7 * rows * cols // THREADS))
+        return -(-blocks // FILL) * chains, -t
+
+    return tile(min(range(1, TILE + 1), key=rounds))
+
+
+def tiny_smem_bytes(w: int, n: int, nv: int, tile: tuple[int, int]) -> int:
+    """Shared memory of one block: ``nv`` vertical-sum variants at the
+    tile's rows and at its columns with their ``n``-column halo inside the
+    image, the seven horizontal sums at each pixel of the tile, and
+    :data:`STATIC_SMEM`."""
+    rows, cols = tile
+    return 4 * rows * (nv * min(w, cols + 2 * n) + 7 * cols) + STATIC_SMEM
+
+
+@functools.lru_cache(maxsize=256)
+def tiny_program(h: int, w: int, n: int, sigma: float) -> np.ndarray:
+    """The int32 program ``datmo_poly_exp_tiny`` runs (its ``TinyProgram``):
+    the variant count and the tile (:func:`tiny_tiles`); per variant of
+    :func:`tiny_plan` (``MAX_VARIANTS`` rows) its taps' kind and
+    :func:`chain_ops`; per horizontal sum its kind, ops, each tap's fixed
+    variant (the centre's or a broadcast tap's, else -1), then ``v_int``,
+    ``v_pad``, ``v_rem`` and ``rem_start``."""
+    plan = tiny_plan(h, w, n, float(sigma))
+    kerns = _taps(n, float(sigma))[:3]
+    out = np.zeros(PROGRAM_INTS, np.int32)
+    out[:3] = (len(plan.variants), *tiny_tiles(h, w, n, len(plan.variants)))
+    at = 3
+    for v in plan.variants:
+        c = kerns[v.kind]
+        ks = [k for k in range(2 * n + 1) if not (v.kind == XG and c[k] == 0.0)]
+        out[at] = v.kind
+        out[at + 1:at + 1 + OPS] = chain_ops(ks, v.sep, v.swap, v.lead, v.trail,
+                                             lambda k: k <= n - h or k >= n + h)
+        at += 1 + OPS
+    at = 3 + MAX_VARIANTS * (1 + OPS)
+
+    def hbc(k):
+        return k <= n - w or k >= n + w
+
+    for s in plan.sums:
+        c = kerns[s.kind]
+        ks = [k for k in range(2 * n + 1) if c[k] != 0.0]
+        fix = [s.v_centre if k == n and s.v_centre >= 0 else
+               s.v_bcast if hbc(k) and s.v_bcast >= 0 else -1 for k in range(OPS)]
+        out[at] = s.kind
+        out[at + 1:at + 1 + OPS] = chain_ops(ks, s.sep, False, s.lead, s.trail, hbc)
+        out[at + 1 + OPS:at + 1 + 2 * OPS] = fix
+        out[at + 1 + 2 * OPS:at + SUM_INTS] = (s.v_int, s.v_pad, s.v_rem,
+                                                min(s.rem_start, 1 << 30))
+        at += SUM_INTS
     return out
 
 

@@ -15,9 +15,14 @@ dozen elementwise ops per fma, each a launch on the card; the kernels of
 Each wrapper dispatches on its inputs' device alone: CPU tensors take the
 plain version, CUDA tensors launch the kernel on the current stream (and count
 the launch), any other device raises.  Both give the same float32 bits.
+The sum of squares takes the difference it squares (``sumsq_fma(a, b)``,
+``norm_rn(a, b)``), as XLA fuses ``a - b`` into the sum: one launch, no
+temporary.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -135,6 +140,12 @@ def sumsq_reference(v: torch.Tensor, root: bool = False) -> torch.Tensor:
     return sqrt_rn(acc) if root else acc
 
 
+def sumsq_diff_reference(a: torch.Tensor, b: torch.Tensor, root: bool = False) -> torch.Tensor:
+    """Plain version of the difference form, :func:`sumsq_fma` (:func:`norm_rn`)
+    of ``a`` and ``b``: the float32 difference, then :func:`sumsq_reference`."""
+    return sumsq_reference(a - b, root)
+
+
 # ------------------------------------------------------------------ wrappers
 
 def fma32(a: torch.Tensor, b, c, root: bool = False) -> torch.Tensor:
@@ -172,27 +183,68 @@ def _fma32(a: torch.Tensor, b, c, root: bool) -> torch.Tensor:
     return out
 
 
-def _sumsq(v: torch.Tensor, root: bool) -> torch.Tensor:
-    if not flow_kernels._on_cuda(v):
-        return sumsq_reference(v, root)
-    _f32(v, "v")
-    k = v.shape[-1]
-    rows = v.reshape(-1, k).contiguous()
-    out = torch.empty(v.shape[:-1], dtype=torch.float32, device=v.device)
+def _broadcast(sa: torch.Size, sb: torch.Size) -> tuple[int, ...]:
+    """The broadcast of two shapes, plain tuple work on the host in place of
+    ``torch.broadcast_shapes``, whose host time outweighs the kernel's."""
+    if sa == sb:
+        return tuple(sa)
+    n = max(len(sa), len(sb))
+    sa, sb = (1,) * (n - len(sa)) + tuple(sa), (1,) * (n - len(sb)) + tuple(sb)
+    if any(x != y and 1 not in (x, y) for x, y in zip(sa, sb)):
+        raise ValueError(f"shapes {sa} and {sb} do not broadcast")
+    return tuple(y if x == 1 else x for x, y in zip(sa, sb))
+
+
+def _row_strides(shape: tuple, stride: tuple) -> list[int]:
+    """An operand's element strides over a broadcast shape of at most three
+    axes (rows, rows, components), leading axes added: 0 along a broadcast
+    axis."""
+    return [0] * (3 - len(shape)) + [st if size != 1 else 0 for st, size in zip(stride, shape)]
+
+
+@functools.lru_cache(maxsize=256)
+def _sumsq_args(sa: torch.Size, ta: tuple, sb: torch.Size | None, tb: tuple | None,
+                root: bool) -> tuple[tuple, tuple] | None:
+    """For operands of shapes ``sa``, ``sb`` (None: no ``b``) and strides
+    ``ta``, ``tb``: the output's shape and ``datmo_sumsq``'s integer
+    arguments (k, root, the rows (n0, n1), a's and b's strides), worked out
+    once per signature; None past two row axes."""
+    shape = tuple(sa) if sb is None else _broadcast(sa, sb)
+    if len(shape) > 3:
+        return None
+    rows = (1,) * (3 - len(shape)) + shape[:-1]
+    return shape[:-1], (shape[-1], int(root), rows[-2], rows[-1], *_row_strides(sa, ta),
+                        *([0, 0, 0] if sb is None else _row_strides(sb, tb)))
+
+
+def _sumsq(a: torch.Tensor, b: torch.Tensor | None, root: bool) -> torch.Tensor:
+    if not (flow_kernels._on_cuda(a) if b is None else flow_kernels._on_cuda(a, b)):
+        return sumsq_reference(a, root) if b is None else sumsq_diff_reference(a, b, root)
+    _f32(a, "a")
+    plan = (_sumsq_args(a.shape, a.stride(), None, None, root) if b is None else
+            _sumsq_args(a.shape, a.stride(), _f32(b, "b").shape, b.stride(), root))
+    if plan is None:  # the kernel walks two row axes: merge the others
+        shape = a.shape if b is None else _broadcast(a.shape, b.shape)
+        a, b = (None if x is None else x.expand(shape).reshape(-1, *shape[-2:]) for x in (a, b))
+        return _sumsq(a, b, root).reshape(shape[:-1])
+    out = torch.empty(plan[0], dtype=torch.float32, device=a.device)
     if out.numel() == 0:
         return out
-    _SUMSQ(v.device.index, out.data_ptr(), rows.data_ptr(), k, int(root), rows.shape[0])
+    _SUMSQ(a.device.index, out.data_ptr(), a.data_ptr(), None if b is None else b.data_ptr(),
+           *plan[1])
     LAUNCHES["sumsq"] += 1
     return out
 
 
-def sumsq_fma(v: torch.Tensor) -> torch.Tensor:
-    """``jnp.sum(v * v, axis=-1)`` as XLA's compiled CPU code contracts it:
-    ``fma(v[k-1], v[k-1], ... fma(v[1], v[1], v[0] * v[0]))``, each step
-    rounded once, for a float32 ``v``."""
-    return _sumsq(v, False)
+def sumsq_fma(a: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """``jnp.sum(d * d, axis=-1)`` as XLA's compiled CPU code contracts it, for
+    ``d = a - b`` (float32 tensors that broadcast; ``d = a`` without ``b``):
+    ``fma(d[k-1], d[k-1], ... fma(d[1], d[1], d[0] * d[0]))``, each step
+    rounded once, the difference rounded to float32 first.  On the card one
+    launch reads ``a`` and ``b`` through their strides."""
+    return _sumsq(a, b, False)
 
 
-def norm_rn(v: torch.Tensor) -> torch.Tensor:
-    """``sqrt_rn(sumsq_fma(v))``: the contracted sum's correctly rounded root."""
-    return _sumsq(v, True)
+def norm_rn(a: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """``sqrt_rn(sumsq_fma(a, b))``: the contracted sum's correctly rounded root."""
+    return _sumsq(a, b, True)

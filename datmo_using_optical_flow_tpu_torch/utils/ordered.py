@@ -13,9 +13,10 @@ from __future__ import annotations
 import torch
 
 # the once-rounded float32 operations (K7 on the card, float64 forms on the
-# CPU; both give the same bits) are the kernels' module's, named here too
+# CPU; both give the same bits) are the kernels' module's, named here too,
+# with the plain version of the sum of squares of a difference
 from datmo_using_optical_flow_tpu_torch.ops.round_kernels import (  # noqa: F401
-    fma32, norm_rn, sqrt_rn, sumsq_fma)
+    fma32, norm_rn, sqrt_rn, sumsq_diff_reference, sumsq_fma)
 
 
 def tree_sum(x: torch.Tensor) -> torch.Tensor:

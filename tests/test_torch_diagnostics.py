@@ -5,6 +5,7 @@ On the CPU a diagnostic's times come from the host clock and its device times
 are ``None`` (not measured); the rows and counts are what these tests check.
 """
 
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -316,6 +317,47 @@ def test_traced_us_refuses_a_trace_left_with_its_closing_sentinels():
     assert measure.traced_us(closing, 5, 1) is None
     assert measure.trace_layout(closing) == "S5"
     assert measure.trace_layout(_trace([2.0], [0.0], head=6)) == "S6 K1 S1 01 S8"
+
+
+@pytest.mark.parametrize("lost, counted, layout, want", [
+    (0, 0, "S8 K1 S1 K1 S1 K1 S8", 3.0),
+    (20, 20, "S8 K1 S1 K1 S1 K1 S8", 3.0),
+    (248, 248, "S8 K1 S1 K1 S1 K1 S8", 3.0),
+    (255, 255, "S1 K1 S1 K1 S1 K1 S8", 3.0),
+    (256, 256, "K1 S1 K1 S1 K1 S8", None),
+    # the first call's kernel lost too: the separator opens the trace
+    (257, 255, "S1 K1 S1 K1 S8", None),
+])
+def test_trim_lead_reads_a_trace_through_its_lost_opening(lost, counted, layout, want):
+    """A trace opens with ``_LEAD + _SENTINELS`` sentinels, of which the card
+    loses more the more traces a process has taken; :func:`measure.trim_lead`
+    keeps the last ``_SENTINELS`` that survived, so the trace is read while
+    one survives, and refused once the calls' records are lost too."""
+    from datmo_using_optical_flow_tpu_torch.diagnostics import measure
+
+    opening = measure._LEAD + measure._SENTINELS
+    records = _trace([2.0], [4.0], [3.0], head=opening)[lost:]
+    assert measure.head_lost(records) == counted
+    assert measure.trace_layout(measure.trim_lead(records)) == layout
+    assert measure.traced_us(measure.trim_lead(records), 3, 1) == want
+
+
+def test_trim_lead_leaves_a_trace_without_lead_in_as_it_is():
+    from datmo_using_optical_flow_tpu_torch.diagnostics import measure
+
+    records = _trace([2.0], [4.0], [3.0], head=5)
+    assert measure.trim_lead(records) == records
+    assert measure.trim_lead([]) == []
+    assert measure.head_lost(records) == measure._LEAD + measure._SENTINELS - 5
+
+
+def test_profiler_traces_head_loss_needs_the_card(monkeypatch):
+    from datmo_using_optical_flow_tpu_torch.diagnostics import profiler_traces
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(sys, "argv", ["profiler_traces", "--head-loss", "--traces", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profiler_traces.main()
 
 
 def test_sweep_ab_times_both_sweeps_on_the_cpu():

@@ -688,3 +688,151 @@ def test_cpu_tensors_take_the_plain_versions():
         fk.blur_solve(torch.rand(5, 40, 48, dtype=torch.float64), 15)
     with pytest.raises(ValueError, match="winsize"):
         fk.blur_solve(torch.rand(5, 40, 48), 65)
+
+
+# K1's tiny kernel runs its rounding plan as a program (ops/poly_tiny.
+# tiny_program): per block, stage 1 writes every vertical-sum variant at the
+# tile's rows and staged columns, stage 2 forms the seven horizontal chains
+# of each pixel from them.  _run_tiny_program does what the kernel does, block
+# by block, in PyTorch, so that the program and the tiles the card runs are
+# held to the plain version here, at each of chip_smoke.py's tiny cases.
+def _tiny_step(op, c, x, acc):
+    from datmo_using_optical_flow_tpu_torch.ops import poly_tiny as pt
+    from datmo_using_optical_flow_tpu_torch.ops.round_kernels import fma32_reference as fma
+
+    out, c0, x0 = acc
+    p = c * x
+    if op == pt.FIRST:
+        return p, c, x
+    if op == pt.FUSE0:
+        return fma(x0, c0, p), c0, x0
+    if op == pt.FMA:
+        return fma(x, c, out), c0, x0
+    if op == pt.ADD:
+        return out + p, c0, x0
+    return acc
+
+
+def _run_tiny_program(img, n, sigma):
+    from datmo_using_optical_flow_tpu_torch.ops import poly_tiny as pt
+    from datmo_using_optical_flow_tpu_torch.ops.round_kernels import fma32_reference as fma
+
+    h, w = img.shape
+    prog = pt.tiny_program(h, w, n, sigma)
+    nv, tile_rows, tile_cols = (int(x) for x in prog[:3])
+    end = 3 + pt.MAX_VARIANTS * (1 + pt.OPS)
+    var = prog[3:end].reshape(pt.MAX_VARIANTS, 1 + pt.OPS)
+    sums = prog[end:].reshape(7, pt.SUM_INTS)
+    *kerns, igs = pt._taps(n, float(sigma))
+    kerns = [torch.from_numpy(k) for k in kerns]
+    out = torch.full((5, h, w), float("nan"))
+    for i0 in range(0, h, tile_rows):
+        for j0 in range(0, w, tile_cols):
+            rows, cols = min(tile_rows, h - i0), min(tile_cols, w - j0)
+            c_lo, c_hi = max(0, j0 - n), min(w, j0 + cols + n)
+            r = torch.arange(i0, i0 + rows)
+            staged = []  # stage 1: (nv, rows, staged columns)
+            for v in range(nv):
+                acc = (None, None, None)
+                for k in range(2 * n + 1):
+                    x = img[(r + k - n).clamp(0, h - 1)][:, c_lo:c_hi]
+                    acc = _tiny_step(var[v, 1 + k], kerns[var[v, 0]][k], x, acc)
+                staged.append(acc[0])
+            staged = torch.stack(staged)
+            j = torch.arange(j0, j0 + cols)
+            s = []  # stage 2
+            for row in sums:
+                kind, ops, fix = row[0], row[1:1 + pt.OPS], row[1 + pt.OPS:1 + 2 * pt.OPS]
+                v_int, v_pad, v_rem, rem_start = (int(x) for x in row[1 + 2 * pt.OPS:])
+                acc = (None, None, None)
+                for k in range(2 * n + 1):
+                    if ops[k] == pt.SKIP:
+                        continue
+                    col = j + k - n
+                    v = torch.where((col >= 0) & (col < w),
+                                    torch.where(col >= rem_start, v_rem, v_int), v_pad)
+                    if fix[k] >= 0:
+                        v = torch.full_like(v, int(fix[k]))
+                    x = staged[v, :, col.clamp(0, w - 1) - c_lo].T
+                    acc = _tiny_step(ops[k], kerns[kind][k], x, acc)
+                s.append(acc[0])
+            ig11, ig03, ig33, ig55 = (float(x) for x in igs)
+            out[:, i0:i0 + rows, j0:j0 + cols] = torch.stack([
+                s[0] * ig11, s[1] * ig11, fma(s[2], ig33, s[3] * ig03),
+                fma(s[4], ig33, s[5] * ig03), s[6] * ig55])
+    return out
+
+
+def _chip_tiny_cases():
+    import chip_smoke
+
+    from datmo_using_optical_flow_tpu_torch.ops import poly_tiny as pt
+
+    return [c for c in chip_smoke.K1_TINY_CASES if pt.is_tiny(*c[:3])]
+
+
+_CHIP_TINY = _chip_tiny_cases()
+
+
+@pytest.mark.parametrize("h,w,n,sigma", _CHIP_TINY,
+                         ids=[f"{h}-{w}-n{n}-s{s}" for h, w, n, s in _CHIP_TINY])
+def test_tiny_program_runs_as_the_plain_version(h, w, n, sigma):
+    """The tiny kernel's program, run block by block as the kernel runs it,
+    gives the plain version's bits at every tiny case that chip_smoke.py
+    holds the card to: the operations per tap carry each chain's rounding,
+    the staged columns and the fixed variants carry its reads."""
+    img = torch.from_numpy(_tiny_image(h, w))
+    want = fk.poly_exp_reference(img, n, sigma)
+    assert torch.equal(_run_tiny_program(img, n, sigma), want)
+
+
+@pytest.mark.parametrize("h,w,n,sigma", _CHIP_TINY,
+                         ids=[f"{h}-{w}-n{n}-s{s}" for h, w, n, s in _CHIP_TINY])
+def test_tiny_tiles_cover_every_pixel_and_fit_shared_memory(h, w, n, sigma):
+    """The kernel's grid of tiles (``poly_tiny.tiny_tiles``) covers each pixel
+    once, a long axis spreads over several blocks, every column a block's
+    chains read is staged, and a block's shared memory fits the default 48
+    KB; the program's operations skip every tap past 2n and each variant it
+    names exists."""
+    from datmo_using_optical_flow_tpu_torch.ops import poly_tiny as pt
+
+    prog = pt.tiny_program(h, w, n, sigma)
+    nv, tile_rows, tile_cols = (int(x) for x in prog[:3])
+    assert (tile_rows, tile_cols) == pt.tiny_tiles(h, w, n, nv)
+    assert (tile_rows == h) if h <= n else (tile_cols == w)
+    covered = np.zeros((h, w), np.int32)
+    for i0 in range(0, h, tile_rows):
+        for j0 in range(0, w, tile_cols):
+            rows, cols = min(tile_rows, h - i0), min(tile_cols, w - j0)
+            covered[i0:i0 + rows, j0:j0 + cols] += 1
+            c_lo, c_hi = max(0, j0 - n), min(w, j0 + cols + n)
+            reads = np.clip(np.arange(j0 - n, j0 + cols + n), 0, w - 1)
+            assert c_lo <= reads.min() and reads.max() < c_hi
+            assert c_hi - c_lo <= min(w, tile_cols + 2 * n)
+    assert (covered == 1).all()
+    if max(h, w) > 2 * pt.TILE:
+        assert -(-h // tile_rows) * -(-w // tile_cols) > 2
+    assert pt.tiny_smem_bytes(w, n, nv, (tile_rows, tile_cols)) <= pt.SMEM_LIMIT
+    end = 3 + pt.MAX_VARIANTS * (1 + pt.OPS)
+    ops = np.concatenate([prog[3:end].reshape(pt.MAX_VARIANTS, -1)[:, 1:],
+                          prog[end:].reshape(7, pt.SUM_INTS)[:, 1:1 + pt.OPS]])
+    assert (ops[:, 2 * n + 1:] == pt.SKIP).all() and ops.max() <= pt.ADD
+    fix = prog[end:].reshape(7, pt.SUM_INTS)[:, 1 + pt.OPS:1 + 2 * pt.OPS]
+    reads = prog[end:].reshape(7, pt.SUM_INTS)[:, 1 + 2 * pt.OPS:-1]
+    assert fix.min() >= -1 and fix.max() < nv and reads.min() >= 0 and reads.max() < nv
+
+
+def test_tiny_program_layout_matches_the_source():
+    """``poly_tiny``'s program constants are the kernel's: operations per
+    chain, variants, the operation codes, threads' tile and shared memory."""
+    from datmo_using_optical_flow_tpu_torch.kernels import build
+    from datmo_using_optical_flow_tpu_torch.ops import poly_tiny as pt
+
+    text = (build.CSRC_DIR / "flow_kernels.cu").read_text()
+    assert f"constexpr int kTinyOps = {pt.OPS};" in text
+    assert f"constexpr int kTinyVariants = {pt.MAX_VARIANTS};" in text
+    assert f"constexpr int kTinySmem = {pt.SMEM_LIMIT // 1024} * 1024;" in text
+    assert f"constexpr int kTinyThreads = {pt.THREADS};" in text
+    assert ("enum TinyOp { kSkip = %d, kFirst = %d, kFuse0 = %d, kFma = %d, kAdd = %d };"
+            % (pt.SKIP, pt.FIRST, pt.FUSE0, pt.FMA, pt.ADD)) in text
+    assert pt.PROGRAM_INTS == 3 + pt.MAX_VARIANTS * (1 + pt.OPS) + 7 * (5 + 2 * pt.OPS)

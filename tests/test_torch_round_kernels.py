@@ -6,18 +6,23 @@ broadcasting that the callers use, and the dispatch (no launch counted on the
 CPU, any other device refused).  Tolerance: none, bits equal.
 
 The JAX side of these values is held by ``test_torch_nn_fma.py`` and
-``test_torch_sqrt_sites.py`` (each site against its compiled JAX function)
-and the kernels by ``chip_smoke.py`` (each equal to its plain version on the
-card).
+``test_torch_sqrt_sites.py`` (each site against its compiled JAX function),
+the sum of squares of a difference here too (each site's JAX lines jitted
+with their operands as the site makes them), and the kernels by
+``chip_smoke.py`` (each equal to its plain version on the card).
 """
 
 from fractions import Fraction
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from datmo_using_optical_flow_tpu_torch.ops import icp as ticp
 from datmo_using_optical_flow_tpu_torch.ops import round_kernels as rk
+from datmo_using_optical_flow_tpu_torch.utils import ordered
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 INF = float("inf")
@@ -111,3 +116,185 @@ def test_bits_equal_tells_signed_zeros_apart_and_takes_nan_as_nan():
     assert not rk.bits_equal(torch.tensor([0.0, 0.0, 1.0, -float("inf")]), want)
     assert not rk.bits_equal(torch.tensor([0.0, float("nan"), float(np.nextafter(
         np.float32(1), np.float32(2))), -float("inf")]), want)
+
+
+# ------------------------------------------------------------------ the difference form
+
+_SPECIAL = np.float32([np.inf, -np.inf, np.nan, 0.0, -0.0, 1e-40, -3e-39, 3.4e38, -3.4e38, 1.0,
+                       1e-20, 1e20, 2.5, -7.0])
+
+
+def _operands(shape, seed, special):
+    """Mixed-scale normals (later terms round into the sum); with
+    ``special``, a third of the values from infinities, NaNs, signed zeros,
+    subnormals and float32's extremes."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(shape) * rng.choice([1e-3, 1.0, 30.0], shape)).astype(np.float32)
+    if special:
+        pick = rng.random(shape) < 0.33
+        x[pick] = rng.choice(_SPECIAL, int(pick.sum()))
+    return x
+
+
+def _assert_bits(got: torch.Tensor, want) -> None:
+    assert rk.bits_equal(got, torch.from_numpy(np.array(want)))
+
+
+def _tracker(k, special):
+    """JAX ``models/tracker_a.py:169``: one cluster's features against the
+    (64, k) track table, inside ``lax.scan`` as the tracker runs it."""
+    feats, track = _operands((32, k), k, special), _operands((64, k), 10 + k, special)
+
+    def dists(feats, track):
+        return jax.lax.scan(lambda c, f: (c, jnp.linalg.norm(f[None, :] - track, axis=1)),
+                            0, feats)[1]
+
+    want = jax.jit(dists)(feats, track)
+    tf, tt = torch.from_numpy(feats), torch.from_numpy(track)
+    return ([torch.stack([f(tf[j], tt) for j in range(32)])
+             for f in (rk.norm_rn, lambda a, b: rk.sumsq_diff_reference(a, b, True))], want)
+
+
+def _gmfa_cost(k, special):
+    """JAX ``models/gmfa.py:586-587``: the (64, 32) cost of tracks against
+    clusters, (64, 1, k) - (1, 32, k)."""
+    tf, fe = _operands((64, k), 20 + k, special), _operands((32, k), 30 + k, special)
+
+    def cost(tf, fe):
+        diff = tf[:, None, :] - fe[None, :, :]
+        return jnp.sqrt(jnp.maximum(jnp.sum(diff * diff, axis=-1), 0.0))
+
+    want = jax.jit(cost)(tf, fe)
+    a, b = torch.from_numpy(tf)[:, None, :], torch.from_numpy(fe)[None, :, :]
+    return [rk.norm_rn(a, b), rk.sumsq_diff_reference(a, b, True)], want
+
+
+def _nn_exact_d2(k, special):
+    """JAX ``ops/nn.py:78-84``: the exact d2 at the winner, ``src`` less the
+    winner's coordinates sliced from the kernel's packed output, where the
+    sweep's d2 is finite."""
+    n = 2048
+    src, packed = _operands((n, k), 40 + k, special), _operands((n, 2 + k), 50 + k, False)
+    packed[np.random.default_rng(k).random(n) < 0.1, 0] = np.inf
+
+    def tail(src, packed):
+        d2, crd = packed[:, 0], packed[:, 2:2 + k]
+        diff = src.astype(jnp.float32) - crd
+        return jnp.where(jnp.isfinite(d2), jnp.sum(diff * diff, axis=1), d2)
+
+    want = jax.jit(tail)(src, packed)
+    s, p = torch.from_numpy(src), torch.from_numpy(packed)
+    fin = torch.isfinite(p[:, 0])
+    return [torch.where(fin, ordered.sumsq_fma(s, p[:, 2:2 + k]), p[:, 0]),
+            torch.where(fin, ordered.sumsq_diff_reference(s, p[:, 2:2 + k]), p[:, 0])], want
+
+
+def _icp_lines(k, special):
+    """JAX ``ops/icp.py:109, 118-134, 144``: eval_full's d2, eval_cached's
+    shell and certificate and the in-place sweep's drift, ``pts`` the moved
+    cloud, against the lines jitted together (3-D points only)."""
+    n = 20000
+    srcf, qpos, qw = (_operands((n, 3), 60 + i, special) for i in range(3))
+    tr = np.eye(4, dtype=np.float32)
+    tr[:2, :2] = [[np.cos(0.01), -np.sin(0.01)], [np.sin(0.01), np.cos(0.01)]]
+    tr[:3, 3] = [0.05, -0.02, 0.01]
+
+    def lines(srcf, transform, qpos, qw):
+        pts = srcf @ transform[:3, :3].T + transform[:3, 3]
+        diff = pts - qw
+        return jnp.stack([jnp.linalg.norm(pts - qpos, axis=1), jnp.sum((pts - qw) ** 2, axis=1),
+                          jnp.sum(diff * diff, axis=1), jnp.linalg.norm(pts - srcf, axis=1)])
+
+    want = jax.jit(lines)(srcf, tr, qpos, qw)
+    s, q, w = (torch.from_numpy(x) for x in (srcf, qpos, qw))
+    pts = ticp.transform_points(s, torch.from_numpy(tr))
+    got = torch.stack([rk.norm_rn(pts, q), rk.sumsq_fma(pts, w), rk.sumsq_fma(pts, w),
+                       rk.norm_rn(pts, s)])
+    plain = torch.stack([rk.sumsq_diff_reference(pts, q, True), rk.sumsq_diff_reference(pts, w),
+                         rk.sumsq_diff_reference(pts, w), rk.sumsq_diff_reference(pts, s, True)])
+    return [got, plain], want
+
+
+_SITES = {"tracker_a": _tracker, "gmfa_cost": _gmfa_cost, "nn_exact_d2": _nn_exact_d2,
+          "icp": _icp_lines}
+_SITE_CASES = [(site, k) for site in _SITES for k in ((3,) if site == "icp" else (2, 3, 4))]
+
+
+@pytest.mark.parametrize("special", [False, True], ids=["normal", "special"])
+@pytest.mark.parametrize("site,k", _SITE_CASES, ids=[f"{s}-k{k}" for s, k in _SITE_CASES])
+def test_difference_form_bit_equal_to_jitted_jax(site, k, special):
+    """The sum of squares of ``a - b`` (the wrapper on the CPU and its plain
+    version, ``sumsq_diff_reference``) equals each call site's JAX lines
+    jitted with their operands as the site makes them, bit for bit (a NaN's
+    payload aside), broadcast (tracker A's features against its table,
+    GMFA's cost matrix) and row by row (the NN query's exact d2, ICP's
+    shell, certificate, d2 and drift), at k = 2, 3, 4 where the site allows,
+    and with infinities, NaNs, signed zeros and subnormals in the operands.
+    (XLA rounds ``jnp.sum((a - b) * (a - b), -1)`` jitted alone over two
+    plain (n, k) arrays otherwise: its vector loop does not contract.)"""
+    got, want = _SITES[site](k, special)
+    for g in got:
+        _assert_bits(g, want)
+
+
+@pytest.mark.parametrize("shapes", [((4,), (64, 4)), ((64, 4), (4,)), ((64, 1, 4), (1, 32, 4)),
+                                    ((400, 1, 3), (1, 400, 3)), ((102, 3), (102, 3)), ((7, 3), None),
+                                    ((5,), None), ((2, 3, 4, 3), (4, 3)), ((5, 1, 2), (5, 6, 1))],
+                         ids=str)
+def test_difference_form_reads_each_operand_through_its_strides(shapes):
+    """What the kernel reads: each operand at the element strides the
+    wrapper passes (``_sumsq_args``: 0 along a broadcast axis; more than two
+    row axes merged first) over the rows (n0, n1) and the k components gives
+    the plain version's answer, for broadcasts, views and one operand."""
+    sa, sb = shapes
+    g = torch.Generator().manual_seed(len(sa))
+    a = torch.randn(sa, generator=g)
+    b = None if sb is None else torch.randn(sb, generator=g)
+
+    def read(a, b):
+        plan = rk._sumsq_args(a.shape, a.stride(), None if b is None else b.shape,
+                              None if b is None else b.stride(), True)
+        if plan is None:
+            shape = torch.broadcast_shapes(a.shape, b.shape)
+            a, b = (None if x is None else x.expand(shape).reshape(-1, *shape[-2:])
+                    for x in (a, b))
+            return read(a, b).reshape(shape[:-1])
+        out_shape, (k, root, n0, n1, *strides) = plan
+        assert root == 1
+        d = torch.as_strided(a, (n0, n1, k), strides[:3])
+        if b is not None:
+            d = d - torch.as_strided(b, (n0, n1, k), strides[3:])
+        return rk.sumsq_reference(d, True).reshape(out_shape)
+
+    want = rk.norm_rn(a, b)
+    assert torch.equal(read(a, b), want)
+    assert torch.equal(want, rk.sumsq_reference(a if b is None else a - b, True))
+    view = torch.randn(10, 6, generator=g)[:, ::2]
+    other = torch.randn(3, 10, generator=g).T
+    assert torch.equal(read(view, other), rk.sumsq_diff_reference(view, other, True))
+
+
+def test_difference_form_takes_the_plain_version_on_the_cpu_only():
+    """The CPU wrapper never reaches the kernel (no launch counted) and gives
+    ``sumsq_reference(a - b)``; operands on two devices, or on a device with
+    neither kernel nor plain version, raise."""
+    rk.reset_launches()
+    a, b = torch.randn(50, 3), torch.randn(3)
+    assert torch.equal(rk.sumsq_fma(a, b), rk.sumsq_reference(a - b))
+    assert torch.equal(rk.norm_rn(a, b), rk.sumsq_diff_reference(a, b, True))
+    assert torch.equal(ordered.sumsq_diff_reference(a, b), rk.sumsq_reference(a - b))
+    assert rk.LAUNCHES == {"fma32": 0, "sumsq": 0}
+    with pytest.raises(ValueError, match="several devices"):
+        rk.norm_rn(a, torch.ones(3, device="meta"))
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        rk.sumsq_fma(torch.ones(4, 3, device="meta"), torch.ones(3, device="meta"))
+
+
+def test_sumsq_signature_matches_the_source():
+    """``kernels/build`` binds ``datmo_sumsq`` with as many arguments as
+    ``csrc/round_kernels.cu`` declares."""
+    from datmo_using_optical_flow_tpu_torch.kernels import build
+
+    text = (build.CSRC_DIR / "round_kernels.cu").read_text()
+    head = text[text.index("int datmo_sumsq("):]
+    assert len(build._SIGNATURES["datmo_sumsq"][0]) == len(head[:head.index(")")].split(","))
