@@ -14,9 +14,13 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
    as their phases below say, and both timed (CUDA events, median of 20
    calls each, in turns plain, kernel, kernel, plain); K1 at all three
    pyramid levels and K3 at both levels that run it also by their device
-   µs; K9 (the packed warp) and K2 at the coarsest level, K2, K3 and K9 also
-   with the flow as the main path carries it (the upsampled flow times
-   1 / pyr_scale, the solve's numerators and 1 / det); K4 with the converged
+   µs; K9 (the packed warp, which quantises its corners from R1) and K2 at
+   the coarsest level, K2, K3 and K9 also with the flow as the main path
+   carries it (the upsampled flow times 1 / pyr_scale, the solve's numerators
+   and 1 / det); K9's scale pass there beside ``torch.amax``; K9 and its
+   scale pass also as int32 bits at 5x122, 1x173, 97x1 (zero, 1.5 px, 6 px
+   and the carried flow), with an all-zero R1 plane, with corners in
+   (-scale / 2, 0) over R0 of -0.0, and at 1080x1920; K4 with the converged
    flow of two 1080x1920 frames, and K4 into K2
    bit-equal to K3 there; K1 (at each level) and K6 also beside one PyTorch
    call of the same function (``F.conv2d``, ``torch.add``), timed and not
@@ -61,7 +65,9 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
    frames (``bench.py``'s workload) with ``bench.py``'s configuration,
    counting each kernel's launches, and frames/s over the 24 steps after the
    priming frame; the warm-up steps run with synchronising CUDA operations
-   turned into errors;
+   turned into errors; the counted steps run with ``ops/farneback``'s
+   functions that build the corner table (``pack_corner_pairs``,
+   ``pack_corners``) stubbed to raise, so the card's K9 is shown to build none;
 7. GMFA's ``preprocess`` at the reference load
    (``benchmarks/gmfa_reference_load.py``'s configuration, scene and keys: 7
    frames of ~56,000 raw points, RANSAC with 5000 hypotheses, 102,400
@@ -229,16 +235,20 @@ REPLACES = {
     # K9: neither; XLA runs the small levels' packed warp (the kernel path's too)
     "warp_packed": "none: XLA's fused update_matrices with R1_packed, "
                    "datmo_using_optical_flow_tpu/ops/farneback.py:256",
+    # K9's scale pass: the planes' scales of pack_corner_pairs, which XLA fuses
+    "corner_scale": "none: K9's scale pass, XLA's fused pack_corner_pairs scales, "
+                    "datmo_using_optical_flow_tpu/ops/farneback.py:180",
 }
 SOURCES = {"poly_exp": "flow_kernels.cu", "blur_solve": "flow_kernels.cu",
            "fused_iteration": "flow_kernels.cu", "warp_matrices": "flow_kernels.cu",
            "nearest_neighbors": "nn_kernels.cu", "tiny": "probe_kernels.cu",
            "fma32": "round_kernels.cu", "sumsq": "round_kernels.cu",
-           "level_image": "level_kernels.cu", "warp_packed": "flow_kernels.cu"}
+           "level_image": "level_kernels.cu", "warp_packed": "flow_kernels.cu",
+           "corner_scale": "flow_kernels.cu"}
 # 1080p, 3 levels; K8: one launch for the frame's level images, one per
-# upsample; K9 and K2 five each on the 97x173 level
+# upsample; K9 and K2 five each on the 97x173 level, after K9's scale pass
 PER_STEP = {"poly_exp": 3, "fused_iteration": 10, "blur_solve": 5, "level_image": 3,
-            "warp_packed": 5}
+            "warp_packed": 5, "corner_scale": 1}
 # K7's launches follow the data (tracker A's association runs once per
 # cluster slot), so the exact per-path counts below are of K1-K6 and K8
 ROUNDING = ("fma32", "sumsq")
@@ -316,12 +326,16 @@ def equal(a, b) -> bool:
     return torch.equal(a, b)
 
 
-def check(kernel: str, label: str, got, want) -> float:
+def check(kernel: str, label: str, got, want, bits: bool = False) -> float:
     """Raise unless ``got`` equals ``want`` bit for bit (``torch.equal``: K1-K4,
-    K8 and K9 all are).  Logs and returns the max abs error."""
+    K8 and K9 all are; with ``bits`` also as int32, so a zero's sign counts:
+    one tensor).  Logs and returns the max abs error."""
+    from datmo_using_optical_flow_tpu_torch.ops import round_kernels
+
     err = max_abs(got, want)
-    log(f"{kernel} {label}: max_abs_err {err:.3e} (bit-equal required)")
-    if not equal(got, want):
+    log(f"{kernel} {label}: max_abs_err {err:.3e} (bit-equal required"
+        f"{', int32 bits' if bits else ''})")
+    if not equal(got, want) or (bits and not round_kernels.bits_equal(got, want)):
         raise AssertionError(f"{kernel} {label}: error {err} (bit-equal required)")
     return err
 
@@ -373,8 +387,8 @@ def kernel_phases(dev, name: str, smi: str, h: int, w: int) -> dict:
     top = len(pyr[0]) - 1
 
     def record(kernel: str, label: str, got, want, ms: float, plain_ms: float,
-               timed: bool) -> None:
-        err = check(kernel, label, got, want)
+               timed: bool, bits: bool = False) -> None:
+        err = check(kernel, label, got, want, bits)
         log(f"{kernel} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{name}, {smi}]")
         res = results[kernel]
         res["max_abs_err"] = max(res["max_abs_err"], err)
@@ -404,13 +418,15 @@ def kernel_phases(dev, name: str, smi: str, h: int, w: int) -> dict:
 
     R0, R1 = pyr[0][0], pyr[1][0]  # the coarsest level
     zero = torch.zeros(R0.shape[1:], dtype=torch.float32, device=dev)
-    packed = fb.pack_corner_pairs(R1)
     label = f"{R0.shape[1]}x{R0.shape[2]}"
-    M = fk.warp_matrices_packed(R0, *packed, zero, zero)
-    ms, plain_ms = time_pair(lambda: fk.warp_packed_reference(R0, *packed, zero, zero),
-                             lambda: fk.warp_matrices_packed(R0, *packed, zero, zero))
+    scale = fk.corner_scale(R1)
+    results["corner_scale"] = k9_scale_row(dev, name, smi, R1, label)
+    M = fk.warp_matrices_packed(R0, R1, scale, zero, zero)
+    ms, plain_ms = time_pair(lambda: fk.warp_packed_reference(R0, R1, scale, zero, zero),
+                             lambda: fk.warp_matrices_packed(R0, R1, scale, zero, zero))
     record("warp_packed", f"{label} zero flow", M,
-           fk.warp_packed_reference(R0, *packed, zero, zero), ms, plain_ms, timed=True)
+           fk.warp_packed_reference(R0, R1, scale, zero, zero), ms, plain_ms, timed=True,
+           bits=True)
     for gaussian in (False, True):
         got, want = fk.blur_solve(M, 15, gaussian), fk.blur_solve_reference(M, 15, gaussian)
         ms, plain_ms = time_pair(lambda: fk.blur_solve_reference(M, 15, gaussian),
@@ -422,8 +438,9 @@ def kernel_phases(dev, name: str, smi: str, h: int, w: int) -> dict:
         check("blur_solve", f"{label} {'gauss' if gaussian else 'box'} (nx, ny, 1/det)",
               (nx, ny, idet), fk.blur_solve_reference(M, 15, gaussian, terms=True))
         check("warp_packed", f"{label} flow (nx, ny) * 1/det",
-              fk.warp_matrices_packed(R0, *packed, nx, ny, idet),
-              fk.warp_packed_reference(R0, *packed, nx, ny, idet))
+              fk.warp_matrices_packed(R0, R1, scale, nx, ny, idet),
+              fk.warp_packed_reference(R0, R1, scale, nx, ny, idet), bits=True)
+    k9_edge_cases(dev, full)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = [(pyr[0][top], pyr[1][top]), (pyr[0][top - 1], pyr[1][top - 1]),
@@ -490,6 +507,80 @@ def poly_exp_conv(img, n: int, sigma: float):
     from datmo_using_optical_flow_tpu_torch.diagnostics.micro_flow import conv_yardstick
 
     return conv_yardstick(img, n, sigma)
+
+
+def scale_library(R1):
+    """K9's scale pass's yardstick, ``torch.amax(R1.abs(), (1, 2))`` (the
+    planes' maxima, before the clamp and the reciprocal), and those maxima
+    by the plain version's ops."""
+    return (lambda: torch.amax(R1.abs(), (1, 2))), torch.amax(torch.abs(R1), dim=(1, 2))
+
+
+def k9_scale_row(dev, name: str, smi: str, R1, label: str) -> dict:
+    """K9's scale pass at ``R1`` bit-equal to its plain version, timed beside
+    it (per call) and beside its yardstick, with its device µs."""
+    from datmo_using_optical_flow_tpu_torch.diagnostics import roofline
+    from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
+
+    err = check("corner_scale", label, fk.corner_scale(R1), fk.corner_scale_reference(R1),
+                bits=True)
+    ms, plain_ms = time_pair(lambda: fk.corner_scale_reference(R1), lambda: fk.corner_scale(R1))
+    lib_ms = library_phase("corner_scale", label, *scale_library(R1), 0.0, dev, name, smi)
+    us = kernel_us(lambda: fk.corner_scale(R1), dev, f"corner_scale {label}")
+    bound = roofline.corner_scale(*R1.shape[1:]).bound_us()
+    log(f"corner_scale {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.amax "
+        f"{lib_ms:.4f} ms, device {us_text(us)}, bound {bound:.3f} us, share "
+        f"{share(bound, us)} [{name}, {smi}]")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "device_us": us, "levels": {}}
+
+
+def k9_edge_cases(dev, image) -> None:
+    """K9's scale pass and warp bit-equal (int32) to their plain versions at
+    the CPU tests' edge shapes: 5x122 (the scalar remainder of the ``vec``
+    rule), 1x173 and 97x1 (no pixel inside), each at zero, 1.5 px, 6 px and
+    the carried (nx, ny, 1/det) flow; an all-zero R1 plane (the 1e-20
+    clamp); corners in (-scale / 2, 0) over R0 of -0.0 (the zero signs the
+    table's integers give); and 1080x1920, K1's planes of ``image``."""
+    from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+
+    def planes(h, w):
+        return fk.poly_exp(torch.rand((h, w), device=dev, generator=gen) * 255, 5, 5.0)
+
+    def hold(label, R0, R1, flows):
+        scale = fk.corner_scale(R1)
+        check("corner_scale", label, scale, fk.corner_scale_reference(R1), bits=True)
+        for flow_label, dx, dy, s in flows:
+            check("warp_packed", f"{label} {flow_label}",
+                  fk.warp_matrices_packed(R0, R1, scale, dx, dy, s),
+                  fk.warp_packed_reference(R0, R1, scale, dx, dy, s), bits=True)
+
+    for h, w in ((5, 122), (1, 173), (97, 1), (60, 60)):
+        R0, R1 = planes(h, w), planes(h, w)
+        flows = [("zero flow", *[torch.zeros((h, w), device=dev)] * 2, None)]
+        for amp in (1.5, 6.0):
+            flows.append((f"{amp} px flow",
+                          *(torch.randn((h, w), device=dev, generator=gen) * amp
+                            for _ in range(2)), None))
+        M = fk.warp_matrices_packed(R0, R1, fk.corner_scale(R1), *flows[0][1:3])
+        flows.append(("carried flow (nx, ny) * 1/det", *fk.blur_solve(M, 15, False, True)))
+        if (h, w) == (60, 60):  # an all-zero plane of R1
+            R1[3] = 0.0
+            label = "60x60 with an all-zero R1 plane"
+        else:
+            label = f"{h}x{w}"
+        hold(label, R0, R1, flows)
+    h, w = 12, 40  # every corner in (-scale / 2, 0) but the one that sets the scale
+    R0 = torch.full((5, h, w), -0.0, device=dev)
+    R1 = -torch.rand((5, h, w), device=dev, generator=gen) * 0.45
+    R1[:, h - 1, w - 1] = torch.tensor([32767.0, 32767.0, 127.0, 127.0, 127.0], device=dev)
+    zero = torch.zeros((h, w), device=dev)
+    hold(f"{h}x{w} corners in (-scale/2, 0)", R0, R1, [("zero flow", zero, zero, None)])
+    R0, R1 = (fk.poly_exp(image + k, 5, 5.0) for k in (0.0, 1.0))
+    dx, dy = smooth_flow(*image.shape, dev)
+    hold(f"{image.shape[0]}x{image.shape[1]}", R0, R1, [("smooth flow", dx, dy, None)])
 
 
 def library_phase(kernel: str, label: str, lib, want, tol: float, dev, name: str,
@@ -845,8 +936,19 @@ def main_path(dev, name: str, smi: str, h: int, w: int, n_frames: int) -> dict:
     log("warm-up steps: no host synchronisation (torch.cuda.set_sync_debug_mode)")
     torch.cuda.synchronize()
 
+    from unittest import mock
+
+    from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
+
+    def no_table(*_):
+        raise AssertionError("the card's main path built K9's corner table")
+
     reset_launches()
-    elapsed, carry, out = timed_sweep(pipe, bevs)  # the benchmark's sweep: prime, then steps
+    # the benchmark's sweep: prime, then steps; K9 quantises from R1 on the
+    # card, so neither function that builds the plain corner table may run
+    with mock.patch.object(fb, "pack_corner_pairs", no_table), \
+            mock.patch.object(fb, "pack_corners", no_table):
+        elapsed, carry, out = timed_sweep(pipe, bevs)
     launches = read_launches()
     n_levels = len(carry.pyr)
     log(f"{h}x{w} launches over {n_frames} steps ({n_levels} levels): {launches}")
@@ -1275,7 +1377,7 @@ def diagnostics_phase(dev, gmfa_cfg, pair) -> dict:
 
     frames = make_frames(2, 1080, 1920, seed=0)
     flow = ("poly_exp", "blur_solve", "fused_iteration", "warp_matrices", "warp_packed",
-            "level_image")
+            "corner_scale", "level_image")
     runs = (("micro_flow", lambda: micro_flow.run(frames, dev), flow),
             ("profile_1080p", lambda: profile_1080p.run(frames, dev), flow),
             ("icp_body", lambda: icp_body.run(
@@ -1319,10 +1421,11 @@ def level_rows(dev, name: str, smi: str, frames, c, tag: str) -> dict:
     pyr = [fb.build_pyramid(f.to(torch.float32), c.pyr_scale, c.levels, c.poly_n, c.poly_sigma)
            for f in frames[:2]]
     top = len(pyr[0]) - 1
-    rows = {"poly_exp": {}, "blur_solve": {}, "fused_iteration": {}, "warp_packed": {}}
+    rows = {"poly_exp": {}, "blur_solve": {}, "fused_iteration": {}, "warp_packed": {},
+            "corner_scale": {}}
 
-    def row(kernel, label, got, want, plain, kern, work, lib=None):
-        err = check(kernel, f"{tag} {label}", got, want)
+    def row(kernel, label, got, want, plain, kern, work, lib=None, bits=False):
+        err = check(kernel, f"{tag} {label}", got, want, bits)
         ms, plain_ms = time_pair(plain, kern)
         us = kernel_us(kern, dev, f"{kernel} {tag} {label}")
         lib_ms = None if lib is None else library_phase(
@@ -1353,12 +1456,17 @@ def level_rows(dev, name: str, smi: str, frames, c, tag: str) -> dict:
                 roofline.fused_iteration(lh, lw, c.winsize))
         else:
             zero = torch.zeros((lh, lw), dtype=torch.float32, device=dev)
-            packed = fb.pack_corner_pairs(R1)
-            M = fk.warp_matrices_packed(R0, *packed, zero, zero)
-            row("warp_packed", label, M, fk.warp_packed_reference(R0, *packed, zero, zero),
-                lambda: fk.warp_packed_reference(R0, *packed, zero, zero),
-                lambda: fk.warp_matrices_packed(R0, *packed, zero, zero),
-                roofline.warp_packed(lh, lw))
+            scale = fk.corner_scale(R1)
+            M = fk.warp_matrices_packed(R0, R1, scale, zero, zero)
+            row("warp_packed", label, M, fk.warp_packed_reference(R0, R1, scale, zero, zero),
+                lambda: fk.warp_packed_reference(R0, R1, scale, zero, zero),
+                lambda: fk.warp_matrices_packed(R0, R1, scale, zero, zero),
+                roofline.warp_packed(lh, lw), bits=True)
+            row("corner_scale", label, scale, fk.corner_scale_reference(R1),
+                lambda: fk.corner_scale_reference(R1), lambda: fk.corner_scale(R1),
+                roofline.corner_scale(lh, lw), bits=True)
+            rows["corner_scale"][f"{label} ({tag})"]["library_ms"] = library_phase(
+                "corner_scale", f"{tag} {label}", *scale_library(R1), 0.0, dev, name, smi)
             row("blur_solve", label, fk.blur_solve(M, c.winsize), fk.blur_solve_reference(
                 M, c.winsize), lambda: fk.blur_solve_reference(M, c.winsize),
                 lambda: fk.blur_solve(M, c.winsize), roofline.blur_solve(lh, lw, c.winsize))
@@ -1370,18 +1478,20 @@ def _flow_launches(h: int, w: int, pairs: int, frames_expanded: int, c,
     """K1-K4, K8 and K9 launches of ``pairs`` flows over ``frames_expanded``
     expanded frames at (h, w) with Farnebäck settings ``c``: K1 once per level
     and frame, K3 ``iterations`` times per level of at least 128x256, K2 and
-    the warp on the others (K9, packed, with ``fast_warp``, else K4), K8 once
-    per frame (its level images) and once per pair and level transition (the
-    2-plane upsample)."""
+    the warp on the others (K9, packed, with ``fast_warp``, else K4; K9's
+    scale pass once per pair and such level), K8 once per frame (its level
+    images) and once per pair and level transition (the 2-plane upsample)."""
     from datmo_using_optical_flow_tpu_torch.ops import warp
     from datmo_using_optical_flow_tpu_torch.oracle.np_farneback import level_sizes
 
     levels = [s[2:] for s in level_sizes(h, w, c.pyr_scale, c.levels)]
     k3 = sum(warp.eligible(lh, lw) for lh, lw in levels)
     small = (len(levels) - k3) * c.iterations * pairs
+    scales = (len(levels) - k3) * pairs if fast_warp and c.iterations > 0 else 0
     return {"poly_exp": len(levels) * frames_expanded,
             "fused_iteration": k3 * c.iterations * pairs,
             "blur_solve": small, "warp_packed" if fast_warp else "warp_matrices": small,
+            "corner_scale": scales,
             "level_image": frames_expanded + (len(levels) - 1) * pairs}
 
 
@@ -2075,8 +2185,8 @@ def streams_phase(dev, name: str, smi: str, gclouds) -> dict:
     frames = np.stack([make_frames(3, 1080, 1920, seed=s) for s in range(n)])
     bevs = [torch.as_tensor(frames[:, t], device=dev) for t in range(3)]
     single = PipelineA(cfg, dev, fast_warp=True)
-    flow = ("poly_exp", "blur_solve", "fused_iteration", "warp_packed", "level_image",
-            *ROUNDING)
+    flow = ("poly_exp", "blur_solve", "fused_iteration", "warp_packed", "corner_scale",
+            "level_image", *ROUNDING)
 
     # A's frame-pair step
     ref, want = singles([lambda s=s: single.step(bevs[0][s], bevs[1][s], single.init_carry())
@@ -2550,7 +2660,8 @@ def main() -> None:
             "sumsq": results["sumsq"]["work"],
             "level_image": roofline.level_images(1080, 1920, ((97, 173, 25), (324, 576, 7),
                                                               (1080, 1920, 3))),
-            "warp_packed": roofline.warp_packed(97, 173)}
+            "warp_packed": roofline.warp_packed(97, 173),
+            "corner_scale": roofline.corner_scale(97, 173)}
     kernels = []
     for k in REPLACES:
         res, bound_us = results[k], work[k].bound_us()
@@ -2575,7 +2686,7 @@ def main() -> None:
                     "busiest_block_us": icp_ab[s]["busiest_round"]["busiest_block_us"]}
                 for s in ("compact", "inplace")}
         if k in ("poly_exp", "blur_solve", "fused_iteration", "level_image",
-                 "warp_packed"):  # at each level
+                 "warp_packed", "corner_scale"):  # at each level
             kernels[-1]["levels"] = res["levels"]
             kernels[-1]["sharded_flow_launches_per_rank"] = (
                 sharded["per_rank"][0]["launches"]["sharded_flow"].get(k, 0))

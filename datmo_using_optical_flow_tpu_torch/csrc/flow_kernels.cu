@@ -11,7 +11,8 @@
 //   warp_matrices_kernel     <- ops/warp_pallas.py::warp_matrices    (_kernel,
 //                               _warp_into/_warp_epilogue)
 //   warp_packed_kernel       <- no Pallas kernel: ops/farneback.py::update_matrices
-//                               with R1_packed, the small levels' warp (K9)
+//   corner_scale_kernel         with R1_packed, the small levels' warp (K9) and
+//                               its scale pass
 //
 // Layouts are the JAX package's: images (H, W) and coefficient / normal-equation
 // planes (5, H, W), float32, row-major and contiguous.  K1-K3 give each block one
@@ -22,8 +23,9 @@
 // blocks run in any order, nothing carries between them.  Halo positions outside
 // the image take the value at the clamped pixel (BORDER_REPLICATE), so a partial
 // last tile needs no special case.  K4 and K9 have no window and so no halo:
-// one thread per output pixel.  K3 and K4 share the per-pixel exact warp
-// (warp_assemble), and all three M's tail (assemble_tail).
+// one thread per output pixel (K9 in 2-D tiles of 32 columns).  K3 and K4
+// share the per-pixel exact warp (warp_assemble), and all three M's tail
+// (assemble_tail).
 //
 // Arithmetic order is the plain version's: taps accumulate in ascending order,
 // the vertical pass before the horizontal one, and the 1/win^2 box scale comes
@@ -71,6 +73,9 @@ constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 constexpr int kRowsPerThread = kTile / kBlockY;
 constexpr int kPixelThreads = 256;  // K4: one thread per output pixel
+constexpr int kWarpSize = 32;
+constexpr int kPackedRows = 4;     // K9: tiles of 32 columns by 4 rows
+constexpr int kScaleThreads = 1024; // K9's scale pass: one block per plane
 constexpr int kMaxTaps = 64;        // window taps: winsize <= 63
 constexpr int kMaxPolyN = 7;        // poly_n in {5, 7}
 constexpr int kMaxPolyTaps = 2 * kMaxPolyN + 1;
@@ -519,52 +524,123 @@ __device__ __forceinline__ void warp_assemble(const float* __restrict__ R0,
                                            row, gj, rows.total, w, m, stride);
 }
 
+// The packed warp's quantisation (K9): each corner is clip(rint(v / s), -q,
+// q) of R1's value v and its plane's scale s (ops/farneback.py::pack_corners:
+// rint of the IEEE quotient, half to even), through an integer as the table
+// holds it: a v in (-s / 2, 0) gives +0.0, not -0.0.  An out-of-range
+// quotient saturates and a NaN gives 0, as the table's conversion gives them.
+//
+// rint of the quotient is taken from qa = v * rs, rs = rcp.approx(s) (within
+// 1 ulp of 1 / s, PTX ISA): |qa - v / s| <= |v / s| (2^-23 + 2^-24), and the
+// IEEE quotient is within |v / s| 2^-24 of v / s, so both lie within
+// |qa| 2^-22 (1 + 2^-22) of each other, half the margin rint_quotient
+// takes.  Where qa lies farther than |qa| 2^-21 from a half-integer, both
+// round to the same integer; elsewhere (rarely: most often at the int16
+// planes' large values; a NaN; a quotient of 2^20 or more) the IEEE division
+// decides.  So the bits are the division's (tests/test_torch_packed_warp.py
+// holds the rule to it in float32 numpy), at a multiply's cost.
+struct Quantiser {
+  float s, rs;
+  __device__ __forceinline__ explicit Quantiser(float scale) : s(scale) {
+    asm("rcp.approx.f32 %0, %1;" : "=f"(rs) : "f"(scale));
+  }
+  // rint(v / s) from the product; *slow set where the division must decide
+  __device__ __forceinline__ float rint_quotient(float v, bool* slow) const {
+    const float qa = __fmul_rn(v, rs);
+    const float n = rintf(qa);
+    *slow = !(0.5f - fabsf(qa - n) > fabsf(qa) * 0x1p-21f);
+    return n;
+  }
+  __device__ __forceinline__ float rint_divided(float v) const { return rintf(__fdiv_rn(v, s)); }
+};
+
+__device__ __forceinline__ float clip_through_int(float n, int q) {
+  return static_cast<float>(clampi(__float2int_rn(n), -q, q));
+}
+
 // The packed warp and M assembly of one pixel (gi, gj) (K9): the four corners
-// of the five planes from the pixel's row of the packed table (7 words: the
-// int16 pairs of planes 0-1, the int8 quads of planes 2-4,
-// ops/farneback.py::pack_corner_pairs) times the planes' scales qs[5], and M's
-// tail, rounded as XLA compiles the packed update_matrices: the int16 planes'
-// sums start fma(a01, c01, a00 c00); the scale of planes 2-4 is contracted
-// into R0 + r, that of planes 0-1 into R0 - r in XLA's vector loops, the
-// columns below (w - 1) / 8 * 8, not in their scalar remainder.
+// of the five planes read from R1 at (y1, x1), (y1, x1 + 1), (y1 + 1, x1) and
+// (y1 + 1, x1 + 1), each quantised with its plane's scale qs[5] (int16 for
+// planes 0-1, int8 for planes 2-4: Quantiser), as the packed table
+// (ops/farneback.py::pack_corner_pairs) holds them, times qs, and M's tail,
+// rounded as XLA compiles the packed update_matrices: the int16 planes' sums
+// start fma(a01, c01, a00 c00); the scale of planes 2-4 is contracted into
+// R0 + r, that of planes 0-1 into R0 - r in XLA's vector loops, the columns
+// below (w - 1) / 8 * 8, not in their scalar remainder.  A pixel inside has
+// all four corners in R1 (x1 < w - 1, y1 < h - 1), so the table's edge
+// replication is never reached; a pixel outside uses no corner
+// (assemble_tail) and reads none.  The chain of one pixel's latencies is the
+// kernel's time at the small levels, so R0's five values load with the flow,
+// the 20 corners load together, and their quantisation is straight-line
+// code; a pixel with a corner the product cannot decide loops over those
+// corners alone.
 template <int kMode>
 __device__ __forceinline__ void warp_assemble_packed(const float* __restrict__ R0,
-                                                     const int* __restrict__ table,
+                                                     const float* __restrict__ R1,
                                                      const float* __restrict__ qs,
                                                      const FlowIn& flow, int gi, int gj, int h,
                                                      int w, float* m, size_t stride) {
   const size_t plane = static_cast<size_t>(h) * w;
   const size_t p = static_cast<size_t>(gi) * w + gj;
+  float r0[5], qsc[5];
+#pragma unroll
+  for (int ch = 0; ch < 5; ++ch) {
+    r0[ch] = __ldg(R0 + p + ch * plane);
+    qsc[ch] = __ldg(qs + ch);
+  }
   WarpAt wa;
   wa.init<kMode>(flow, p, gi, gj, h, w);
-  const int* row = table + 7 * (static_cast<size_t>(wa.y1) * w + wa.x1);
-  const float* r0 = R0 + p;
-  float c[5];
+  float c[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (wa.inside) {
+    const float* q = R1 + static_cast<size_t>(wa.y1) * w + wa.x1;
+    float v[5][4];
 #pragma unroll
-  for (int ch = 0; ch < 2; ++ch) {
-    const int ab = row[2 * ch];
-    const int cd = row[2 * ch + 1];
-    const float a = static_cast<float>(static_cast<short>(ab >> 16));
-    const float b = static_cast<float>(static_cast<short>(ab & 0xFFFF));
-    const float cc = static_cast<float>(static_cast<short>(cd >> 16));
-    const float d = static_cast<float>(static_cast<short>(cd & 0xFFFF));
-    c[ch] = __fmaf_rn(wa.a11, d, __fmaf_rn(wa.a10, cc, __fmaf_rn(wa.a01, b, wa.a00 * a)));
-  }
+    for (int ch = 0; ch < 5; ++ch) {
+      v[ch][0] = __ldg(q + ch * plane);
+      v[ch][1] = __ldg(q + ch * plane + 1);
+      v[ch][2] = __ldg(q + ch * plane + w);
+      v[ch][3] = __ldg(q + ch * plane + w + 1);
+    }
+    float n[5][4];
+    unsigned int slow = 0;  // bit 4 ch + k: the division decides
 #pragma unroll
-  for (int ch = 2; ch < 5; ++ch) {
-    const int word = row[4 + ch - 2];
-    c[ch] = wa.sum(static_cast<float>(static_cast<signed char>(word >> 24)),
-                   static_cast<float>(static_cast<signed char>(word >> 16)),
-                   static_cast<float>(static_cast<signed char>(word >> 8)),
-                   static_cast<float>(static_cast<signed char>(word)));
+    for (int ch = 0; ch < 5; ++ch) {
+      const Quantiser qz(qsc[ch]);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        bool s;
+        n[ch][k] = qz.rint_quotient(v[ch][k], &s);
+        slow |= static_cast<unsigned int>(s) << (4 * ch + k);
+      }
+    }
+    while (slow) {  // rare: the corners the product cannot decide, one by one
+      const int i = __ffs(slow) - 1;
+      slow &= slow - 1;
+      const int ch = i >> 2, k = i & 3;
+      const float x = __ldg(q + ch * plane + (k & 1) + (k >> 1) * w);
+      const float r = rintf(__fdiv_rn(x, __ldg(qs + ch)));
+#pragma unroll
+      for (int j = 0; j < 20; ++j)
+        if (j == i) n[j >> 2][j & 3] = r;
+    }
+#pragma unroll
+    for (int ch = 0; ch < 5; ++ch) {
+      const int qmax = ch < 2 ? 32767 : 127;
+      const float a = clip_through_int(n[ch][0], qmax);
+      const float b = clip_through_int(n[ch][1], qmax);
+      const float cc = clip_through_int(n[ch][2], qmax);
+      const float d = clip_through_int(n[ch][3], qmax);
+      c[ch] = ch < 2 ? __fmaf_rn(wa.a11, d, __fmaf_rn(wa.a10, cc, __fmaf_rn(wa.a01, b, wa.a00 * a)))
+                     : wa.sum(a, b, cc, d);
+    }
   }
   const bool vec = gj < (w - 1) / 8 * 8;
-  const float d0 = vec ? __fmaf_rn(c[0], -qs[0], r0[0]) : r0[0] - c[0] * qs[0];
-  const float d1 = vec ? __fmaf_rn(c[1], -qs[1], r0[plane]) : r0[plane] - c[1] * qs[1];
-  assemble_tail<true, true>(r0, plane, wa, d0, d1, __fmaf_rn(c[2], qs[2], r0[2 * plane]),
-                            __fmaf_rn(c[3], qs[3], r0[3 * plane]),
-                            __fmaf_rn(c[4], qs[4], r0[4 * plane]), kMode != 0, false, gi, gj,
-                            h, w, m, stride);
+  const float d0 = vec ? __fmaf_rn(c[0], -qsc[0], r0[0]) : r0[0] - c[0] * qsc[0];
+  const float d1 = vec ? __fmaf_rn(c[1], -qsc[1], r0[1]) : r0[1] - c[1] * qsc[1];
+  // R0's values from registers: the tail reads plane k at r0[k * 1]
+  assemble_tail<true, true>(r0, 1, wa, d0, d1, __fmaf_rn(c[2], qsc[2], r0[2]),
+                            __fmaf_rn(c[3], qsc[3], r0[3]), __fmaf_rn(c[4], qsc[4], r0[4]),
+                            kMode != 0, false, gi, gj, h, w, m, stride);
 }
 
 // ---------------------------------------------------------------- K1
@@ -1188,27 +1264,82 @@ warp_matrices_kernel(const float* __restrict__ R0, const float* __restrict__ R1,
 }
 
 // ---------------------------------------------------------------- K9
-// K4 from the packed corner table: the small levels' warp and M assembly when
-// the flow packs R1 (fast_warp), one thread per output pixel as K4.
+// The small levels' packed warp and M assembly when the flow packs R1
+// (fast_warp): K4 with each bilinear corner quantised to int16 (planes 0-1)
+// or int8 (planes 2-4) with its plane's scale, in two kernels: the scale
+// pass (corner_scale_kernel, once per level) and the warp
+// (warp_packed_kernel, once per iteration).
 //
-// No Pallas kernel: the JAX package's kernel path runs update_matrices with
-// R1_packed in XLA below 128x256 (ops/farneback.py), whose contracted
-// multiply-adds this kernel carries onto the card (it replaces the plain
-// PyTorch ops the port ran there).  Bound on the H100: 40 bytes of unique
-// traffic per pixel (R0's five planes, the flow, M's five planes; the table's
-// 28-byte rows of a smooth flow hit L1/L2) against ~110 operations, so it is
-// bound by memory.
+// No Pallas kernel: the JAX package runs update_matrices with R1_packed in
+// XLA below 128x256 on its kernel path too (ops/flow_pallas.py), over a
+// table of the four corners of every pixel packed into 7 words, because a
+// TPU gathers a row of up to 32 bytes for the cost of one index.  On the
+// H100 a pixel's four corners are neighbours in R1, in L1 and L2, and each
+// quantised corner depends only on R1 at that point and its plane's scale,
+// so the kernel quantises the corners it reads and no table is built
+// (~51 launches of plain PyTorch a level before).  Its contracted
+// multiply-adds are XLA's.
+//
+// Bound on the H100: 68 bytes of unique traffic per pixel (R0's and R1's
+// five planes, the flow, M's five planes) against ~190 operations (K4's 99,
+// the five scales and 20 quantisations: a multiply, a rounding and a clamp
+// each, the IEEE division only near a half-integer: Quantiser), so it is
+// bound by memory.  At the pipelines' small levels (60x60 to 200x200) a
+// launch is about one warp per scheduler, and its time is the chain of one
+// pixel's latencies (the flow, then R1's corners, their quantisation, M's
+// tail), so the quantisation is kept short: a plain IEEE division per corner
+// measured ~0.23 us slower at 60x60 to 97x173 on the H100 (PERF.md).  One
+// thread a pixel in 2-D tiles of 32 columns by kPackedRows, so the grid
+// spreads over the card's 132 SMs (150 blocks at 97x173) and a warp's corner
+// reads fall on two rows of R1; tiles of 1, 2 and 8 rows were no faster.
 template <int kMode>
-__global__ void __launch_bounds__(kPixelThreads)
-warp_packed_kernel(const float* __restrict__ R0, const int* __restrict__ table,
+__global__ void __launch_bounds__(kWarpSize * kPackedRows)
+warp_packed_kernel(const float* __restrict__ R0, const float* __restrict__ R1,
                    const float* __restrict__ qs, FlowIn flow, float* __restrict__ M, int h,
                    int w) {
-  const size_t plane = static_cast<size_t>(h) * w;
-  const size_t p = static_cast<size_t>(blockIdx.x) * kPixelThreads + threadIdx.x;
-  if (p >= plane) return;
-  const int gi = static_cast<int>(p / w);
-  const int gj = static_cast<int>(p - static_cast<size_t>(gi) * w);
-  warp_assemble_packed<kMode>(R0, table, qs, flow, gi, gj, h, w, M + p, plane);
+  const int gj = static_cast<int>(blockIdx.x) * kWarpSize + static_cast<int>(threadIdx.x);
+  const int gi = static_cast<int>(blockIdx.y) * kPackedRows + static_cast<int>(threadIdx.y);
+  if (gi >= h || gj >= w) return;
+  warp_assemble_packed<kMode>(R0, R1, qs, flow, gi, gj, h, w,
+                              M + static_cast<size_t>(gi) * w + gj, static_cast<size_t>(h) * w);
+}
+
+// K9's scale pass: qs[c] = max(max |R1[c]|, 1e-20) * fl(1 / qmax), qmax 32767
+// for planes 0-1 and 127 for planes 2-4 (ops/farneback.py::corner_scale; XLA
+// folds the division into a multiply by the float32 reciprocal).  One block
+// per plane takes the maximum of the integer bits of |v| (exact in any
+// order, and a NaN's bits exceed every number's, as a NaN wins torch.amax),
+// by warps, then over its warps.  Bound: 20 bytes a pixel read once; one
+// launch in place of two.  The small levels' planes (at most 40,000 values)
+// take a few loads a thread, so a launch's latency sets the time: a cluster
+// of 8 blocks a plane, reduced through distributed shared memory, measured
+// 0.6-1.0 us slower on the H100 at 60x60 to 97x173 and only 0.15 us faster
+// at 200x200 (PERF.md).
+__global__ void __launch_bounds__(kScaleThreads)
+corner_scale_kernel(const float* __restrict__ R1, float* __restrict__ qs, size_t n) {
+  __shared__ unsigned int s_warp[kScaleThreads / kWarpSize];
+  const int ch = static_cast<int>(blockIdx.x);
+  const unsigned int* x = reinterpret_cast<const unsigned int*>(R1) + ch * n;
+  constexpr size_t stride = kScaleThreads;
+  size_t i = threadIdx.x;
+  unsigned int m = 0;
+  for (; i + 3 * stride < n; i += 4 * stride) {
+    const unsigned int v0 = __ldg(x + i), v1 = __ldg(x + i + stride);
+    const unsigned int v2 = __ldg(x + i + 2 * stride), v3 = __ldg(x + i + 3 * stride);
+    m = max(max(m, max(v0 & 0x7fffffffu, v1 & 0x7fffffffu)),
+            max(v2 & 0x7fffffffu, v3 & 0x7fffffffu));
+  }
+  for (; i < n; i += stride) m = max(m, __ldg(x + i) & 0x7fffffffu);
+  m = __reduce_max_sync(0xffffffffu, m);
+  if (threadIdx.x % kWarpSize == 0) s_warp[threadIdx.x / kWarpSize] = m;
+  __syncthreads();
+  if (threadIdx.x >= kWarpSize) return;
+  const unsigned int b = __reduce_max_sync(0xffffffffu, s_warp[threadIdx.x]);
+  if (threadIdx.x == 0) {
+    const float absmax = __uint_as_float(b);
+    const float clamped = b > 0x7f800000u ? absmax : fmaxf(absmax, 1e-20f);  // a NaN stays
+    qs[ch] = clamped * (ch < 2 ? 1.0f / 32767.0f : 1.0f / 127.0f);
+  }
 }
 
 // K2 and K3's dynamic shared memory: the staged planes, plus the vertical
@@ -1531,10 +1662,9 @@ int datmo_warp_matrices(float* M, const float* R0, const float* R1, const float*
   });
 }
 
-// All pointers are DEVICE pointers: table (h * w, 7) int32 and qs (5), the
-// packed corners and their scales (ops/farneback.py::pack_corner_pairs); the
-// flow as datmo_fused_iteration's.
-int datmo_warp_packed(float* M, const float* R0, const int* table, const float* qs,
+// All pointers are DEVICE pointers: R0 and R1 (5, h, w), qs (5) the planes'
+// scales (datmo_corner_scale); the flow as datmo_fused_iteration's.
+int datmo_warp_packed(float* M, const float* R0, const float* R1, const float* qs,
                       const float* vx, const float* vy, const float* s, float s0, int mode,
                       int h, int w, int device, void* stream) {
   FlowIn flow;
@@ -1542,14 +1672,23 @@ int datmo_warp_packed(float* M, const float* R0, const int* table, const float* 
     return cudaErrorInvalidValue;
   datmo::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
-  const size_t n = static_cast<size_t>(h) * w;
-  const unsigned int blocks = static_cast<unsigned int>((n + kPixelThreads - 1) / kPixelThreads);
+  const dim3 grid((w + kWarpSize - 1) / kWarpSize, (h + kPackedRows - 1) / kPackedRows);
   return with_flow_mode(mode, [&](auto flow_mode) {
     warp_packed_kernel<decltype(flow_mode)::value>
-        <<<blocks, kPixelThreads, 0, static_cast<cudaStream_t>(stream)>>>(R0, table, qs, flow, M,
-                                                                          h, w);
+        <<<grid, dim3(kWarpSize, kPackedRows), 0, static_cast<cudaStream_t>(stream)>>>(
+            R0, R1, qs, flow, M, h, w);
     return cudaGetLastError();
   });
+}
+
+// All pointers are DEVICE pointers: qs (5) out, R1 (5, h, w) in.
+int datmo_corner_scale(float* qs, const float* R1, int h, int w, int device, void* stream) {
+  if (h < 1 || w < 1) return cudaErrorInvalidValue;
+  datmo::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return guard.err;
+  corner_scale_kernel<<<5, kScaleThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      R1, qs, static_cast<size_t>(h) * w);
+  return cudaGetLastError();
 }
 
 const char* datmo_error_string(int err) {

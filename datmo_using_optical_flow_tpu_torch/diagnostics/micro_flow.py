@@ -7,7 +7,7 @@ the number of distinct displacements matters to the warp).  At the finest
 level it times K3 (one fused iteration, with the pipeline's box window and
 with the Gaussian one, and as the step runs it between iterations, the flow
 in and out as numerators and 1 / det), K4 (the standalone warp and M), K2
-on K4's M and K9 (the packed-gather warp); K3 at the second level (324x576
+on K4's M and K9 (the packed warp); K3 at the second level (324x576
 at 1080p) with that level's converged flow; K2 at the coarsest level
 (97x173) on K9's M with that level's converged flow, as the step runs it,
 and K9 there; and K1 at every level, on the
@@ -50,8 +50,15 @@ and, with ``--parent``, that checkout's ``round_kernels.cu`` built by hand and
 called as its wrapper called it, in turns; then the launch path's host parts
 at tracker A's site (:func:`sumsq_path`).
 
+With ``--k9``, K9 alone instead (:func:`k9_rows`) at the pipelines' small
+levels and 1080x1920: its scale pass beside ``torch.amax``, the warp through
+its wrapper, and a level's whole packed warp (the scale pass and 5 warps) by
+device records; with ``--parent``, that checkout's K9 in turns, alone and for
+the level (over its ``pack_corner_pairs`` table, or from R1 with its scale
+pass, whichever it does).
+
     python -m datmo_using_optical_flow_tpu_torch.diagnostics.micro_flow [--height H --width W]
-        [--parent DIR] [--tiny] [--small] [--k8] [--k7]
+        [--parent DIR] [--tiny] [--small] [--k8] [--k7] [--k9]
 """
 
 from __future__ import annotations
@@ -77,6 +84,7 @@ from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
 from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
 from datmo_using_optical_flow_tpu_torch.ops import level_kernels as lk
 from datmo_using_optical_flow_tpu_torch.ops import poly_tiny
+from datmo_using_optical_flow_tpu_torch.ops import round_kernels as rk
 from datmo_using_optical_flow_tpu_torch.oracle.np_farneback import level_sizes
 from datmo_using_optical_flow_tpu_torch.sim.frames import make_frames
 from datmo_using_optical_flow_tpu_torch.utils.device import resolve_device
@@ -143,9 +151,12 @@ def parent_library(parent: str | Path) -> ctypes.CDLL:
     """``flow_kernels.cu`` of the checkout at ``parent``, built by hand, with
     the C signatures of its entry points set; ``lib.tiny_program`` says
     whether its tiny form reads ``poly_tiny.tiny_program`` (else the plan,
-    ``poly_tiny.plan_array``)."""
+    ``poly_tiny.plan_array``), ``lib.reads_r1`` whether its K9 quantises the
+    corners it reads from R1 with its scale pass's scales (else it reads the
+    packed corner table of ``pack_corner_pairs``: the same C signature)."""
     lib, text = _build_parent(parent, "flow_kernels")
-    for entry in _PARENT_ENTRIES:
+    lib.reads_r1 = "datmo_corner_scale" in text
+    for entry in (*_PARENT_ENTRIES, *(("datmo_corner_scale",) if lib.reads_r1 else ())):
         fn = getattr(lib, entry)
         fn.argtypes, fn.restype = _OLD_SIGNATURES.get((entry, c_params(text, entry)),
                                                       build._SIGNATURES[entry])
@@ -213,19 +224,42 @@ def parent_poly_exp(lib: ctypes.CDLL, img: torch.Tensor, n: int, sigma: float) -
     return call
 
 
-def parent_packed(lib: ctypes.CDLL, R0, table, qs, dx, dy) -> Callable:
-    """A call of the parent's K9 (the packed warp, flow mode 0) on the
-    current stream, allocating M as the wrapper does; returns ``(M,)``."""
+def parent_scale(lib: ctypes.CDLL, R1) -> Callable:
+    """A call of the parent's K9 scale pass (``lib.reads_r1``) on the current
+    stream, allocating the scales as the wrapper does; returns ``(qs,)``."""
+    _, h, w = R1.shape
+
+    def call():
+        qs = torch.empty(5, dtype=torch.float32, device=R1.device)
+        build.check(lib.datmo_corner_scale(qs.data_ptr(), R1.data_ptr(), h, w, R1.device.index,
+                                           torch.cuda.current_stream(R1.device).cuda_stream),
+                    "parent")
+        return (qs,)
+
+    return call
+
+
+def parent_packed(lib: ctypes.CDLL, R0, R1, dx, dy, flow_scale=None, pack=None) -> Callable:
+    """A call of the parent's K9 on the current stream, allocating M as the
+    wrapper does; returns ``(M,)``.  A parent that reads R1 takes its scale
+    pass's scales (computed once, here), an older one the packed corner
+    table that ``pack`` (its ``pack_corner_pairs``; default this build's)
+    makes of R1."""
     _, h, w = R0.shape
-    ptrs = [t.data_ptr() for t in (R0, table, qs, dx, dy)]
+    if lib.reads_r1:
+        src, qs = R1, parent_scale(lib, R1)()[0]
+    else:
+        src, qs = (pack or fb.pack_corner_pairs)(R1)
+    ptrs = [R0.data_ptr(), src.data_ptr(), qs.data_ptr(), *fk._flow_args(dx, dy, flow_scale)]
 
     def call():
         M = torch.empty((5, h, w), dtype=torch.float32, device=R0.device)
-        build.check(lib.datmo_warp_packed(M.data_ptr(), *ptrs, None, 0.0, 0, h, w,
-                                          R0.device.index,
+        build.check(lib.datmo_warp_packed(M.data_ptr(), *ptrs, h, w, R0.device.index,
                                           torch.cuda.current_stream(R0.device).cuda_stream),
                     "parent")
         return (M,)
+
+    call.keep = (src, qs)  # the table or scales the launches read
 
     return call
 
@@ -252,6 +286,20 @@ def parent_poly_exp_tiny(lib: ctypes.CDLL, img: torch.Tensor, n: int, sigma: flo
     return call
 
 
+def in_turns(fns: dict, order: list, dev: torch.device, reps: int = 5, rounds: int = 3,
+             launches: int = 1) -> dict:
+    """Each of ``fns`` by device µs (a trace of ``reps`` calls) and per call
+    (ms, median of ``2 reps``), called in ``order``, ``rounds`` times: the
+    lists and their medians."""
+    got = {name: {"ms": [], "us": []} for name in fns}
+    for _ in range(rounds):
+        for name in order:
+            got[name]["us"].append(device_us_per_call(fns[name], dev, reps, launches))
+            got[name]["ms"].append(ms_per_call(fns[name], dev, 2 * reps))
+    return {name: {**d, "ms_median": statistics.median(d["ms"]),
+                   "us_median": statistics.median(d["us"])} for name, d in got.items()}
+
+
 def against_parent(call: Callable, parent: Callable, plain: Callable, work: roofline.Work,
                    dev: torch.device, card: str, rounds: int = 3, reps: int = 5) -> dict:
     """Hold this build's ``call`` to ``plain`` bit for bit and the parent's
@@ -268,15 +316,12 @@ def against_parent(call: Callable, parent: Callable, plain: Callable, work: roof
     if not parent_diff <= 1e-4 * scale:
         raise AssertionError(f"the parent differs from the plain version by {parent_diff:.3e}, "
                              f"more than 1e-4 of its scale {scale:.3e}")
-    us = {"package": [], "parent": []}
-    ms = {"package": [], "parent": []}
-    for _ in range(rounds):
-        for name, fn in (("parent", parent), ("package", call), ("package", call),
-                         ("parent", parent)):
-            us[name].append(device_us_per_call(fn, dev, reps))
-            ms[name].append(ms_per_call(fn, dev, 2 * reps))
-    med = {name: statistics.median(v) for name, v in us.items()}
-    med_ms = {name: statistics.median(v) for name, v in ms.items()}
+    t = in_turns({"parent": parent, "package": call}, ["parent", "package", "package", "parent"],
+                 dev, reps, rounds)
+    us = {name: d["us"] for name, d in t.items()}
+    ms = {name: d["ms"] for name, d in t.items()}
+    med = {name: d["us_median"] for name, d in t.items()}
+    med_ms = {name: d["ms_median"] for name, d in t.items()}
     bound = work.bound_us()
     print(f"{'':44s} in turns: device {med['package']:.1f} us (share "
           f"{bound / med['package']:.3f}), parent {med['parent']:.1f} us (share "
@@ -304,17 +349,16 @@ def run(frames: np.ndarray, device: str | torch.device = "cuda", reps: int = 20,
     R0, R1 = inp.pyr1[-1], inp.pyr2[-1]
     _, h, w = R0.shape
     M = fk.warp_matrices(R0, R1, dx, dy)
-    packed = fb.pack_corner_pairs(R1)
     terms = fk.blur_solve(M, win, gaussian, terms=True)  # the flow between iterations
     print(f"micro_flow {h}x{w}: flow dx [{float(dx.min()):.2f}, {float(dx.max()):.2f}] "
           f"dy [{float(dy.min()):.2f}, {float(dy.max()):.2f}] [{card}]", flush=True)
-    # the second level, and the coarsest level's packed M (K9 with fast_warp's
-    # corner table, as the step runs it)
+    # the second level, and the coarsest level's packed M (K9, as the step
+    # runs it with fast_warp)
     S0, S1 = inp.pyr1[-2], inp.pyr2[-2]
     _, sh, sw = S0.shape
     C0, C1 = inp.pyr1[0], inp.pyr2[0]
     _, ch, cw = C0.shape
-    Mc = fk.warp_matrices_packed(C0, *fb.pack_corner_pairs(C1), *inp.flows[0])
+    Mc = fk.warp_matrices_packed(C0, C1, fk.corner_scale(C1), *inp.flows[0])
 
     def window_row(name: str, args: tuple, gauss: bool) -> dict:
         """A K3 row (``args`` R0, R1, dx, dy) or a K2 row (``args`` M)."""
@@ -332,15 +376,16 @@ def run(frames: np.ndarray, device: str | torch.device = "cuda", reps: int = 20,
                                       lambda: plain(*args, win, gauss), work, dev, card))
         return row
 
-    def packed_row(name: str, R0, packed, dx, dy) -> dict:
+    def packed_row(name: str, R0, R1, dx, dy) -> dict:
         lh, lw = R0.shape[-2:]
         work = roofline.warp_packed(lh, lw)
-        row = kernel_row(name, lambda: fk.warp_matrices_packed(R0, *packed, dx, dy), work, dev,
-                         card, reps)
+        scale = fk.corner_scale(R1)
+        row = kernel_row(name, lambda: fk.warp_matrices_packed(R0, R1, scale, dx, dy), work,
+                         dev, card, reps)
         if lib is not None:
-            row.update(against_parent(lambda: (fk.warp_matrices_packed(R0, *packed, dx, dy),),
-                                      parent_packed(lib, R0, *packed, dx, dy),
-                                      lambda: (fk.warp_packed_reference(R0, *packed, dx, dy),),
+            row.update(against_parent(lambda: (fk.warp_matrices_packed(R0, R1, scale, dx, dy),),
+                                      parent_packed(lib, R0, R1, dx, dy),
+                                      lambda: (fk.warp_packed_reference(R0, R1, scale, dx, dy),),
                                       work, dev, card))
         return row
 
@@ -363,12 +408,12 @@ def run(frames: np.ndarray, device: str | torch.device = "cuda", reps: int = 20,
                    roofline.fused_iteration(h, w, win, 3, 3), dev, card, reps),
         warp_row(f"K4 warp_matrices {h}x{w}"),
         window_row(f"K2 blur_solve on K4's M {h}x{w}", (M,), gaussian),
-        packed_row(f"K9 warp_matrices_packed {h}x{w}", R0, packed, dx, dy),
+        packed_row(f"K9 warp_matrices_packed {h}x{w}", R0, R1, dx, dy),
         window_row(f"K3 fused_iteration {sh}x{sw}, second level", (S0, S1, *inp.flows[-2]),
                    gaussian),
         window_row(f"K2 blur_solve on K9's M {ch}x{cw}, coarsest level", (Mc,), gaussian),
-        packed_row(f"K9 warp_matrices_packed {ch}x{cw}, coarsest level", C0,
-                   fb.pack_corner_pairs(C1), *inp.flows[0]),
+        packed_row(f"K9 warp_matrices_packed {ch}x{cw}, coarsest level", C0, C1,
+                   *inp.flows[0]),
     ]
     # K1 on every level's image, finest first, as build_pyramid feeds it
     n, sigma = c.poly_n, c.poly_sigma
@@ -787,6 +832,191 @@ def upsample_path(dev: torch.device, card: str, parent: ParentK8 | None = None,
     return rec
 
 
+# ------------------------------------------------------------------ K9
+
+# K9's shapes: the pipelines' small levels (1080p's 97x173 with zero flow
+# and with the carried (nx, ny, 1/det), from points' 200x200 and 60x60, 4K's
+# 59x104, 720p's 65x115) and 1080x1920, a diagnostic no pipeline packs
+K9_SHAPES = ((97, 173), (200, 200), (60, 60), (59, 104), (65, 115), (1080, 1920))
+
+
+def parent_farneback(parent: str | Path):
+    """The parent checkout's ``ops/farneback.py`` loaded as a module of its
+    own, for its ``pack_corner_pairs`` (the table an older K9 reads)."""
+    import importlib.util
+
+    path = Path(parent) / "datmo_using_optical_flow_tpu_torch" / "ops" / "farneback.py"
+    spec = importlib.util.spec_from_file_location("parent_farneback", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def records_per_call(fn: Callable, dev: torch.device, reps: int = 3) -> float:
+    """Device records (kernels, copies, fills) per call of ``fn`` in one
+    profiler trace of ``reps`` calls, the sentinels not counted."""
+    from datmo_using_optical_flow_tpu_torch.diagnostics import measure
+
+    records = measure.trace_records(fn, dev, reps)
+    return sum(measure._SENTINEL_NAME not in name for name, _ in records) / reps
+
+
+def k9_inputs(dev: torch.device, seed: int = 9) -> list:
+    """K9's cases at :data:`K9_SHAPES`: (label, R0, R1, dx, dy, flow_scale).
+    1080p's coarsest level from two ``make_frames`` frames' pyramids, the
+    other shapes the planes of K1 on seeded uniform images; zero flow, and at
+    97x173 also the flow the refinement carries between iterations (the
+    numerators and 1 / det of K2 on K9's M)."""
+    c = FarnebackConfig()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cases = []
+    for h, w in K9_SHAPES:
+        if (h, w) == (97, 173):
+            R0, R1 = (fb.build_pyramid(torch.as_tensor(f, device=dev).float(), c.pyr_scale,
+                                       c.levels, c.poly_n, c.poly_sigma)[0]
+                      for f in make_frames(2, 1080, 1920, seed=0))
+        else:
+            R0, R1 = (fk.poly_exp(torch.rand((h, w), device=dev, generator=gen) * 255, 5, 5.0)
+                      for _ in range(2))
+        carried = (h, w) == (97, 173)
+        h, w = R0.shape[1:]
+        zero = torch.zeros((h, w), dtype=torch.float32, device=dev)
+        cases.append((f"{h}x{w} zero flow", R0, R1, zero, zero, None))
+        if carried:
+            M = fk.warp_matrices_packed(R0, R1, fk.corner_scale(R1), zero, zero)
+            nx, ny, idet = fk.blur_solve(M, c.winsize, False, terms=True)
+            cases.append((f"{h}x{w} carried flow (nx, ny) * 1/det", R0, R1, nx, ny, idet))
+    return cases
+
+
+def k9_rows(dev: torch.device, card: str, parent: str | Path | None, reps: int = 10,
+            iterations: int = 5) -> list:
+    """K9 at each case of :func:`k9_inputs`, each held bit for bit to its
+    plain version: the scale pass beside ``torch.amax(R1.abs(), (1, 2))`` in
+    turns; the warp through its wrapper (per call, device µs, bound); and a
+    level's whole packed warp, the scale pass and ``iterations`` warps, by
+    device records, device µs and per call.  With ``parent``, that
+    checkout's K9 (built by hand) in turns beside this build's, alone and for
+    the whole level: a parent that reads R1 with its scale pass (its scale
+    pass in the scale pass's turns too), an older one over its
+    ``pack_corner_pairs`` table (loaded from its ``ops/farneback.py``)."""
+    lib = None if parent is None else parent_library(parent)
+    pfb = None if parent is None else parent_farneback(parent)
+    rows = []
+    for label, R0, R1, dx, dy, s in k9_inputs(dev):
+        _, h, w = R0.shape
+        scale = fk.corner_scale(R1)
+        want_scale = fk.corner_scale_reference(R1)
+        want = fk.warp_packed_reference(R0, R1, scale, dx, dy, s)
+        if not rk.bits_equal(scale, want_scale):
+            raise AssertionError(f"K9 scale pass {label}: differs from its plain version")
+        work, swork = roofline.warp_packed(h, w), roofline.corner_scale(h, w)
+        row = {"name": f"K9 {label}", "shape": [h, w], "bound_us": work.bound_us(),
+               "bound_by": work.bound_by(), "scale_bound_us": swork.bound_us()}
+        # the scale pass beside one PyTorch call of the same maxima (and the parent's)
+        sfns = {"package": lambda R1=R1: fk.corner_scale(R1),
+                "amax": lambda R1=R1: torch.amax(R1.abs(), (1, 2))}
+        if lib is not None and lib.reads_r1:
+            sfns["parent"] = parent_scale(lib, R1)
+            if not rk.bits_equal(sfns["parent"]()[0], want_scale):
+                raise AssertionError(f"K9 scale pass {label}: the parent differs from the "
+                                     "plain version")
+        st = in_turns(sfns, [*sfns, *reversed(sfns)], dev, reps)
+        row.update(scale_ms=st["package"]["ms_median"], scale_us=st["package"]["us_median"],
+                   amax_ms=st["amax"]["ms_median"], amax_us=st["amax"]["us_median"],
+                   scale_turns=st,
+                   scale_plain_ms=ms_per_call(lambda R1=R1: fk.corner_scale_reference(R1), dev,
+                                              3, 1))
+        if "parent" in st:
+            row.update(parent_scale_ms=st["parent"]["ms_median"],
+                       parent_scale_us=st["parent"]["us_median"])
+        # the wrapper, and the parent's K9 in turns
+        call = (lambda R0=R0, R1=R1, scale=scale, dx=dx, dy=dy, s=s:
+                fk.warp_matrices_packed(R0, R1, scale, dx, dy, s))
+        row.update(plain_ms=ms_per_call(lambda: fk.warp_packed_reference(R0, R1, scale, dx, dy,
+                                                                         s), dev, 3, 1),
+                   enqueue_us=enqueue_us(call, dev),
+                   scale_enqueue_us=enqueue_us(lambda R1=R1: fk.corner_scale(R1), dev))
+        fns = {"package": call}
+        level = {"package": lambda: [fk.warp_matrices_packed(R0, R1, sc, dx, dy, s)
+                                     for sc in [fk.corner_scale(R1)] for _ in range(iterations)]}
+        order = ["package", "package"]
+        if lib is not None:
+            fns["parent"] = parent_packed(lib, R0, R1, dx, dy, s, pfb.pack_corner_pairs)
+            if not rk.bits_equal(fns["parent"]()[0], want):
+                raise AssertionError(f"K9 {label}: the parent differs from the plain version")
+
+            def parent_level(R0=R0, R1=R1, dx=dx, dy=dy, s=s):
+                call = parent_packed(lib, R0, R1, dx, dy, s, pfb.pack_corner_pairs)
+                return [call() for _ in range(iterations)]
+
+            level["parent"] = parent_level
+            order = ["parent", "package", "package", "parent"]
+        if not rk.bits_equal(call(), want):
+            raise AssertionError(f"K9 {label}: differs from its plain version")
+        kt = in_turns(fns, order, dev, reps)
+        lt = in_turns(level, order, dev, reps, launches=iterations)
+        row.update(ms=kt["package"]["ms_median"], device_us=kt["package"]["us_median"],
+                   share_of_bound=work.bound_us() / kt["package"]["us_median"],
+                   level_ms=lt["package"]["ms_median"], level_us=lt["package"]["us_median"],
+                   level_records=records_per_call(level["package"], dev), turns=kt,
+                   level_turns=lt)
+        if lib is not None:
+            row.update(parent_ms=kt["parent"]["ms_median"],
+                       parent_device_us=kt["parent"]["us_median"],
+                       parent_share_of_bound=work.bound_us() / kt["parent"]["us_median"],
+                       parent_level_ms=lt["parent"]["ms_median"],
+                       parent_level_us=lt["parent"]["us_median"],
+                       parent_level_records=records_per_call(level["parent"], dev))
+        print(f"K9 {label}: {row['ms']:.4f} ms/call (enqueue {row['enqueue_us']:.1f} us), device "
+              f"{row['device_us']:.2f} us (bound {row['bound_us']:.3f} us, share "
+              f"{row['share_of_bound']:.3f}); scale pass {row['scale_ms']:.4f} ms, device "
+              f"{row['scale_us']:.2f} us (torch.amax {row['amax_ms']:.4f} ms, "
+              f"{row['amax_us']:.2f} us"
+              + ("" if "parent" not in st else
+                 f"; parent's {row['parent_scale_ms']:.4f} ms, {row['parent_scale_us']:.2f} us")
+              + f"); level ({iterations} warps) {row['level_ms']:.4f} ms, device "
+              f"{row['level_us']:.2f} us, {row['level_records']:.1f} records"
+              + ("" if lib is None else
+                 f"; parent {row['parent_ms']:.4f} ms, device {row['parent_device_us']:.2f} us, "
+                 f"level {row['parent_level_ms']:.4f} ms, device "
+                 f"{row['parent_level_us']:.2f} us, {row['parent_level_records']:.1f} records")
+              + f"; plain {row['plain_ms']:.3f} ms [{card}]", flush=True)
+        rows.append(row)
+    return rows
+
+
+def packed_path(dev: torch.device, card: str, shape: tuple = (97, 173), n: int = 1000) -> dict:
+    """Host µs per call of each part of K9's launch path at 1080p's coarsest
+    level (zero flow): its checks, the device test, the allocation, the flow
+    arguments, the raw stream lookup and the ctypes call, beside the whole
+    call and the scale pass's whole call."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    h, w = shape
+    R0, R1 = (torch.randn((5, h, w), device=dev, generator=gen) for _ in range(2))
+    dx = dy = torch.zeros((h, w), device=dev)
+    scale = fk.corner_scale(R1)
+    fn, stream = fk._WARP_PACKED.resolve()
+    index = dev.index
+    M = torch.empty((5, h, w), dtype=torch.float32, device=dev)
+    args = (M.data_ptr(), R0.data_ptr(), R1.data_ptr(), scale.data_ptr(),
+            *fk._flow_args(dx, dy, None), h, w, index, stream(index))
+    us = host_us({
+        "checks (shapes, dtypes, contiguity)": lambda: (
+            fk._check_planes_and_flow(R0, R1, dx, dy, None), fk._check(scale, "scale", (5,))),
+        "device test (_on_cuda)": lambda: fk._on_cuda(R0, R1, scale, dx, dy, dx),
+        "allocation (torch.empty)": lambda: torch.empty((5, h, w), dtype=torch.float32,
+                                                        device=dev),
+        "flow arguments": lambda: fk._flow_args(dx, dy, None),
+        "raw stream lookup": lambda: stream(index),
+        "ctypes call (13 arguments, device guard, launch)": lambda: fn(*args),
+        "whole warp_matrices_packed call": lambda: fk.warp_matrices_packed(R0, R1, scale, dx, dy),
+        "whole corner_scale call": lambda: fk.corner_scale(R1)}, dev, n)
+    print(f"K9 {h}x{w} launch path, host us per call over {n} calls: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in us.items()) + f" [{card}]", flush=True)
+    return us
+
+
 # ------------------------------------------------------------------ K7's sum of squares
 
 # The main paths' sites of K7's sum of squares of a difference: (label, a's
@@ -975,9 +1205,18 @@ def main() -> None:
                     help="K8 alone: level images, levels and upsamples of four flows")
     ap.add_argument("--k7", action="store_true",
                     help="K7's sum of squares alone, at the main paths' sites")
+    ap.add_argument("--k9", action="store_true",
+                    help="K9 alone: its scale pass, the warp and a level's packed warp")
     args = ap.parse_args()
     if args.small:
         print(json.dumps(small_levels()))
+    elif args.k9:
+        resolve_device("cuda")  # raises without a card
+        dev = torch.device("cuda", torch.cuda.current_device())
+        card = card_label(dev)
+        print(json.dumps({"card": card, "parent": args.parent,
+                          "rows": k9_rows(dev, card, args.parent),
+                          "launch_path": packed_path(dev, card)}))
     elif args.k7:
         resolve_device("cuda")  # raises without a card
         dev = torch.device("cuda", torch.cuda.current_device())

@@ -38,8 +38,10 @@ SMS = 132
 # from R0 and the warp 10; the flow terms 8; the border attenuation and its
 # square 7; the five M values 23.
 WARP_M_OPS = 99
-# K9's packed warp adds the five planes' scales (an fma each).
-WARP_PACKED_OPS = WARP_M_OPS + 10
+# K9's packed warp adds the five planes' scales (an fma each) and quantises
+# its 20 corners (a multiply, a rounding and a clamp of two compares each;
+# the test beside them and the rare division not counted).
+WARP_PACKED_OPS = WARP_M_OPS + 10 + 20 * 4
 # K2's per-pixel solve: five scales, the regularised determinant and its
 # reciprocal (5), the numerators (3 each), dx and dy (1 each).
 SOLVE_OPS = 18
@@ -94,10 +96,16 @@ def warp_matrices(h: int, w: int) -> Work:
 
 
 def warp_packed(h: int, w: int) -> Work:
-    """K9, the packed-gather ``update_matrices``: R0, the 7-word corner table
-    and the flow in, M out.  The unpacking's integer operations are not
-    counted."""
-    return Work(76 * h * w, WARP_PACKED_OPS * h * w)
+    """K9, the packed ``update_matrices``: R0, R1 and the flow in, M out
+    (the five scales' 20 bytes not counted); each corner quantised from R1
+    (``WARP_PACKED_OPS``, every pixel's counted)."""
+    return Work(68 * h * w, WARP_PACKED_OPS * h * w)
+
+
+def corner_scale(h: int, w: int) -> Work:
+    """K9's scale pass: R1's five planes in, five scales out; an absolute
+    value and a maximum per value."""
+    return Work(20 * h * w + 20, 10 * h * w)
 
 
 def nearest_neighbors(n_src: int, n_tgt: int, tile_visits: int, live_blocks: int) -> Work:

@@ -88,11 +88,12 @@ POLY_N, POLY_SIGMA, WINSIZE, WARP_HALO = 5, 5.0, 15, 16
 LEVEL = (64, 320)     # rows per rank and columns of the sharded level held to the CPU's
 LEVEL_ITERATIONS = 3
 _COUNTED = (flow_kernels, level_kernels, nn_kernels, round_kernels)
-# the kernels the dry run launches on the card (K1-K4, K8 and K9 in the flows,
+# the kernels the dry run launches on the card (K1-K4, K8 and K9 (its warp
+# and its scale pass) in the flows,
 # K5 in GMFA's step, K7 in both pipelines), each held to its plain version by
 # rank 0
 KERNELS = ("poly_exp", "blur_solve", "fused_iteration", "warp_matrices", "warp_packed",
-           "level_image", "nearest_neighbors", "fma32", "sumsq")
+           "corner_scale", "level_image", "nearest_neighbors", "fma32", "sumsq")
 
 
 def prod_cfg(h: int = GRID[0], w: int = GRID[1]) -> PipelineAConfig:
@@ -257,7 +258,8 @@ def _held_to_plain(rows: dict, phase: str, dev: torch.device, on: bool = True):
     fk, k5, k8, rk = flow_kernels, nn_kernels, level_kernels, round_kernels
     orig = {"poly_exp": fk.poly_exp, "blur_solve": fk.blur_solve,
             "fused_iteration": fk.fused_iteration, "warp_matrices": fk.warp_matrices,
-            "warp_packed": fk.warp_matrices_packed, "nearest_neighbors": k5.nearest_neighbors,
+            "warp_packed": fk.warp_matrices_packed, "corner_scale": fk.corner_scale,
+            "nearest_neighbors": k5.nearest_neighbors,
             "fma32": rk._fma32, "sumsq": rk._sumsq, "level_images": k8.level_images,
             "level_image": k8.level_image, "blur": k8.blur, "resize": k8.resize,
             "upsample": k8.upsample}
@@ -308,9 +310,17 @@ def _held_to_plain(rows: dict, phase: str, dev: torch.device, on: bool = True):
             shape, dev))
         return orig["warp_matrices"](*args)
 
-    def warp_matrices_packed(R0, table, scale, dx, dy, flow_scale=None):
+    def corner_scale(R1):
+        shape = tuple(R1.shape)
+        once(("corner_scale", shape), lambda: _kernel_row(
+            "corner_scale", lambda: orig["corner_scale"](R1),
+            lambda: fk.corner_scale_reference(R1), roofline.corner_scale(*shape[1:]), shape,
+            dev))
+        return orig["corner_scale"](R1)
+
+    def warp_matrices_packed(R0, R1, scale, dx, dy, flow_scale=None):
         shape = tuple(R0.shape)
-        args = (R0, table, scale, dx, dy, flow_scale)
+        args = (R0, R1, scale, dx, dy, flow_scale)
         once(("warp_packed", shape, _flow_sig(flow_scale)), lambda: _kernel_row(
             "warp_packed", lambda: orig["warp_packed"](*args),
             lambda: fk.warp_packed_reference(*args), roofline.warp_packed(*shape[1:]),
@@ -392,6 +402,7 @@ def _held_to_plain(rows: dict, phase: str, dev: torch.device, on: bool = True):
                               (fk, "fused_iteration", fused_iteration),
                               (fk, "warp_matrices", warp_matrices),
                               (fk, "warp_matrices_packed", warp_matrices_packed),
+                              (fk, "corner_scale", corner_scale),
                               (k5, "nearest_neighbors", nearest_neighbors),
                               (k8, "level_images", level_images),
                               (k8, "level_image", level_image), (k8, "blur", blur),
@@ -450,7 +461,7 @@ def _dryrun_rank(group: RowGroup, grid: tuple, flow_hw: tuple, points: int,
         lambda: step(bev1[mine].to(dev), bev2[mine].to(dev),
                      streams.init_stream_carry(cfg, len(feeds), dev)), dev)
     _need("phase 1", out["launches"]["stream_a"], ("poly_exp", "blur_solve", "warp_packed",
-                                                   "level_image"), dev)
+                                                   "corner_scale", "level_image"), dev)
     tracks = int(group.all_reduce_sum(metrics["total_tracks"]))
     cells = int(group.all_reduce_sum(metrics["total_cells"]))
     checks: dict = {}  # rank 0's kernels held to their plain versions, by signature

@@ -296,31 +296,30 @@ def _border_scale(h: int, w: int, device) -> torch.Tensor:
             * border_axis(torch.arange(w, device=device), w)[None, :])
 
 
-def pack_corner_pairs(R1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Quantize all four bilinear corners of all five planes into 7 int32 words
-    per grid position (the JAX package's packed table, bit for bit).
+def corner_scale(R1: torch.Tensor) -> torch.Tensor:
+    """The five planes' quantisation scales (5,) of :func:`pack_corner_pairs`:
+    ``max(absmax, 1e-20) * fl(1 / qmax)``, qmax 32767 for planes 0-1 (int16)
+    and 127 for planes 2-4 (int8).  XLA folds the division by the constant
+    qmax into a multiply by its float32 reciprocal."""
+    absmax = torch.amax(torch.abs(R1), dim=(1, 2))  # (5,)
+    return torch.clamp(absmax, min=1e-20) * (1.0 / _qmax(R1.device))
 
-    * words 0-1: channel 0 corners (A,B) / (C,D) as int16 pairs
-    * words 2-3: channel 1 likewise
-    * words 4-6: channels 2-4, all four corners as int8 bytes
 
-    Corners: A = R1(y,x), B = (y,x+1), C = (y+1,x), D = (y+1,x+1),
-    edge-replicated.  Returns ``(table (H*W, 7) int32, scale (5,))``, equal to
-    the jitted ``pack_corner_pairs``; JAX keeps the same bits in a
-    float32-typed table.
-    """
+def _qmax(device) -> torch.Tensor:
+    return torch.where(torch.arange(5, device=device) < 2, 32767.0, 127.0)
+
+
+def pack_corners(R1: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The packed table (H*W, 7) int32 of :func:`pack_corner_pairs` from R1
+    and the planes' scales: each corner ``clip(round(v / scale), -qmax,
+    qmax)`` (half to even, an IEEE division), passed through an integer."""
     _, h, w = R1.shape
     right = torch.cat([R1[:, :, 1:], R1[:, :, -1:]], dim=2)
     down = torch.cat([R1[:, 1:, :], R1[:, -1:, :]], dim=1)
     downright = torch.cat([right[:, 1:, :], right[:, -1:, :]], dim=1)
     corners = torch.stack([R1, right, down, downright])  # (4, 5, H, W)
 
-    absmax = torch.amax(torch.abs(R1), dim=(1, 2))  # (5,)
-    qmax = torch.where(torch.arange(5, device=R1.device) < 2, 32767.0, 127.0)
-    # XLA folds the division by the constant qmax into a multiply by its
-    # float32 reciprocal
-    scale = torch.clamp(absmax, min=1e-20) * (1.0 / qmax)
-    qb = qmax[None, :, None, None]
+    qb = _qmax(R1.device)[None, :, None, None]
     q = torch.clamp(torch.round(corners / scale[None, :, None, None]), -qb, qb)
     qi = q.to(torch.int64)
     u16 = qi & 0xFFFF  # two's complement bits of the int16 value
@@ -336,7 +335,26 @@ def pack_corner_pairs(R1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         words.append((u8[0, ch] << 24) | (u8[1, ch] << 16) | (u8[2, ch] << 8) | u8[3, ch])
     table = torch.stack(words, dim=-1)  # (H, W, 7) uint32 values held in int64
     table = torch.where(table >= 2 ** 31, table - 2 ** 32, table).to(torch.int32)
-    return table.reshape(h * w, 7), scale
+    return table.reshape(h * w, 7)
+
+
+def pack_corner_pairs(R1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantize all four bilinear corners of all five planes into 7 int32 words
+    per grid position (the JAX package's packed table, bit for bit):
+    :func:`corner_scale` then :func:`pack_corners`.
+
+    * words 0-1: channel 0 corners (A,B) / (C,D) as int16 pairs
+    * words 2-3: channel 1 likewise
+    * words 4-6: channels 2-4, all four corners as int8 bytes
+
+    Corners: A = R1(y,x), B = (y,x+1), C = (y+1,x), D = (y+1,x+1),
+    edge-replicated.  Returns ``(table (H*W, 7) int32, scale (5,))``, equal to
+    the jitted ``pack_corner_pairs``; JAX keeps the same bits in a
+    float32-typed table.  The card's K9 quantises the corners from R1
+    where it reads them, and builds no table.
+    """
+    scale = corner_scale(R1)
+    return pack_corners(R1, scale), scale
 
 
 def _unpack_warp(g: torch.Tensor, a00, a01, a10, a11) -> list[torch.Tensor]:
@@ -615,8 +633,10 @@ def farneback_level(R0: torch.Tensor, R1: torch.Tensor, dx: torch.Tensor, dy: to
     Levels of at least 128x256 run each iteration as one fused kernel (K3),
     with an exact warp of any displacement.  Smaller levels assemble M with
     K4 (exact warp) or, when ``fast_warp`` is set (as on the JAX package's
-    kernel path, which packs there whatever its flag says), with K9 from the
-    packed int16/int8 table, and aggregate + solve with K2.  Between
+    kernel path, which packs there whatever its flag says), with K9, the
+    packed warp: the planes' scales once per level (:func:`corner_scale`),
+    then each iteration's corners quantised to int16/int8 from R1 with them
+    (no table on the card), and aggregate + solve with K2.  Between
     iterations the flow is the solve's numerators times 1 / det, the form
     XLA's compiled refinement carries into the next warp.
     """
@@ -626,14 +646,14 @@ def farneback_level(R0: torch.Tensor, R1: torch.Tensor, dx: torch.Tensor, dy: to
     if iterations < 1:
         return (dx, dy) if flow_scale is None else (dx * flow_scale, dy * flow_scale)
     eligible = warp.eligible(h, w)
-    packed = pack_corner_pairs(R1) if fast_warp and not eligible else None
+    scale = fk.corner_scale(R1) if fast_warp and not eligible else None
     for i in range(iterations):
         terms = i < iterations - 1
         if eligible:
             out = fk.fused_iteration(R0, R1, dx, dy, winsize, gaussian, flow_scale, terms)
         else:
-            M = (fk.warp_matrices_packed(R0, *packed, dx, dy, flow_scale) if packed
-                 else fk.warp_matrices(R0, R1, dx, dy, flow_scale))
+            M = (fk.warp_matrices_packed(R0, R1, scale, dx, dy, flow_scale)
+                 if scale is not None else fk.warp_matrices(R0, R1, dx, dy, flow_scale))
             out = fk.blur_solve(M, winsize, gaussian, terms)
         if terms:
             dx, dy, flow_scale = out

@@ -4,7 +4,7 @@ The counterpart of ``datmo_using_optical_flow_tpu.ops.flow_pallas`` and
 ``ops.warp_pallas``.  Each of :func:`poly_exp` (K1), :func:`blur_solve` (K2),
 :func:`fused_iteration` (K3), :func:`warp_matrices` (K4) and
 :func:`warp_matrices_packed` (K9, the small levels' packed warp, which the JAX
-package runs in XLA) dispatches on its
+package runs in XLA, and :func:`corner_scale`, its scale pass) dispatches on its
 input's device alone: a CPU tensor takes the plain version (``*_reference``),
 a CUDA tensor launches the hand-written kernel of ``csrc/flow_kernels.cu`` on
 the current stream (through ``kernels/build.Entry``), and any other device
@@ -28,13 +28,14 @@ from datmo_using_optical_flow_tpu_torch.ops import poly_tiny, round_kernels
 from datmo_using_optical_flow_tpu_torch.oracle.np_farneback import prepare_gaussian
 
 LAUNCHES = {"poly_exp": 0, "blur_solve": 0, "fused_iteration": 0, "warp_matrices": 0,
-            "warp_packed": 0}
+            "warp_packed": 0, "corner_scale": 0}
 _POLY_EXP = build.Entry("datmo_poly_exp", "poly_exp")
 _POLY_EXP_TINY = build.Entry("datmo_poly_exp_tiny", "poly_exp")
 _BLUR_SOLVE = build.Entry("datmo_blur_solve", "blur_solve")
 _FUSED_ITERATION = build.Entry("datmo_fused_iteration", "fused_iteration")
 _WARP_MATRICES = build.Entry("datmo_warp_matrices", "warp_matrices")
 _WARP_PACKED = build.Entry("datmo_warp_packed", "warp_packed")
+_CORNER_SCALE = build.Entry("datmo_corner_scale", "corner_scale")
 
 
 def reset_launches() -> None:
@@ -326,35 +327,50 @@ def warp_matrices(R0: torch.Tensor, R1: torch.Tensor, dx: torch.Tensor,
 
 # ------------------------------------------------------------------ K9
 
-def warp_packed_reference(R0: torch.Tensor, table: torch.Tensor, scale: torch.Tensor,
+def corner_scale_reference(R1: torch.Tensor) -> torch.Tensor:
+    """Plain version of K9's scale pass: ``pack_corner_pairs``' scales."""
+    return fb.corner_scale(R1)
+
+
+def corner_scale(R1: torch.Tensor) -> torch.Tensor:
+    """K9's scale pass: the five planes' quantisation scales (5,) of R1
+    (5, H, W), ``max(absmax, 1e-20) * fl(1 / qmax)``
+    (``ops/farneback.corner_scale``), in one launch, once per level."""
+    if R1.ndim != 3 or R1.shape[0] != 5:
+        raise ValueError(f"R1: expected (5, H, W), got {tuple(R1.shape)}")
+    _, h, w = R1.shape
+    _check(R1, "R1", (5, h, w))
+    if not _on_cuda(R1):
+        return corner_scale_reference(R1)
+    scale = torch.empty(5, dtype=torch.float32, device=R1.device)
+    _CORNER_SCALE(R1.device.index, scale.data_ptr(), R1.data_ptr(), h, w)
+    LAUNCHES["corner_scale"] += 1
+    return scale
+
+
+def warp_packed_reference(R0: torch.Tensor, R1: torch.Tensor, scale: torch.Tensor,
                           dx: torch.Tensor, dy: torch.Tensor,
                           flow_scale: float | torch.Tensor | None = None) -> torch.Tensor:
-    """Plain version of K9: ``update_matrices`` with the packed table."""
-    return fb.update_matrices(R0, None, dx, dy, (table, scale), flow_scale)
+    """Plain version of K9: ``update_matrices`` with the packed table that
+    ``ops/farneback.pack_corners`` builds from R1 with ``scale``."""
+    return fb.update_matrices(R0, None, dx, dy, (fb.pack_corners(R1, scale), scale), flow_scale)
 
 
-def warp_matrices_packed(R0: torch.Tensor, table: torch.Tensor, scale: torch.Tensor,
+def warp_matrices_packed(R0: torch.Tensor, R1: torch.Tensor, scale: torch.Tensor,
                          dx: torch.Tensor, dy: torch.Tensor,
                          flow_scale: float | torch.Tensor | None = None) -> torch.Tensor:
-    """K9: K4 from the packed corner table ``(table, scale)`` of
-    ``ops/farneback.pack_corner_pairs``: the small levels' warp and M when
-    the flow packs R1 (``fast_warp``)."""
-    if R0.ndim != 3 or R0.shape[0] != 5:
-        raise ValueError(f"R0: expected (5, H, W), got {tuple(R0.shape)}")
-    _, h, w = R0.shape
-    for t, name, shape in ((R0, "R0", (5, h, w)), (dx, "dx", (h, w)), (dy, "dy", (h, w)),
-                           (scale, "scale", (5,))):
-        _check(t, name, shape)
-    if table.dtype != torch.int32 or tuple(table.shape) != (h * w, 7) or not table.is_contiguous():
-        raise ValueError(f"table: expected a contiguous int32 of shape ({h * w}, 7), got "
-                         f"{table.dtype} {tuple(table.shape)}")
-    if isinstance(flow_scale, torch.Tensor):
-        _check(flow_scale, "flow_scale", (h, w))
+    """K9: the small levels' warp and M when the flow packs R1
+    (``fast_warp``): K4 with each corner quantised to int16 (planes 0-1) or
+    int8 (planes 2-4) with the planes' ``scale`` (:func:`corner_scale`), as
+    from ``ops/farneback.pack_corner_pairs``' table, which the kernel does
+    not build: it quantises the corners it reads from R1."""
+    h, w = _check_planes_and_flow(R0, R1, dx, dy, flow_scale)
+    _check(scale, "scale", (5,))
     scale_t = flow_scale if isinstance(flow_scale, torch.Tensor) else dx
-    if not _on_cuda(R0, table, scale, dx, dy, scale_t):
-        return warp_packed_reference(R0, table, scale, dx, dy, flow_scale)
+    if not _on_cuda(R0, R1, scale, dx, dy, scale_t):
+        return warp_packed_reference(R0, R1, scale, dx, dy, flow_scale)
     M = torch.empty((5, h, w), dtype=torch.float32, device=R0.device)
-    _WARP_PACKED(R0.device.index, M.data_ptr(), R0.data_ptr(), table.data_ptr(),
-                 scale.data_ptr(), *_flow_args(dx, dy, flow_scale), h, w)
+    _WARP_PACKED(R0.device.index, M.data_ptr(), R0.data_ptr(), R1.data_ptr(), scale.data_ptr(),
+                 *_flow_args(dx, dy, flow_scale), h, w)
     LAUNCHES["warp_packed"] += 1
     return M

@@ -26,6 +26,11 @@ from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
     # 308 operations per pixel at 33.5e12/s outweigh its 28 bytes
     ("blur_solve", (97, 173), 469_868, 0.154285, "operations"),
     ("tiny", (1024,), 8_192, 0.0024454, "bytes"),
+    # K9 reads R0, R1 and the flow and writes M: 68 bytes a pixel, no table
+    ("warp_packed", (97, 173), 1_141_108, 0.340629, "bytes"),
+    ("warp_packed", (1080, 1920), 141_004_800, 42.0910, "bytes"),
+    # its scale pass reads R1 once and writes five scales
+    ("corner_scale", (97, 173), 335_640, 0.100191, "bytes"),
 ])
 def test_roofline_counts_at_the_main_path_shapes(kernel, args, nbytes, bound_us, bound_by):
     work = getattr(roofline, kernel)(*args)
@@ -40,7 +45,9 @@ def test_roofline_operation_counts():
     assert roofline.blur_solve(1080, 1920, 15).ops == 308 * px
     assert roofline.fused_iteration(1080, 1920, 15).ops == (99 + 308) * px
     assert roofline.warp_matrices(1080, 1920).ops == 99 * px  # an fma counted as two
-    assert roofline.warp_packed(1080, 1920).ops == 109 * px   # and the packed scales
+    # and the packed scales, and 20 corners quantised (divide, round, clamp)
+    assert roofline.warp_packed(1080, 1920).ops == 189 * px
+    assert roofline.corner_scale(1080, 1920).ops == 10 * px   # |v| and the maximum
     # between iterations K3 reads and writes the numerators and 1 / det
     assert roofline.fused_iteration(1080, 1920, 15, 3, 3).bytes == 64 * px
     # K5: 400 blocks of 102,400 rows visiting 30 tiles each is bound by operations
@@ -212,7 +219,7 @@ def test_against_parent_refuses_a_build_that_differs(monkeypatch):
     bit for bit (one ulp off in one pixel is refused) and the parent within
     1e-4 of its scale (a parent may round otherwise: its difference is
     reported; one far off is refused)."""
-    monkeypatch.setattr(micro_flow, "device_us_per_call", lambda fn, dev, reps=5: 1.0)
+    monkeypatch.setattr(micro_flow, "device_us_per_call", lambda fn, dev, reps=5, launches=1: 1.0)
     a = torch.linspace(0, 1, 12).reshape(3, 4)
     off = a.clone()
     off[1, 2] = torch.nextafter(off[1, 2], torch.tensor(2.0))

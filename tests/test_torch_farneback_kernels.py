@@ -347,7 +347,7 @@ def test_packed_update_matrices_matches_jax():
     R0, R1, dx, dy = _packed_update_inputs()
     want = jax.jit(lambda a, b, c, d: jfb.update_matrices(a, b, c, d, jfb.pack_corner_pairs(b)))(
         *map(jnp.asarray, (R0, R1, dx, dy)))
-    got = fk.warp_matrices_packed(_t(R0), *fb.pack_corner_pairs(_t(R1)), _t(dx), _t(dy))
+    got = fk.warp_matrices_packed(_t(R0), _t(R1), fk.corner_scale(_t(R1)), _t(dx), _t(dy))
     _hold_packed("packed_update", got.numpy(), want)
 
 
@@ -395,7 +395,7 @@ def _packed_port(case):
                                      gaussian=case == "refine-gauss").numpy()
     R0, R1, dx, dy, scale = _packed_case(case)
     s = None if scale is None else _t(scale) if scale.ndim else float(scale)
-    return fk.warp_matrices_packed(_t(R0), *fb.pack_corner_pairs(_t(R1)), _t(dx), _t(dy),
+    return fk.warp_matrices_packed(_t(R0), _t(R1), fk.corner_scale(_t(R1)), _t(dx), _t(dy),
                                    s).numpy()
 
 
@@ -453,7 +453,7 @@ def test_update_matrices_bit_equal_to_jitted_jax(h, w, flow, packed):
     R0, R1, dx, dy = _warp_inputs(h, w, flow, h * w + int(flow))
     want = np.asarray(_jit_update(packed)(R0, R1, dx, dy))
     if packed:
-        got = fk.warp_matrices_packed(_t(R0), *fb.pack_corner_pairs(_t(R1)), _t(dx), _t(dy))
+        got = fk.warp_matrices_packed(_t(R0), _t(R1), fk.corner_scale(_t(R1)), _t(dx), _t(dy))
     else:
         got = fk.warp_matrices(*map(_t, (R0, R1, dx, dy)))
     if packed and f"{h}x{w}-{flow}" in _PACKED_DIGESTS:
@@ -480,7 +480,7 @@ def test_update_matrices_with_a_recomputed_flow_bit_equal_to_jitted_jax(h, w, ki
     want = np.asarray(_jit_update(packed)(R0, R1, nx, ny, scale))
     s = _t(scale) if kind == "plane" else float(scale)
     if packed:
-        got = fk.warp_matrices_packed(_t(R0), *fb.pack_corner_pairs(_t(R1)), _t(nx), _t(ny), s)
+        got = fk.warp_matrices_packed(_t(R0), _t(R1), fk.corner_scale(_t(R1)), _t(nx), _t(ny), s)
     else:
         got = fk.warp_matrices(*map(_t, (R0, R1, nx, ny)), s)
     if packed and f"{h}x{w}-{kind}" in _PACKED_DIGESTS:
@@ -502,7 +502,7 @@ def _isa_warp(warp, h, w, flow):
     R0, R1, dx, dy = _warp_inputs(h, w, flow, h * w + int(flow))
     want = np.asarray(_jit_update(warp == "packed")(R0, R1, dx, dy))
     if warp == "packed":
-        got = fk.warp_matrices_packed(_t(R0), *fb.pack_corner_pairs(_t(R1)), _t(dx), _t(dy))
+        got = fk.warp_matrices_packed(_t(R0), _t(R1), fk.corner_scale(_t(R1)), _t(dx), _t(dy))
     else:
         got = fk.warp_matrices(*map(_t, (R0, R1, dx, dy)))
     return got.numpy(), want
@@ -653,7 +653,7 @@ def test_flow_in_range_matches_jax():
 
 @pytest.mark.parametrize("name", ["datmo_poly_exp", "datmo_poly_exp_tiny", "datmo_blur_solve",
                                   "datmo_fused_iteration", "datmo_warp_matrices",
-                                  "datmo_warp_packed"])
+                                  "datmo_warp_packed", "datmo_corner_scale"])
 def test_c_signatures_match_the_source(name):
     """``kernels/build`` binds each flow kernel's entry point with as many
     arguments as ``csrc/flow_kernels.cu`` declares (the C compiler here
@@ -676,10 +676,11 @@ def test_cpu_tensors_take_the_plain_versions():
                        torch.zeros(40, 48), 15)
     fk.warp_matrices(torch.rand(5, 40, 48), torch.rand(5, 40, 48), torch.zeros(40, 48),
                      torch.zeros(40, 48))
-    fk.warp_matrices_packed(torch.rand(5, 40, 48), *fb.pack_corner_pairs(torch.rand(5, 40, 48)),
+    R1 = torch.rand(5, 40, 48)
+    fk.warp_matrices_packed(torch.rand(5, 40, 48), R1, fk.corner_scale(R1),
                             torch.zeros(40, 48), torch.zeros(40, 48), torch.ones(40, 48))
     assert fk.LAUNCHES == {"poly_exp": 0, "blur_solve": 0, "fused_iteration": 0,
-                           "warp_matrices": 0, "warp_packed": 0}
+                           "warp_matrices": 0, "warp_packed": 0, "corner_scale": 0}
     with pytest.raises(ValueError, match="no kernel or plain version"):
         fk.poly_exp(torch.empty(40, 48, device="meta"), 5, 5.0)
     with pytest.raises(ValueError, match="contiguous"):
