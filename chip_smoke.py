@@ -60,6 +60,16 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
    and 7; the compile-time and the runtime-n taps); K1 at the sharded
    flow's 282x1920 block timed beside
    ``F.conv2d``;
+4c. the small exact-warp levels' route through K3 (``ops/warp.exact_fused``):
+   at 60x60, 97x173, 98x173 and 200x200, box and Gaussian window, zero flow,
+   a given flow and that flow times 1 / pyr_scale, each of 5 iterations of K3
+   and the whole level ``torch.equal`` to the plain version, the level
+   counted alone (5 K3 launches, no K4 or K2), the box level with zero flow
+   timed; at the route's edges (lines, levels of at most 4x4, a Gaussian
+   window with an axis within its radius, and just past them) the
+   predicate held to ``datmo_fused_iteration``, which takes exactly the
+   levels it admits, and each level (3 iterations) counted and equal to its
+   plain version;
 5. the 256x320 slice on the card (kernels) against the CPU (plain versions);
 6. pipeline A's main path: the stream step on 25 ``make_frames`` 1080x1920
    frames (``bench.py``'s workload) with ``bench.py``'s configuration,
@@ -124,9 +134,9 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
 15. the reference-API surface (``compat``, ``ops/nn``) on the card against
     the port on the CPU, each part with the launch counts set to 0 just
     before and read just after: ``compute_velocity_vectors`` on two 200x200
-    from-points BEVs (K1 4, K4 10, K2 10: compat warps exactly) and on two
-    1080x1920 frames (K1 6, K3 10, K4 5, K2 5), as compat's Farnebäck
-    defaults and the level sizes predict;
+    from-points BEVs (K1 4, K3 10: compat warps exactly, so its small levels
+    take K3 too) and on two 1080x1920 frames (K1 6, K3 15), as compat's
+    Farnebäck defaults and the level sizes predict;
     the propagation and continuity masks, DBSCAN and the road filter on the
     200x200 flow (equal); ``process_multiple_frames`` over 4 from-points
     files with seeds 0 and 5 (tracks within the CPU tests' 5e-3);
@@ -164,8 +174,8 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
     every kernel of each phase held to its plain version on rank 0, on the
     inputs that phase gives it (the first call at each input signature: K1
     on the halo-extended 282x1920 block and the replicated 326x576 and
-    98x173 levels, K3 at 326x576, K4 on the 272x1920 block (with its rows)
-    and at 98x173, K2 on the 286x1920 extended M and at 98x173, the 200x200
+    98x173 levels, K3 at 326x576 and 98x173, K4 on the 272x1920 block (with
+    its rows), K2 on the 286x1920 extended M, the 200x200
     pipelines' K1-K3 and K9, and K5 and K7 at 1024 points; K1-K4 and K9
     ``torch.equal`` and timed, K5 and K7 bit for bit); each rank's launches
     of one sharded flow call (counts set to 0 just before, read just after)
@@ -189,7 +199,7 @@ sim/``).  Phases (each raises on failure, so the script exits non-zero):
     process (1 repetition, 2 pairs within 0.1 px EPE of the numpy model of
     cv2);
 21. the quality benchmark's evaluations (``benchmarks/quality``) on its
-    easy scene over 12 frames, counted alone (K1, K4, K2, K5, K7), pipeline A's
+    easy scene over 12 frames, counted alone (K1, K3, K5, K7), pipeline A's
     velocity grids against the numpy model of cv2, its DBSCAN partitions
     reported as not run where sklearn does not import; then
     ``benchmarks/evaluate`` in its own process.
@@ -895,6 +905,132 @@ def tiny_window_phase(dev) -> None:
     log(f"K4 and K2 (Gaussian) at {len(TINY_LEVELS)} tiny levels: {n} calls bit-equal")
 
 
+# The small levels of the exact warp that K3 runs (ops/warp.exact_fused):
+# compat's and the quality run's 60x60 and 200x200, the 1080p flow's 97x173,
+# the sharded flow's replicated 98x173
+ROUTED_LEVELS = ((60, 60), (97, 173), (98, 173), (200, 200))
+# the route's edges: lines, K4's one-valued attenuation (at most 4x4), the
+# Gaussian window's broadcast taps (an axis within its radius), and past them
+ROUTE_EDGES = ((1, 64), (64, 1), (2, 2), (4, 4), (2, 4), (4, 5), (5, 4), (2, 64), (64, 2),
+               (3, 40), (40, 3), (7, 7), (8, 8))
+# kernels/build.check's words for the code a C entry returns when it refuses
+# its arguments (cudaErrorInvalidValue)
+REFUSAL = "CUDA error 1: invalid argument"
+
+
+def exact_route_phase(dev, name: str, smi: str) -> tuple[dict, dict]:
+    """Phase 4c: the route of the small exact-warp levels through K3.  At
+    each of :data:`ROUTED_LEVELS`, box and Gaussian window, with zero flow,
+    a given flow and that flow times 1 / pyr_scale (flow modes 0 and 1, then
+    2 between iterations): each of 5 iterations of K3 ``torch.equal`` to its
+    plain version on the same inputs, then the whole level
+    (``farneback_level(..., fast_warp=False)``), counted alone (5 K3
+    launches, no K4 or K2), ``torch.equal`` to the plain level; the box
+    level with zero flow timed (per call, device µs, bound).  At
+    :data:`ROUTE_EDGES`, both windows, ``ops/warp.exact_fused`` held to the C
+    entry case by case: where it holds K3 launches and equals its plain
+    version, elsewhere ``datmo_fused_iteration`` refuses the level, and the
+    level (3 iterations) runs K4 then K2, equal to its plain version.
+    Returns K3's timed rows and the phase's launches."""
+    from datmo_using_optical_flow_tpu_torch.diagnostics import roofline
+    from datmo_using_optical_flow_tpu_torch.diagnostics.micro_flow import level_run
+    from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
+    from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
+    from datmo_using_optical_flow_tpu_torch.ops import warp
+
+    def plain_level(R0, R1, dx, dy, gaussian, s, iterations):
+        """K3's plain version (K4's then K2's) each iteration, the flow carried."""
+        return level_run(fk.fused_iteration_reference, R0, R1, dx, dy, s, 15, gaussian,
+                         iterations)()
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(23)
+    inv = float(np.float32(1 / 0.3))
+    rows, launches = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    for h, w in ROUTED_LEVELS:
+        R0, R1 = (fk.poly_exp(torch.rand((h, w), device=dev, generator=gen) * 255, 5, 5.0)
+                  for _ in range(2))
+        zero = torch.zeros((h, w), dtype=torch.float32, device=dev)
+        sdx, sdy = smooth_flow(h, w, dev, amp=1.5)
+        for gaussian in (False, True):
+            if not warp.exact_fused(h, w, 15, gaussian):
+                raise AssertionError(f"route {h}x{w}: exact_fused refuses a routed level")
+            for flow, (dx, dy, s) in (("zero flow", (zero, zero, None)),
+                                      ("given flow", (sdx, sdy, None)),
+                                      ("flow times 1/pyr_scale", (sdx, sdy, inv))):
+                label = f"{h}x{w} {'Gaussian' if gaussian else 'box'}, {flow}"
+                vx, vy, vs = dx, dy, s
+                for i in range(5):
+                    terms = i < 4
+                    got = fk.fused_iteration(R0, R1, vx, vy, 15, gaussian, vs, terms)
+                    want = fk.fused_iteration_reference(R0, R1, vx, vy, 15, gaussian, vs, terms)
+                    if not equal(got, want):
+                        raise AssertionError(f"route {label}, iteration {i + 1}: K3 differs "
+                                             f"from its plain version by {max_abs(got, want)}")
+                    if terms:
+                        vx, vy, vs = got
+
+                def level(dx=dx, dy=dy, s=s, g=gaussian):
+                    return fb.farneback_level(R0, R1, dx, dy, 15, 5, False, g, s)
+
+                got, counts = _counted(f"route {label}", level, {"fused_iteration": 5})
+                add(counts)
+                plain = plain_level(R0, R1, dx, dy, gaussian, s, 5)
+                err = check("fused_iteration", f"route {label}: each of 5 iterations and the "
+                            f"level", got, plain)
+                if gaussian or s is not None or dx is not zero:
+                    continue
+                ms, plain_ms = time_pair(
+                    lambda: plain_level(R0, R1, zero, zero, False, None, 5), level, 5, 1)
+                us = kernel_us(level, dev, f"route {label}")
+                bound = sum(roofline.fused_iteration(h, w, 15, 2 if i == 0 else 3,
+                                                     3 if i < 4 else 2).bound_us()
+                            for i in range(5))
+                rows[f"{h}x{w} small exact level, 5 iterations (route)"] = {
+                    "ms": ms, "plain_ms": plain_ms, "device_us": us, "library_ms": None,
+                    "bound_us": bound, "max_abs_err": err}
+                log(f"route {label}, 5 iterations: {ms:.4f} ms per level, device "
+                    f"{us_text(us)} (bound {bound:.3f} us, share {share(bound, us)}), plain "
+                    f"{plain_ms:.4f} ms [{name}, {smi}]")
+    n = 0
+    for h, w in ROUTE_EDGES:
+        R0, R1 = (torch.randn((5, h, w), device=dev, generator=gen) for _ in range(2))
+        dx, dy = (torch.randn((h, w), device=dev, generator=gen) * 1.5 for _ in range(2))
+        for gaussian in (False, True):
+            fused = warp.exact_fused(h, w, 15, gaussian)
+            label = f"{h}x{w} {'Gaussian' if gaussian else 'box'}"
+            try:
+                got = fk.fused_iteration(R0, R1, dx, dy, 15, gaussian)
+            except RuntimeError as e:
+                # the entry's refusal is cudaErrorInvalidValue, as build.check
+                # words it; any other failure is a fault of the kernel
+                if REFUSAL not in str(e):
+                    raise
+                got = None
+            if fused != (got is not None):
+                raise AssertionError(f"route edge {label}: exact_fused says {fused}, the C entry "
+                                     f"{'took' if got is not None else 'refused'} the level")
+            if fused:
+                check("fused_iteration", f"route edge {label}", got,
+                      fk.fused_iteration_reference(R0, R1, dx, dy, 15, gaussian))
+            want = ({"fused_iteration": 3} if fused else {"warp_matrices": 3, "blur_solve": 3})
+            got, counts = _counted(f"route edge {label} level", lambda g=gaussian: fb.
+                                   farneback_level(R0, R1, dx, dy, 15, 3, False, g), want)
+            add(counts)
+            check("fused_iteration" if fused else "blur_solve", f"route edge {label} level "
+                  f"({'K3' if fused else 'K4 then K2'})", got,
+                  plain_level(R0, R1, dx, dy, gaussian, None, 3))
+            n += 1
+    log(f"phase 4c (the exact route, {len(ROUTED_LEVELS)} levels x 2 windows x 3 flows, "
+        f"{n} edge cases): {time.perf_counter() - t0:.1f} s")
+    return rows, launches
+
+
 def slice_phase(dev, h: int, w: int) -> None:
     """The slice on the card (kernels) against the CPU (plain versions)."""
     from datmo_using_optical_flow_tpu_torch.benchmarks.stream_1080p import config
@@ -1477,15 +1613,18 @@ def _flow_launches(h: int, w: int, pairs: int, frames_expanded: int, c,
                    fast_warp: bool = True) -> dict:
     """K1-K4, K8 and K9 launches of ``pairs`` flows over ``frames_expanded``
     expanded frames at (h, w) with Farnebäck settings ``c``: K1 once per level
-    and frame, K3 ``iterations`` times per level of at least 128x256, K2 and
-    the warp on the others (K9, packed, with ``fast_warp``, else K4; K9's
-    scale pass once per pair and such level), K8 once per frame (its level
-    images) and once per pair and level transition (the 2-plane upsample)."""
+    and frame, K3 ``iterations`` times per level that ``warp.fused`` runs
+    as K3 (those of at least 128x256 and, without ``fast_warp``, the smaller
+    ones the exact warp fuses), K2 and the warp on the others (K9, packed, with
+    ``fast_warp``, else K4; K9's scale pass once per pair and such level), K8
+    once per frame (its level images) and once per pair and level transition
+    (the 2-plane upsample)."""
     from datmo_using_optical_flow_tpu_torch.ops import warp
     from datmo_using_optical_flow_tpu_torch.oracle.np_farneback import level_sizes
 
     levels = [s[2:] for s in level_sizes(h, w, c.pyr_scale, c.levels)]
-    k3 = sum(warp.eligible(lh, lw) for lh, lw in levels)
+    gaussian = bool(c.flags & 256)  # OPTFLOW_FARNEBACK_GAUSSIAN
+    k3 = sum(warp.fused(lh, lw, c.winsize, gaussian, fast_warp) for lh, lw in levels)
     small = (len(levels) - k3) * c.iterations * pairs
     scales = (len(levels) - k3) * pairs if fast_warp and c.iterations > 0 else 0
     return {"poly_exp": len(levels) * frames_expanded,
@@ -2449,8 +2588,9 @@ def flow_720p_phase(dev, name: str, smi: str) -> tuple[dict, dict]:
 def quality_phase(dev, name: str, smi: str, n_frames: int = 12) -> dict:
     """The quality benchmark's two evaluations on the easy scene over
     ``n_frames`` frames, in this process with the launch counts set to 0
-    just before and read just after (K1, K2 at A's 200x200 and 60x60 levels,
-    K5 under GMFA's ICP, K7 on both); the report's numbers finite, A's
+    just before and read just after (K1, K3 at A's 200x200 and 60x60 levels,
+    the exact warp's route: no K4 or K2, K5 under GMFA's ICP, K7 on both);
+    the report's numbers finite, A's
     velocity grids within 1e-5 m/s of the numpy model of cv2 and the DBSCAN
     partitions reported as not run (no sklearn here) or compared; then
     ``benchmarks.evaluate`` in its own process."""
@@ -2463,9 +2603,9 @@ def quality_phase(dev, name: str, smi: str, n_frames: int = 12) -> dict:
     torch.cuda.synchronize(dev)
     launches = read_launches()
     log(f"quality, easy scene, {n_frames} frames: launches {launches}")
-    if any(launches[k] <= 0 for k in ("poly_exp", "blur_solve", "warp_matrices", "level_image",
+    if any(launches[k] <= 0 for k in ("poly_exp", "fused_iteration", "level_image",
                                       "nearest_neighbors")) \
-            or launches["fused_iteration"]:
+            or launches["warp_matrices"] or launches["blur_solve"]:
         raise AssertionError(f"quality: launches {launches}")
     need_rounding("quality", launches)
     entry = rep["scenes"]["easy"]
@@ -2593,6 +2733,7 @@ def main() -> None:
     results["tiny"] = probe_phase(dev, name, smi)
     results["level_image"] = level_image_phase(dev, name, smi)
     other_shapes_phase(dev)
+    route_rows, route_launches = exact_route_phase(dev, name, smi)
     t0 = time.perf_counter()
     narrow_rows = k1_narrow_phase(dev, name, smi)
     log(f"phase 4b (K1's narrow form): {time.perf_counter() - t0:.1f} s")
@@ -2639,12 +2780,14 @@ def main() -> None:
     by_path.update(from_points=fp_launches, compat=compat_launches, icp_options=icp_launches,
                    streams=stream_launches, sharded_dryrun=sharded_launches,
                    stream_4k=k4_launches, flow_batched_720p=p720_launches,
-                   quality=quality_launches)
+                   quality=quality_launches, exact_route=route_launches)
     for counts in (fp_launches, compat_launches, icp_launches, stream_launches,
-                   sharded_launches, k4_launches, p720_launches, quality_launches):
+                   sharded_launches, k4_launches, p720_launches, quality_launches,
+                   route_launches):
         for k, v in counts.items():
             launches[k] += v
-    for rows in (fp_rows, {"poly_exp": narrow_rows}, k4_rows, p720_rows):
+    for rows in (fp_rows, {"poly_exp": narrow_rows}, k4_rows, p720_rows,
+                 {"fused_iteration": route_rows}):
         for k, by_shape in rows.items():
             results[k].setdefault("levels", {}).update(by_shape)
             results[k]["max_abs_err"] = max([results[k]["max_abs_err"]]

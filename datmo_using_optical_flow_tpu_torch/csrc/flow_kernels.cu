@@ -85,6 +85,14 @@ __constant__ float kBorderAtten[kBorder] = {0.14f, 0.14f, 0.4472f, 0.4472f, 0.44
 // (the first two of kBorderAtten are equal), which XLA folds to a scalar.
 constexpr int kUniformMax = 4;
 constexpr int kMainR = 7;           // the main path's window radius (winsize 15)
+// K3 on levels below kFusedMinH x kFusedMinW (ops/warp.py::eligible's
+// thresholds, which tests/test_torch_exact_route.py holds equal: the small
+// levels of the exact warp) at the compile-time radius: tiles of kTile
+// columns by kSmallTileH rows, so the grid spreads over more SMs and each
+// thread assembles fewer staged positions of M (PERF.md).
+constexpr int kFusedMinH = 128;
+constexpr int kFusedMinW = 256;
+constexpr int kSmallTileH = 8;
 // Blocks per SM the winsize-15 instances are built for (56 registers for K3).
 // 5 (48 registers, 5 blocks of 43.2 KB) measured slower on the H100: K3 122.4
 // against 87.1 us at 1080x1920, the M stage's gathers losing L1 (PERF.md).
@@ -245,12 +253,16 @@ __device__ void window_solve(const float* ms, float* vbuf, const float* taps, in
 // `stride` floats apart, planes e * stride apart.  kR > 0 is a compile-time
 // radius, whose rows get an odd stride (window_solve_fixed); kR == 0 takes
 // the radius r at run time, rows packed (window_solve).
-template <int kR>
+// A tile of kTileH rows (kTile by default; a compile-time radius only
+// otherwise) stages rows = kTileH + 2r of them.
+template <int kR, int kTileH = kTile>
 struct Staged {
-  int e, stride;
+  static_assert(kR > 0 || kTileH == kTile, "the runtime radius takes square tiles");
+  int e, rows, stride;
   __device__ __host__ explicit Staged(int r)
-      : e(kTile + 2 * (kR > 0 ? kR : r)), stride(kR > 0 ? (e | 1) : e) {}
-  __device__ __host__ int plane() const { return e * stride; }
+      : e(kTile + 2 * (kR > 0 ? kR : r)), rows(kTileH + 2 * (kR > 0 ? kR : r)),
+        stride(kR > 0 ? (e | 1) : e) {}
+  __device__ __host__ int plane() const { return rows * stride; }
   // the staged position of flat index idx = li * e + lj
   __device__ int at(int idx, int li, int lj) const { return kR > 0 ? li * stride + lj : idx; }
 };
@@ -278,16 +290,18 @@ struct Staged {
 // sums); a warp takes 4 rows x 8 runs, and the odd row stride puts its 32
 // lanes on 32 distinct banks.  Each output still adds its terms in ascending
 // tap order, as the plain version, and the scale follows the horizontal pass.
-template <int R, bool kBox>
+template <int R, bool kBox, int kTileH = kTile>
 __device__ void window_solve_fixed(float* ms, const Window& win, float scale, int y0, int x0,
                                    int h, int w, float* odx, float* ody, float* oidet) {
   constexpr int kTaps = 2 * R + 1;
   constexpr int kE = kTile + 2 * R;
+  constexpr int kEH = kTileH + 2 * R;
   constexpr int kStride = kE | 1;
-  constexpr int kPlane = kE * kStride;
-  constexpr int kRun = 4;
+  constexpr int kPlane = kEH * kStride;
+  constexpr int kRun = kTileH * kTile / (kBlockX * kBlockY);  // outputs per thread
   constexpr int kRowsPerWarp = 32 * kRun / kTile;
-  static_assert(kBlockX * kBlockY / 32 * kRowsPerWarp == kTile, "one output row per run slot");
+  static_assert(kRun >= 1 && kBlockX * kBlockY / 32 * kRowsPerWarp == kTileH,
+                "one output row per run slot");
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   float taps[kTaps];
 #pragma unroll
@@ -297,14 +311,14 @@ __device__ void window_solve_fixed(float* ms, const Window& win, float scale, in
   if (tid < 5 * kE) {
     const int c = tid / kE;
     float* col = ms + c * kPlane + (tid - c * kE);
-    float acc[kTile];
+    float acc[kTileH];
 #pragma unroll
-    for (int y = 0; y < kE; ++y) {
+    for (int y = 0; y < kEH; ++y) {
       const float v = col[y * kStride];
 #pragma unroll
       for (int k = 0; k < kTaps; ++k) {
         const int i = y - k;  // output row i takes tap k from row y
-        if (i >= 0 && i < kTile) {
+        if (i >= 0 && i < kTileH) {
           if (kBox)
             acc[i] = k == 0 ? v : acc[i] + v;
           else
@@ -443,8 +457,9 @@ struct Rows {
 // at most 4 rows and 4 columns, where kBorderAtten[0] == kBorderAtten[1])
 // takes the same unfolded form, XLA's for a scalar attenuation, with M4's
 // r4 dy contracted but on a level of one row or column, where
-// M1 = (R4 + R5) R6.  K3 (!kGeneral) runs
-// levels of at least 128x256 and no sharded block, and carries no such case.
+// M1 = (R4 + R5) R6.  K3 (!kGeneral) runs no level of one row or column,
+// none of at most kUniformMax rows and columns and no sharded block
+// (datmo_fused_iteration refuses them), and carries no such case.
 template <bool kPacked, bool kGeneral, bool kUniform = false>
 __device__ __forceinline__ void assemble_tail(const float* r0, size_t plane, const WarpAt& wa,
                                               float d0, float d1, float s4, float s5,
@@ -1204,7 +1219,18 @@ blur_solve_kernel(const float* __restrict__ M, float* __restrict__ odx,
 // M at a halo position outside the image is M at the clamped pixel, then the
 // window sum and solve run from shared memory as in K2, with the same
 // choice of window stage (kR, kBox).
-template <int kR, bool kBox, int kMode>
+// Levels: the large ones (at least 128x256) and the small levels of the
+// exact warp, where it replaces K4 then K2 (ops/warp.py::exact_fused), so M
+// is neither stored nor reloaded and an iteration is one launch.  It takes
+// none of the levels on which K4 then K2 round otherwise: a line (K4's and
+// K2's forms for one row or column), a level of at most kUniformMax rows and
+// columns (K4's kUniform) or with broadcast taps (K2's kBcast stage).  A
+// small level at the compile-time radius is a few blocks of 32x32 tiles
+// (4 at 60x60), each thread assembling ~8 staged positions of M, one chain
+// of the flow's and R1's loads after another; it takes tiles of kSmallTileH
+// rows instead (kTileH), whose window stage sums kRun = 1 output a thread
+// (the same order of taps, so the same bits).
+template <int kR, bool kBox, int kMode, int kTileH = kTile>
 __global__ void __launch_bounds__(kBlockX * kBlockY, kR > 0 ? kWindowMinBlocks : 1)
 fused_iteration_kernel(const float* __restrict__ R0, const float* __restrict__ R1,
                        FlowIn flow, float* __restrict__ odx, float* __restrict__ ody,
@@ -1212,16 +1238,16 @@ fused_iteration_kernel(const float* __restrict__ R0, const float* __restrict__ R
                        float scale) {
   extern __shared__ float smem[];
   if (kR > 0) r = kR;
-  const Staged<kR> st(r);
+  const Staged<kR, kTileH> st(r);
   float* ms = smem;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nthreads = blockDim.x * blockDim.y;
-  const int y0 = blockIdx.y * kTile;
+  const int y0 = blockIdx.y * kTileH;
   const int x0 = blockIdx.x * kTile;
   float* vbuf = ms + 5 * st.plane();
   float* taps = vbuf + kTile * st.e;
   if (kR == 0) load_taps(taps, win, 2 * r + 1);
-  for (int idx = tid; idx < st.e * st.e; idx += nthreads) {
+  for (int idx = tid; idx < st.rows * st.e; idx += nthreads) {
     const int li = idx / st.e;
     const int lj = idx - li * st.e;
     const int gi = clampi(y0 - r + li, 0, h - 1);
@@ -1230,7 +1256,7 @@ fused_iteration_kernel(const float* __restrict__ R0, const float* __restrict__ R
                                 ms + st.at(idx, li, lj), st.plane());
   }
   if constexpr (kR > 0)
-    window_solve_fixed<kR, kBox>(ms, win, scale, y0, x0, h, w, odx, ody, oidet);
+    window_solve_fixed<kR, kBox, kTileH>(ms, win, scale, y0, x0, h, w, odx, ody, oidet);
   else
     window_solve<false>(ms, vbuf, taps, r, win.shared, win.v_int, win.v_pad, win.h_bcast,
                         scale, y0, x0, h, w, odx, ody, oidet);
@@ -1247,7 +1273,10 @@ fused_iteration_kernel(const float* __restrict__ R0, const float* __restrict__ R
 // planes and the flow in, M's five planes out) against ~89 separately rounded
 // flops, so it is bound by memory.  One thread per output pixel, consecutive
 // threads on consecutive pixels: the R0, flow and M accesses coalesce, and the
-// corner gathers of a smooth flow hit L1/L2.
+// corner gathers of a smooth flow hit L1/L2.  It runs where M must be stored
+// or where K3 rounds otherwise: a rank's block of the row-sharded flow (M
+// crosses ranks before K2), the levels K3 refuses, and the diagnostics; the
+// other small levels of the exact warp take K3.
 // kUniform: a level of at most kUniformMax rows and columns, whose
 // attenuation is one value (assemble_tail); picked per launch, so the other
 // levels' instance carries no code for it.
@@ -1344,9 +1373,9 @@ corner_scale_kernel(const float* __restrict__ R1, float* __restrict__ qs, size_t
 
 // K2 and K3's dynamic shared memory: the staged planes, plus the vertical
 // pass's scratch and the taps at the runtime radius.
-template <int kR>
+template <int kR, int kTileH = kTile>
 size_t window_smem_bytes(int r) {
-  const Staged<kR> st(r);
+  const Staged<kR, kTileH> st(r);
   const size_t scratch = kR > 0 ? 0 : static_cast<size_t>(kTile) * st.e + kMaxTaps;
   return sizeof(float) * (5 * st.plane() + scratch);
 }
@@ -1607,29 +1636,42 @@ int datmo_blur_solve(float* odx, float* ody, float* oidet, const float* M, int h
 
 // taps (winsize) is a HOST pointer.  The flow in is (vx, vy) (mode 0), times
 // s0 (mode 1) or times the plane s (mode 2); oidet as datmo_blur_solve's.
+// Refuses the levels that K4 then K2 round otherwise (K3's header): under
+// 2 rows or columns, at most kUniformMax of both, or with broadcast taps.
 int datmo_fused_iteration(float* odx, float* ody, float* oidet, const float* R0,
                           const float* R1, const float* vx, const float* vy, const float* s,
                           float s0, int mode, int h, int w, const float* taps, int winsize,
                           float scale, int device, void* stream) {
   Window win;
   FlowIn flow;
-  if (h < 2 || w < 2 || !window_from_host(&win, taps, winsize) ||
-      !flow_from_host(&flow, vx, vy, s, s0, mode))
+  if (h < 2 || w < 2 || (h <= kUniformMax && w <= kUniformMax) ||
+      !window_from_host(&win, taps, winsize) || !flow_from_host(&flow, vx, vy, s, s0, mode))
     return cudaErrorInvalidValue;
+  window_broadcast(&win, winsize, h, w);
+  if (win.v_int | win.v_pad | win.h_bcast) return cudaErrorInvalidValue;
   datmo::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
   const int r = winsize / 2;
+  const bool small = h < kFusedMinH || w < kFusedMinW;
   return with_window_instance(win, winsize, h, w, [&](auto radius, auto box) {
     return with_flow_mode(mode, [&](auto flow_mode) {
-      const auto kernel = fused_iteration_kernel<decltype(radius)::value, decltype(box)::value,
-                                                 decltype(flow_mode)::value>;
-      const size_t smem = window_smem_bytes<decltype(radius)::value>(r);
-      cudaError_t err = set_smem(kernel, smem);
-      if (err != cudaSuccess) return err;
-      kernel<<<tile_grid(h, w), dim3(kBlockX, kBlockY), smem,
-               static_cast<cudaStream_t>(stream)>>>(R0, R1, flow, odx, ody, oidet, h, w, r, win,
-                                                    scale);
-      return cudaGetLastError();
+      constexpr int kR = decltype(radius)::value;
+      constexpr bool kBox = decltype(box)::value;
+      constexpr int kMode = decltype(flow_mode)::value;
+      auto launch = [&](auto kernel, int tile_h, size_t smem) {
+        cudaError_t err = set_smem(kernel, smem);
+        if (err != cudaSuccess) return err;
+        kernel<<<tile_grid(h, w, tile_h), dim3(kBlockX, kBlockY), smem,
+                 static_cast<cudaStream_t>(stream)>>>(R0, R1, flow, odx, ody, oidet, h, w, r,
+                                                      win, scale);
+        return cudaGetLastError();
+      };
+      if constexpr (kR > 0) {
+        if (small)
+          return launch(fused_iteration_kernel<kR, kBox, kMode, kSmallTileH>, kSmallTileH,
+                        window_smem_bytes<kR, kSmallTileH>(r));
+      }
+      return launch(fused_iteration_kernel<kR, kBox, kMode>, kTile, window_smem_bytes<kR>(r));
     });
   });
 }

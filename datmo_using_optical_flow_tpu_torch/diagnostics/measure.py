@@ -199,6 +199,44 @@ def device_us_per_call(fn: Callable, dev: torch.device, reps: int = 5,
     raise LostTrace(f"the profiler lost kernel records in {_ATTEMPTS} traces on the card")
 
 
+def named_us(kernels: list[tuple[str, float]], reps: int, launches: int,
+             kernel: str) -> float | None:
+    """Mean µs per call of the records whose name holds ``kernel`` in a
+    trace laid out for :func:`traced_us` (``None`` where :func:`traced_us`
+    rejects the trace, or the calls did not leave one such record each)."""
+    if traced_us(kernels, reps, launches) is None:
+        return None
+    times = [us for name, us in kernels if kernel in name]
+    return sum(times) / reps if len(times) == reps else None
+
+
+def cold_kernel_us(fn: Callable, dev: torch.device, kernel: str, reps: int = 5
+                   ) -> float | None:
+    """Device µs of the kernel named ``kernel`` in one call of ``fn`` with
+    the card's L2 cache cold: before each call a fill of four times the L2's
+    size evicts what the call before left there, and the trace reads the
+    kernel's records alone (:func:`named_us`).  The fill leaves L2 full of
+    dirty lines, which the kernel's misses write back, so the reading errs
+    slow.  ``None`` on the CPU."""
+    if dev.type != "cuda":
+        return None
+    l2 = getattr(torch.cuda.get_device_properties(dev), "L2_cache_size", 0) or 50 * 2**20
+    flush = torch.empty(l2, dtype=torch.float32, device=dev)  # 4 bytes an element
+
+    def call():
+        flush.fill_(0.0)
+        fn()
+
+    for attempt in range(_ATTEMPTS):
+        records = trace_records(call, dev, reps)
+        us = named_us(records, reps, 2, kernel)
+        if us is not None:
+            return us
+        print(f"profiler trace {attempt + 1} lost kernel records ({trace_layout(records)}); "
+              f"profiling again", flush=True)
+    raise LostTrace(f"the profiler lost kernel records in {_ATTEMPTS} traces on the card")
+
+
 def fmt(x: float | None, spec: str = ".3f") -> str:
     return "not measured" if x is None else format(x, spec)
 

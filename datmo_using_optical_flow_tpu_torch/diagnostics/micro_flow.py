@@ -48,7 +48,9 @@ With ``--k7``, K7's sum of squares of a difference instead (:func:`k7_rows`)
 at the main paths' sites, beside one PyTorch call of each (:func:`sumsq_library`)
 and, with ``--parent``, that checkout's ``round_kernels.cu`` built by hand and
 called as its wrapper called it, in turns; then the launch path's host parts
-at tracker A's site (:func:`sumsq_path`).
+at tracker A's site (:func:`sumsq_path`); then K7's fma at GMFA's sites at
+reference load, with its launches per preprocess and per step, beside
+``torch.addcmul`` (:func:`gmfa_fma32_rows`).
 
 With ``--k9``, K9 alone instead (:func:`k9_rows`) at the pipelines' small
 levels and 1080x1920: its scale pass beside ``torch.amax``, the warp through
@@ -57,8 +59,15 @@ device records; with ``--parent``, that checkout's K9 in turns, alone and for
 the level (over its ``pack_corner_pairs`` table, or from R1 with its scale
 pass, whichever it does).
 
+With ``--k4``, the small levels of the exact warp instead (:func:`k4_rows`):
+at each of :data:`K4_LEVELS`, box and Gaussian window, a level's 5
+iterations as K4 then K2 (with ``--parent``, that checkout's K4 and K2,
+built by hand) against the route through K3 in turns, per call, device µs
+and records, each with its bound; K4, K2 and K3 alone there; and K4 alone on
+a rank's block of the row-sharded flow (:data:`K4_SHARDED`).
+
     python -m datmo_using_optical_flow_tpu_torch.diagnostics.micro_flow [--height H --width W]
-        [--parent DIR] [--tiny] [--small] [--k8] [--k7] [--k9]
+        [--parent DIR] [--tiny] [--small] [--k8] [--k7] [--k9] [--k4]
 """
 
 from __future__ import annotations
@@ -77,8 +86,10 @@ import torch
 from datmo_using_optical_flow_tpu_torch.config import FarnebackConfig
 from datmo_using_optical_flow_tpu_torch.diagnostics import roofline
 from datmo_using_optical_flow_tpu_torch.diagnostics.measure import (card_label,
-                                                                     device_us_per_call,
-                                                                     kernel_row, ms_per_call)
+                                                                     cold_kernel_us,
+                                                                     device_us_per_call, fmt,
+                                                                     kernel_row, ms_per_call,
+                                                                     sync)
 from datmo_using_optical_flow_tpu_torch.kernels import build
 from datmo_using_optical_flow_tpu_torch.ops import farneback as fb
 from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
@@ -164,42 +175,53 @@ def parent_library(parent: str | Path) -> ctypes.CDLL:
     return lib
 
 
-def parent_call(lib: ctypes.CDLL, args: tuple, winsize: int, gaussian: bool) -> Callable:
-    """A call of the parent's K3 (four tensors ``R0, R1, dx, dy``) or K2 (one,
-    ``M``) on the current stream, allocating its outputs as the wrapper does."""
+def parent_call(lib: ctypes.CDLL, args: tuple, winsize: int, gaussian: bool,
+                flow_scale=None, terms: bool = False) -> Callable:
+    """A call of the parent's K3 (four tensors ``R0, R1, dx, dy``, the flow
+    times ``flow_scale`` when given) or K2 (one, ``M``) on the current stream,
+    allocating its outputs as the wrapper does: ``(dx, dy)``, or with
+    ``terms`` ``(nx, ny, idet)``.  A parent whose entries predate the carried
+    flow takes neither ``flow_scale`` nor ``terms``."""
     entry = _WINDOW_ENTRIES[0] if len(args) == 4 else _WINDOW_ENTRIES[1]
     fn = getattr(lib, entry)
     first = args[0]
     h, w = first.shape[-2:]
     taps, scale = fk._window(winsize, gaussian)
     ptrs = [t.data_ptr() for t in args]
-    if len(fn.argtypes) == len(build._SIGNATURES[entry][0]):  # no 1 / det out; (dx, dy), mode 0
-        ptrs = [None, *ptrs] if len(args) == 1 else [None, *ptrs[:2], *ptrs[2:], None, 0.0, 0]
+    carried = len(fn.argtypes) == len(build._SIGNATURES[entry][0])  # the 1 / det out, the flow
+    if carried:
+        ptrs = ptrs if len(args) == 1 else [*ptrs[:2], *fk._flow_args(*args[2:], flow_scale)]
+    elif flow_scale is not None or terms:
+        raise RuntimeError(f"the parent's {entry} predates the carried flow")
 
     def call():
-        odx = torch.empty((h, w), dtype=torch.float32, device=first.device)
-        ody = torch.empty_like(odx)
-        build.check(fn(odx.data_ptr(), ody.data_ptr(), *ptrs, h, w, taps.ctypes.data, winsize,
-                       scale, first.device.index,
+        out = fk._outputs(h, w, first.device, terms)
+        idet = [out[2].data_ptr() if terms else None] if carried else []
+        build.check(fn(out[0].data_ptr(), out[1].data_ptr(), *idet, *ptrs, h, w,
+                       taps.ctypes.data, winsize, scale, first.device.index,
                        torch.cuda.current_stream(first.device).cuda_stream), "parent")
-        return odx, ody
+        return out
 
     return call
 
 
-def parent_warp(lib: ctypes.CDLL, R0, R1, dx, dy) -> Callable:
-    """A call of the parent's K4 on the current stream, allocating M as the
-    wrapper does; returns ``(M,)``."""
+def parent_warp(lib: ctypes.CDLL, R0, R1, dx, dy, flow_scale=None) -> Callable:
+    """A call of the parent's K4 on the current stream (the flow times
+    ``flow_scale`` when given), allocating M as the wrapper does; returns
+    ``(M,)``."""
     fn = lib.datmo_warp_matrices
     _, h, w = R0.shape
-    ptrs = [t.data_ptr() for t in (R0, R1, dx, dy)]
+    ptrs = [R0.data_ptr(), R1.data_ptr()]
     if len(fn.argtypes) == len(build._SIGNATURES["datmo_warp_matrices"][0]):
-        ptrs += [None, 0.0, 0]  # the flow (dx, dy), mode 0, after the pointers
+        ptrs += [*fk._flow_args(dx, dy, flow_scale), h, w, 0, 0, h, 0]  # a whole level
+    elif flow_scale is not None:
+        raise RuntimeError("the parent's datmo_warp_matrices predates the carried flow")
+    else:
+        ptrs += [dx.data_ptr(), dy.data_ptr(), h, w]
 
     def call():
         M = torch.empty((5, h, w), dtype=torch.float32, device=R0.device)
-        rows = [] if len(ptrs) == 4 else [0, 0, h, 0]  # a whole level
-        build.check(fn(M.data_ptr(), *ptrs, h, w, *rows, R0.device.index,
+        build.check(fn(M.data_ptr(), *ptrs, R0.device.index,
                        torch.cuda.current_stream(R0.device).cuda_stream), "parent")
         return (M,)
 
@@ -290,14 +312,15 @@ def in_turns(fns: dict, order: list, dev: torch.device, reps: int = 5, rounds: i
              launches: int = 1) -> dict:
     """Each of ``fns`` by device µs (a trace of ``reps`` calls) and per call
     (ms, median of ``2 reps``), called in ``order``, ``rounds`` times: the
-    lists and their medians."""
+    lists and their medians (device µs None on the CPU)."""
     got = {name: {"ms": [], "us": []} for name in fns}
     for _ in range(rounds):
         for name in order:
             got[name]["us"].append(device_us_per_call(fns[name], dev, reps, launches))
             got[name]["ms"].append(ms_per_call(fns[name], dev, 2 * reps))
     return {name: {**d, "ms_median": statistics.median(d["ms"]),
-                   "us_median": statistics.median(d["us"])} for name, d in got.items()}
+                   "us_median": None if None in d["us"] else statistics.median(d["us"])}
+            for name, d in got.items()}
 
 
 def against_parent(call: Callable, parent: Callable, plain: Callable, work: roofline.Work,
@@ -1017,6 +1040,227 @@ def packed_path(dev: torch.device, card: str, shape: tuple = (97, 173), n: int =
     return us
 
 
+# ------------------------------------------------------------------ K4 and the exact route
+
+# The small levels of the exact warp that K3 runs (ops/warp.exact_fused), as
+# the paths that run them build them: (frame height, width, level height,
+# width).  compat's and the quality run's 60x60 and 200x200 levels of a
+# 200x200 grid (the 200x200 takes the 60x60's flow), the 1080p flow's
+# 97x173 and the sharded flow's replicated 98x173 (at 1088x1920).
+K4_LEVELS = ((200, 200, 60, 60), (1080, 1920, 97, 173), (1088, 1920, 98, 173),
+             (200, 200, 200, 200))
+# A rank's level-0 block of the row-sharded flow at 1088x1920 over 4 ranks:
+# (rows per rank, width, warp halo, ranks); K4 still stores its M there
+K4_SHARDED = (272, 1920, 16, 4)
+
+
+def k4_level_inputs(fh: int, fw: int, h: int, w: int, dev: torch.device,
+                    seed: int = 4) -> tuple:
+    """(R0, R1, dx, dy, flow_scale) of the (h, w) level of two ``make_frames``
+    frames of (fh, fw), as the exact refinement enters it: the pyramids'
+    planes, zero flow on the coarsest level, else the flow of the levels
+    below (``flow_from_pyramids``, exact warp) upsampled, times
+    1 / pyr_scale."""
+    c = FarnebackConfig()
+    pyr1, pyr2 = (fb.build_pyramid(torch.as_tensor(f, device=dev).float(), c.pyr_scale,
+                                   c.levels, c.poly_n, c.poly_sigma)
+                  for f in make_frames(2, fh, fw, seed=seed))
+    i = [tuple(p.shape[1:]) for p in pyr1].index((h, w))
+    if i == 0:
+        zero = torch.zeros((h, w), dtype=torch.float32, device=dev)
+        return pyr1[0], pyr2[0], zero, zero.clone(), None
+    flow = fb.flow_from_pyramids(pyr1[:i], pyr2[:i], c.pyr_scale, c.winsize, c.iterations,
+                                 False)
+    dx, dy = fb.upsample(flow[..., 0].contiguous(), flow[..., 1].contiguous(), h, w)
+    return pyr1[i], pyr2[i], dx, dy, float(np.float32(1.0 / c.pyr_scale))
+
+
+def level_run(iteration: Callable, R0, R1, dx, dy, flow_scale, winsize: int, gaussian: bool,
+              iterations: int) -> Callable:
+    """A level's ``iterations``, each one ``iteration`` (K3's wrapper's
+    signature: K3, or K4 then K2, :func:`k4_then_k2`), the flow carried
+    between them as the numerators and 1 / det."""
+    def level():
+        vx, vy, s = dx, dy, flow_scale
+        for i in range(iterations):
+            terms = i < iterations - 1
+            out = iteration(R0, R1, vx, vy, winsize, gaussian, s, terms)
+            if terms:
+                vx, vy, s = out
+        return out
+
+    return level
+
+
+def k4_then_k2(warp: Callable, window: Callable) -> Callable:
+    """One iteration as the small exact levels ran before the route: K4's M
+    stored (``warp``), then K2 on it (``window``)."""
+    return lambda R0, R1, dx, dy, winsize, gaussian, s, terms: window(
+        warp(R0, R1, dx, dy, s), winsize, gaussian, terms)
+
+
+def _route_work(h: int, w: int, winsize: int, iterations: int, fused: bool) -> roofline.Work:
+    """The bound's work of a level's ``iterations``: K3 each (M on chip), or
+    K4 then K2 (M stored and reloaded); the flow in as two planes first,
+    then as the numerators and 1 / det, out as those but last."""
+    total = roofline.Work(0, 0)
+    for i in range(iterations):
+        pin, pout = (2 if i == 0 else 3), (3 if i < iterations - 1 else 2)
+        parts = ([roofline.fused_iteration(h, w, winsize, pin, pout)] if fused else
+                 [roofline.warp_matrices(h, w, pin), roofline.blur_solve(h, w, winsize, pout)])
+        for part in parts:
+            total = roofline.Work(total.bytes + part.bytes, total.ops + part.ops)
+    return total
+
+
+def k4_rows(dev: torch.device, card: str, parent: str | Path | None = None,
+            levels: tuple = K4_LEVELS, sharded: tuple = K4_SHARDED, reps: int = 10,
+            iterations: int = 5, rounds: int = 3) -> dict:
+    """The small levels of the exact warp, before and after the route, at
+    each of ``levels`` with the box and the Gaussian window (winsize 15):
+    the level's ``iterations`` as K4 then K2 (this build's, or with
+    ``parent`` that checkout's, built by hand) against the route
+    (``farneback_level(..., fast_warp=False)``: K3 each iteration) and, with
+    ``parent``, the parent's K3 on the same route, all held bit for bit to
+    the plain versions and to each other, in turns (the old route, the
+    parent's K3, the route twice, the parent's K3, the old route; three
+    times): per call ms and
+    device µs of the level and per iteration, device records, and the bound
+    of each route's work (``roofline.fused_iteration``,
+    ``roofline.warp_matrices`` + ``roofline.blur_solve``).  Then K4, K2 and
+    K3 alone at each level (mode 0 and the level's first flow, in turns),
+    and K4 alone on a rank's block of the row-sharded flow (``sharded``:
+    rows per rank, width, warp halo, ranks), rank 0 and an inner rank, with
+    its launches per sharded flow call, back to back and with the L2 cache
+    cleared before each call (``measure.cold_kernel_us``)."""
+    from datmo_using_optical_flow_tpu_torch.parallel.sharded_flow import sharded_flow_launches
+
+    if parent is not None and dev.type != "cuda":
+        raise RuntimeError("the parent's kernels are built and timed on the card")
+    c = FarnebackConfig()
+    win = c.winsize
+    lib = None if parent is None else parent_library(parent)
+    if lib is None:
+        old_warp, old_window, parent_fused = fk.warp_matrices, fk.blur_solve, None
+    else:
+        def old_warp(R0, R1, dx, dy, s):
+            return parent_warp(lib, R0, R1, dx, dy, s)()[0]
+
+        def old_window(M, winsize, gaussian, terms):
+            return parent_call(lib, (M,), winsize, gaussian, terms=terms)()
+
+        def parent_fused(R0, R1, dx, dy, winsize, gaussian, s, terms):
+            return parent_call(lib, (R0, R1, dx, dy), winsize, gaussian, s, terms)()
+    on_card = dev.type == "cuda"
+    levels_out, kernels = [], []
+    for fh, fw, h, w in levels:
+        R0, R1, dx, dy, s = k4_level_inputs(fh, fw, h, w, dev)
+        for gaussian in (False, True):
+            label = f"{h}x{w} {'Gaussian' if gaussian else 'box'}" + (
+                "" if s is None else ", the flow of the level below times 1/pyr_scale")
+            route = (lambda R0=R0, R1=R1, dx=dx, dy=dy, s=s, g=gaussian:
+                     fb.farneback_level(R0, R1, dx, dy, win, iterations, False, g, s))
+            old = level_run(k4_then_k2(old_warp, old_window), R0, R1, dx, dy, s, win, gaussian,
+                            iterations)
+            plain = level_run(fk.fused_iteration_reference, R0, R1, dx, dy, s, win, gaussian,
+                              iterations)
+            fk.reset_launches()
+            got = route()
+            launches = {k: v for k, v in fk.LAUNCHES.items() if v}
+            want = plain()
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"route {label}: differs from the plain versions")
+            if not all(torch.equal(a, b) for a, b in zip(old(), got)):
+                raise AssertionError(f"route {label}: differs from K4 then K2")
+            fns = {"k4_k2": old, "route": route}
+            order = ["k4_k2", "route", "route", "k4_k2"]
+            if parent_fused is not None:  # the parent's K3 on the same route
+                fns["parent_route"] = level_run(parent_fused, R0, R1, dx, dy, s, win, gaussian,
+                                                iterations)
+                if not all(torch.equal(a, b) for a, b in zip(fns["parent_route"](), got)):
+                    raise AssertionError(f"route {label}: the parent's K3 differs")
+                order = ["k4_k2", "parent_route", "route", "route", "parent_route", "k4_k2"]
+            t = in_turns(fns, order, dev, reps, rounds, iterations)
+            works = {k: _route_work(h, w, win, iterations, k != "k4_k2") for k in fns}
+            row = {"name": f"exact level {label}", "shape": [h, w], "gaussian": gaussian,
+                   "iterations": iterations, "launches": launches, "turns": t,
+                   "plain_ms": ms_per_call(plain, dev, 2, 1)}
+            for k, d in t.items():
+                us = d["us_median"]
+                row[k] = {"ms": d["ms_median"], "ms_per_iteration": d["ms_median"] / iterations,
+                          "device_us": us,
+                          "device_us_per_iteration": None if us is None else us / iterations,
+                          "records": records_per_call(fns[k], dev) if on_card else None,
+                          "bound_us": works[k].bound_us(), "bound_by": works[k].bound_by(),
+                          "share_of_bound": None if us is None else works[k].bound_us() / us}
+            levels_out.append(row)
+            print(f"exact level {label}, {iterations} iterations: K4 then K2"
+                  f"{'' if lib is None else ' (parent)'} {row['k4_k2']['ms']:.4f} ms, device "
+                  f"{fmt(row['k4_k2']['device_us'], '.2f')} us, "
+                  f"{fmt(row['k4_k2']['records'], '.1f')} records (bound "
+                  f"{row['k4_k2']['bound_us']:.3f} us); route (K3) {row['route']['ms']:.4f} ms, "
+                  f"device {fmt(row['route']['device_us'], '.2f')} us, "
+                  f"{fmt(row['route']['records'], '.1f')} records (bound "
+                  f"{row['route']['bound_us']:.3f} us, share "
+                  f"{fmt(row['route']['share_of_bound'])})"
+                  + ("" if "parent_route" not in row else
+                     f"; the parent's K3 {row['parent_route']['ms']:.4f} ms, device "
+                     f"{fmt(row['parent_route']['device_us'], '.2f')} us")
+                  + f"; launches {launches}; bit-equal to "
+                  f"K4 then K2 and the plain versions (plain {row['plain_ms']:.3f} ms) [{card}]",
+                  flush=True)
+        # each kernel alone at the level's first flow, box window, in turns
+        M = fk.warp_matrices(R0, R1, dx, dy, s)
+        fns = {"K4": lambda: fk.warp_matrices(R0, R1, dx, dy, s),
+               "K2": lambda: fk.blur_solve(M, win, False, True),
+               "K3": lambda: fk.fused_iteration(R0, R1, dx, dy, win, False, s, True)}
+        works = {"K4": roofline.warp_matrices(h, w), "K2": roofline.blur_solve(h, w, win, 3),
+                 "K3": roofline.fused_iteration(h, w, win, 2, 3)}
+        t = in_turns(fns, [*fns, *reversed(fns)], dev, reps, rounds)
+        for k, d in t.items():
+            us = d["us_median"]
+            kernels.append({"name": f"{k} {h}x{w} alone", "shape": [h, w], "ms": d["ms_median"],
+                            "device_us": us, "bound_us": works[k].bound_us(),
+                            "bound_by": works[k].bound_by(),
+                            "share_of_bound": None if us is None else works[k].bound_us() / us,
+                            "launches_per_level_before": iterations if k != "K3" else 0,
+                            "launches_per_level_after": iterations if k == "K3" else 0})
+            print(f"{k} {h}x{w} alone: {d['ms_median']:.4f} ms/call, device {fmt(us, '.2f')} us "
+                  f"(bound {works[k].bound_us():.3f} us, {works[k].bound_by()}, share "
+                  f"{fmt(kernels[-1]['share_of_bound'])}) [{card}]", flush=True)
+    rows_per_rank, width, halo, ranks = sharded
+    total = rows_per_rank * ranks
+    per_call = sharded_flow_launches(total, width)["warp_matrices"]
+    gen = torch.Generator(device=dev).manual_seed(14)
+    R0 = fk.poly_exp(torch.rand((rows_per_rank, width), device=dev, generator=gen) * 255, 5, 5.0)
+    R1 = fk.poly_exp(torch.rand((rows_per_rank + 2 * halo, width), device=dev, generator=gen)
+                     * 255, 5, 5.0)
+    yy, xx = torch.meshgrid(torch.linspace(0, 3.0, rows_per_rank, device=dev),
+                            torch.linspace(0, 5.0, width, device=dev), indexing="ij")
+    dx, dy = (2.0 * torch.sin(xx + yy)).contiguous(), (2.0 * torch.cos(xx - yy)).contiguous()
+    sharded_rows = []
+    for rank in (0, 1):
+        rows = (rank * rows_per_rank, halo, total)
+        call = lambda rows=rows: fk.warp_matrices(R0, R1, dx, dy, rows=rows)
+        if not torch.equal(call(), fk.warp_matrices_reference(R0, R1, dx, dy, rows=rows)):
+            raise AssertionError(f"K4 sharded block rank {rank}: differs from its plain version")
+        work = roofline.warp_matrices(rows_per_rank, width, 2, halo)
+        row = kernel_row(f"K4 warp_matrices, rank {rank}'s {rows_per_rank}x{width} block "
+                         f"(+{halo} rows each side), {total}x{width} over {ranks}", call, work,
+                         dev, card, reps)
+        # back to back the calls find R0, R1 and the flow in L2 (36.7 MB of
+        # its 50 MB); in the sharded flow K2, the halo exchange and K1 come
+        # between two K4, so read it with L2 cleared before each call too
+        cold = cold_kernel_us(call, dev, "warp_matrices_kernel")
+        row.update(rank=rank, launches_per_sharded_call=per_call, device_us_cold_l2=cold,
+                   share_of_bound_cold_l2=None if cold is None else work.bound_us() / cold)
+        print(f"  L2 cleared before each call: device {fmt(cold, '.2f')} us, share "
+              f"{fmt(row['share_of_bound_cold_l2'])} [{card}]", flush=True)
+        sharded_rows.append(row)
+    return {"card": card, "device": str(dev), "parent": None if parent is None else str(parent),
+            "levels": levels_out, "kernels": kernels, "sharded": sharded_rows}
+
+
 # ------------------------------------------------------------------ K7's sum of squares
 
 # The main paths' sites of K7's sum of squares of a difference: (label, a's
@@ -1142,6 +1386,101 @@ def k7_rows(dev: torch.device, card: str, parent: ParentK7 | None, reps: int = 2
     return rows
 
 
+def _fma_site() -> str:
+    """``file:line`` of the code that called K7's fma: the first frame
+    outside ``ops/round_kernels.py`` and this module."""
+    import os
+    import sys
+
+    f = sys._getframe(2)
+    while os.path.basename(f.f_code.co_filename) in ("round_kernels.py", "micro_flow.py"):
+        f = f.f_back
+    root = Path(__file__).resolve().parents[2]
+    return f"{os.path.relpath(f.f_code.co_filename, root)}:{f.f_lineno}"
+
+
+def gmfa_fma32_rows(dev: torch.device, card: str, reps: int = 20, rounds: int = 3) -> list:
+    """K7's fma at GMFA's sites at reference load (``benchmarks/
+    gmfa_reference_load``: its configuration, scene and keys): every call of
+    the wrapper recorded by its call site and operand shapes while frames 0
+    and 1 are preprocessed and one step (cloud 1 after ``seed_carry`` of
+    cloud 0) runs; its launches per preprocess and per step; then each
+    site's first input held bit for bit to ``fma32_reference`` and timed in
+    turns with one ``torch.addcmul`` of the same operands (per call, device
+    µs, device records per call: the wrapper's broadcast copies included),
+    with its bound (each distinct input read once, the output written once;
+    one operation per element)."""
+    from unittest import mock
+
+    from datmo_using_optical_flow_tpu_torch.benchmarks import gmfa_reference_load as grl
+    from datmo_using_optical_flow_tpu_torch.models.gmfa import GMFAPipeline
+    from datmo_using_optical_flow_tpu_torch.utils import prng
+
+    cfg = grl.config()
+    pipe = GMFAPipeline(cfg, grl.MAX_MOVING, dev)
+    frames = grl.raw_frames(cfg, grl.scene(), 2)
+    orig = rk._fma32
+    cases, counts, stage = {}, {}, ["preprocess"]
+
+    def record(a, b, c, root):
+        key = (_fma_site(), tuple(_sig(x) for x in (a, b, c)), root)
+        counts.setdefault(key, {"preprocess": 0, "step": 0})[stage[0]] += 1
+        if key not in cases:
+            cases[key] = tuple(x.clone() if isinstance(x, torch.Tensor) else x
+                               for x in (a, b, c)) + (root,)
+        return orig(a, b, c, root)
+
+    with mock.patch.object(rk, "_fma32", record):
+        clouds = grl.clouds(pipe, frames)
+        stage[0] = "step"
+        carry = pipe.seed_carry(*clouds[0])
+        counts_before = {k: dict(v) for k, v in counts.items()}
+        pipe.step(*clouds[1], carry, prng.fold_in(prng.PRNGKey(0), 101))
+    sync(dev)
+    rows = []
+    for key, (a, b, c, root) in cases.items():
+        site, sig, _ = key
+        per_step = counts[key]["step"] - counts_before.get(key, {"step": 0})["step"]
+        per_seed = counts_before.get(key, {"step": 0})["step"]
+        want = rk.fma32_reference(a, b, c, root)
+        call = (lambda a=a, b=b, c=c, root=root: orig(a, b, c, root))
+        if not rk.bits_equal(call(), want):
+            raise AssertionError(f"fma32 {site}: differs from its plain version")
+        tens = [x for x in (a, b, c) if isinstance(x, torch.Tensor)]
+        values = sum(x.numel() for x in {x.data_ptr(): x for x in tens}.values())
+        work = roofline.Work(4 * (values + want.numel()), (1 + int(root)) * want.numel())
+        ta, tb, tc = (x if isinstance(x, torch.Tensor) else
+                      torch.tensor(float(np.float32(x)), device=dev) for x in (a, b, c))
+        fns = {"package": call, "library": lambda ta=ta, tb=tb, tc=tc: torch.addcmul(tc, ta, tb)}
+        t = in_turns(fns, ["package", "library", "library", "package"], dev, reps, rounds)
+        us = t["package"]["us_median"]
+        row = {"name": f"fma32 {site}", "site": site, "operands": [list(x) if x != "number" else x
+                                                                  for x in sig],
+               "root": root, "launches_per_preprocess": counts[key]["preprocess"] / 2,
+               "launches_per_seed_carry": per_seed, "launches_per_step": per_step,
+               "ms": t["package"]["ms_median"], "device_us": us,
+               "records": records_per_call(call, dev) if dev.type == "cuda" else None,
+               "bytes": work.bytes, "ops": work.ops, "bound_us": work.bound_us(),
+               "bound_by": work.bound_by(),
+               "share_of_bound": None if us is None else work.bound_us() / us,
+               "library_ms": t["library"]["ms_median"], "library_device_us":
+               t["library"]["us_median"],
+               "plain_ms": ms_per_call(lambda: rk.fma32_reference(a, b, c, root), dev, 3, 1)}
+        rows.append(row)
+        print(f"fma32 {site} {sig} root={root}: per preprocess {row['launches_per_preprocess']:g}, "
+              f"per step {per_step} launches; {row['ms']:.4f} ms/call, device "
+              f"{fmt(us, '.2f')} us, {fmt(row['records'], '.1f')} records (bound "
+              f"{work.bound_us():.3f} us, {work.bound_by()}, share "
+              f"{fmt(row['share_of_bound'])}); torch.addcmul {row['library_ms']:.4f} ms, device "
+              f"{fmt(row['library_device_us'], '.2f')} us; plain {row['plain_ms']:.3f} ms "
+              f"[{card}]", flush=True)
+    return rows
+
+
+def _sig(x) -> tuple | str:
+    return tuple(x.shape) if isinstance(x, torch.Tensor) else "number"
+
+
 def sumsq_path(dev: torch.device, card: str, parent: ParentK7 | None = None,
                n: int = 1000) -> dict:
     """Host µs per call of each part of K7's sum of squares at tracker A's
@@ -1207,9 +1546,16 @@ def main() -> None:
                     help="K7's sum of squares alone, at the main paths' sites")
     ap.add_argument("--k9", action="store_true",
                     help="K9 alone: its scale pass, the warp and a level's packed warp")
+    ap.add_argument("--k4", action="store_true",
+                    help="the small exact levels as K4 then K2 against the route through K3, "
+                         "and K4 alone there and on a sharded block")
     args = ap.parse_args()
     if args.small:
         print(json.dumps(small_levels()))
+    elif args.k4:
+        resolve_device("cuda")  # raises without a card
+        dev = torch.device("cuda", torch.cuda.current_device())
+        print(json.dumps(k4_rows(dev, card_label(dev), args.parent)))
     elif args.k9:
         resolve_device("cuda")  # raises without a card
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -1224,7 +1570,8 @@ def main() -> None:
         parent = None if args.parent is None else ParentK7(args.parent, dev)
         print(json.dumps({"card": card, "parent": args.parent,
                           "rows": k7_rows(dev, card, parent),
-                          "sumsq_path": sumsq_path(dev, card, parent)}))
+                          "sumsq_path": sumsq_path(dev, card, parent),
+                          "gmfa_fma32": gmfa_fma32_rows(dev, card)}))
     elif args.k8:
         resolve_device("cuda")  # raises without a card
         dev = torch.device("cuda", torch.cuda.current_device())

@@ -76,9 +76,11 @@ def poly_exp(h: int, w: int, n: int = 5, sigma: float = 5.0) -> Work:
     return Work(24 * h * w, (vertical + horizontal + 9) * h * w)
 
 
-def blur_solve(h: int, w: int, winsize: int = 15) -> Work:
-    """K2: five M planes in, the flow out; two window passes over five planes."""
-    return Work(28 * h * w, (10 * (2 * winsize - 1) + SOLVE_OPS) * h * w)
+def blur_solve(h: int, w: int, winsize: int = 15, planes_out: int = 2) -> Work:
+    """K2: five M planes in, the flow out; two window passes over five planes.
+    Between iterations the flow out is three planes, the numerators and
+    1 / det (``planes_out`` 3)."""
+    return Work((20 + 4 * planes_out) * h * w, (10 * (2 * winsize - 1) + SOLVE_OPS) * h * w)
 
 
 def fused_iteration(h: int, w: int, winsize: int = 15, planes_in: int = 2,
@@ -90,9 +92,12 @@ def fused_iteration(h: int, w: int, winsize: int = 15, planes_in: int = 2,
                 (WARP_M_OPS + 10 * (2 * winsize - 1) + SOLVE_OPS) * h * w)
 
 
-def warp_matrices(h: int, w: int) -> Work:
-    """K4: R0, R1 and the flow in, five M planes out."""
-    return Work(68 * h * w, WARP_M_OPS * h * w)
+def warp_matrices(h: int, w: int, planes_in: int = 2, halo_rows: int = 0) -> Work:
+    """K4: R0, R1 and the flow in, five M planes out.  Between iterations the
+    flow in is three planes, the numerators and 1 / det (``planes_in`` 3); a
+    rank's block of the row-sharded flow also reads R1's ``halo_rows`` rows
+    above and below it."""
+    return Work((60 + 4 * planes_in) * h * w + 20 * 2 * halo_rows * w, WARP_M_OPS * h * w)
 
 
 def warp_packed(h: int, w: int) -> Work:

@@ -631,25 +631,29 @@ def farneback_level(R0: torch.Tensor, R1: torch.Tensor, dx: torch.Tensor, dy: to
     :func:`update_matrices`).
 
     Levels of at least 128x256 run each iteration as one fused kernel (K3),
-    with an exact warp of any displacement.  Smaller levels assemble M with
-    K4 (exact warp) or, when ``fast_warp`` is set (as on the JAX package's
-    kernel path, which packs there whatever its flag says), with K9, the
-    packed warp: the planes' scales once per level (:func:`corner_scale`),
-    then each iteration's corners quantised to int16/int8 from R1 with them
-    (no table on the card), and aggregate + solve with K2.  Between
-    iterations the flow is the solve's numerators times 1 / det, the form
-    XLA's compiled refinement carries into the next warp.
+    with an exact warp of any displacement, and so do the smaller levels of
+    the exact warp (``fast_warp`` unset) that :func:`.warp.exact_fused`
+    admits; M then never leaves the chip.  The other small levels assemble M
+    with K4 (exact warp: a line, a level of at most 4x4, a Gaussian window
+    with an axis within its reach) or, when ``fast_warp`` is set (as on the
+    JAX package's kernel path, which packs there whatever its flag says),
+    with K9, the packed warp: the planes' scales once per level
+    (:func:`corner_scale`), then each iteration's corners quantised to
+    int16/int8 from R1 with them (no table on the card), and aggregate +
+    solve with K2.  Between iterations the flow is the solve's numerators
+    times 1 / det, the form XLA's compiled refinement carries into the next
+    warp.
     """
     from datmo_using_optical_flow_tpu_torch.ops import flow_kernels as fk
 
     _, h, w = R0.shape
     if iterations < 1:
         return (dx, dy) if flow_scale is None else (dx * flow_scale, dy * flow_scale)
-    eligible = warp.eligible(h, w)
-    scale = fk.corner_scale(R1) if fast_warp and not eligible else None
+    fused = warp.fused(h, w, winsize, gaussian, fast_warp)
+    scale = fk.corner_scale(R1) if fast_warp and not fused else None
     for i in range(iterations):
         terms = i < iterations - 1
-        if eligible:
+        if fused:
             out = fk.fused_iteration(R0, R1, dx, dy, winsize, gaussian, flow_scale, terms)
         else:
             M = (fk.warp_matrices_packed(R0, R1, scale, dx, dy, flow_scale)

@@ -269,7 +269,10 @@ def fused_iteration(R0: torch.Tensor, R1: torch.Tensor, dx: torch.Tensor,
     sum, solve) -> new (dx, dy), or with ``terms`` (nx, ny, idet) as K2's.
     R0, R1 are (5, H, W), dx, dy (H, W); the flow is (dx, dy) times
     ``flow_scale`` when given (``ops/farneback.update_matrices``).  Unlike
-    the JAX kernel, R1 is not padded: the warp gathers any displacement."""
+    the JAX kernel, R1 is not padded: the warp gathers any displacement.  On
+    the card it takes the levels that :func:`.warp.exact_fused` admits (the
+    large ones among them) and raises on the others, where K4 then K2 round
+    otherwise."""
     h, w = _check_planes_and_flow(R0, R1, dx, dy, flow_scale)
     _check_window(winsize)
     scale_t = flow_scale if isinstance(flow_scale, torch.Tensor) else dx
@@ -304,7 +307,9 @@ def warp_matrices(R0: torch.Tensor, R1: torch.Tensor, dx: torch.Tensor,
     """K4: warp R1 by the flow and assemble the normal-equation planes
     M (5, H, W).  As for K3, R1 is not padded: the warp gathers any
     displacement (the JAX kernel takes ``_pad_r1``'s window layout and only
-    the displacements that window reaches).  The small levels' exact warp.
+    the displacements that window reaches).  It runs where M is stored: a
+    rank's block of the row-sharded flow, and the small levels of the exact
+    warp that K3 refuses (:func:`.warp.exact_fused`).
 
     ``rows = (start, halo, h_global)``: R0 and the flow are the rows from
     ``start`` of a grid of ``h_global`` rows, and R1 holds ``halo`` more rows

@@ -16,10 +16,12 @@ K1 (``flow_kernels.poly_exp``) expands each rank's halo-extended level-0
 block and the replicated coarse levels; K2 (``flow_kernels.blur_solve``) sums
 the window and solves on the halo-extended M of level 0 (its horizontal pass
 is row-local, so its interior rows are :func:`~.halo.sharded_box_blur5` then
-``solve_flow``) and on the small replicated levels; K3 runs the replicated
-levels of at least 128x256.  K4 assembles the warp's M on level 0, with the
-rank's rows (:func:`sharded_update_matrices`; the JAX package computes it in
-XLA, outside any Pallas kernel), and on the small replicated levels.
+``solve_flow``); K3 runs the replicated levels, those of at least 128x256
+and the small ones that the exact warp fuses (``ops/warp.exact_fused``).  K4
+assembles the warp's M on level 0, with the rank's rows
+(:func:`sharded_update_matrices`; the JAX package computes it in XLA,
+outside any Pallas kernel), where M must be stored: it crosses ranks before
+K2.
 
 Every function runs on every rank of the group at once, on blocks of shape
 (5, H_local, W) or (H_local, W).
@@ -215,13 +217,14 @@ def sharded_flow_launches(h: int, w: int, pyr_scale: float = 0.3, levels: int = 
     """Kernel launches of one :func:`sharded_farneback_flow` call on each rank
     on the card, by the code above: two K1 per level (the replicated coarse
     levels and level 0's halo-extended blocks), ``iterations`` K3 on each
-    coarse level of at least 128x256 (``warp.eligible``), ``iterations`` K4
-    and K2 on each smaller one and on level 0; K8 once per coarse level
-    image (two images a level) and once per 2-plane upsample (between the
-    coarse levels and to full size).  Level 0's pre-blur runs
+    coarse level that the exact warp runs as K3 (``warp.fused``; the box
+    window, whose route does not depend on the winsize), ``iterations`` K4
+    and K2 on each other one and on level 0; K8 once per coarse level image
+    (two images a level) and once per 2-plane upsample (between the coarse
+    levels and to full size).  Level 0's pre-blur runs
     :func:`level0_image`'s plain ops."""
     sizes = level_sizes(h, w, pyr_scale, levels)
-    k3 = sum(warp.eligible(lh, lw) for _, _, lh, lw in sizes[:-1])
+    k3 = sum(warp.fused(lh, lw, 15, False, False) for _, _, lh, lw in sizes[:-1])
     coarse = len(sizes) - 1
     return {"poly_exp": 2 * len(sizes), "blur_solve": iterations * (len(sizes) - k3),
             "warp_matrices": iterations * (len(sizes) - k3),

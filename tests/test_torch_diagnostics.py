@@ -50,6 +50,10 @@ def test_roofline_operation_counts():
     assert roofline.corner_scale(1080, 1920).ops == 10 * px   # |v| and the maximum
     # between iterations K3 reads and writes the numerators and 1 / det
     assert roofline.fused_iteration(1080, 1920, 15, 3, 3).bytes == 64 * px
+    # ... and K4 reads them, K2 writes them; a sharded block's K4 reads R1's halo
+    assert roofline.warp_matrices(1080, 1920, 3).bytes == 72 * px
+    assert roofline.blur_solve(1080, 1920, 15, 3).bytes == 32 * px
+    assert roofline.warp_matrices(272, 1920, 2, 16).bytes == 68 * 272 * 1920 + 20 * 32 * 1920
     # K5: 400 blocks of 102,400 rows visiting 30 tiles each is bound by operations
     work = roofline.nearest_neighbors(102_400, 102_400, 400 * 30, 400)
     assert work.ops == 10 * 400 * 30 * 256 * 256
@@ -108,6 +112,35 @@ def test_micro_flow_runs_every_row():
     assert res["rows"][5]["bytes"] == roofline.warp_packed(360, 384).bytes
     assert res["rows"][-1]["bytes"] == roofline.poly_exp(32, 35).bytes
     assert res["parent"] is None and "parent_device_us" not in res["rows"][0]
+
+
+def test_micro_flow_k4_runs_every_row():
+    """``--k4`` at a dry shape on the CPU: a 42x42 coarsest level of 140x140
+    frames, both windows, the old route (K4 then K2) and the route through
+    K3 bit-equal to each other and to the plain versions, each with its
+    bound; K4, K2 and K3 alone; K4 on rank 0's and rank 1's blocks of a
+    32x48 grid over 4 ranks, with its launches per sharded flow call (its
+    device time, warm or with L2 cleared, not measured here)."""
+    res = micro_flow.k4_rows(torch.device("cpu"), "cpu", levels=((140, 140, 42, 42),),
+                             sharded=(8, 48, 4, 4), reps=1, rounds=1)
+    assert res["card"] == "cpu" and res["parent"] is None
+    assert [r["name"] for r in res["levels"]] == ["exact level 42x42 box",
+                                                  "exact level 42x42 Gaussian"]
+    for r in res["levels"]:
+        assert r["launches"] == {}  # the CPU runs the plain versions
+        for route in ("k4_k2", "route"):
+            assert r[route]["ms"] > 0 and r[route]["device_us"] is None
+            assert r[route]["records"] is None and r[route]["bound_us"] > 0
+        # M is neither stored nor reloaded: 40 bytes a pixel fewer per iteration
+        assert r["k4_k2"]["bound_us"] > r["route"]["bound_us"]
+    assert [r["name"] for r in res["kernels"]] == ["K4 42x42 alone", "K2 42x42 alone",
+                                                   "K3 42x42 alone"]
+    assert [r["launches_per_level_after"] for r in res["kernels"]] == [0, 0, 5]
+    assert [r["rank"] for r in res["sharded"]] == [0, 1]
+    for r in res["sharded"]:
+        assert r["launches_per_sharded_call"] == 5  # level 0's 5 iterations
+        assert r["bytes"] == roofline.warp_matrices(8, 48, 2, 4).bytes
+        assert r["device_us_cold_l2"] is None and r["share_of_bound_cold_l2"] is None
 
 
 def test_profile_1080p_runs_every_stage(frames):
@@ -347,6 +380,36 @@ def test_trim_lead_reads_a_trace_through_its_lost_opening(lost, counted, layout,
     assert measure.head_lost(records) == counted
     assert measure.trace_layout(measure.trim_lead(records)) == layout
     assert measure.traced_us(measure.trim_lead(records), 3, 1) == want
+
+
+_FILL = "void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor<float>>"
+_K4 = "void warp_matrices_kernel<false>(float const*, float const*, FlowIn, float*, int, int)"
+
+
+def _named(trace, names):
+    """``trace`` with its calls' records renamed, in order, to ``names``."""
+    it = iter(names)
+    return [(name if "spin_kernel" in name else next(it), us) for name, us in trace]
+
+
+def test_named_us_reads_one_kernel_of_each_call():
+    """With L2 cleared before each call (:func:`measure.cold_kernel_us`) a
+    call is a fill, then the kernel; :func:`measure.named_us` reads the
+    kernel's records alone, and refuses a trace that lost a record or holds
+    the kernel other than once a call."""
+    from datmo_using_optical_flow_tpu_torch.diagnostics import measure
+
+    calls = ([40.0, 9.0], [41.0, 10.0], [39.0, 11.0])
+    trace = _named(_trace(*calls), [_FILL, _K4] * 3)
+    assert measure.named_us(trace, 3, 2, "warp_matrices_kernel") == 10.0
+    assert measure.named_us(trace, 3, 2, "FillFunctor") == 40.0
+    assert measure.named_us(trace, 3, 2, "blur_solve_kernel") is None
+    lost = _named(_trace([40.0, 9.0], [41.0], [39.0, 11.0]), [_FILL, _K4, _FILL, _FILL, _K4])
+    assert measure.named_us(lost, 3, 2, "warp_matrices_kernel") is None
+    twice = _named(_trace([9.0, 9.0], [41.0, 10.0], [39.0, 11.0]), [_K4, _K4, _FILL, _K4] * 2)
+    assert measure.named_us(twice, 3, 2, "warp_matrices_kernel") is None
+    assert measure.cold_kernel_us(lambda: None, torch.device("cpu"), "warp_matrices_kernel") \
+        is None
 
 
 def test_trim_lead_leaves_a_trace_without_lead_in_as_it_is():

@@ -7,6 +7,8 @@ has two levels, 256x320 (polynomial-expansion and fused-iteration kernels) and
 run.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -201,6 +203,15 @@ def test_tiny_image_flow_matches_jax_exact_path(h, w):
 
 _REFINE = [(200, 200, False, False), (200, 200, True, False), (256, 320, False, False),
            (256, 320, True, False), (200, 200, False, True), (200, 200, True, True)]
+# One exact-warp level at each small level that K3 runs on the card
+# (``ops/warp.exact_fused``), box and Gaussian: (h, w, the frames' shape
+# whose pyramid has it); its flow zero (mode 0), a given flow (mode 0) or
+# that flow times 1 / pyr_scale (mode 1), then the numerators and 1 / det
+# (mode 2) between iterations
+_ROUTED = [(60, 60, (200, 200)), (98, 173, (326, 576)), (200, 200, (200, 200))]
+_REFINE += [(h, w, g, False, flow) for h, w, _ in _ROUTED for g in (False, True)
+            for flow in ("zero", "given", "scaled")]
+_REFINE = [case if len(case) == 5 else (*case, None) for case in _REFINE]
 # SHA-256 of the float32 bytes of JAX's jitted packed refinement compiled for
 # AVX-512 (jax 0.9.0), whose bits depend on the vector instructions XLA
 # compiles for (``xla_isa``; the AVX2 build parts by up to 4.9e-6 px).
@@ -210,9 +221,48 @@ _REFINE_DIGESTS = {
 }
 
 
-@pytest.mark.parametrize("h,w,gaussian,fast_warp", _REFINE, ids=[
-    f"{h}x{w}-{'gauss' if g else 'box'}-{'packed' if f else 'exact'}" for h, w, g, f in _REFINE])
-def test_refinement_bit_equal_to_jitted_jax(h, w, gaussian, fast_warp):
+@functools.lru_cache(maxsize=4)
+def _jitted_pyramids(h: int, w: int) -> tuple:
+    """JAX's jitted pyramids (poly_sigma 1.1) of ``make_frames(3, h, w,
+    seed=3)``'s first two frames."""
+    a, b = make_frames(3, h, w, seed=3)[:2].astype(np.float32)
+    build = jax.jit(lambda im: jfb.build_pyramid(im, use_pallas=False,
+                                                 **dict(PYR, poly_sigma=1.1)))
+    return build(jnp.asarray(a)), build(jnp.asarray(b))
+
+
+def _level_bit_equal(h, w, gaussian, flow):
+    """One exact-warp level of 5 iterations at (h, w) (a level of
+    ``_ROUTED``'s frames' jitted pyramids) against the jitted JAX
+    ``farneback_level``, bit for bit; a given flow is seeded normal of 1.5
+    px, and with ``flow`` "scaled" it enters times 1 / pyr_scale, a product
+    XLA recomputes in the warp (the port's ``flow_scale``)."""
+    frames = next(f for lh, lw, f in _ROUTED if (lh, lw) == (h, w))
+    p1, p2 = _jitted_pyramids(*frames)
+    R0, R1 = (np.array(next(q for q in p if q.shape[1:] == (h, w))) for p in (p1, p2))
+    rng = np.random.default_rng(h * w)
+    dx, dy = ((rng.normal(size=(h, w)) * 1.5).astype(np.float32) if flow != "zero"
+              else np.zeros((h, w), np.float32) for _ in range(2))
+    inv = np.float32(1 / 0.3) if flow == "scaled" else None
+
+    def jax_level(R0, R1, dx, dy):
+        if inv is not None:
+            dx, dy = dx * inv, dy * inv
+        return jfb.farneback_level(R0, R1, dx, dy, 15, 5, fast_warp=False, gaussian=gaussian)
+
+    want = jax.jit(jax_level)(R0, R1, dx, dy)
+    got = fb.farneback_level(*map(torch.from_numpy, (R0, R1, dx, dy)), 15, 5, fast_warp=False,
+                             gaussian=gaussian, flow_scale=None if inv is None else float(inv))
+    assert warp.exact_fused(h, w, 15, gaussian)
+    for g, e in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(e))
+    assert np.abs(np.asarray(want[0])).max() > 0.1  # the level moves
+
+
+@pytest.mark.parametrize("h,w,gaussian,fast_warp,level", _REFINE, ids=[
+    f"{h}x{w}-{'gauss' if g else 'box'}-{'packed' if f else 'exact'}"
+    + ("" if lv is None else f"-level-{lv}") for h, w, g, f, lv in _REFINE])
+def test_refinement_bit_equal_to_jitted_jax(h, w, gaussian, fast_warp, level):
     """The whole refinement equals the JAX package's jitted jnp
     ``flow_from_pyramids`` bit for bit, on its jitted pyramids of
     ``make_frames(3, h, w, seed=3)`` (poly_sigma 1.1): box and Gaussian
@@ -224,7 +274,13 @@ def test_refinement_bit_equal_to_jitted_jax(h, w, gaussian, fast_warp):
     port carries them as ``flow_scale``.  The packed warp's bits depend on
     the host's vector instructions: its cases hold the port to the digest of
     the AVX-512 build's answer on every host, and to JAX's local answer
-    within 1e-4 px where XLA does not compile for AVX-512."""
+    within 1e-4 px where XLA does not compile for AVX-512.  The ``level``
+    cases hold one exact-warp level at each small level the card runs
+    through K3 (60x60, 98x173, 200x200) to the jitted JAX level, with zero,
+    given and scaled flow (``_level_bit_equal``)."""
+    if level is not None:
+        _level_bit_equal(h, w, gaussian, level)
+        return
     a, b = make_frames(3, h, w, seed=3)[:2].astype(np.float32)
     pyr = dict(PYR, poly_sigma=1.1)
     build = jax.jit(lambda im: jfb.build_pyramid(im, use_pallas=False, **pyr))

@@ -325,15 +325,16 @@ def test_sharded_flow_matches_jax_and_unsharded(inputs, port):
 
 def test_launch_count_follows_the_level_sizes():
     """One call's kernel launches per rank on the card, from the level sizes:
-    at 1088x1920 the replicated 98x173 (K4 and K2) and 326x576 (K3) levels,
-    then level 0 (K4 and K2); K8 for the coarse levels' two images each (one
-    launch an image) and the 2-plane upsamples (one launch each)."""
-    assert sf.sharded_flow_launches(1088, 1920) == {"poly_exp": 6, "blur_solve": 10,
-                                                    "warp_matrices": 10,
-                                                    "fused_iteration": 5, "level_image": 6}
-    assert sf.sharded_flow_launches(64, 80, 0.5, 2, 3) == {"poly_exp": 4, "blur_solve": 6,
-                                                           "warp_matrices": 6,
-                                                           "fused_iteration": 0,
+    at 1088x1920 the replicated 98x173 and 326x576 levels (K3: the exact
+    warp fuses the small level too), then level 0 (K4 and K2: its M crosses
+    ranks); K8 for the coarse levels' two images each (one launch an image)
+    and the 2-plane upsamples (one launch each)."""
+    assert sf.sharded_flow_launches(1088, 1920) == {"poly_exp": 6, "blur_solve": 5,
+                                                    "warp_matrices": 5,
+                                                    "fused_iteration": 10, "level_image": 6}
+    assert sf.sharded_flow_launches(64, 80, 0.5, 2, 3) == {"poly_exp": 4, "blur_solve": 3,
+                                                           "warp_matrices": 3,
+                                                           "fused_iteration": 3,
                                                            "level_image": 3}
 
 
