@@ -239,6 +239,8 @@ REPLACES = {
     # K7: no Pallas kernel; XLA fuses these multiply-adds at sites such as
     "fma32": "datmo_using_optical_flow_tpu/models/optical_flow_datmo.py:601",
     "sumsq": "datmo_using_optical_flow_tpu/models/tracker_a.py:169",
+    # and ICP's fused dot + add of the transform (its plain version's four calls)
+    "transform_points": "datmo_using_optical_flow_tpu/ops/icp.py:101,117,375",
     # K8: no Pallas kernel either; XLA fuses the level image's blur and resize
     "level_image": "none: XLA's fused gaussian_blur/resize_bilinear, "
                    "datmo_using_optical_flow_tpu/ops/farneback.py:68,76",
@@ -253,6 +255,7 @@ SOURCES = {"poly_exp": "flow_kernels.cu", "blur_solve": "flow_kernels.cu",
            "fused_iteration": "flow_kernels.cu", "warp_matrices": "flow_kernels.cu",
            "nearest_neighbors": "nn_kernels.cu", "tiny": "probe_kernels.cu",
            "fma32": "round_kernels.cu", "sumsq": "round_kernels.cu",
+           "transform_points": "round_kernels.cu",
            "level_image": "level_kernels.cu", "warp_packed": "flow_kernels.cu",
            "corner_scale": "flow_kernels.cu"}
 # 1080p, 3 levels; K8: one launch for the frame's level images, one per
@@ -261,7 +264,11 @@ PER_STEP = {"poly_exp": 3, "fused_iteration": 10, "blur_solve": 5, "level_image"
             "warp_packed": 5, "corner_scale": 1}
 # K7's launches follow the data (tracker A's association runs once per
 # cluster slot), so the exact per-path counts below are of K1-K6 and K8
-ROUNDING = ("fma32", "sumsq")
+ROUNDING = ("fma32", "sumsq", "transform_points")
+# the K7 forms each pipeline's step launches: A's magnitude and distances;
+# GMFA's ICP transforms (no fma32 since the one-launch transform) and distances
+A_ROUNDING = ("fma32", "sumsq")
+GMFA_ROUNDING = ("sumsq", "transform_points")
 
 
 _T0 = time.perf_counter()
@@ -296,11 +303,11 @@ def tpu_kernels(counts: dict) -> dict:
     return {k: v for k, v in counts.items() if k not in ROUNDING}
 
 
-def need_rounding(label: str, counts: dict) -> None:
-    """Raise unless both K7 kernels launched in a counted run."""
-    if any(counts[k] <= 0 for k in ROUNDING):
-        raise AssertionError(f"{label}: K7 {[counts[k] for k in ROUNDING]} launches; "
-                             f"both kernels run on this path")
+def need_rounding(label: str, counts: dict, kernels: tuple = A_ROUNDING) -> None:
+    """Raise unless each of the K7 ``kernels`` launched in a counted run."""
+    if any(counts[k] <= 0 for k in kernels):
+        raise AssertionError(f"{label}: K7 {[counts[k] for k in kernels]} launches of "
+                             f"{kernels}; each runs on this path")
 
 
 def time_pair(plain, kernel, rounds: int = 10, warmup: int = 3) -> tuple[float, float]:
@@ -1442,7 +1449,7 @@ def gmfa_main_path(dev, name: str, smi: str, pipe, clouds) -> tuple[dict, dict]:
         f"{[int(x) for x in icp.sweep_stats.tolist()]}")
     log(f"GMFA main path: {steps / elapsed:.3f} frames/s ({elapsed / steps * 1e3:.3f} ms/frame "
         f"over {steps} steps), K5 launches {launches} ({launches / steps:.1f} per step), K7 "
-        f"{[counts[k] for k in ROUNDING]}, "
+        f"{ {k: counts[k] for k in ROUNDING} }, "
         f"live tracks {alive}, track ids {sorted(carry.table.tid[carry.table.alive].tolist())} "
         f"[{name}, {smi}]")
     finite = all(bool(torch.isfinite(t).all()) for o in outs
@@ -1450,7 +1457,13 @@ def gmfa_main_path(dev, name: str, smi: str, pipe, clouds) -> tuple[dict, dict]:
     finite = finite and bool(torch.isfinite(carry.table.state).all())
     if not finite or launches <= 0 or sum(int(o.moving_count) for o in outs) <= 0:
         raise AssertionError(f"GMFA outputs: finite={finite} launches={launches}")
-    need_rounding("GMFA main path", counts)
+    need_rounding("GMFA main path", counts, GMFA_ROUNDING)
+    # ICP's transform: one launch a call, 30 rounds, the final evaluation and
+    # the step's prev_t; no fma32 on this path
+    want_tp = (cfg.icp.max_iterations + 2) * steps
+    if counts["transform_points"] != want_tp or counts["fma32"]:
+        raise AssertionError(f"GMFA main path: transform_points {counts['transform_points']} "
+                             f"launches (expected {want_tp}), fma32 {counts['fma32']} (expected 0)")
     return ({k: v for k, v in counts.items() if k == "nearest_neighbors" or k in ROUNDING},
             k5_step_phase(dev, name, smi, pipe, clouds))
 
@@ -1991,12 +2004,12 @@ def round_cases(runs) -> dict:
     """Each ``runs`` callable run once on the card (not counted) with every K7
     wrapper call's inputs recorded: the first call of each signature (kernel,
     operand shapes, root; for the sum of squares also its call site) is
-    kept."""
+    kept, and for ICP's transform also the last (a converged transform)."""
     from unittest import mock
 
     from datmo_using_optical_flow_tpu_torch.ops import round_kernels as rk
 
-    cases, fma_orig, sumsq_orig = {}, rk._fma32, rk._sumsq
+    cases, fma_orig, sumsq_orig, tp_orig = {}, rk._fma32, rk._sumsq, rk._transform_points
 
     def fma_rec(a, b, c, root):
         key = ("fma32", _sig(a), _sig(b), _sig(c), root)
@@ -2015,7 +2028,15 @@ def round_cases(runs) -> dict:
                          (a.clone(), None if b is None else b.clone(), root))
         return sumsq_orig(a, b, root)
 
-    with mock.patch.object(rk, "_fma32", fma_rec), mock.patch.object(rk, "_sumsq", sumsq_rec):
+    def tp_rec(points, transformation):
+        sig = ("transform_points", _sig(points), _sig(transformation))
+        kept = (points.clone(), transformation.clone())
+        cases.setdefault((*sig, "first"), kept)
+        cases[(*sig, "last")] = kept
+        return tp_orig(points, transformation)
+
+    with mock.patch.object(rk, "_fma32", fma_rec), mock.patch.object(rk, "_sumsq", sumsq_rec), \
+            mock.patch.object(rk, "_transform_points", tp_rec):
         for run in runs:
             run()
     torch.cuda.synchronize()
@@ -2041,6 +2062,38 @@ def round_runs(dev, gpipe, gclouds) -> tuple:
 
     return (a_step, lambda: gpipe.step(*gclouds[1], gpipe.seed_carry(*gclouds[0]),
                                        prng.PRNGKey(0)))
+
+
+def _transform_special(dev, n: int = 102400, seed: int = 24) -> list:
+    """ICP's transform on points the recorded steps do not give: infinities,
+    NaNs, signed zeros, subnormals and float32's extremes among uniform
+    coordinates, and sums that land within a float64 half-ulp of a float32
+    midpoint (``tests/test_torch_icp.py::_near_midpoints``: r = (1 - a 2^-23)
+    2^-24 and y = (1 + a 2^-23) 2^e, so a sum rounded twice goes the wrong
+    way), each with a small rotation about z and a shift.  (label, points,
+    transform) on the card."""
+    rng = np.random.default_rng(seed)
+    c, s = np.cos(0.03), np.sin(0.03)
+    rot = np.eye(4, dtype=np.float32)
+    rot[:2, :2] = [[c, -s], [s, c]]
+    rot[:3, 3] = [0.4, -0.2, 0.05]
+    pts = rng.uniform(-20, 20, size=(n, 3)).astype(np.float32)
+    special = np.float32([np.inf, -np.inf, np.nan, 0.0, -0.0, 1e-40, -3e-39, 3.4e38, -3.4e38])
+    pick = rng.random((n, 3)) < 0.3
+    pts[pick] = rng.choice(special, int(pick.sum()))
+    a = int(rng.integers(1, 300))
+    mid = np.eye(4, dtype=np.float32)
+    mid[0, 1] = mid[1, 2] = np.float32((1 - a * 2.0 ** -23) * 2.0 ** -24)
+    mid[1, :2] = [1, 0]
+    mid[:3, 3] = rng.uniform(-1, 1, 3)
+    e = rng.integers(-3, 5, n)
+    sign = [rng.choice([-1.0, 1.0], n) for _ in range(3)]
+    x = sign[0] * rng.uniform(1, 2, n) * 2.0 ** e
+    y, z = (sg * (1 + (a + rng.integers(-1, 2, n)) * 2.0 ** -23) * 2.0 ** e for sg in sign[1:])
+    near = np.stack([x, y, z], axis=1).astype(np.float32)
+    return [(label, torch.from_numpy(p).to(dev), torch.from_numpy(t).to(dev))
+            for label, p, t in (("special values", pts, rot), ("near float32 midpoints", near,
+                                                                 mid))]
 
 
 def _distinct(t) -> int:
@@ -2069,6 +2122,20 @@ def round_phase(dev, name: str, smi: str, cases: dict) -> dict:
     a, b, c = (special[pick[i]] * torch.rand(4096, device=dev, generator=gen).add(0.5)
                for i in range(3))
     cases = dict(cases)
+    # ICP's transform on special values and near midpoints, and through views
+    # (transposed points, a transform inside a larger matrix); the parent's
+    # ICP fma32 signature, (N, 1) x (3,) + (N, 3), read through its strides
+    tp = [(k, case) for k, case in cases.items() if k[0] == "transform_points"]
+    if not tp:
+        raise AssertionError("transform_points: GMFA's step made no call")
+    for label, pts, tr in _transform_special(dev):
+        cases[("transform_points", label)] = (pts, tr)
+    pts, tr = tp[-1][1]
+    big = torch.zeros((6, 6), device=dev)
+    big[1:5, 2:6] = tr
+    cases[("transform_points", "views")] = (pts.T.contiguous().T, big[1:5, 2:6])
+    cases[("fma32", "icp broadcast", False)] = (pts[:, 1:2], tr[:3, 1], pts[:, :1] * tr[:3, 0],
+                                                False)
     v, w = torch.stack([a, b, c], dim=1), torch.stack([c, a, b], dim=1)
     for root in (False, True):
         cases[("fma32", "special", root)] = (a, b, c, root)
@@ -2080,6 +2147,8 @@ def round_phase(dev, name: str, smi: str, cases: dict) -> dict:
         kernel = key[0]
         if kernel == "fma32":
             got, want = rk._fma32(*case), rk.fma32_reference(*case)
+        elif kernel == "transform_points":
+            got, want = rk._transform_points(*case), rk.transform_points_reference(*case)
         else:
             x, y, root = case
             got = rk._sumsq(x, y, root)
@@ -2089,7 +2158,8 @@ def round_phase(dev, name: str, smi: str, cases: dict) -> dict:
             raise AssertionError(f"{kernel} {key[1:]}: the kernel differs from its plain version")
         res = out.setdefault(kernel, {"max_abs_err": 0.0, "cases": 0, "numel": -1})
         res["cases"] += 1
-        if kernel == "fma32" and key[1] != "special" and got.numel() > res["numel"]:
+        if kernel == "fma32" and key[1] not in ("special", "icp broadcast") \
+                and got.numel() > res["numel"]:
             res["numel"], res["case"] = got.numel(), case
         if kernel == "sumsq" and key[-1] != "special":
             res.setdefault("sites", {})[key] = case
@@ -2104,6 +2174,8 @@ def round_phase(dev, name: str, smi: str, cases: dict) -> dict:
     inputs = len({x.data_ptr() for x in (a, b, c) if isinstance(x, torch.Tensor)})
     _time_round(res, "fma32", f"{tuple(a.shape)}, {_sig(b)}, {_sig(c)}, root={root}", fns, lib,
                 roofline.fma32(res["numel"], inputs, root), None, dev, name, smi)
+    out["transform_points"].pop("numel")
+    transform_phase(out, tp[-1][1], cases[("fma32", "icp broadcast", False)], dev, name, smi)
     res = out["sumsq"]
     sites = res.pop("sites")
     res.pop("numel")
@@ -2133,6 +2205,49 @@ def round_phase(dev, name: str, smi: str, cases: dict) -> dict:
     res.update({k: main[0][k] for k in ("ms", "plain_ms", "device_us", "library_ms", "work")})
     res["main_site"] = main[0]["site"]
     return out
+
+
+def transform_phase(out: dict, case: tuple, broadcast: tuple, dev, name: str, smi: str) -> None:
+    """ICP's transform on the card at GMFA's last recorded call (102,400
+    points, a converged transform): ``ops/icp.transform_points`` is one launch
+    of the new kernel (no fma32), one device record, and no host sync under
+    ``torch.cuda.set_sync_debug_mode("error")``; so is fma32 at the parent's
+    broadcast ICP signature.  Then timed (``_time_round``) beside the plain
+    version and ``torch.addmm(t, points, R.T)`` (TF32 off), with its bound."""
+    from datmo_using_optical_flow_tpu_torch.diagnostics import roofline
+    from datmo_using_optical_flow_tpu_torch.diagnostics.micro_flow import records_per_call
+    from datmo_using_optical_flow_tpu_torch.ops import icp as icp_ops
+    from datmo_using_optical_flow_tpu_torch.ops import round_kernels as rk
+
+    pts, tr = case
+    call = lambda: icp_ops.transform_points(pts, tr)  # noqa: E731
+    bcall = lambda: rk._fma32(*broadcast)  # noqa: E731
+    before = dict(rk.LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+        bcall()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    made = {k: rk.LAUNCHES[k] - before[k] for k in before}
+    # the most records of three readings: a lost record reads fewer, a copy more
+    records = [max(records_per_call(fn, dev) for _ in range(3)) for fn in (call, bcall)]
+    log(f"transform_points at {tuple(pts.shape)}: launches {made} for one call each of it and "
+        f"of fma32 at {[_sig(x) for x in broadcast[:3]]}; device records per call "
+        f"{records[0]:g} / {records[1]:g}; no host sync (sync debug mode 'error')")
+    if made != {"fma32": 1, "sumsq": 0, "transform_points": 1} or records != [1.0, 1.0]:
+        raise AssertionError(f"transform_points: launches {made}, records {records}; expected "
+                             f"one launch and one record each")
+    res = out["transform_points"]
+    res["records"], res["fma32_broadcast_records"] = records
+    r, t = tr[:3, :3].T, tr[:3, 3]
+    torch.backends.cuda.matmul.allow_tf32 = False  # the default, stated
+    _time_round(res, "transform_points", f"{tuple(pts.shape)}",
+                (lambda: rk.transform_points_reference(pts, tr), call),
+                lambda: torch.addmm(t, pts, r), roofline.transform_points(pts.shape[0]), None,
+                dev, name, smi)
 
 
 def _time_round(res: dict, kernel: str, label: str, fns, lib, work, lib_of, dev, name: str,
@@ -2218,7 +2333,7 @@ def icp_options_phase(dev, name: str, smi: str, pair, icp_cfg) -> dict:
         if c["nearest_neighbors"] != k5_want:
             raise AssertionError(f"ICP {label}: K5 launched {c['nearest_neighbors']} times, "
                                  f"expected {k5_want}")
-        need_rounding(f"ICP {label}", c)
+        need_rounding(f"ICP {label}", c, GMFA_ROUNDING)
         for k, v in c.items():
             counts[k] = counts.get(k, 0) + v
         _icp_equal(label, got, want)
@@ -2325,7 +2440,7 @@ def streams_phase(dev, name: str, smi: str, gclouds) -> dict:
     bevs = [torch.as_tensor(frames[:, t], device=dev) for t in range(3)]
     single = PipelineA(cfg, dev, fast_warp=True)
     flow = ("poly_exp", "blur_solve", "fused_iteration", "warp_packed", "corner_scale",
-            "level_image", *ROUNDING)
+            "level_image", *A_ROUNDING)
 
     # A's frame-pair step
     ref, want = singles([lambda s=s: single.step(bevs[0][s], bevs[1][s], single.init_carry())
@@ -2388,7 +2503,8 @@ def streams_phase(dev, name: str, smi: str, gclouds) -> dict:
                                                prev, prev_m)
         return step(cur, cur_m, carry, keys)
 
-    carry, outs, metrics = multi("GMFA step", gmfa_step, want, ("nearest_neighbors", *ROUNDING))
+    carry, outs, metrics = multi("GMFA step", gmfa_step, want,
+                                 ("nearest_neighbors", *GMFA_ROUNDING))
     for s, (c1, o1) in enumerate(ref):
         _tree_equal(f"GMFA feed {s}", unstack(outs, s), o1)
         _tree_equal(f"GMFA carry {s}", unstack(carry, s), c1)
@@ -2607,7 +2723,7 @@ def quality_phase(dev, name: str, smi: str, n_frames: int = 12) -> dict:
                                       "nearest_neighbors")) \
             or launches["warp_matrices"] or launches["blur_solve"]:
         raise AssertionError(f"quality: launches {launches}")
-    need_rounding("quality", launches)
+    need_rounding("quality", launches, ROUNDING)
     entry = rep["scenes"]["easy"]
     a, g = entry["optical_flow"], entry["gmfa"]
     log(f"quality report: {json.dumps(rep)}")
@@ -2801,6 +2917,7 @@ def main() -> None:
             "nearest_neighbors": results["nearest_neighbors"]["work"],
             "tiny": roofline.tiny(8 * 128), "fma32": results["fma32"]["work"],
             "sumsq": results["sumsq"]["work"],
+            "transform_points": results["transform_points"]["work"],
             "level_image": roofline.level_images(1080, 1920, ((97, 173, 25), (324, 576, 7),
                                                               (1080, 1920, 3))),
             "warp_packed": roofline.warp_packed(97, 173),

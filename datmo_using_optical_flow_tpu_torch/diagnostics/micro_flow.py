@@ -49,8 +49,12 @@ at the main paths' sites, beside one PyTorch call of each (:func:`sumsq_library`
 and, with ``--parent``, that checkout's ``round_kernels.cu`` built by hand and
 called as its wrapper called it, in turns; then the launch path's host parts
 at tracker A's site (:func:`sumsq_path`); then K7's fma at GMFA's sites at
-reference load, with its launches per preprocess and per step, beside
-``torch.addcmul`` (:func:`gmfa_fma32_rows`).
+reference load, ICP's former broadcast call and A's 1080x1920 magnitude, with
+their launches per preprocess and per step, beside ``torch.addcmul`` and, with
+``--parent``, that checkout's fma called as its wrapper called it, in turns;
+and ICP's ``transform_points`` at 102,400 points, one launch, beside the
+parent's (four calls before it had the kernel) and ``torch.addmm``
+(:func:`gmfa_fma32_rows`).
 
 With ``--k9``, K9 alone instead (:func:`k9_rows`) at the pipelines' small
 levels and 1080x1920: its scale pass beside ``torch.amax``, the warp through
@@ -1299,7 +1303,8 @@ class ParentK7:
     of squares called as its wrapper called it: where its ``datmo_sumsq``
     takes one operand (7 parameters), the caller's subtraction, then
     ``reshape(-1, k).contiguous()``, the allocation and the launch; else as
-    this package calls it."""
+    this package calls it.  Its fma (:meth:`fma32`) and ICP's transform
+    (:meth:`transform_points`) likewise."""
 
     def __init__(self, parent: str | Path, dev: torch.device):
         self.lib, text = _build_parent(parent, "round_kernels")
@@ -1308,7 +1313,73 @@ class ParentK7:
         self.fn.argtypes = ([_P, _P, _I, _I, ctypes.c_int64, _I, _P] if self.one_operand
                             else build._SIGNATURES["datmo_sumsq"][0])
         self.fn.restype = _I
+        # an fma of contiguous arrays (10 parameters) before the strided one
+        self.fma_flat = c_params(text, "datmo_fma32") == 10
+        self.fma = self.lib.datmo_fma32
+        self.fma.argtypes = ([_P, _P, _P, _P, _F, _F, _I, ctypes.c_int64, _I, _P]
+                             if self.fma_flat else build._SIGNATURES["datmo_fma32"][0])
+        self.fma.restype = _I
+        self.tp = None
+        if "int datmo_transform_points(" in text:
+            self.tp = self.lib.datmo_transform_points
+            self.tp.argtypes, self.tp.restype = build._SIGNATURES["datmo_transform_points"]
         self.dev = dev
+
+    def fma32(self, a: torch.Tensor, b, c, root: bool) -> torch.Tensor:
+        """The parent's fma as its wrapper called it: where it takes
+        contiguous arrays, ``torch.broadcast_shapes``, each tensor operand
+        ``expand(shape).contiguous()`` (a copy where it broadcasts), the
+        allocation and the launch; else as this package calls it."""
+        from datmo_using_optical_flow_tpu_torch.ops import round_kernels as rk
+
+        index = self.dev.index
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        if not self.fma_flat:
+            sig = [(x.shape, x.stride()) if isinstance(x, torch.Tensor) else (None, None)
+                   for x in (a, b, c)]
+            shape, args = rk._fma32_args(*(v for pair in sig for v in pair), root)
+            ptr = [x.data_ptr() if isinstance(x, torch.Tensor) else None for x in (a, b, c)]
+            out = torch.empty(shape, dtype=torch.float32, device=self.dev)
+            build.check(self.fma(out.data_ptr(), *ptr,
+                                 *(0.0 if isinstance(x, torch.Tensor) else float(np.float32(x))
+                                   for x in (b, c)), *args, index, stream), "parent")
+            return out
+        shape = torch.broadcast_shapes(*(x.shape for x in (a, b, c)
+                                         if isinstance(x, torch.Tensor)))
+
+        def full(x):
+            if not isinstance(x, torch.Tensor):
+                return None, float(np.float32(x))
+            return x.expand(shape).contiguous(), 0.0
+
+        (af, _), (bf, bs), (cf, cs) = full(a), full(b), full(c)
+        out = torch.empty(shape, dtype=torch.float32, device=self.dev)
+        build.check(self.fma(out.data_ptr(), af.data_ptr(), None if bf is None else bf.data_ptr(),
+                             None if cf is None else cf.data_ptr(), bs, cs, int(root),
+                             out.numel(), index, stream), "parent")
+        return out
+
+    def transform_points(self, points: torch.Tensor, transformation: torch.Tensor
+                         ) -> torch.Tensor:
+        """ICP's transform as the parent ran it: four calls (``x * r0``, its
+        fma twice, ``+ t``) where it has no ``datmo_transform_points``, else
+        its one launch."""
+        from datmo_using_optical_flow_tpu_torch.ops import round_kernels as rk
+
+        if self.tp is None:
+            r, t = transformation[:3, :3], transformation[:3, 3]
+            x, y, z = (points[:, i:i + 1] for i in range(3))
+            acc = x * r[:, 0]
+            acc = self.fma32(y, r[:, 1], acc, False)
+            acc = self.fma32(z, r[:, 2], acc, False)
+            return acc + t
+        n, *args = rk._transform_args(points.shape, points.stride(), transformation.shape,
+                                      transformation.stride())
+        out = torch.empty((n, 3), dtype=torch.float32, device=self.dev)
+        build.check(self.tp(out.data_ptr(), points.data_ptr(), transformation.data_ptr(), n,
+                            *args, self.dev.index, torch._C._cuda_getCurrentRawStream(
+                                self.dev.index)), "parent")
+        return out
 
     def __call__(self, a: torch.Tensor, b: torch.Tensor, root: bool) -> torch.Tensor:
         from datmo_using_optical_flow_tpu_torch.ops import round_kernels as rk
@@ -1399,17 +1470,23 @@ def _fma_site() -> str:
     return f"{os.path.relpath(f.f_code.co_filename, root)}:{f.f_lineno}"
 
 
-def gmfa_fma32_rows(dev: torch.device, card: str, reps: int = 20, rounds: int = 3) -> list:
-    """K7's fma at GMFA's sites at reference load (``benchmarks/
-    gmfa_reference_load``: its configuration, scene and keys): every call of
-    the wrapper recorded by its call site and operand shapes while frames 0
-    and 1 are preprocessed and one step (cloud 1 after ``seed_carry`` of
-    cloud 0) runs; its launches per preprocess and per step; then each
-    site's first input held bit for bit to ``fma32_reference`` and timed in
-    turns with one ``torch.addcmul`` of the same operands (per call, device
-    µs, device records per call: the wrapper's broadcast copies included),
-    with its bound (each distinct input read once, the output written once;
-    one operation per element)."""
+def gmfa_fma32_rows(dev: torch.device, card: str, parent: ParentK7 | None = None,
+                    reps: int = 20, rounds: int = 3) -> list:
+    """K7's fma and ICP's transform at GMFA's sites at reference load
+    (``benchmarks/gmfa_reference_load``: its configuration, scene and keys):
+    every call of the two wrappers recorded by its call site and operand
+    shapes while frames 0 and 1 are preprocessed and one step (cloud 1 after
+    ``seed_carry`` of cloud 0) runs; their launches per preprocess and per
+    step; then each fma site's first input held bit for bit to
+    ``fma32_reference`` and timed in turns (the parent, this build twice, the
+    parent, where given) with one ``torch.addcmul`` of the same operands (per
+    call, device µs, device records per call: a wrapper's broadcast copies
+    included), with its bound (each distinct input read once, the output
+    written once; one operation per element).  Then the same at two more
+    fma signatures, ICP's former broadcast ``(N, 1) x (3,) + (N, 3)`` (on
+    the step's last transform input) and A's 1080x1920 magnitude with its
+    root (seeded planes), and ICP's transform on the step's last input
+    (:func:`transform_points_row`)."""
     from unittest import mock
 
     from datmo_using_optical_flow_tpu_torch.benchmarks import gmfa_reference_load as grl
@@ -1419,8 +1496,8 @@ def gmfa_fma32_rows(dev: torch.device, card: str, reps: int = 20, rounds: int = 
     cfg = grl.config()
     pipe = GMFAPipeline(cfg, grl.MAX_MOVING, dev)
     frames = grl.raw_frames(cfg, grl.scene(), 2)
-    orig = rk._fma32
-    cases, counts, stage = {}, {}, ["preprocess"]
+    orig, tp_orig = rk._fma32, rk._transform_points
+    cases, counts, stage, transforms = {}, {}, ["preprocess"], []
 
     def record(a, b, c, root):
         key = (_fma_site(), tuple(_sig(x) for x in (a, b, c)), root)
@@ -1430,17 +1507,34 @@ def gmfa_fma32_rows(dev: torch.device, card: str, reps: int = 20, rounds: int = 
                                for x in (a, b, c)) + (root,)
         return orig(a, b, c, root)
 
-    with mock.patch.object(rk, "_fma32", record):
+    def tp_record(points, transformation):
+        transforms.append((stage[0], points.clone(), transformation.clone()))
+        return tp_orig(points, transformation)
+
+    with mock.patch.object(rk, "_fma32", record), \
+            mock.patch.object(rk, "_transform_points", tp_record):
         clouds = grl.clouds(pipe, frames)
         stage[0] = "step"
         carry = pipe.seed_carry(*clouds[0])
         counts_before = {k: dict(v) for k, v in counts.items()}
+        seeded = len(transforms)
         pipe.step(*clouds[1], carry, prng.fold_in(prng.PRNGKey(0), 101))
     sync(dev)
+    print(f"transform_points: {len(transforms) - seeded} launches per GMFA step, "
+          f"{seeded} in seed_carry [{card}]", flush=True)
+    _, pts, tr = transforms[-1]
+    gen = torch.Generator(device=dev).manual_seed(24)
+    vx, vy = (torch.randn((1080, 1920), device=dev, generator=gen) * 5 for _ in range(2))
+    extra = {"ICP's former fma32 call, ops/icp.py (parent)":
+             (pts[:, 1:2], tr[:3, 1], pts[:, :1] * tr[:3, 0], False),
+             "A's magnitude, models/optical_flow_datmo.py:145": (vx, vx, vy * vy, True)}
+    extra = {(site, tuple(_sig(x) for x in case[:3]), case[3]): case
+             for site, case in extra.items()}
     rows = []
-    for key, (a, b, c, root) in cases.items():
+    for key, (a, b, c, root) in [*cases.items(), *extra.items()]:
         site, sig, _ = key
-        per_step = counts[key]["step"] - counts_before.get(key, {"step": 0})["step"]
+        per_step = counts.get(key, {"step": 0})["step"] - counts_before.get(key, {"step": 0})[
+            "step"]
         per_seed = counts_before.get(key, {"step": 0})["step"]
         want = rk.fma32_reference(a, b, c, root)
         call = (lambda a=a, b=b, c=c, root=root: orig(a, b, c, root))
@@ -1452,11 +1546,18 @@ def gmfa_fma32_rows(dev: torch.device, card: str, reps: int = 20, rounds: int = 
         ta, tb, tc = (x if isinstance(x, torch.Tensor) else
                       torch.tensor(float(np.float32(x)), device=dev) for x in (a, b, c))
         fns = {"package": call, "library": lambda ta=ta, tb=tb, tc=tc: torch.addcmul(tc, ta, tb)}
-        t = in_turns(fns, ["package", "library", "library", "package"], dev, reps, rounds)
+        order = ["package", "library", "library", "package"]
+        if parent is not None:
+            fns["parent"] = lambda a=a, b=b, c=c, root=root: parent.fma32(a, b, c, root)
+            if not rk.bits_equal(fns["parent"](), want):
+                raise AssertionError(f"fma32 {site}: the parent differs from the plain version")
+            order = ["parent", *order, "parent"]
+        t = in_turns(fns, order, dev, reps, rounds)
         us = t["package"]["us_median"]
         row = {"name": f"fma32 {site}", "site": site, "operands": [list(x) if x != "number" else x
                                                                   for x in sig],
-               "root": root, "launches_per_preprocess": counts[key]["preprocess"] / 2,
+               "root": root, "launches_per_preprocess": counts.get(key, {"preprocess": 0})[
+                   "preprocess"] / 2,
                "launches_per_seed_carry": per_seed, "launches_per_step": per_step,
                "ms": t["package"]["ms_median"], "device_us": us,
                "records": records_per_call(call, dev) if dev.type == "cuda" else None,
@@ -1464,17 +1565,81 @@ def gmfa_fma32_rows(dev: torch.device, card: str, reps: int = 20, rounds: int = 
                "bound_by": work.bound_by(),
                "share_of_bound": None if us is None else work.bound_us() / us,
                "library_ms": t["library"]["ms_median"], "library_device_us":
-               t["library"]["us_median"],
+               t["library"]["us_median"], "turns": t,
                "plain_ms": ms_per_call(lambda: rk.fma32_reference(a, b, c, root), dev, 3, 1)}
+        if parent is not None:
+            row.update(parent_ms=t["parent"]["ms_median"],
+                       parent_device_us=t["parent"]["us_median"],
+                       parent_records=(records_per_call(fns["parent"], dev)
+                                       if dev.type == "cuda" else None))
         rows.append(row)
         print(f"fma32 {site} {sig} root={root}: per preprocess {row['launches_per_preprocess']:g}, "
               f"per step {per_step} launches; {row['ms']:.4f} ms/call, device "
               f"{fmt(us, '.2f')} us, {fmt(row['records'], '.1f')} records (bound "
               f"{work.bound_us():.3f} us, {work.bound_by()}, share "
               f"{fmt(row['share_of_bound'])}); torch.addcmul {row['library_ms']:.4f} ms, device "
-              f"{fmt(row['library_device_us'], '.2f')} us; plain {row['plain_ms']:.3f} ms "
-              f"[{card}]", flush=True)
+              f"{fmt(row['library_device_us'], '.2f')} us"
+              + ("" if parent is None else f"; parent {row['parent_ms']:.4f} ms, device "
+                 f"{fmt(row['parent_device_us'], '.2f')} us, "
+                 f"{fmt(row['parent_records'], '.1f')} records")
+              + f"; plain {row['plain_ms']:.3f} ms [{card}]", flush=True)
+    rows.append(transform_points_row(pts, tr, dev, card, parent, len(transforms) - seeded,
+                                     reps, rounds))
     return rows
+
+
+def transform_points_row(pts: torch.Tensor, tr: torch.Tensor, dev: torch.device, card: str,
+                         parent: ParentK7 | None, per_step: int, reps: int = 20,
+                         rounds: int = 3) -> dict:
+    """ICP's ``transform_points`` on ``pts`` by ``tr``: held bit for bit to
+    its plain version (the parent's too), then per call, device µs and device
+    records per call in turns (the parent's four calls, this build's one
+    launch, and ``torch.addmm(t, pts, R.T)`` with TF32 off: the same function
+    with other bits, a yardstick), with its bound (the points read once, the
+    output written once) and the plain version's ms."""
+    from datmo_using_optical_flow_tpu_torch.ops import icp as icp_ops
+
+    want = rk.transform_points_reference(pts, tr)
+    call = lambda: icp_ops.transform_points(pts, tr)  # noqa: E731
+    if not rk.bits_equal(call(), want):
+        raise AssertionError("transform_points: differs from its plain version")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the default, stated
+    r, t = tr[:3, :3].T, tr[:3, 3]
+    fns = {"package": call, "library": lambda: torch.addmm(t, pts, r)}
+    order = ["package", "library", "library", "package"]
+    if parent is not None:
+        fns["parent"] = lambda: parent.transform_points(pts, tr)
+        if not rk.bits_equal(fns["parent"](), want):
+            raise AssertionError("transform_points: the parent differs from the plain version")
+        order = ["parent", *order, "parent"]
+    tm = in_turns(fns, order, dev, reps, rounds)
+    work = roofline.transform_points(pts.shape[0])
+    us = tm["package"]["us_median"]
+    row = {"name": "transform_points", "points": list(pts.shape), "launches_per_step": per_step,
+           "ms": tm["package"]["ms_median"], "device_us": us, "bytes": work.bytes,
+           "ops": work.ops, "bound_us": work.bound_us(), "bound_by": work.bound_by(),
+           "share_of_bound": None if us is None else work.bound_us() / us,
+           "library_ms": tm["library"]["ms_median"],
+           "library_device_us": tm["library"]["us_median"], "turns": tm,
+           "plain_ms": ms_per_call(lambda: rk.transform_points_reference(pts, tr), dev, 3, 1)}
+    for name in fns:
+        key = "records" if name == "package" else f"{name}_records"
+        row[key] = records_per_call(fns[name], dev) if dev.type == "cuda" else None
+    if parent is not None:
+        row.update(parent_ms=tm["parent"]["ms_median"], parent_device_us=tm["parent"]["us_median"],
+                   parent_share_of_bound=(None if tm["parent"]["us_median"] is None else
+                                          work.bound_us() / tm["parent"]["us_median"]))
+    print(f"transform_points {tuple(pts.shape)}: {per_step} launches per GMFA step; "
+          f"{row['ms']:.4f} ms/call, device {fmt(us, '.2f')} us, {fmt(row['records'], '.1f')} "
+          f"records (bound {work.bound_us():.3f} us, {work.bound_by()}, share "
+          f"{fmt(row['share_of_bound'])}); torch.addmm {row['library_ms']:.4f} ms, device "
+          f"{fmt(row['library_device_us'], '.2f')} us, {fmt(row['library_records'], '.1f')} "
+          f"records"
+          + ("" if parent is None else f"; parent {row['parent_ms']:.4f} ms, device "
+             f"{fmt(row['parent_device_us'], '.2f')} us, {fmt(row['parent_records'], '.1f')} "
+             f"records, share {fmt(row['parent_share_of_bound'])}")
+          + f"; plain {row['plain_ms']:.3f} ms [{card}]", flush=True)
+    return row
 
 
 def _sig(x) -> tuple | str:
@@ -1543,7 +1708,8 @@ def main() -> None:
     ap.add_argument("--k8", action="store_true",
                     help="K8 alone: level images, levels and upsamples of four flows")
     ap.add_argument("--k7", action="store_true",
-                    help="K7's sum of squares alone, at the main paths' sites")
+                    help="K7 alone: its sum of squares at the main paths' sites, its fma and "
+                         "ICP's transform at GMFA's")
     ap.add_argument("--k9", action="store_true",
                     help="K9 alone: its scale pass, the warp and a level's packed warp")
     ap.add_argument("--k4", action="store_true",
@@ -1571,7 +1737,7 @@ def main() -> None:
         print(json.dumps({"card": card, "parent": args.parent,
                           "rows": k7_rows(dev, card, parent),
                           "sumsq_path": sumsq_path(dev, card, parent),
-                          "gmfa_fma32": gmfa_fma32_rows(dev, card)}))
+                          "gmfa_fma32": gmfa_fma32_rows(dev, card, parent)}))
     elif args.k8:
         resolve_device("cuda")  # raises without a card
         dev = torch.device("cuda", torch.cuda.current_device())

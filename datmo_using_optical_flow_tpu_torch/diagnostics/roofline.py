@@ -147,6 +147,13 @@ def fma32(numel: int, tensor_inputs: int, root: bool) -> Work:
     return Work(4 * (tensor_inputs + 1) * numel, (1 + int(root)) * numel)
 
 
+def transform_points(n: int) -> Work:
+    """K7's ``transform_points``: n float32 points (3 values each) in, the
+    12 values of [R | t] in once, n points out; per output value a multiply,
+    two fused multiply-adds and an add."""
+    return Work(4 * (3 * n + 12 + 3 * n), 4 * 3 * n)
+
+
 def sumsq(rows: int, k: int, root: bool) -> Work:
     """K7's sum of squares: k float32 values in and one out per row; one
     multiply and k - 1 fused multiply-adds, and one more operation for the root."""

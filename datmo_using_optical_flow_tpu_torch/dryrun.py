@@ -90,10 +90,11 @@ LEVEL_ITERATIONS = 3
 _COUNTED = (flow_kernels, level_kernels, nn_kernels, round_kernels)
 # the kernels the dry run launches on the card (K1-K4, K8 and K9 (its warp
 # and its scale pass) in the flows,
-# K5 in GMFA's step, K7 in both pipelines), each held to its plain version by
-# rank 0
+# K5 in GMFA's step, K7 in both pipelines: ICP's transform in GMFA's), each
+# held to its plain version by rank 0
 KERNELS = ("poly_exp", "blur_solve", "fused_iteration", "warp_matrices", "warp_packed",
-           "corner_scale", "level_image", "nearest_neighbors", "fma32", "sumsq")
+           "corner_scale", "level_image", "nearest_neighbors", "fma32", "sumsq",
+           "transform_points")
 
 
 def prod_cfg(h: int = GRID[0], w: int = GRID[1]) -> PipelineAConfig:
@@ -260,7 +261,8 @@ def _held_to_plain(rows: dict, phase: str, dev: torch.device, on: bool = True):
             "fused_iteration": fk.fused_iteration, "warp_matrices": fk.warp_matrices,
             "warp_packed": fk.warp_matrices_packed, "corner_scale": fk.corner_scale,
             "nearest_neighbors": k5.nearest_neighbors,
-            "fma32": rk._fma32, "sumsq": rk._sumsq, "level_images": k8.level_images,
+            "fma32": rk._fma32, "sumsq": rk._sumsq, "transform_points": rk._transform_points,
+            "level_images": k8.level_images,
             "level_image": k8.level_image, "blur": k8.blur, "resize": k8.resize,
             "upsample": k8.upsample}
 
@@ -388,6 +390,13 @@ def _held_to_plain(rows: dict, phase: str, dev: torch.device, on: bool = True):
             [_sig(a), _sig(b), _sig(c)]))
         return got
 
+    def transform_points(points, transformation):
+        got = orig["transform_points"](points, transformation)
+        once(("transform_points", tuple(points.shape)), lambda: exact(
+            "transform_points", rk.bits_equal(got, rk.transform_points_reference(
+                points, transformation)), list(points.shape)))
+        return got
+
     def sumsq(a, b, root):
         got = orig["sumsq"](a, b, root)
         shapes = [list(a.shape), None if b is None else list(b.shape)]
@@ -407,7 +416,8 @@ def _held_to_plain(rows: dict, phase: str, dev: torch.device, on: bool = True):
                               (k8, "level_images", level_images),
                               (k8, "level_image", level_image), (k8, "blur", blur),
                               (k8, "resize", resize), (k8, "upsample", upsample),
-                              (rk, "_fma32", fma32), (rk, "_sumsq", sumsq)):
+                              (rk, "_fma32", fma32), (rk, "_sumsq", sumsq),
+                              (rk, "_transform_points", transform_points)):
             stack.enter_context(mock.patch.object(mod, name, fn))
         yield
 
@@ -517,8 +527,8 @@ def _dryrun_rank(group: RowGroup, grid: tuple, flow_hw: tuple, points: int,
         streams.init_gmfa_stream_carry(gcfg, len(feeds), dev), prev[mine], gmask[mine])
     (gcarry2, gouts, gm), out["launches"]["stream_gmfa"] = _counted(
         lambda: gstep(cur[mine], gmask[mine], gcarry, keys[mine]), dev)
-    _need("phase 3", out["launches"]["stream_gmfa"], ("nearest_neighbors", "fma32", "sumsq"),
-          dev)
+    _need("phase 3", out["launches"]["stream_gmfa"],
+          ("nearest_neighbors", "transform_points", "sumsq"), dev)
     if bool(gouts.skip.any()):
         raise AssertionError("phase 3: a GMFA feed skipped its step")
     moving = int(group.all_reduce_sum(gm["total_moving"]))

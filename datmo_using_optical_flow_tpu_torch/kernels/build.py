@@ -62,7 +62,8 @@ _SIGNATURES = {
     "datmo_warp_packed": ([_P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _P], _I),
     "datmo_corner_scale": ([_P, _P, _I, _I, _I, _P], _I),
     "datmo_tiny": ([_P, _P, ctypes.c_int64, _I, _P], _I),
-    "datmo_fma32": ([_P, _P, _P, _P, _F, _F, _I, ctypes.c_int64, _I, _P], _I),
+    "datmo_fma32": ([_P, _P, _P, _P, _F, _F, _I, *[ctypes.c_int64] * 12, _I, _I, _P], _I),
+    "datmo_transform_points": ([_P, _P, _P, *[ctypes.c_int64] * 5, _I, _P], _I),
     "datmo_sumsq": ([_P, _P, _P, _I, _I, *[ctypes.c_int64] * 8, _I, _P], _I),
     "datmo_level_images": ([_P, _P, _I, _I, _P, _I, _I, _I, _P], _I),
     "datmo_resize": ([_P, _P, _P, ctypes.c_int64, _I, _I, _I, _I, _I, _P, _F, _I, _P], _I),

@@ -36,12 +36,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from datmo_using_optical_flow_tpu_torch.ops import nn_kernels
+from datmo_using_optical_flow_tpu_torch.ops import nn_kernels, round_kernels
 from datmo_using_optical_flow_tpu_torch.ops.nn import (nearest_neighbors,
                                                        nearest_neighbors_active,
                                                        nearest_neighbors_active_inplace)
-from datmo_using_optical_flow_tpu_torch.utils.ordered import (fma32, matmul_terms, norm_rn,
-                                                             sqrt_rn, sumsq_fma, tree_sum)
+from datmo_using_optical_flow_tpu_torch.utils.ordered import (matmul_terms, norm_rn, sqrt_rn,
+                                                             sumsq_fma, tree_sum)
 
 # safety pad (metres) on the per-iteration displacement of the exclusion shell
 _DELTA_PAD = 1e-4
@@ -97,14 +97,10 @@ def transform_points(points: torch.Tensor, transformation: torch.Tensor) -> torc
 
     The rotation is the fused multiply-add chain ``fma(z, r2, fma(y, r1,
     x * r0))`` that the JAX package's compiled ``dot`` computes, each step
-    rounded once (``ordered.fma32``), so that the card and the CPU round
-    it alike."""
-    r, t = transformation[:3, :3], transformation[:3, 3]
-    x, y, z = (points[:, i:i + 1] for i in range(3))
-    acc = x * r[:, 0]
-    acc = fma32(y, r[:, 1], acc)
-    acc = fma32(z, r[:, 2], acc)
-    return acc + t
+    rounded once, then ``+ t``, so that the card and the CPU round it alike
+    (``round_kernels.transform_points``: on the card one launch that reads
+    the transform on the device, on the CPU its plain version)."""
+    return round_kernels.transform_points(points, transformation)
 
 
 def _eval_cached(srcf, smask, tgtf, tmask, thr2, transform, cache, live, tgt_index, cap2,

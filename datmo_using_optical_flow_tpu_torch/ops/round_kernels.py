@@ -4,7 +4,7 @@ versions and their launch counters.
 XLA's compiled code contracts ``a * b + c`` into one fused multiply-add and
 ``jnp.sum(v * v, axis=-1)`` over a short last axis into a chain of them, each
 rounded once; the JAX package's results at those sites (NN distances, the flow
-magnitude, ICP's rotation and shells, tracker A's distances, GMFA's
+magnitude, ICP's transform and shells, tracker A's distances, GMFA's
 residuals, the threefry draws' polynomials) depend on it.  PyTorch has no
 fused multiply-add, so the plain versions here compute it in float64: the
 product of two float32 values is exact there, and the float64 sum rounded to
@@ -15,9 +15,13 @@ dozen elementwise ops per fma, each a launch on the card; the kernels of
 Each wrapper dispatches on its inputs' device alone: CPU tensors take the
 plain version, CUDA tensors launch the kernel on the current stream (and count
 the launch), any other device raises.  Both give the same float32 bits.
-The sum of squares takes the difference it squares (``sumsq_fma(a, b)``,
-``norm_rn(a, b)``), as XLA fuses ``a - b`` into the sum: one launch, no
-temporary.
+Every kernel reads its tensor operands through their strides, so a broadcast
+or a view is never copied, and each wrapper works out its launch arguments
+once per shape and strides (``_fma32_args``, ``_sumsq_args``,
+``_transform_args``).  The sum of squares takes the difference it squares
+(``sumsq_fma(a, b)``, ``norm_rn(a, b)``), as XLA fuses ``a - b`` into the
+sum; ICP's ``transform_points`` is one launch that reads the 4x4 transform
+on the device (XLA's fused ``dot`` and add), where the port made four calls.
 """
 
 from __future__ import annotations
@@ -30,8 +34,9 @@ import torch
 from datmo_using_optical_flow_tpu_torch.kernels import build
 from datmo_using_optical_flow_tpu_torch.ops import flow_kernels
 
-LAUNCHES = {"fma32": 0, "sumsq": 0}
+LAUNCHES = {"fma32": 0, "sumsq": 0, "transform_points": 0}
 _FMA32 = build.Entry("datmo_fma32", "fma32")
+_TRANSFORM = build.Entry("datmo_transform_points", "transform_points")
 _SUMSQ = build.Entry("datmo_sumsq", "sumsq")
 
 
@@ -146,6 +151,20 @@ def sumsq_diff_reference(a: torch.Tensor, b: torch.Tensor, root: bool = False) -
     return sumsq_reference(a - b, root)
 
 
+def transform_points_reference(points: torch.Tensor, transformation: torch.Tensor
+                               ) -> torch.Tensor:
+    """Plain version of :func:`transform_points`: ``x * r0``, then
+    ``fma(y, r1, .)`` and ``fma(z, r2, .)`` (:func:`fma32_reference`), then
+    ``+ t``, over the (N, 1) coordinate columns and the rotation's (3,)
+    columns."""
+    r, t = transformation[:3, :3], transformation[:3, 3]
+    x, y, z = (points[:, i:i + 1] for i in range(3))
+    acc = x * r[:, 0]
+    acc = fma32_reference(y, r[:, 1], acc)
+    acc = fma32_reference(z, r[:, 2], acc)
+    return acc + t
+
+
 # ------------------------------------------------------------------ wrappers
 
 def fma32(a: torch.Tensor, b, c, root: bool = False) -> torch.Tensor:
@@ -157,30 +176,71 @@ def fma32(a: torch.Tensor, b, c, root: bool = False) -> torch.Tensor:
 
 
 def _fma32(a: torch.Tensor, b, c, root: bool) -> torch.Tensor:
-    # the wrappers' one entry each (this and _sumsq), so that a recorder
-    # patched over it sees every call, whichever name the caller imported
-    tensors = [x for x in (a, b, c) if isinstance(x, torch.Tensor)]
-    if not flow_kernels._on_cuda(*tensors):
+    # the wrappers' one entry each (this, _sumsq and _transform_points), so
+    # that a recorder patched over it sees every call, whichever name the
+    # caller imported
+    tb, tc = isinstance(b, torch.Tensor), isinstance(c, torch.Tensor)
+    if not flow_kernels._on_cuda(a, *(x for x, t in ((b, tb), (c, tc)) if t)):
         return fma32_reference(a, b, c, root)
-    for x, what in zip((a, b, c), "abc"):
-        if isinstance(x, torch.Tensor):
-            _f32(x, what)
-    shape = torch.broadcast_shapes(*(x.shape for x in tensors))
-
-    def full(x):  # (contiguous tensor, scalar), with the tensor None for a number
-        if not isinstance(x, torch.Tensor):
-            return None, float(np.float32(x))
-        return x.expand(shape).contiguous(), 0.0
-
-    (af, _), (bf, bs), (cf, cs) = full(a), full(b), full(c)
+    _f32(a, "a")
+    shape, args = _fma32_args(a.shape, a.stride(), _f32(b, "b").shape if tb else None,
+                              b.stride() if tb else None, _f32(c, "c").shape if tc else None,
+                              c.stride() if tc else None, root)
+    if args is None:  # the kernel walks three axes: merge the others
+        a, b, c = (x.expand(shape).reshape(-1, *shape[-2:]) if isinstance(x, torch.Tensor)
+                   else x for x in (a, b, c))
+        return _fma32(a, b, c, root).reshape(shape)
     out = torch.empty(shape, dtype=torch.float32, device=a.device)
     if out.numel() == 0:
         return out
-    _FMA32(a.device.index, out.data_ptr(), af.data_ptr(),
-           None if bf is None else bf.data_ptr(), None if cf is None else cf.data_ptr(),
-           bs, cs, int(root), out.numel())
+    _FMA32(a.device.index, out.data_ptr(), a.data_ptr(), b.data_ptr() if tb else None,
+           c.data_ptr() if tc else None, 0.0 if tb else float(np.float32(b)),
+           0.0 if tc else float(np.float32(c)), *args)
     LAUNCHES["fma32"] += 1
     return out
+
+
+def _row_strides(shape: tuple, stride: tuple, ndim: int = 3) -> list[int]:
+    """An operand's element strides over a broadcast shape of ``ndim`` axes
+    (for the sum of squares three: rows, rows, components), leading axes
+    added: 0 along a broadcast axis."""
+    return [0] * (ndim - len(shape)) + [st if size != 1 else 0 for st, size in zip(stride, shape)]
+
+
+@functools.lru_cache(maxsize=256)
+def _fma32_args(sa: torch.Size, ta: tuple, sb: torch.Size | None, tb: tuple | None,
+                sc: torch.Size | None, tc: tuple | None, root: bool) -> tuple[tuple, tuple | None]:
+    """For tensor operands of shapes ``sa``, ``sb``, ``sc`` and strides
+    ``ta``, ``tb``, ``tc`` (None: a number): the output's shape and
+    ``datmo_fma32``'s integer arguments (root, the axes (n0, n1, n2), a's,
+    b's and c's element strides over them, flat), worked out once per
+    signature.  The output's axes are coalesced first (size-1 axes dropped,
+    an axis merged into the next where every operand steps across both
+    alike); flat where one axis is left and every operand steps 1 along it.
+    The arguments are None past three axes."""
+    shape = tuple(sa)
+    for s in (sb, sc):
+        if s is not None:
+            shape = _broadcast(shape, s)
+    # a number is read at no address: stride 0, which never stops a merge
+    ops = [[0] * len(shape) if s is None else _row_strides(s, t, len(shape))
+           for s, t in ((sa, ta), (sb, tb), (sc, tc))]
+    axes = []  # (size, [a's, b's, c's stride]), outermost first
+    for k, n in enumerate(shape):
+        if n == 1:
+            continue
+        st = [o[k] for o in ops]
+        if axes and all(p == q * n for p, q in zip(axes[-1][1], st)):
+            axes[-1] = (axes[-1][0] * n, st)
+        else:
+            axes.append((n, st))
+    if len(axes) > 3:
+        return shape, None
+    flat = len(axes) == 0 or (len(axes) == 1 and
+                              axes[0][1] == [int(s is not None) for s in (sa, sb, sc)])
+    axes = [(1, [0, 0, 0])] * (3 - len(axes)) + axes
+    return shape, (int(root), *(n for n, _ in axes), *(st[i] for i in range(3) for _, st in axes),
+                   int(flat))
 
 
 def _broadcast(sa: torch.Size, sb: torch.Size) -> tuple[int, ...]:
@@ -193,13 +253,6 @@ def _broadcast(sa: torch.Size, sb: torch.Size) -> tuple[int, ...]:
     if any(x != y and 1 not in (x, y) for x, y in zip(sa, sb)):
         raise ValueError(f"shapes {sa} and {sb} do not broadcast")
     return tuple(y if x == 1 else x for x, y in zip(sa, sb))
-
-
-def _row_strides(shape: tuple, stride: tuple) -> list[int]:
-    """An operand's element strides over a broadcast shape of at most three
-    axes (rows, rows, components), leading axes added: 0 along a broadcast
-    axis."""
-    return [0] * (3 - len(shape)) + [st if size != 1 else 0 for st, size in zip(stride, shape)]
 
 
 @functools.lru_cache(maxsize=256)
@@ -248,3 +301,44 @@ def sumsq_fma(a: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
 def norm_rn(a: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
     """``sqrt_rn(sumsq_fma(a, b))``: the contracted sum's correctly rounded root."""
     return _sumsq(a, b, True)
+
+
+# ------------------------------------------------------------------ ICP's transform
+
+def transform_points(points: torch.Tensor, transformation: torch.Tensor) -> torch.Tensor:
+    """``(R @ p) + t`` of each (N, 3) point by a 4x4 transform, rounded as
+    XLA's fused ``dot`` and add: ``fma(z, r2, fma(y, r1, x * r0)) + t``, each
+    step rounded once (:func:`transform_points_reference`).  On the card one
+    launch reads the points through their strides and the transform where it
+    lies, on the device."""
+    return _transform_points(points, transformation)
+
+
+def _transform_points(points: torch.Tensor, transformation: torch.Tensor) -> torch.Tensor:
+    if not flow_kernels._on_cuda(points, transformation):
+        return transform_points_reference(points, transformation)
+    n, *args = _transform_args(_f32(points, "points").shape, points.stride(),
+                               _f32(transformation, "transformation").shape,
+                               transformation.stride())
+    out = torch.empty((n, 3), dtype=torch.float32, device=points.device)
+    if n == 0:
+        return out
+    _TRANSFORM(points.device.index, out.data_ptr(), points.data_ptr(),
+               transformation.data_ptr(), n, *args)
+    LAUNCHES["transform_points"] += 1
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _transform_args(sp: torch.Size, tp: tuple, sm: torch.Size, tm: tuple) -> tuple[int, ...]:
+    """``datmo_transform_points``' integer arguments for points of shape
+    ``sp`` and strides ``tp`` and a transform of shape ``sm`` and strides
+    ``tm``: (N, the points' two strides, the transform's two), once per
+    signature.  The points are (N, >= 3) (the first three columns are read),
+    the transform at least 3x4 (``[:3, :3]`` and ``[:3, 3]``), as the plain
+    version takes them."""
+    if len(sp) != 2 or sp[1] < 3:
+        raise ValueError(f"points: expected (N, 3), got {tuple(sp)}")
+    if len(sm) != 2 or sm[0] < 3 or sm[1] < 4:
+        raise ValueError(f"transformation: expected 4x4, got {tuple(sm)}")
+    return (sp[0], *tp, *tm)

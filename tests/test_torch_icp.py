@@ -15,6 +15,7 @@ import torch
 
 from datmo_using_optical_flow_tpu.ops import icp as jicp
 from datmo_using_optical_flow_tpu_torch.ops import icp as ticp
+from datmo_using_optical_flow_tpu_torch.ops import round_kernels as rk
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 
@@ -206,3 +207,39 @@ def test_transform_points_at_the_pipelines_size(case):
     assert counts["rounded once vs eager"][2] == 0
     if case == "near_midpoints":
         assert sum(counts["double-rounded vs compiled"]) > 0
+
+
+def _special_points(rng, n):
+    """Points with infinities, NaNs, signed zeros, subnormals and float32's
+    extremes among ordinary coordinates, and a small rotation."""
+    pts = rng.uniform(-20, 20, size=(n, 3)).astype(np.float32)
+    special = np.float32([np.inf, -np.inf, np.nan, 0.0, -0.0, 1e-40, -3e-39, 3.4e38, -3.4e38])
+    pick = rng.random((n, 3)) < 0.3
+    pts[pick] = rng.choice(special, int(pick.sum()))
+    return pts, _small_rotation(rng)
+
+
+_REFERENCE_CASES = [("small_rotation", s) for s in range(2)] + [
+    ("near_midpoints", s) for s in range(2)] + [("special", s) for s in range(2)]
+
+
+@pytest.mark.parametrize("case,seed", _REFERENCE_CASES, ids=[f"{c}-{s}" for c, s in
+                                                              _REFERENCE_CASES])
+def test_transform_points_reference_bit_equal_to_jitted_jax(case, seed):
+    """The plain version of the card's one-launch transform
+    (``round_kernels.transform_points_reference``, the body ICP's
+    ``transform_points`` had) equals the compiled JAX function bit for bit (a
+    NaN's payload aside), as does ``ops/icp.transform_points`` on the CPU:
+    small rotations, sums near float32 midpoints, and infinities, NaNs,
+    signed zeros and subnormals in the points."""
+    rng = np.random.default_rng(100 + seed)
+    if case == "small_rotation":
+        pts, t = rng.uniform(-20, 20, size=(4096, 3)).astype(np.float32), _small_rotation(rng)
+    elif case == "near_midpoints":
+        pts, t = _near_midpoints(rng, 4096)
+    else:
+        pts, t = _special_points(rng, 4096)
+    want = torch.from_numpy(np.array(_JAX_TRANSFORM(jnp.asarray(pts), jnp.asarray(t))))
+    ref = rk.transform_points_reference(torch.from_numpy(pts), torch.from_numpy(t))
+    assert rk.bits_equal(ref, want)
+    assert rk.bits_equal(ticp.transform_points(torch.from_numpy(pts), torch.from_numpy(t)), want)

@@ -101,11 +101,16 @@ def test_wrappers_take_the_plain_version_on_the_cpu_only():
     rk.fma32(v, v, v)
     rk.sumsq_fma(v)
     rk.norm_rn(v)
-    assert rk.LAUNCHES == {"fma32": 0, "sumsq": 0}
+    assert torch.equal(rk.transform_points(v, torch.eye(4)), v)
+    assert rk.LAUNCHES == {"fma32": 0, "sumsq": 0, "transform_points": 0}
     for fn, args in ((rk.fma32, (torch.ones(4, device="meta"), 1.0, 1.0)),
-                     (rk.norm_rn, (torch.ones(4, 3, device="meta"),))):
+                     (rk.norm_rn, (torch.ones(4, 3, device="meta"),)),
+                     (rk.transform_points, (torch.ones(4, 3, device="meta"),
+                                            torch.eye(4, device="meta")))):
         with pytest.raises(ValueError, match="no kernel or plain version"):
             fn(*args)
+    with pytest.raises(ValueError, match="several devices"):
+        rk.transform_points(v, torch.eye(4, device="meta"))
 
 
 def test_bits_equal_tells_signed_zeros_apart_and_takes_nan_as_nan():
@@ -283,11 +288,19 @@ def test_difference_form_takes_the_plain_version_on_the_cpu_only():
     assert torch.equal(rk.sumsq_fma(a, b), rk.sumsq_reference(a - b))
     assert torch.equal(rk.norm_rn(a, b), rk.sumsq_diff_reference(a, b, True))
     assert torch.equal(ordered.sumsq_diff_reference(a, b), rk.sumsq_reference(a - b))
-    assert rk.LAUNCHES == {"fma32": 0, "sumsq": 0}
+    assert rk.LAUNCHES == {"fma32": 0, "sumsq": 0, "transform_points": 0}
     with pytest.raises(ValueError, match="several devices"):
         rk.norm_rn(a, torch.ones(3, device="meta"))
     with pytest.raises(ValueError, match="no kernel or plain version"):
         rk.sumsq_fma(torch.ones(4, 3, device="meta"), torch.ones(3, device="meta"))
+
+
+def _c_params(entry: str) -> int:
+    from datmo_using_optical_flow_tpu_torch.kernels import build
+
+    text = (build.CSRC_DIR / "round_kernels.cu").read_text()
+    head = text[text.index(f"int {entry}("):]
+    return len(head[:head.index(")")].split(","))
 
 
 def test_sumsq_signature_matches_the_source():
@@ -295,6 +308,173 @@ def test_sumsq_signature_matches_the_source():
     ``csrc/round_kernels.cu`` declares."""
     from datmo_using_optical_flow_tpu_torch.kernels import build
 
-    text = (build.CSRC_DIR / "round_kernels.cu").read_text()
-    head = text[text.index("int datmo_sumsq("):]
-    assert len(build._SIGNATURES["datmo_sumsq"][0]) == len(head[:head.index(")")].split(","))
+    assert len(build._SIGNATURES["datmo_sumsq"][0]) == _c_params("datmo_sumsq")
+
+
+@pytest.mark.parametrize("entry,args", [("datmo_fma32", 14), ("datmo_transform_points", 5)])
+def test_fma32_and_transform_signatures_match_the_source(entry, args):
+    """``kernels/build`` binds ``datmo_fma32`` and ``datmo_transform_points``
+    with as many arguments as ``csrc/round_kernels.cu`` declares, and the
+    wrappers' cached plans give as many integers as the entries take after
+    their pointers and scalars (the device and the stream come last)."""
+    from datmo_using_optical_flow_tpu_torch.kernels import build
+
+    assert len(build._SIGNATURES[entry][0]) == _c_params(entry)
+    a = torch.ones(6, 3)
+    plan = (rk._fma32_args(a.shape, a.stride(), a.shape, a.stride(), None, None, False)[1]
+            if entry == "datmo_fma32" else
+            rk._transform_args(a.shape, a.stride(), (4, 4), (4, 1)))
+    assert len(plan) == args
+    pointers = 6 if entry == "datmo_fma32" else 3  # out, a, b, c, bs, cs / out, points, transform
+    assert pointers + args + 2 == _c_params(entry)
+
+
+# ------------------------------------------------------------------ the strided fma
+
+def _fma_as_read(a, b, c, root=False):
+    """What ``fma32_kernel`` reads for the arguments ``_fma32_args`` gives:
+    each tensor operand at its element strides over the axes (n0, n1, n2),
+    or at the output's own index on the flat path; past three axes the
+    operands merged first, as the wrapper merges them."""
+    sig = [(x.shape, x.stride()) if isinstance(x, torch.Tensor) else (None, None)
+           for x in (a, b, c)]
+    shape, args = rk._fma32_args(*(v for pair in sig for v in pair), root)
+    if args is None:
+        merged = (x.expand(shape).reshape(-1, *shape[-2:]) if isinstance(x, torch.Tensor) else x
+                  for x in (a, b, c))
+        return _fma_as_read(*merged, root).reshape(shape)
+    r, n0, n1, n2, *strides, flat = args
+    assert r == int(root)
+    n = n0 * n1 * n2
+
+    def view(x, st):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if flat:
+            assert x.is_contiguous() and x.numel() == n
+            return torch.as_strided(x, (n,), (1,))
+        return torch.as_strided(x, (n0, n1, n2), st)
+
+    ops = [view(x, strides[3 * i:3 * i + 3]) for i, x in enumerate((a, b, c))]
+    return rk.fma32_reference(*ops, root).reshape(shape)
+
+
+_FMA_CASES = {
+    "icp (N,1)x(3,)+(N,3)": lambda g: (torch.randn(500, 3, generator=g)[:, 1:2],
+                                       torch.randn(4, 4, generator=g)[:3, 1],
+                                       torch.randn(500, 3, generator=g)),
+    "full contiguous, flat": lambda g: (torch.randn(40, 50, generator=g),
+                                        torch.randn(40, 50, generator=g),
+                                        torch.randn(40, 50, generator=g)),
+    "numbers": lambda g: (torch.randn(64, 3, generator=g), 0.1, -2.5),
+    "number b, broadcast c": lambda g: (torch.randn(64, 3, generator=g), 0.3,
+                                        torch.randn(3, generator=g)),
+    "transposed a, sliced b": lambda g: (torch.randn(7, 30, generator=g).T,
+                                         torch.randn(30, 14, generator=g)[:, ::2], 1.5),
+    "scalar tensor c": lambda g: (torch.randn(5, 4, generator=g), torch.randn(4, generator=g),
+                                  torch.tensor(0.25)),
+    "four axes, broadcast (4, 3)": lambda g: (torch.randn(2, 3, 4, 3, generator=g),
+                                               torch.randn(4, 3, generator=g),
+                                               torch.randn(2, 3, 1, 1, generator=g)),
+    "five axes, none merge": lambda g: (torch.randn(2, 1, 3, 1, 5, generator=g),
+                                         torch.randn(1, 4, 1, 6, 1, generator=g),
+                                         torch.randn(5, 6, 3, 4, 2, generator=g).permute(
+                                             4, 3, 2, 1, 0)),
+    "one element": lambda g: (torch.randn(1, 1, generator=g), torch.randn(1, generator=g), 2.0),
+}
+
+
+@pytest.mark.parametrize("root", [False, True], ids=["fma", "root"])
+@pytest.mark.parametrize("case", list(_FMA_CASES))
+def test_fma32_reads_each_operand_through_its_strides(case, root):
+    """What the kernel reads: each operand at the element strides the wrapper
+    passes (``_fma32_args``: the output's axes coalesced, 0 along a broadcast
+    axis, more than three axes merged first) gives the plain version's
+    answer, for ICP's broadcast signature, number operands, transposed and
+    sliced views and shapes of four and five axes; the flat path only where
+    every operand is contiguous with the output's shape."""
+    g = torch.Generator().manual_seed(sorted(_FMA_CASES).index(case))
+    a, b, c = _FMA_CASES[case](g)
+    if root:
+        a = a.abs()
+        b = b.abs() if isinstance(b, torch.Tensor) else abs(b)
+        c = c.abs() if isinstance(c, torch.Tensor) else abs(c)
+    want = rk.fma32(a, b, c, root)
+    assert torch.equal(want, rk.fma32_reference(a, b, c, root))
+    assert rk.bits_equal(_fma_as_read(a, b, c, root), want)
+
+
+def test_fma32_plan_takes_the_flat_path_only_for_whole_contiguous_operands():
+    """The plan's last argument: the 1080x1920 magnitude and the draws'
+    contiguous chains are flat; a broadcast or a view is not, and ICP's
+    former signature walks two axes (no copy)."""
+    def plan(*xs):
+        return rk._fma32_args(*(v for x in xs for v in (
+            (x.shape, x.stride()) if isinstance(x, torch.Tensor) else (None, None))), False)[1]
+
+    img = torch.ones(1080, 1920)
+    pts = torch.ones(102400, 3)
+    assert plan(img, img, img)[-1] == 1
+    assert plan(pts, 0.5, -1.0)[-1] == 1
+    assert plan(pts, pts, 2.0)[-1] == 1
+    icp = plan(pts[:, 1:2], torch.eye(4)[:3, 1], pts)
+    assert icp == (0, 1, 102400, 3, 0, 3, 0, 0, 0, 4, 0, 3, 1, 0)
+    assert plan(img.T, img.T, img.T)[-1] == 0
+    assert plan(pts, torch.ones(3), pts)[-1] == 0
+
+
+# ------------------------------------------------------------------ ICP's transform
+
+def _transform_as_read(points, transformation):
+    """What ``transform_points_kernel`` reads for ``_transform_args``: the
+    points' three columns and the transform's [R | t] at their strides."""
+    n, sp0, sp1, sm0, sm1 = rk._transform_args(points.shape, points.stride(),
+                                               transformation.shape, transformation.stride())
+    p = torch.as_strided(points, (n, 3), (sp0, sp1))
+    m = torch.as_strided(transformation, (3, 4), (sm0, sm1))
+    return rk.transform_points_reference(p, m)
+
+
+def _rigid_transform(g) -> torch.Tensor:
+    t = torch.eye(4)
+    q, _ = torch.linalg.qr(torch.randn(3, 3, generator=g, dtype=torch.float64))
+    t[:3, :3] = q.float()
+    t[:3, 3] = torch.randn(3, generator=g)
+    return t
+
+
+_TRANSFORM_CASES = {
+    "contiguous": lambda g, t: (torch.randn(300, 3, generator=g) * 20, t),
+    "transposed points": lambda g, t: (torch.randn(3, 300, generator=g).T * 20, t),
+    "sliced points": lambda g, t: (torch.randn(600, 5, generator=g)[::2, 1:4] * 20, t),
+    "points of 4 columns": lambda g, t: (torch.randn(300, 4, generator=g) * 20, t),
+    "transposed transform": lambda g, t: (torch.randn(300, 3, generator=g),
+                                          t.T.contiguous().T),
+    "transform a view of 6x6": lambda g, t: (torch.randn(300, 3, generator=g),
+                                             torch.nn.functional.pad(t, (1, 1, 2, 0))[2:, 1:5]),
+    "one point": lambda g, t: (torch.randn(1, 3, generator=g), t),
+}
+
+
+@pytest.mark.parametrize("case", list(_TRANSFORM_CASES))
+def test_transform_points_reads_points_and_transform_through_their_strides(case):
+    """What the kernel reads (``_transform_args`` through ``torch.as_strided``)
+    gives the plain answer for transposed and sliced points and for a
+    transform that is a view, and the wrapper on the CPU is its plain
+    version."""
+    g = torch.Generator().manual_seed(sorted(_TRANSFORM_CASES).index(case))
+    points, t = _TRANSFORM_CASES[case](g, _rigid_transform(g))
+    want = rk.transform_points_reference(points, t)
+    assert want.shape == (points.shape[0], 3)
+    assert torch.equal(rk.transform_points(points, t), want)
+    assert torch.equal(ticp.transform_points(points, t), want)
+    assert rk.bits_equal(_transform_as_read(points, t), want)
+
+
+@pytest.mark.parametrize("shapes", [((300,), (4, 4)), ((300, 2), (4, 4)), ((300, 3), (3, 3)),
+                                    ((300, 3), (4,)), ((2, 300, 3), (4, 4))], ids=str)
+def test_transform_args_refuse_what_the_kernel_does_not_take(shapes):
+    sp, sm = shapes
+    p, m = torch.ones(sp), torch.ones(sm)
+    with pytest.raises(ValueError):
+        rk._transform_args(p.shape, p.stride(), m.shape, m.stride())
